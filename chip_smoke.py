@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of QuantumFed on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Runs on cuda:0 only; without a CUDA device, or outside a checkout of the
+repository, it exits non-zero before printing any result. Phases:
+
+1. build: compile the port's CUDA kernels from ``src/repro_torch/kernels/
+   csrc`` (nvcc, sm_90a) and print the card, its power limit and the
+   toolchain versions;
+2. kernels: record the inputs the main path hands each kernel (one probe
+   round of phase 3's configuration), then hold every kernel against its
+   plain PyTorch version on those inputs and on ragged shapes, and time
+   kernel, plain version and (where one PyTorch call computes the same
+   function) that library call with CUDA events;
+3. main path: the paper's experiment (examples/quickstart.py): widths
+   (2,3,2), N=100, N_p=10, I_l=2, eta=1, eps=0.1, Eq. 6 product, 50
+   rounds with impl="pallas", evaluated every 10 rounds. The launch
+   counts are zeroed just before and read just after; every kernel must
+   have run, and the final test fidelity must exceed 0.95;
+4. wide cell: widths (4,5,4), N=20, N_p=10, I_l=2: one round with the
+   kernels against one in complex128 PyTorch from the same params and
+   selection, then ms/round of both impls for both cells, and a profiler
+   breakdown of one kernel round of each cell.
+
+The second-to-last line is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
+so the script exits non-zero and never prints that line.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and fp32 FLOP/s
+# outside the tensor cores, which is what these fp32 CUDA-core kernels use.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# Kernels compute in fp32 on complex128 storage. Their sums run in
+# another order than the plain versions', so each is held to 1e-5 times
+# the scale of the plain result: fp32 keeps ~7 digits, and the longest
+# reduction (K = 512 terms of the wide cell's trace) costs about two.
+KERNEL_RTOL = 1e-5
+# Deviation of one round with the kernels from one in complex128, both
+# from the same params and selection. The kernels' fp32 rounding enters
+# K at ~1e-6 of its scale; eps * 2^m_in * that is far below 1e-5 at the
+# widths here, the same budget the reference's own round gate uses.
+ROUND_TOL = 1e-5
+MAIN_FIDELITY = 0.95
+
+KERNELS = {
+    "zgemm": dict(
+        source="src/repro_torch/kernels/csrc/zgemm.cu",
+        replaces="src/repro/kernels/zgemm.py:52"),
+    "ensemble_commutator_trace": dict(
+        source="src/repro_torch/kernels/csrc/ect.cu",
+        replaces="src/repro/kernels/zgemm.py:166"),
+    "fidelity": dict(
+        source="src/repro_torch/kernels/csrc/fidelity.cu",
+        replaces="src/repro/kernels/fidelity.py:75"),
+    "mse": dict(
+        source="src/repro_torch/kernels/csrc/fidelity.cu",
+        replaces="src/repro/kernels/fidelity.py:81"),
+}
+
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+# ----------------------------------------------------------------- timing
+def cuda_ms(fn, *args, reps=100, warmup=10):
+    import torch
+    for _ in range(warmup):
+        fn(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(name, args):
+    """Least time for the work on an H100: each input read once, each
+    output written once, at HBM rate, against the fp32 operations at the
+    fp32 peak; the larger of the two, and which one it is."""
+    if name == "zgemm":
+        a, b = args
+        bsz, m, k = a.shape
+        n = b.shape[2]
+        nbytes = 16 * (bsz * m * k + bsz * k * n + bsz * m * n)
+        flops = 8 * bsz * m * n * k            # 4 mul + 4 add per complex MAC
+    elif name == "ensemble_commutator_trace":
+        a, b = args
+        j, n, ea, dk, dr = a.shape
+        eb, k = b.shape[2], dk * dr
+        nbytes = 16 * (a.numel() + b.numel() + j * dk * dk)
+        flops = 8 * j * n * (2 * ea * eb * k + dk * dk * eb * dr)
+    else:
+        phi, rho = args
+        n, d = phi.shape
+        nbytes = 16 * (phi.numel() + rho.numel()) + 8 * n
+        flops = (10 if name == "fidelity" else 12) * n * d * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ----------------------------------------------------------------- phases
+def phase_build():
+    import torch
+    from repro_torch.kernels import build
+    say("== phase 1: build")
+    t0 = time.time()
+    lib = build.build()
+    say(f"built {lib.relative_to(ROOT)} in {time.time() - t0:.1f} s")
+    log = lib.with_suffix(".log").read_text().splitlines()
+    for line in log:
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            say("  " + line.strip())
+    build.load()
+    nvcc_v = subprocess.run([build.nvcc(), "--version"], capture_output=True,
+                            text=True, check=True, timeout=60).stdout
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc "
+        f"{nvcc_v.strip().splitlines()[-1]}")
+    say(f"card: {smi('name,power.limit')}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 plain GEMMs
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class Recorder:
+    """Wraps the ``ops`` dispatch functions to keep the first inputs of
+    every distinct shape the main path hands each kernel."""
+    NAMES = {"complex_matmul": "zgemm", "fidelity": "fidelity",
+             "mse": "mse",
+             "ensemble_commutator_trace": "ensemble_commutator_trace"}
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.calls = {k: {} for k in KERNELS}
+        self.saved = {}
+
+    def __enter__(self):
+        for fn, kernel in self.NAMES.items():
+            orig = getattr(self.ops, fn)
+            self.saved[fn] = orig
+
+            def wrapped(*args, _orig=orig, _k=kernel):
+                key = tuple(tuple(a.shape) for a in args)
+                # the tensors themselves, lazy conjugate views included
+                seen = self.calls[_k].setdefault(
+                    key, [0, tuple(a.detach() for a in args)])
+                seen[0] += 1
+                return _orig(*args)
+            setattr(self.ops, fn, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for fn, orig in self.saved.items():
+            setattr(self.ops, fn, orig)
+
+
+def main_cell(widths=(2, 3, 2), num_nodes=100, impl="pallas", device="cuda"):
+    """The quickstart experiment's config, data and initial params."""
+    import torch
+    from repro_torch.core.quantum import data as qdata
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.core.quantum import qnn
+    cfg = fed.QuantumFedConfig(widths=widths, num_nodes=num_nodes,
+                               nodes_per_round=10, interval_length=2,
+                               eta=1.0, eps=0.1, aggregation="product",
+                               impl=impl)
+    gen = torch.Generator(device="cpu").manual_seed(42)
+    _, ds, test = qdata.make_federated_dataset(
+        gen, widths[0], num_nodes, n_per_node=4, n_test=32, device=device)
+    params = qnn.init_params(torch.Generator().manual_seed(7), widths,
+                             device=device)
+    return cfg, ds, test, params
+
+
+def train_set(ds):
+    return (ds.phi_in.reshape(-1, ds.phi_in.shape[-1]),
+            ds.phi_out.reshape(-1, ds.phi_out.shape[-1]))
+
+
+def ragged_cases():
+    """Edge shapes the kernels mask rather than pad, seeded."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def rc(*shape):
+        re = torch.randn(shape, generator=g, dtype=torch.float64)
+        im = torch.randn(shape, generator=g, dtype=torch.float64)
+        return torch.complex(re, im).cuda()
+
+    return {"zgemm": [(rc(3, 7, 9), rc(3, 9, 5)),
+                      (rc(2, 33, 17), rc(2, 17, 40))],
+            "fidelity": [(rc(13, 4), rc(13, 4, 4)), (rc(5, 3), rc(5, 3, 3))],
+            "mse": [(rc(13, 4), rc(13, 4, 4)), (rc(5, 3), rc(5, 3, 3))],
+            "ensemble_commutator_trace": [
+                (rc(2, 3, 5, 4, 3), rc(2, 3, 3, 4, 3)),
+                (rc(2, 2, 7, 8, 3), rc(2, 2, 7, 8, 3)),
+                # keep-row tiles of 3, 3, 2 and b staged one row at a time
+                (rc(1, 2, 2, 8, 300), rc(1, 2, 7, 8, 300))]}
+
+
+def check_and_time(rec, ragged):
+    """Hold each kernel against its plain version on every recorded input
+    (and the ragged cases), then time kernel, plain version and library
+    call at every recorded shape; the most frequent one, and the largest
+    error on the path's own inputs, go into the result. Raises on a
+    disagreement."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    op = {"zgemm": ops.complex_matmul, "fidelity": ops.fidelity,
+          "mse": ops.mse,
+          "ensemble_commutator_trace": ops.ensemble_commutator_trace}
+    plain = {"zgemm": ref.zgemm_ref, "fidelity": ref.fidelity_ref,
+             "mse": ref.mse_ref,
+             "ensemble_commutator_trace": ref.ensemble_commutator_trace_ref}
+    # one PyTorch call computing the same function in complex64, timed as
+    # a yardstick only (the port never calls it); mse has no single call.
+    # The trace: T[j,al,be] = sum over n, e, f, s of
+    # G[e,f] a[e,(al,s)] conj(b[f,(be,s)]), with G[e,f] = <a_e|b_f>.
+    library = {
+        "zgemm": torch.matmul,
+        "fidelity": lambda x, r: torch.einsum(
+            "na,nab,nb->n", x.conj(), r, x).real,
+        "ensemble_commutator_trace": lambda a, b: torch.einsum(
+            "jnekr,jnfkr,jneas,jnfbs->jab", a.conj(), b, a, b.conj()),
+    }
+    results = {}
+    for name in KERNELS:
+        calls = rec.calls[name]
+        if not calls:
+            raise RuntimeError(f"the path never called {name}")
+        worst = 0.0
+        cases = [(f"path {list(key)} x{cnt}", args)
+                 for key, (cnt, args) in calls.items()]
+        cases += [(f"ragged {[list(a.shape) for a in args]}", args)
+                  for args in ragged.get(name, [])]
+        for label, args in cases:
+            got = op[name](*args)
+            want = plain[name](*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            ok = err <= KERNEL_RTOL * scale
+            say(f"  {name:26s} {label}: max_abs_err {err:.3e} "
+                f"(tol {KERNEL_RTOL:.0e} x scale {scale:.3g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{name} disagrees with its plain version")
+            if label.startswith("path"):
+                worst = max(worst, err)
+        # every recorded shape is timed; the most frequent one reports
+        for key, (cnt, args) in sorted(calls.items(),
+                                       key=lambda kv: kv[1][0]):
+            k_ms = cuda_ms(op[name], *args)
+            p_ms = cuda_ms(plain[name], *args)
+            lib_ms = None
+            if name in library:
+                args64 = tuple(x.to(torch.complex64) for x in args)
+                want = plain[name](*args)
+                lib_err = float((library[name](*args64) - want).abs().max())
+                if lib_err > KERNEL_RTOL * max(1.0, float(want.abs().max())):
+                    raise RuntimeError(f"{name}: the library yardstick "
+                                       f"disagrees ({lib_err:.3e})")
+                lib_ms = cuda_ms(library[name], *args64)
+            b_ms, b_by = bound_ms(name, args)
+            say(f"  {name:26s} timed at {list(key)} x{cnt}: kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+                f"{b_ms:.6f} ms ({b_by})")
+            results[name] = dict(name=name, route="cuda", **KERNELS[name],
+                                 max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms)
+    return results
+
+
+def phase_kernels():
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    say("== phase 2: kernels against their plain versions, at the inputs "
+        "of one probe round + evaluation of phase 3's configuration")
+    cfg, ds, test, params = main_cell()
+    with Recorder() as rec:
+        p = fed.server_round(params, ds, torch.Generator().manual_seed(1), cfg)
+        fed.evaluate(p, *test, cfg.widths, impl=cfg.impl)
+        torch.cuda.synchronize()
+    return check_and_time(rec, ragged_cases())
+
+
+def evaluate_all(params, ds, test, cfg):
+    from repro_torch.core.quantum import federated as fed
+    tr = fed.evaluate(params, *train_set(ds), cfg.widths, impl=cfg.impl)
+    te = fed.evaluate(params, *test, cfg.widths, impl=cfg.impl)
+    return float(tr["fidelity"]), float(te["fidelity"]), float(te["mse"])
+
+
+def unitarity_err(params):
+    import torch
+    worst = 0.0
+    for u in params:
+        eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
+        worst = max(worst, float((u @ u.mH - eye).abs().max()))
+    return worst
+
+
+def phase_main():
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.kernels import build
+    say("== phase 3: main path, widths (2,3,2), N=100, N_p=10, I_l=2, "
+        "50 rounds, impl=pallas")
+    cfg, ds, test, params = main_cell()
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.time()
+    for it in range(1, 51):
+        params = fed.server_round(params, ds, gen, cfg)
+        if it % 10 == 0:
+            tr, te, mse = evaluate_all(params, ds, test, cfg)
+            say(f"  round {it:3d}: train fidelity {tr:.6f}, test fidelity "
+                f"{te:.6f}, test mse {mse:.3e}")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(build.LAUNCHES)
+    say(f"  launches in this phase: {launches}")
+    say(f"  host wall {wall:.3f} s for 50 rounds + 5 evaluations")
+    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise RuntimeError(f"main path never launched {missing}")
+    for p in params:
+        if not bool(torch.isfinite(p.abs()).all()):
+            raise RuntimeError("non-finite params after training")
+    u_err = unitarity_err(params)
+    say(f"  final unitarity error {u_err:.3e}")
+    if u_err > 1e-4:
+        raise RuntimeError("params drifted from unitary")
+    if not te > MAIN_FIDELITY:
+        raise RuntimeError(f"final test fidelity {te} <= {MAIN_FIDELITY}")
+    say(f"  final test fidelity {te:.6f} > {MAIN_FIDELITY}: ok")
+    return launches
+
+
+def round_ms(cfg, ds, params, reps):
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    gen = torch.Generator().manual_seed(5)
+    fed.server_round(params, ds, gen, cfg)          # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fed.server_round(params, ds, gen, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_round(cfg, ds, params, label):
+    """Device time by kernel over one round (torch.profiler): the busy
+    share is the union of the device's kernel and copy intervals over
+    the round's wall time (both under the profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.quantum import federated as fed
+    gen = torch.Generator().manual_seed(6)
+    fed.server_round(params, ds, gen, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fed.server_round(params, ds, gen, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "Buffer" not in e.name)
+    busy_us, end_us, by_name = 0.0, float("-inf"), {}
+    for t_start, t_end, name in spans:
+        busy_us += max(0.0, t_end - max(t_start, end_us))
+        end_us = max(end_us, t_end)
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + t_end - t_start, cnt + 1)
+    busy_ms = busy_us / 1e3
+    say(f"  profile {label}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+        f"{len(spans)} device ops")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (tot, cnt) in top:
+        say(f"    {tot / 1e3:9.3f} ms  x{cnt:5d}  {name[:70]}")
+
+
+def phase_wide():
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    say("== phase 4: wide cell (4,5,4), N=20, N_p=10, I_l=2")
+    cfg_p, ds, test, params = main_cell(widths=(4, 5, 4), num_nodes=20)
+    cfg_x = cfg_p._replace(impl="xla")
+    with Recorder() as rec:
+        p_k = fed.server_round(params, ds, torch.Generator().manual_seed(9),
+                               cfg_p)
+        fed.evaluate(p_k, *test, cfg_p.widths, impl=cfg_p.impl)
+    p_x = fed.server_round(params, ds, torch.Generator().manual_seed(9), cfg_x)
+    torch.cuda.synchronize()
+    dev = max(float((a - b).abs().max()) for a, b in zip(p_k, p_x))
+    ok = dev <= ROUND_TOL
+    say(f"  one round, kernels vs complex128: max param deviation {dev:.3e} "
+        f"(tol {ROUND_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("wide cell: kernels disagree with complex128")
+    say("  kernels at the wide cell's shapes:")
+    check_and_time(rec, {})
+    cells = [("(2,3,2) N=100", main_cell()), ("(4,5,4) N=20",
+                                              (cfg_p, ds, None, params))]
+    timing = {}
+    for label, (cfg, cds, _, cparams) in cells:
+        for impl in ("pallas", "xla"):
+            c = cfg._replace(impl=impl)
+            ms = round_ms(c, cds, cparams, reps=10)
+            timing[f"{label} {impl}"] = ms
+            say(f"  {label} impl={impl}: {ms:.3f} ms/round (CUDA events, "
+                f"10 rounds after warm-up)")
+    for label, (cfg, cds, _, cparams) in cells:
+        profile_round(cfg, cds, cparams, f"{label} impl=pallas")
+    say(f"  card during timing: "
+        f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    return timing
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs "
+              "the port on the card only", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    torch.cuda.set_device(0)
+    t0 = time.time()
+    phase_build()
+    results = phase_kernels()
+    launches = phase_main()
+    phase_wide()
+    for name, row in results.items():
+        row["launches"] = launches[name]
+    say(f"total {time.time() - t0:.1f} s")
+    say(smi("name,power.limit"))
+    keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in results.values()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""The paper's own model: the 2-3-2 dissipative QNN trained by
+QuantumFed (§IV-A), with the Fig. 2/3 hyperparameters. The port's own
+copy of ``repro.configs.qnn_232``."""
+from repro_torch.core.quantum.federated import QuantumFedConfig
+
+WIDTHS = (2, 3, 2)
+
+CONFIG = QuantumFedConfig(
+    widths=WIDTHS,
+    num_nodes=100,        # N
+    nodes_per_round=10,   # N_p
+    interval_length=1,    # I_l (Fig. 2 sweeps 1/2/4)
+    eta=1.0,
+    eps=0.1,
+    aggregation="product",  # Eq. 6
+)
+
+N_PER_NODE = 4
+N_TEST = 32
+N_ITERATIONS = 50
