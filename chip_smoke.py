@@ -22,13 +22,28 @@ repository, it exits non-zero before printing any result. Phases:
 4. wide cell: widths (4,5,4), N=20, N_p=10, I_l=2: one round with the
    kernels against one in complex128 PyTorch from the same params and
    selection, then ms/round of both impls for both cells, and a profiler
-   breakdown of one kernel round of each cell.
+   breakdown of one kernel round of each cell;
+5. serving: RecurrentGemma-2B at full width (26 layers, d_model 2560,
+   bf16, random weights from a seed) prefills B=4 prompts of S=4096
+   tokens through ``make_prefill_step`` (launch counts zeroed before,
+   read after: 8 flash_attention, 18 rglru_scan), moves the cache into a
+   4096+32 decode cache and greedy-decodes 32 tokens through
+   ``make_serve_step``. The same prefill through the plain versions
+   (``impl="xla"``) must agree with it within the bf16 budget (the plain
+   bf16 prefill's deviation from the plain fp32 one, measured in the
+   run), the fp32 prefill through the kernels within the plain fp32
+   prefill's deviation when every weight moves one ulp, and the first
+   decode step with a prefill of S+1 tokens. Each sequence kernel is
+   held against its plain version on the path's inputs and on ragged
+   shapes, then timed; then profiler breakdowns of one prefill and one
+   decode step, and ``python -m repro_torch.launch.serve`` as a smoke.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and never prints that line.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -52,6 +67,17 @@ KERNEL_RTOL = 1e-5
 # widths here, the same budget the reference's own round gate uses.
 ROUND_TOL = 1e-5
 MAIN_FIDELITY = 0.95
+# bf16 outputs of a sequence kernel and of its plain version are both one
+# rounding of nearly the same fp32 value, so they differ by at most one
+# bf16 ulp: 2^-7 of the value at worst (8 significand bits).
+BF16_RTOL = 2.0 ** -7
+# the bf16 tensor-core peak: the least time for bf16 work on this card
+BF16_FLOPS = 989e12
+# SDPA as a yardstick computes the same attention in its own bf16 way;
+# it is checked against the plain version first, at the reference's own
+# bf16 gate (tests/test_kernels.py), relative to the output's scale.
+YARDSTICK_RTOL = 2e-2
+SERVE_B, SERVE_S, SERVE_GEN = 4, 4096, 32
 
 KERNELS = {
     "zgemm": dict(
@@ -66,6 +92,14 @@ KERNELS = {
     "mse": dict(
         source="src/repro_torch/kernels/csrc/fidelity.cu",
         replaces="src/repro/kernels/fidelity.py:81"),
+}
+SEQ_KERNELS = {
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:82"),
+    "rglru_scan": dict(
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:48"),
 }
 
 def smi(query: str) -> str:
@@ -144,30 +178,32 @@ def phase_build():
 
 
 class Recorder:
-    """Wraps the ``ops`` dispatch functions to keep the first inputs of
-    every distinct shape the main path hands each kernel."""
+    """Wraps ``ops`` dispatch functions to keep the first inputs of every
+    distinct shape (and keyword set) the main path hands each kernel."""
     NAMES = {"complex_matmul": "zgemm", "fidelity": "fidelity",
              "mse": "mse",
              "ensemble_commutator_trace": "ensemble_commutator_trace"}
 
-    def __init__(self):
+    def __init__(self, names=None):
         from repro_torch.kernels import ops
         self.ops = ops
-        self.calls = {k: {} for k in KERNELS}
+        self.names = names or self.NAMES
+        self.calls = {k: {} for k in self.names.values()}
         self.saved = {}
 
     def __enter__(self):
-        for fn, kernel in self.NAMES.items():
+        for fn, kernel in self.names.items():
             orig = getattr(self.ops, fn)
             self.saved[fn] = orig
 
-            def wrapped(*args, _orig=orig, _k=kernel):
-                key = tuple(tuple(a.shape) for a in args)
+            def wrapped(*args, _orig=orig, _k=kernel, **kw):
+                key = (tuple(tuple(a.shape) for a in args)
+                       + tuple(sorted(kw.items())))
                 # the tensors themselves, lazy conjugate views included
                 seen = self.calls[_k].setdefault(
-                    key, [0, tuple(a.detach() for a in args)])
+                    key, [0, tuple(a.detach() for a in args), kw])
                 seen[0] += 1
-                return _orig(*args)
+                return _orig(*args, **kw)
             setattr(self.ops, fn, wrapped)
         return self
 
@@ -252,7 +288,7 @@ def check_and_time(rec, ragged):
             raise RuntimeError(f"the path never called {name}")
         worst = 0.0
         cases = [(f"path {list(key)} x{cnt}", args)
-                 for key, (cnt, args) in calls.items()]
+                 for key, (cnt, args, _) in calls.items()]
         cases += [(f"ragged {[list(a.shape) for a in args]}", args)
                   for args in ragged.get(name, [])]
         for label, args in cases:
@@ -270,8 +306,8 @@ def check_and_time(rec, ragged):
             if label.startswith("path"):
                 worst = max(worst, err)
         # every recorded shape is timed; the most frequent one reports
-        for key, (cnt, args) in sorted(calls.items(),
-                                       key=lambda kv: kv[1][0]):
+        for key, (cnt, args, _) in sorted(calls.items(),
+                                          key=lambda kv: kv[1][0]):
             k_ms = cuda_ms(op[name], *args)
             p_ms = cuda_ms(plain[name], *args)
             lib_ms = None
@@ -378,21 +414,18 @@ def round_ms(cfg, ds, params, reps):
     return start.elapsed_time(end) / reps
 
 
-def profile_round(cfg, ds, params, label):
-    """Device time by kernel over one round (torch.profiler): the busy
-    share is the union of the device's kernel and copy intervals over
-    the round's wall time (both under the profiler)."""
+def profile_device(label, fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler):
+    the busy share is the union of the device's kernel and copy intervals
+    over the call's wall time (both under the profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.quantum import federated as fed
-    gen = torch.Generator().manual_seed(6)
-    fed.server_round(params, ds, gen, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        fed.server_round(params, ds, gen, cfg)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -412,6 +445,14 @@ def profile_round(cfg, ds, params, label):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (tot, cnt) in top:
         say(f"    {tot / 1e3:9.3f} ms  x{cnt:5d}  {name[:70]}")
+
+
+def profile_round(cfg, ds, params, label):
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    gen = torch.Generator().manual_seed(6)
+    fed.server_round(params, ds, gen, cfg)
+    profile_device(label, lambda: fed.server_round(params, ds, gen, cfg))
 
 
 def phase_wide():
@@ -451,6 +492,320 @@ def phase_wide():
     return timing
 
 
+# ------------------------------------------------------- phase 5: serving
+def allowed_pairs(sq, sk, causal, window):
+    """(query, key) pairs the mask allows for one head: positions from 0,
+    j < sk, j <= i when causal, j > i - window when window > 0."""
+    n = 0
+    for i in range(sq):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def seq_bound_ms(name, args, kw):
+    """Least time on an H100 for the function at these inputs: bytes
+    (inputs once, outputs once) at HBM rate against the operations at the
+    peak for their type (bf16 tensor cores for bf16 inputs, fp32 CUDA
+    cores otherwise), the larger of the two."""
+    if name == "flash_attention":
+        q, k, v = args                          # (B, Sq, H, dh), (B, Sk, K, dh)
+        b, sq, h, dh = q.shape
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        pairs = allowed_pairs(sq, k.shape[1], kw.get("causal", True),
+                              kw.get("window", 0))
+        flops = 4 * dh * pairs * b * h          # QK^T and PV, 2 each per MAC
+        peak = BF16_FLOPS if q.element_size() == 2 else FP32_FLOPS
+    else:
+        a, b_ = args
+        nbytes = a.element_size() * 3 * a.numel()
+        flops = 2 * a.numel()
+        peak = BF16_FLOPS if a.element_size() == 2 else FP32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def seq_ragged_cases(device):
+    """Edge shapes, seeded: Sq != Sk, S not a multiple of the 64-row tile,
+    a window below the tile, rows left with no allowed key, GQA 10:1."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(11)
+
+    def r(dtype, *shape):
+        return torch.randn(shape, generator=g).to(device, dtype)
+
+    def u(dtype, *shape):
+        return torch.rand(shape, generator=g).to(device, dtype)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    attn = [((r(bf, 1, 100, 10, 256), r(bf, 1, 37, 1, 256),
+              r(bf, 1, 37, 1, 256)), dict(causal=True, window=0)),
+            ((r(bf, 1, 37, 10, 256), r(bf, 1, 100, 1, 256),
+              r(bf, 1, 100, 1, 256)), dict(causal=True, window=16)),
+            ((r(f32, 2, 130, 4, 64), r(f32, 2, 130, 2, 64),
+              r(f32, 2, 130, 2, 64)), dict(causal=True, window=20)),
+            ((r(f32, 1, 100, 2, 64), r(f32, 1, 37, 1, 64),
+              r(f32, 1, 37, 1, 64)), dict(causal=True, window=16)),
+            ((r(f32, 2, 65, 2, 128), r(f32, 2, 65, 2, 128),
+              r(f32, 2, 65, 2, 128)), dict(causal=False, window=0))]
+    scan = [((u(f32, 3, 77, 300), r(f32, 3, 77, 300)), {}),
+            ((u(bf, 3, 77, 300), r(bf, 3, 77, 300)), {}),
+            ((u(f32, 1, 5, 2560), r(f32, 1, 5, 2560)), {})]
+    return {"flash_attention": attn, "rglru_scan": scan}
+
+
+def no_impl(kw):
+    return {k: v for k, v in kw.items() if k != "impl"}
+
+
+def check_and_time_seq(rec, ragged):
+    """Hold each sequence kernel against its plain version on the path's
+    recorded inputs and on ragged shapes (fp32: 1e-5 of the plain result's
+    scale; bf16: one bf16 ulp of it), then time kernel, plain version and
+    (attention only) SDPA at the path's shape. Raises on a disagreement."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as krg
+    op = {"flash_attention": ops.attention, "rglru_scan": ops.lru_scan}
+    results = {}
+    for name in SEQ_KERNELS:
+        calls = rec.calls[name]
+        if not calls:
+            raise RuntimeError(f"the path never called {name}")
+        worst = 0.0
+        cases = [(f"path {list(key)} x{cnt}", args, no_impl(kw))
+                 for key, (cnt, args, kw) in calls.items()]
+        cases += [(f"ragged {[list(a.shape) for a in args]} {kw}", args, kw)
+                  for args, kw in ragged[name]]
+        for label, args, kw in cases:
+            got = op[name](*args, **kw)
+            want = op[name](*args, **dict(kw, impl="xla"))
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            scale = max(1.0, float(want.float().abs().max()))
+            rtol = BF16_RTOL if want.dtype == torch.bfloat16 else KERNEL_RTOL
+            ok = err <= rtol * scale
+            say(f"  {name:16s} {label}: max_abs_err {err:.3e} (tol "
+                f"{rtol:.2e} x scale {scale:.3g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{name} disagrees with its plain version")
+            if label.startswith("path"):
+                worst = max(worst, err)
+        (cnt, args, kw), = calls.values()      # one shape on the path
+        kw = no_impl(kw)
+        b_ms, b_by = seq_bound_ms(name, args, kw)
+        if name == "flash_attention":
+            q, k, v = args
+
+            def heads_major(x):                 # the layout ops hands over
+                bx, sx, hx, dx = x.shape
+                return ops._dense(x.transpose(1, 2).reshape(bx * hx, sx, dx))
+            qf, kf, vf = (heads_major(x) for x in (q, k, v))
+            k_ms = cuda_ms(lambda: kfa.flash_attention(qf, kf, vf, **kw),
+                           reps=5, warmup=1)
+            p_ms = cuda_ms(lambda: ref.attention_ref(qf, kf, vf, **kw),
+                           reps=3, warmup=1)
+            i = torch.arange(q.shape[1], device=q.device)[:, None]
+            j = torch.arange(k.shape[1], device=q.device)[None, :]
+            mask = j <= i if kw["causal"] else torch.ones_like(j > i)
+            if kw["window"] > 0:
+                mask &= j > i - kw["window"]
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+            want = ops.attention(q, k, v, **dict(kw, impl="xla"))
+            lib_err = float((lib().transpose(1, 2).float()
+                             - want.float()).abs().max())
+            lib_scale = float(want.float().abs().max())
+            say(f"  {name:16s} SDPA yardstick: max_abs_err {lib_err:.3e} "
+                f"(tol {YARDSTICK_RTOL:.0e} x scale {lib_scale:.3g})")
+            if lib_err > YARDSTICK_RTOL * lib_scale:
+                raise RuntimeError("SDPA yardstick disagrees with the plain "
+                                   "attention")
+            lib_ms = cuda_ms(lib, reps=5, warmup=1)
+        else:
+            a, b = args
+            k_ms = cuda_ms(lambda: krg.rglru_scan(a, b), reps=20, warmup=2)
+            p_ms = cuda_ms(lambda: ref.rglru_scan_ref(a, b), reps=2,
+                           warmup=1)
+            lib_ms = None          # no single PyTorch call is a linear scan
+        say(f"  {name:16s} timed at {[list(x.shape) for x in args]} "
+            f"{args[0].dtype} x{cnt}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.1f}x")
+        results[name] = dict(name=name, route="cuda", **SEQ_KERNELS[name],
+                             max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return results
+
+
+def logit_dev(got, want):
+    """Max abs deviation relative to the scale (max |logit|) of ``want``."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def phase_serve(device="cuda"):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import Model
+    b, s, n_gen = SERVE_B, SERVE_S, SERVE_GEN
+    cfg = get_config("recurrentgemma-2b")
+    say(f"== phase 5: {cfg.name} serving at full width ({cfg.n_layers} "
+        f"layers {cfg.block_pattern}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, window "
+        f"{cfg.window}, {cfg.dtype}): B={b}, S={s}, {n_gen} decode tokens")
+    model, plain = Model(cfg), Model(cfg, impl="xla")
+    t0 = time.time()
+    params = model.init(seed=0, device=device)
+    torch.cuda.synchronize()
+    say(f"  init {model.num_params():,} params in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    batch = concrete_batch(cfg, b, s, torch.Generator().manual_seed(1),
+                           kind="prefill", device=device)
+    prefill = make_prefill_step(model)
+    with Recorder({"attention": "flash_attention",
+                   "lru_scan": "rglru_scan"}) as rec:
+        prefill(params, batch)                  # warm-up, inputs recorded
+        torch.cuda.synchronize()
+
+    # the main path: one prefill with the launch counts zeroed around it
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits, cache = prefill(params, batch)
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    prefill_ms = start.elapsed_time(end)
+    say(f"  launches in one prefill: {launches}")
+    want = {"flash_attention": 8, "rglru_scan": 18}
+    if launches != want:
+        raise RuntimeError(f"prefill launched {launches}, expected {want}")
+    more = [cuda_ms(lambda: prefill(params, batch), reps=1, warmup=0)
+            for _ in range(2)]
+    say(f"  prefill {prefill_ms:.3f} ms (then {more[0]:.3f}, {more[1]:.3f}; "
+        f"CUDA events), peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB, {b * s / prefill_ms * 1e3:,.0f} prompt tokens/s")
+    if tuple(logits.shape) != (b, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite")
+
+    # the same prefill through the plain versions; both again in fp32
+    plain_logits, plain_cache = make_prefill_step(plain)(params, batch)
+    dev = logit_dev(logits, plain_logits)
+    for key in sorted(cache):
+        say(f"    cache {key} {tuple(cache[key].shape)} {cache[key].dtype}: "
+            f"kernel vs plain {logit_dev(cache[key], plain_cache[key]):.3e} "
+            f"of its scale")
+    del plain_cache
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    plain_step32 = make_prefill_step(Model(cfg32, impl="xla"))
+    plain32, _ = plain_step32(p32, batch)
+    kern32, _ = make_prefill_step(Model(cfg32))(p32, batch)
+    # the model's own fp32 noise floor: every weight moved one fp32 ulp,
+    # up or down at random (seeded), through the plain versions
+    g = torch.Generator(device=device).manual_seed(2)
+    for k, v in p32.items():
+        up = torch.randint(0, 2, v.shape, generator=g, device=device,
+                           dtype=torch.bool)
+        p32[k] = torch.nextafter(v, torch.where(up, float("inf"),
+                                                float("-inf")))
+    nudged32, _ = plain_step32(p32, batch)
+    del p32
+    budget = logit_dev(plain_logits, plain32)
+    dev32, floor32 = logit_dev(kern32, plain32), logit_dev(nudged32, plain32)
+    ok = dev <= budget and dev32 <= floor32
+    say(f"  last-position logits, kernels vs plain: bf16 {dev:.3e} of the "
+        f"scale {float(plain_logits.abs().max()):.4g}, bf16 budget "
+        f"{budget:.3e} (plain bf16 vs plain fp32, same weights and tokens); "
+        f"fp32 {dev32:.3e}, fp32 budget {floor32:.3e} (plain fp32 with "
+        f"every weight one ulp off) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the kernel prefill deviates from the plain one "
+                           "beyond its budget")
+
+    # decode: the prefill cache moved into a S + n_gen cache, greedy
+    serve = make_serve_step(model)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    warm = model.extend_cache(cache, s + n_gen)
+    serve(params, warm, {"tokens": tok[:, None]}, s)     # warm-up
+    del warm
+    dcache = model.extend_cache(cache, s + n_gen)
+    first, tokens = None, []
+    start.record()
+    for i in range(n_gen):
+        tok, step_logits, dcache = serve(params, dcache,
+                                         {"tokens": tok[:, None]}, s + i)
+        tokens.append(tok)
+        if i == 0:
+            first = step_logits.clone()
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / n_gen
+    gen = torch.stack(tokens, 1)
+    say(f"  decode {decode_ms:.3f} ms/token over {n_gen} steps (CUDA "
+        f"events, batch {b}: {b / decode_ms * 1e3:,.0f} tokens/s); sample "
+        f"{gen[0, :8].tolist()}")
+    if not (bool(torch.isfinite(step_logits).all())
+            and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size):
+        raise RuntimeError("decode gave non-finite logits or bad tokens")
+    # the first decode step against a prefill of the prompt + its token
+    longer = {"tokens": torch.cat([batch["tokens"],
+                                   torch.argmax(logits, -1).int()[:, None]],
+                                  1)}
+    ext_logits, _ = prefill(params, longer)
+    dev_dec = logit_dev(first, ext_logits)
+    ok = dev_dec <= budget
+    say(f"  first decode step vs prefill of S+1 = {s + 1} tokens: "
+        f"{dev_dec:.3e} of the scale (budget {budget:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("decode disagrees with prefill")
+    del ext_logits, dcache
+
+    say("  sequence kernels against their plain versions, at the prefill's "
+        "inputs and ragged shapes:")
+    results = check_and_time_seq(rec, seq_ragged_cases(device))
+    del rec
+    torch.cuda.empty_cache()
+    profile_device(f"prefill B={b} S={s}", lambda: prefill(params, batch))
+    dcache = model.extend_cache(cache, s + n_gen)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    profile_device(f"one decode step at position {s}", lambda: serve(
+        params, dcache, {"tokens": tok[:, None]}, s))
+    del dcache
+    say(f"  card during phase 5: "
+        f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del params, cache
+    torch.cuda.empty_cache()
+
+    say("  python -m repro_torch.launch.serve --arch recurrentgemma-2b:")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", "recurrentgemma-2b"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    for line in (out.stdout + out.stderr).strip().splitlines()[-4:]:
+        say("    " + line)
+    if out.returncode != 0:
+        raise RuntimeError("the serve CLI failed")
+    for name, row in results.items():
+        row["launches"] = launches[name]
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -469,6 +824,7 @@ def main() -> int:
     phase_wide()
     for name, row in results.items():
         row["launches"] = launches[name]
+    results.update(phase_serve())
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,20 +1,23 @@
 """Carry weights and data between the JAX reference and the port.
 
-The reference's params are a list of complex arrays, one (m_l, d, d)
-stack per layer; its ``QuantumDataset`` holds ``phi_in``, ``phi_out``
-and an optional ``n_per``. These functions take and give numpy arrays
-only (``np.asarray`` of a JAX array is one), so the port never touches
-JAX.
+The reference's quantum params are a list of complex arrays, one
+(m_l, d, d) stack per layer; its ``QuantumDataset`` holds ``phi_in``,
+``phi_out`` and an optional ``n_per``. Its model params are a flat dict
+of paths ("stack/{pos}/{kind}/..." with a leading n_cycles axis,
+"rem/{i}/{kind}/..." without) to arrays. These functions take and give
+numpy arrays only (``np.asarray`` of a JAX array is one), so the port
+never touches JAX.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.quantum import linalg as ql
 from repro_torch.core.quantum.data import QuantumDataset
+from repro_torch.models import Model
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -51,3 +54,42 @@ def dataset_to_numpy(ds: QuantumDataset
     """The port's dataset -> (phi_in, phi_out, n_per) numpy arrays."""
     n_per = None if ds.n_per is None else ds.n_per.cpu().numpy()
     return ds.phi_in.cpu().numpy(), ds.phi_out.cpu().numpy(), n_per
+
+
+def _array_to_torch(x: np.ndarray) -> torch.Tensor:
+    x = np.array(x)                  # a writable copy torch may own
+    if x.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: reinterpret bits
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def model_params_to_torch(params: Mapping[str, np.ndarray], cfg,
+                          device="cuda") -> Dict[str, torch.Tensor]:
+    """The reference's flat model params -> the port's, name for name.
+
+    Every path the port's ``init_model`` makes for ``cfg`` must be given
+    once with the same shape, and no other path; each tensor is cast to
+    ``cfg.param_dtype`` on ``device``."""
+    dev = ql.resolve_device(device)
+    want = Model(cfg).abstract_params()
+    extra = sorted(set(params) - set(want))
+    missing = sorted(set(want) - set(params))
+    if extra or missing:
+        raise KeyError(f"param paths differ: missing {missing}, "
+                       f"unexpected {extra}")
+    out = {}
+    for path, spec in want.items():
+        x = _array_to_torch(params[path])
+        if tuple(x.shape) != tuple(spec.shape):
+            raise ValueError(f"{path}: shape {tuple(x.shape)}, expected "
+                             f"{tuple(spec.shape)}")
+        out[path] = x.to(device=dev, dtype=spec.dtype)
+    return out
+
+
+def model_params_to_numpy(params: Mapping[str, torch.Tensor]
+                          ) -> Dict[str, np.ndarray]:
+    """The port's model params (or caches) -> numpy arrays, bfloat16 as
+    float32 (numpy has no bfloat16 of its own)."""
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v)
+            .detach().cpu().numpy() for k, v in params.items()}

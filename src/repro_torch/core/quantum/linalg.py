@@ -15,18 +15,9 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.device import resolve_device
+
 DTYPE = torch.complex128
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point makes its tensors on. Asking for the
-    card on a machine without one raises; nothing moves to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but no CUDA device is available; "
-            "pass device='cpu' explicitly to run on the CPU")
-    return dev
 
 
 def dim(n_qubits: int) -> int:

@@ -1,10 +1,12 @@
 // Shared helpers for the QuantumFed Hopper kernels.
 //
-// Precision contract (the same as the TPU kernels they replace): inputs
-// and outputs are complex128 (interleaved double2, as
-// torch.view_as_real lays them out); every product and sum is fp32.
+// Precision contract (the same as the TPU kernels they replace): the
+// quantum kernels take and give complex128 (interleaved double2, as
+// torch.view_as_real lays them out); the sequence kernels take and give
+// fp32 or bf16. Every product and sum is fp32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace qf {
@@ -23,5 +25,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
+
+// Storage type <-> fp32 for the sequence kernels (bf16 rounds to
+// nearest even, as torch's .to(torch.bfloat16) does).
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// dtype codes of the sequence kernels' C entry points
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
 }  // namespace qf

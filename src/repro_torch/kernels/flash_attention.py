@@ -1,0 +1,47 @@
+"""CUDA wrapper: causal / sliding-window flash attention with GQA heads
+(source ``csrc/flash_attention.cu``).
+
+q (BH, Sq, dh) and k/v (BH / G, Sk, dh), all fp32 or all bf16, on the
+card -> (BH, Sq, dh) in q's dtype, fp32 arithmetic inside; query row i
+reads kv row i // G. dh is 64, 128 or 256. Launches on PyTorch's current
+stream without synchronising; raises on a tensor off the card, a wrong
+dtype, shape or layout, a lazy view, and on a launch CUDA refuses.
+``ops.attention`` is the dispatch that sends CPU tensors to
+``ref.attention_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.zgemm import check_operand, stream_of
+
+# dtype codes of the sequence kernels' C entry points (qf::DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        check_operand(x, name, 3, dtype=q.dtype)
+    bh, sq, dh = q.shape
+    bk, sk = k.shape[:2]
+    if (v.shape != k.shape or k.shape[2] != dh or bh % bk
+            or k.device != q.device or v.device != q.device):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {dh} not in {HEAD_DIMS}")
+    lib = build.load()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.qf_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bk,
+            sq, sk, dh, int(causal), int(window), DTYPE_CODES[q.dtype],
+            stream_of(q))
+    build.LAUNCHES["flash_attention"] += 1
+    build.check(err, "flash_attention launch")
+    return out

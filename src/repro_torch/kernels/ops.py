@@ -1,16 +1,20 @@
 """Device dispatch for the port's kernels (the ``impl="pallas"``
-backend of the quantum path).
+backend of the quantum path and of the model's sequence layers).
 
 A tensor on the card launches the hand-written CUDA kernel, or the
 kernel's wrapper raises; a tensor on the CPU takes the kernel's plain
-version in ``ref``. There is no other route and no fallback.
+version in ``ref``. The sequence ops also take ``impl="xla"``, which
+gives the plain version on any device. There is no other route and no
+fallback.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import fidelity as _fid
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import zgemm as _zgemm
 
 
@@ -52,3 +56,37 @@ def ensemble_commutator_trace(a: torch.Tensor, b: torch.Tensor
     if _on_cpu(a):
         return ref.ensemble_commutator_trace_ref(a, b)
     return _zgemm.ensemble_commutator_trace(_dense(a), _dense(b))
+
+
+def _plain(x: torch.Tensor, impl: str) -> bool:
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"impl {impl!r}: 'pallas' or 'xla'")
+    return impl == "xla" or _on_cpu(x)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, impl: str = "pallas"
+              ) -> torch.Tensor:
+    """Grouped-query attention, q (B, Sq, H, dh), k/v (B, Sk, K, dh) with
+    H = K * G; queries and keys at positions 0.. -> (B, Sq, H, dh). The
+    kernel reads kv head h // G itself; nothing is repeated."""
+    b, sq, h, dh = q.shape
+    kh = k.shape[2]
+    qf = q.transpose(1, 2).reshape(b * h, sq, dh)
+    kf = k.transpose(1, 2).reshape(b * kh, -1, dh)
+    vf = v.transpose(1, 2).reshape(b * kh, -1, dh)
+    if _plain(q, impl):
+        out = ref.attention_ref(qf, kf, vf, causal=causal, window=window)
+    else:
+        out = _fa.flash_attention(_dense(qf), _dense(kf), _dense(vf),
+                                  causal=causal, window=window)
+    return out.reshape(b, h, sq, dh).transpose(1, 2)
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor, *, impl: str = "pallas"
+             ) -> torch.Tensor:
+    """Diagonal linear recurrence h_t = a_t h_{t-1} + b_t, h_0 = 0, over
+    axis 1 of (B, S, D) (RG-LRU)."""
+    if _plain(a, impl):
+        return ref.rglru_scan_ref(a, b)
+    return _rg.rglru_scan(_dense(a), _dense(b))

@@ -1,13 +1,17 @@
-"""Plain PyTorch versions of the port's four CUDA kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 Each computes the same function as its kernel with the kernel's
-precision contract: complex128 in, fp32 arithmetic, complex128 (or
-float64) out. The ``ops`` wrappers take these for tensors on the CPU,
-and ``chip_smoke.py`` holds each kernel against its plain version on
-the card, like for like. The JAX package's ``repro.kernels.ref`` is the
-oracle they are tested against.
+precision contract. The quantum kernels: complex128 in, fp32
+arithmetic, complex128 (or float64) out. The sequence kernels
+(attention, the RG-LRU scan): fp32 or bf16 in, fp32 arithmetic, out in
+the input's dtype. The ``ops`` wrappers take these for tensors on the
+CPU, and ``chip_smoke.py`` holds each kernel against its plain version
+on the card, like for like. The JAX package's ``repro.kernels.ref`` is
+the oracle they are tested against.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -54,3 +58,47 @@ def ensemble_commutator_trace_ref(a: torch.Tensor, b: torch.Tensor
     w = torch.einsum("jnef,jnekr->jnfkr", g, a)
     t = torch.einsum("jnfar,jnfbr->jab", w, b.conj())
     return t.to(torch.complex128)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (BH, Sq, dh); k/v (BK, Sk, dh) with BH = BK * G: query row i
+    reads kv row i // G (G = 1 is the reference's same-head layout).
+    Query position i and key position j (both from 0) pair when
+    j <= i (causal) and j > i - window (window > 0). fp32 softmax; out
+    in q's dtype.
+
+    A query row with no allowed key gives 0, as the TPU kernel and the
+    CUDA kernel do (the JAX oracle's -1e30 fill gives the mean of v
+    there instead; no model path has such a row).
+    """
+    g = q.shape[0] // k.shape[0]
+    kf = k.float().repeat_interleave(g, dim=0)
+    vf = v.float().repeat_interleave(g, dim=0)
+    s = (q.float() @ kf.transpose(1, 2)) / math.sqrt(float(q.shape[-1]))
+    qp = torch.arange(q.shape[1], device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    s.masked_fill_(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+    p = s.sub_(m).exp_()                   # in place: s is (BH, Sq, Sk)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return ((p @ vf) / denom).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sequential diagonal recurrence h_t = a_t h_{t-1} + b_t, h_0 = 0,
+    over axis 1 of (B, S, D); fp32 carry, out in a's dtype."""
+    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    h = torch.zeros((a.shape[0],) + a.shape[2:], dtype=torch.float32,
+                    device=a.device)
+    a32, b32 = a.float(), b.float()
+    for t in range(a.shape[1]):
+        h = a32[:, t] * h + b32[:, t]
+        out[:, t] = h
+    return out.to(a.dtype)

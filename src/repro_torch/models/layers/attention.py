@@ -1,0 +1,142 @@
+"""Grouped-query attention: causal, sliding-window, cached decode.
+
+Layout: q (B, S, K, G, dh) where H = K * G (K kv heads, G queries per kv
+head); k/v (B, T, K, dh). Softmax in fp32.
+
+Train/prefill (no cache; queries and keys at positions 0..S-1) goes
+through ``kernels.ops.attention``: the hand-written flash-attention
+kernel for a tensor on the card (``impl="pallas"``), its plain version
+on the CPU or with ``impl="xla"``. Decode (one query against a
+``max_len`` cache with a valid length) stays plain torch, as in the
+reference. Cross-attention, M-RoPE, qkv biases, a logit softcap and
+query chunking wait for later slices and raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers.embeddings import apply_rope
+
+NEG_INF = -2.0e38
+
+
+def init_attention(ini, pfx: str, cfg, stack: int = 0) -> None:
+    d, h, k, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def mk(name, shape, names, **kw):
+        if stack:
+            shape, names = (stack,) + shape, ("layers",) + names
+        ini.make(f"{pfx}/{name}", shape, names, **kw)
+
+    mk("wq", (d, h, dh), ("embed", "heads", "head_dim"))
+    mk("wk", (d, k, dh), ("embed", "kv_heads", "head_dim"))
+    mk("wv", (d, k, dh), ("embed", "kv_heads", "head_dim"))
+    mk("wo", (h, dh, d), ("heads", "head_dim", "embed"))
+
+
+def _mask(q_pos, k_pos, window: int, causal: bool, valid_len=None):
+    """Boolean (..., Sq, T) mask from query/key positions."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                   dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= kp <= qp
+    if window > 0:
+        m &= kp > qp - window
+    if valid_len is not None:
+        m &= kp < valid_len
+    return m
+
+
+def dot_attention(q, k, v, mask):
+    """q (B,Sq,K,G,dh), k/v (B,T,K,dh), mask (B,Sq,T) or (Sq,T).
+    Scores in fp32; the probabilities are cast to v's dtype before the
+    PV product, as in the reference."""
+    dh = q.shape[-1]
+    scores = torch.einsum("bqkgd,btkd->bkgqt", q.float(), k.float())
+    scores = scores * (1.0 / math.sqrt(float(dh)))
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.tensor(NEG_INF, device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgqt,btkd->bqkgd", probs.to(v.dtype), v)
+
+
+def gqa_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
+                  causal: bool = True, valid_len=None):
+    """Full masked attention (the reference's path without q_chunk)."""
+    mask = _mask(q_pos, k_pos, window, causal, valid_len)
+    return dot_attention(q, k, v, mask)
+
+
+def _project(p, x, cfg):
+    b, s, _ = x.shape
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt).reshape(-1, h * dh)).view(b, s, h, dh)
+    k = (x @ p["wk"].to(dt).reshape(-1, kh * dh)).view(b, s, kh, dh)
+    v = (x @ p["wv"].to(dt).reshape(-1, kh * dh)).view(b, s, kh, dh)
+    return q, k, v
+
+
+def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
+                   positions: torch.Tensor, window: int = 0,
+                   cache: Optional[Dict[str, torch.Tensor]] = None,
+                   cur_len: Optional[int] = None, impl: str = "pallas"
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Self-attention with RoPE and optional KV-cache decode.
+
+    Train/prefill: cache is None, positions (B, S) = 0..S-1. Returns the
+    output and the roped k/v, which are the prefill cache (offset 0).
+    Decode: cache holds (B, S_max, K, dh) k/v; x is (B, 1, d); cur_len
+    is the int position of the new token. The new k/v are written into
+    ``cache`` IN PLACE (the reference's dynamic_update_slice, without the
+    copy), and ``cache`` is returned.
+    """
+    if (cfg.pos_kind != "rope" or cfg.qkv_bias or cfg.logit_softcap > 0.0
+            or cfg.q_chunk > 0):
+        raise NotImplementedError(
+            "M-RoPE, qkv biases, the attention logit softcap and q_chunk "
+            "wait for a later slice (ROADMAP.md)")
+    b, s, _ = x.shape
+    k_heads, g, dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    dt = x.dtype
+
+    q, k, v = _project(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        out = ops.attention(q, k, v, causal=True, window=window, impl=impl)
+        new_cache = {"k": k, "v": v}
+    else:
+        if not isinstance(cur_len, int):
+            raise NotImplementedError(
+                "per-slot decode positions wait for the serving scheduler")
+        cache["k"][:, cur_len:cur_len + s] = k.to(cache["k"].dtype)
+        cache["v"][:, cur_len:cur_len + s] = v.to(cache["v"].dtype)
+        new_cache = cache
+        ck, cv = cache["k"].to(dt), cache["v"].to(dt)
+        k_pos = torch.arange(ck.shape[1], dtype=torch.int32, device=x.device)
+        out = gqa_attention(q.reshape(b, s, k_heads, g, dh), ck, cv,
+                            positions, k_pos, window=window, causal=True,
+                            valid_len=cur_len + s)
+
+    out = out.reshape(b, s, k_heads * g * dh)
+    y = out @ p["wo"].to(dt).reshape(k_heads * g * dh, -1)
+    return y, new_cache
+
+
+def init_cache(cfg, batch: int, max_len: int, *, device, dtype=None
+               ) -> Dict[str, torch.Tensor]:
+    """Zero KV cache for one attention layer."""
+    dtype = dtype or cfg.torch_dtype
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,75 @@
+"""Token embeddings and rotary position encodings (RoPE; M-RoPE waits)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def init_embeddings(ini, cfg) -> None:
+    # std 1/sqrt(d): with embed_scale (gemma) the scaled embedding is
+    # ~unit-std, and tied unembedding logits stay O(1).
+    ini.make("embed/tokens", (cfg.vocab_size, cfg.d_model),
+             ("vocab", "embed"), init="normal",
+             scale=cfg.d_model ** -0.5)
+    if not cfg.tie_embeddings:
+        ini.make("embed/head", (cfg.d_model, cfg.vocab_size),
+                 ("embed", "vocab"), init="normal")
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    x = params["embed/tokens"][tokens.long()].to(cfg.torch_dtype)
+    if cfg.embed_scale:
+        # the factor is rounded to the activation dtype before the multiply
+        x = x * torch.tensor(math.sqrt(float(cfg.d_model)),
+                             dtype=torch.float32).to(x.dtype)
+    return x
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) with an fp32 result: the products of the
+    operands' dtype summed in fp32 (``preferred_element_type=float32``)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(x.shape[:-1] + (w.shape[-1],))
+    return x.float() @ w.float()
+
+
+def unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Logits in fp32."""
+    if cfg.tie_embeddings:
+        w = params["embed/tokens"].to(x.dtype).T
+    else:
+        w = params["embed/head"].to(x.dtype)
+    logits = matmul_f32(x, w)
+    if cfg.logit_softcap > 0.0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, ..., head_dim); positions: (B, S) int.
+
+    NeoX-style half rotation: pairs are (x[..., :d/2], x[..., d/2:]).
+    """
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                 # (dh/2,)
+    angles = positions[..., None].float() * freqs           # (B,S,dh/2)
+    while angles.dim() < x.dim():
+        angles = angles[..., None, :]                       # head axes
+    # cos/sin are rounded to the activation dtype before the multiply,
+    # as in the reference
+    cos = torch.cos(angles).to(x.dtype)
+    sin = torch.sin(angles).to(x.dtype)
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

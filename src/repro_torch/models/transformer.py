@@ -1,0 +1,247 @@
+"""Block assembly and the full model stack.
+
+The reference scans over "pattern cycles" (one cycle = one repetition of
+cfg.block_pattern); here a Python loop walks the leading ``n_cycles``
+axis of the stacked params ("stack/{pos}/{kind}/..."). Remainder layers
+(n_layers % cycle_len, "rem/{i}/{kind}/...") follow unstacked. This
+slice ports the block kinds "attn", "local" and "rec"; "rwkv" and
+"moe" raise.
+
+Modes:
+  train   — full sequence, no caches
+  prefill — full sequence, emits decode caches
+  decode  — single token against caches (serve_step); the caches are
+            updated in place
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from repro_torch.models import params as pp
+from repro_torch.models.layers import attention as attn
+from repro_torch.models.layers import rglru
+from repro_torch.models.layers.embeddings import (embed_tokens,
+                                                   init_embeddings, unembed)
+from repro_torch.models.layers.mlp import init_mlp, mlp
+from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
+
+ATTN_KINDS = ("attn", "local")
+PORTED_KINDS = ATTN_KINDS + ("rec",)
+
+
+def _check(cfg) -> None:
+    missing = [k for k in cfg.block_pattern if k not in PORTED_KINDS]
+    if missing:
+        raise NotImplementedError(
+            f"block kinds {missing} wait for a later slice (ROADMAP.md)")
+    if cfg.cross_attn or cfg.input_kind != "tokens" or cfg.qkv_bias:
+        raise NotImplementedError(
+            "cross-attention, embedding inputs and qkv biases wait for a "
+            "later slice (ROADMAP.md)")
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def init_block(ini, pfx: str, kind: str, cfg, stack: int = 0) -> None:
+    init_rmsnorm(ini, f"{pfx}/ln1", cfg.d_model, stack)
+    if kind in ATTN_KINDS:
+        attn.init_attention(ini, f"{pfx}/attn", cfg, stack)
+    elif kind == "rec":
+        rglru.init_recurrent_block(ini, f"{pfx}/rec", cfg, stack)
+    else:
+        raise NotImplementedError(f"block kind {kind!r} waits for a later "
+                                  "slice (ROADMAP.md)")
+    init_rmsnorm(ini, f"{pfx}/ln2", cfg.d_model, stack)
+    init_mlp(ini, f"{pfx}/mlp", cfg, stack)
+
+
+def init_model(ini, cfg) -> None:
+    _check(cfg)
+    init_embeddings(ini, cfg)
+    for pos, kind in enumerate(cfg.block_pattern):
+        if cfg.n_cycles > 0:
+            init_block(ini, f"stack/{pos}/{kind}", kind, cfg,
+                       stack=cfg.n_cycles)
+    for i in range(cfg.n_rem):
+        kind = cfg.block_pattern[i]
+        init_block(ini, f"rem/{i}/{kind}", kind, cfg)
+    init_rmsnorm(ini, "final_norm", cfg.d_model)
+
+
+# --------------------------------------------------------------------------
+# caches
+# --------------------------------------------------------------------------
+
+def block_cache(kind: str, cfg, batch: int, max_len: int, *, device
+                ) -> Dict[str, torch.Tensor]:
+    """Zero decode state for one block of the given kind."""
+    if kind in ATTN_KINDS:
+        return attn.init_cache(cfg, batch, max_len, device=device)
+    if kind == "rec":
+        return {
+            "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_rnn),
+                                dtype=cfg.torch_dtype, device=device),
+            "h": torch.zeros((batch, cfg.d_rnn), dtype=torch.float32,
+                             device=device),
+        }
+    raise NotImplementedError(f"block kind {kind!r}")
+
+
+def init_cache(cfg, batch: int, max_len: int, *, device
+               ) -> Dict[str, torch.Tensor]:
+    """Full-model cache: {"stack/{pos}/{key}": (n_cycles, ...) stacked,
+    "rem/{i}/{key}": unstacked}."""
+    cache: Dict[str, torch.Tensor] = {}
+    for pos, kind in enumerate(cfg.block_pattern):
+        if cfg.n_cycles == 0:
+            continue
+        c = block_cache(kind, cfg, batch, max_len, device=device)
+        for k, v in c.items():
+            cache[f"stack/{pos}/{k}"] = v[None].repeat(
+                (cfg.n_cycles,) + (1,) * v.dim())
+    for i in range(cfg.n_rem):
+        kind = cfg.block_pattern[i]
+        c = block_cache(kind, cfg, batch, max_len, device=device)
+        for k, v in c.items():
+            cache[f"rem/{i}/{k}"] = v
+    return cache
+
+
+def extend_cache(cfg, cache: Dict[str, torch.Tensor], max_len: int
+                 ) -> Dict[str, torch.Tensor]:
+    """A prefill cache (k/v over the S prompt positions) copied into a
+    zero ``max_len`` decode cache: k/v at offset 0, conv and h states as
+    they are."""
+    out = {}
+    for key, v in cache.items():
+        if key.endswith("/k") or key.endswith("/v"):
+            seq_axis = v.dim() - 3            # (..., B, S, K, dh)
+            shape = list(v.shape)
+            if shape[seq_axis] > max_len:
+                raise ValueError(f"{key}: prompt of {shape[seq_axis]} "
+                                 f"positions exceeds max_len {max_len}")
+            shape[seq_axis] = max_len
+            z = torch.zeros(shape, dtype=v.dtype, device=v.device)
+            z.narrow(seq_axis, 0, v.shape[seq_axis]).copy_(v)
+            out[key] = z
+        else:
+            out[key] = v.clone()
+    return out
+
+
+# --------------------------------------------------------------------------
+# block forward
+# --------------------------------------------------------------------------
+
+def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                  cfg, *, mode: str, positions, cur_len=None, cache=None,
+                  impl: str = "pallas"):
+    """Returns (x, new_cache_or_None). In decode mode ``cache``'s tensors
+    are updated in place."""
+    window = cfg.window if kind == "local" else 0
+    new_cache = {}
+
+    if kind in ATTN_KINDS:
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        a, kv = attn.self_attention(
+            pp.subtree(p, "attn"), h, cfg, positions=positions,
+            window=window, cur_len=cur_len, impl=impl,
+            cache=({"k": cache["k"], "v": cache["v"]} if mode == "decode"
+                   else None))
+        if mode in ("prefill", "decode"):
+            new_cache.update(kv)
+        x = x + a
+        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        x = x + mlp(pp.subtree(p, "mlp"), h, cfg)
+
+    elif kind == "rec":
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        state = ((cache["conv"], cache["h"]) if mode == "decode" else None)
+        y, (new_conv, new_h) = rglru.recurrent_block(
+            pp.subtree(p, "rec"), h, cfg, state=state, impl=impl)
+        x = x + y
+        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        x = x + mlp(pp.subtree(p, "mlp"), h, cfg)
+        if mode == "decode":
+            cache["conv"].copy_(new_conv)
+            cache["h"].copy_(new_h)
+            new_cache.update(cache)
+        elif mode == "prefill":
+            new_cache.update({"conv": new_conv, "h": new_h})
+
+    else:
+        raise NotImplementedError(f"block kind {kind!r}")
+
+    return x, (new_cache if new_cache else None)
+
+
+# --------------------------------------------------------------------------
+# full stack
+# --------------------------------------------------------------------------
+
+def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
+            tokens: torch.Tensor, cur_len=None, cache=None,
+            impl: str = "pallas"):
+    """Shared forward. Returns (hidden, new_cache). Decode updates
+    ``cache`` in place and returns it."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
+    _check(cfg)
+    if (mode == "decode") != (cache is not None):
+        raise ValueError("decode, and only decode, takes a cache")
+    x = embed_tokens(params, tokens, cfg)
+    b, s = tokens.shape
+    if mode == "decode":
+        positions = torch.full((b, 1), cur_len, dtype=torch.int32,
+                               device=x.device)
+    else:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+
+    new_cache: Dict[str, torch.Tensor] = {}
+
+    # ---- stacked cycles ----
+    per_cycle: Dict[str, List[torch.Tensor]] = {}
+    for c in range(cfg.n_cycles):
+        for pos, kind in enumerate(cfg.block_pattern):
+            pfx = f"stack/{pos}/{kind}/"
+            p = {k[len(pfx):]: v[c] for k, v in params.items()
+                 if k.startswith(pfx)}
+            cc = None
+            if cache is not None:
+                cc = {k: v[c] for k, v in
+                      pp.subtree(cache, f"stack/{pos}").items()}
+            x, nc = block_forward(kind, p, x, cfg, mode=mode,
+                                  positions=positions, cur_len=cur_len,
+                                  cache=cc, impl=impl)
+            if mode == "prefill":
+                for kk, vv in nc.items():
+                    per_cycle.setdefault(f"stack/{pos}/{kk}", []).append(vv)
+    if mode == "prefill":
+        new_cache.update({k: torch.stack(v) for k, v in per_cycle.items()})
+    elif mode == "decode":
+        new_cache.update({k: v for k, v in cache.items()
+                          if k.startswith("stack/")})
+
+    # ---- remainder layers ----
+    for i in range(cfg.n_rem):
+        kind = cfg.block_pattern[i]
+        p = pp.subtree(params, f"rem/{i}/{kind}")
+        c = pp.subtree(cache, f"rem/{i}") if cache is not None else None
+        x, nc = block_forward(kind, p, x, cfg, mode=mode,
+                              positions=positions, cur_len=cur_len,
+                              cache=c, impl=impl)
+        if nc:
+            for kk, vv in nc.items():
+                new_cache[f"rem/{i}/{kk}"] = vv
+
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, (new_cache if new_cache else None)
+
+
+def logits_from_hidden(params, x, cfg):
+    return unembed(params, x, cfg)

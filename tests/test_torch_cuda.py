@@ -81,3 +81,94 @@ def test_kernel_round_matches_complex128_round(cuda_device):
     assert dev <= RTOL
     for k in ("fidelity", "mse"):
         assert abs(float(out["xla"][1][k]) - float(out["pallas"][1][k])) <= RTOL
+
+
+# ---------------------------------------------------------------- sequence
+BF16_ATOL = 2e-2   # the reference's own bf16 gate (tests/test_kernels.py)
+
+
+def _attn_case(gen, bh, bk, sq, sk, dh, dtype, device):
+    def r(*shape):
+        return torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+    return r(bh, sq, dh), r(bk, sk, dh), r(bk, sk, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_kernels_agree_and_count(cuda_device, dtype):
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rglru_scan as krg
+    gen = torch.Generator().manual_seed(4)
+    # (bh, bk, sq, sk, dh, window): GQA G = 1, 2, 10; Sq != Sk; S not a
+    # multiple of the 64-row tile; window below the tile; dh 64/128/256
+    cases = [(6, 3, 70, 70, 64, 0), (6, 3, 70, 70, 64, 20),
+             (4, 4, 33, 100, 128, 0), (4, 2, 100, 33, 64, 7),
+             (20, 2, 130, 130, 256, 50)]
+    build.reset_launches()
+    for bh, bk, sq, sk, dh, window in cases:
+        q, k, v = _attn_case(gen, bh, bk, sq, sk, dh, dtype, cuda_device)
+        got = kfa.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        want = ref.attention_ref(q, k, v, causal=True, window=window)
+        assert got.dtype == dtype and got.shape == q.shape
+        err = float((got.float() - want.float()).abs().max())
+        tol = BF16_ATOL if dtype == torch.bfloat16 else RTOL
+        assert err <= tol, (bh, bk, sq, sk, dh, window, err)
+    a = torch.rand((3, 77, 300), generator=gen).to(cuda_device, dtype)
+    b = torch.randn((3, 77, 300), generator=gen).to(cuda_device, dtype)
+    got = krg.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    want = ref.rglru_scan_ref(a, b)
+    tol = 5e-2 if dtype == torch.bfloat16 else RTOL
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert dict(build.LAUNCHES) == {"flash_attention": len(cases),
+                                    "rglru_scan": 1}
+
+
+@pytest.mark.cuda
+def test_sequence_wrappers_refuse_bad_operands(cuda_device):
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rglru_scan as krg
+    x = torch.randn((2, 16, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kfa.flash_attention(x.transpose(0, 1).contiguous().transpose(0, 1),
+                            x, x)
+    with pytest.raises(ValueError, match="head_dim"):
+        kfa.flash_attention(x[..., :48].contiguous(), x[..., :48].contiguous(),
+                            x[..., :48].contiguous())
+    with pytest.raises(ValueError):
+        kfa.flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        krg.rglru_scan(x.transpose(1, 2), x.transpose(1, 2))
+    with pytest.raises(ValueError):
+        krg.rglru_scan(x.double(), x.double())
+    # ops makes a transposed operand dense before the launch
+    got = ops.lru_scan(x.transpose(1, 2), x.transpose(1, 2))
+    want = ref.rglru_scan_ref(x.transpose(1, 2), x.transpose(1, 2))
+    assert float((got - want).abs().max()) <= RTOL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_model_prefill_with_kernels_matches_plain(cuda_device):
+    """RecurrentGemma reduced (fp32): one prefill through the kernels and
+    one through their plain versions, same params. The whole-model gate
+    of tests/test_torch_model.py (1e-3 of the logits' scale) covers the
+    RG-LRU gate's amplification of fp32 rounding."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.models import Model
+    cfg = get_config("recurrentgemma-2b").reduced()
+    params = Model(cfg).init(seed=0, device=cuda_device)
+    batch = concrete_batch(cfg, 2, 96, torch.Generator().manual_seed(1),
+                           kind="prefill", device=cuda_device)
+    build.reset_launches()
+    got, cache = Model(cfg).prefill(params, batch)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"flash_attention": 1, "rglru_scan": 2}
+    want, want_cache = Model(cfg, impl="xla").prefill(params, batch)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-3 * scale
+    for key in want_cache:
+        w = want_cache[key]
+        assert float((cache[key] - w).abs().max()) <= 1e-3 * float(
+            w.abs().max()), key

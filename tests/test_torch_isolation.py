@@ -43,6 +43,8 @@ def test_importing_the_port_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.quantum.federated" in res["modules"]
     assert "repro_torch.kernels.build" in res["modules"]
+    assert "repro_torch.models.model" in res["modules"]
+    assert "repro_torch.launch.serve" in res["modules"]
     assert res["bad"] == []
 
 
@@ -60,13 +62,24 @@ def test_no_source_imports_jax_or_the_reference():
 def test_entry_points_default_to_the_card():
     from repro_torch import convert
     from repro_torch.core.quantum import data, linalg, qnn
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.models import Model
+    cfg = get_config("recurrentgemma-2b").reduced(n_layers=3, vocab_size=64)
+    model = Model(cfg)
+    small = {k: v.numpy() for k, v in model.init(device="cpu").items()}
     calls = [lambda: qnn.init_params(torch.Generator(), (2, 3, 2)),
              lambda: data.make_federated_dataset(torch.Generator(), 2, 2, 2),
              lambda: linalg.zero_state(2),
-             lambda: convert.params_to_torch([[[1.0]]])]
+             lambda: convert.params_to_torch([[[1.0]]]),
+             lambda: model.init(),
+             lambda: model.init_cache(1, 4),
+             lambda: concrete_batch(cfg, 1, 4, torch.Generator()),
+             lambda: convert.model_params_to_torch(small, cfg)]
     for call in calls:
         if torch.cuda.is_available():
             out = call()
+            out = next(iter(out.values())) if isinstance(out, dict) else out
             first = out[0] if isinstance(out, list) else out
             first = first[0] if isinstance(first, tuple) else first
             assert first.device.type == "cuda"

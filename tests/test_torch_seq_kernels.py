@@ -1,0 +1,193 @@
+"""The port's sequence kernels (flash attention, RG-LRU scan) through
+their plain PyTorch versions (CPU).
+
+Each plain version (``repro_torch.kernels.ref``, fp32 arithmetic like
+the CUDA kernel it stands beside) is held against the JAX reference's
+oracle (``repro.kernels.ref``) and against the Pallas TPU kernel run in
+interpret mode, on the shape, dtype and window cases of
+``tests/test_kernels.py``: 1e-5 in fp32, the reference's own 2e-2
+(attention) and 5e-2 (scan) in bf16. Grouped-query heads are held
+against the reference's ``ops.attention(impl="xla")``, which repeats
+k/v where the port reads kv head h // G. ``tests/test_torch_cuda.py``
+covers the launches on a card."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E402
+from repro.kernels.rglru_scan import rglru_scan as jscan  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+
+TOL32 = 1e-5
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def both(x, dtype):
+    """One numpy array as a JAX array and a torch tensor of one dtype
+    (both round to bf16 to nearest even)."""
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(x).astype(jdt), torch.as_tensor(x).to(tdt)
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def max_err(got, want):
+    return float(np.max(np.abs(f32(got) - f32(want))))
+
+
+def qkv(seed, bh, sq, sk, dh, dtype, bk=None):
+    rng = np.random.default_rng(seed)
+    bk = bk or bh
+    return (both(rng.standard_normal((bh, sq, dh)), dtype),
+            both(rng.standard_normal((bk, sk, dh)), dtype),
+            both(rng.standard_normal((bk, sk, dh)), dtype))
+
+
+# ---------------------------------------------------------------- attention
+@pytest.mark.parametrize("sq,sk", [(32, 32), (64, 64), (48, 80), (16, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_plain_shapes(sq, sk, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = qkv(sq * sk, 3, sq, sk, 32, dtype)
+    got = ref.attention_ref(tq, tk, tv, causal=True)
+    assert got.dtype == tq.dtype and got.shape == (3, sq, 32)
+    atol = 2e-2 if dtype == "bfloat16" else TOL32
+    assert max_err(got, jref.attention_ref(jq, jk, jv, causal=True)) <= atol
+    pallas = jflash(jq, jk, jv, causal=True, block_q=16, block_k=16,
+                    interpret=True)
+    assert max_err(got, pallas) <= atol
+
+
+@pytest.mark.parametrize("window", [8, 24, 64])
+def test_attention_plain_window(window):
+    (jq, tq), (jk, tk), (jv, tv) = qkv(window, 2, 64, 64, 16, "float32")
+    got = ref.attention_ref(tq, tk, tv, causal=True, window=window)
+    want = jref.attention_ref(jq, jk, jv, causal=True, window=window)
+    assert max_err(got, want) <= TOL32
+    pallas = jflash(jq, jk, jv, causal=True, window=window, block_q=16,
+                    block_k=16, interpret=True)
+    assert max_err(got, pallas) <= TOL32
+
+
+def test_attention_plain_noncausal():
+    (jq, tq), (jk, tk), (jv, tv) = qkv(0, 2, 32, 32, 16, "float32")
+    got = ref.attention_ref(tq, tk, tv, causal=False)
+    assert max_err(got, jref.attention_ref(jq, jk, jv, causal=False)) <= TOL32
+
+
+@pytest.mark.parametrize("sq,sk,window", [(48, 48, 16), (40, 72, 0),
+                                          (72, 40, 0), (64, 64, 0)])
+def test_attention_plain_grouped_heads(sq, sk, window):
+    """H = 4 query heads over K = 2 kv heads: the port reads kv head
+    h // G; the reference's ops.attention repeats k/v G times."""
+    rng = np.random.default_rng(sq + sk + window)
+    q = rng.standard_normal((2, sq, 4, 32))
+    k = rng.standard_normal((2, sk, 2, 32))
+    v = rng.standard_normal((2, sk, 2, 32))
+    got = ops.attention(*(torch.as_tensor(x, dtype=torch.float32)
+                          for x in (q, k, v)), causal=True, window=window,
+                        impl="xla")
+    want = jops.attention(*(jnp.asarray(x, jnp.float32) for x in (q, k, v)),
+                          causal=True, window=window, impl="xla")
+    assert got.shape == (2, sq, 4, 32)
+    assert max_err(got, want) <= TOL32
+
+
+def test_attention_rows_with_no_allowed_key_are_zero():
+    """Sq > Sk + window - 1 leaves late query rows with no key; the port
+    gives 0 there like the TPU kernel (the JAX oracle's -1e30 fill gives
+    the mean of v instead)."""
+    (jq, tq), (jk, tk), (jv, tv) = qkv(7, 2, 32, 8, 16, "float32")
+    got = ref.attention_ref(tq, tk, tv, causal=True, window=4)
+    pallas = jflash(jq, jk, jv, causal=True, window=4, block_q=8, block_k=8,
+                    interpret=True)
+    assert max_err(got, pallas) <= TOL32
+    assert float(got[:, 11:].abs().max()) == 0.0
+    assert bool((got[:, :11].abs().amax(dim=-1) > 0).all())
+
+
+# ---------------------------------------------------------------- rglru
+@pytest.mark.parametrize("s,chunk", [(32, 8), (64, 16), (64, 64), (16, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_scan_plain(s, chunk, dtype):
+    rng = np.random.default_rng(s + chunk)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((2, s, 8))))
+    b = 0.5 * rng.standard_normal((2, s, 8))
+    (ja, ta), (jb, tb) = both(a, dtype), both(b, dtype)
+    got = ref.rglru_scan_ref(ta, tb)
+    assert got.dtype == ta.dtype and got.shape == (2, s, 8)
+    atol = 5e-2 if dtype == "bfloat16" else TOL32
+    assert max_err(got, jref.rglru_scan_ref(ja, jb)) <= atol
+    assert max_err(got, jscan(ja, jb, chunk=chunk, interpret=True)) <= atol
+
+
+def test_rglru_scan_plain_matches_associative_scan():
+    rng = np.random.default_rng(5)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((1, 32, 4))))
+    b = 0.5 * rng.standard_normal((1, 32, 4))
+    (ja, ta), (jb, tb) = both(a, "float32"), both(b, "float32")
+
+    def combine(c1, c2):
+        return c1[0] * c2[0], c2[0] * c1[1] + c2[1]
+
+    _, h_assoc = jax.lax.associative_scan(combine, (ja, jb), axis=1)
+    assert max_err(ref.rglru_scan_ref(ta, tb), h_assoc) <= TOL32
+
+
+# ---------------------------------------------------------------- dispatch
+def test_sequence_ops_on_cpu_take_the_plain_versions():
+    rng = np.random.default_rng(3)
+    q = torch.as_tensor(rng.standard_normal((1, 20, 2, 64)),
+                        dtype=torch.float32)
+    k = torch.as_tensor(rng.standard_normal((1, 20, 1, 64)),
+                        dtype=torch.float32)
+    a = torch.rand((2, 9, 5))
+    b = torch.randn((2, 9, 5))
+    before = dict(build.LAUNCHES)
+    for impl in ("pallas", "xla"):
+        out = ops.attention(q, k, k, causal=True, window=4, impl=impl)
+        want = ref.attention_ref(q[0].transpose(0, 1), k[0].transpose(0, 1),
+                                 k[0].transpose(0, 1), causal=True, window=4)
+        assert torch.equal(out[0].transpose(0, 1), want)
+        assert torch.equal(ops.lru_scan(a, b, impl=impl),
+                           ref.rglru_scan_ref(a, b))
+    assert dict(build.LAUNCHES) == before  # no kernel ran
+    with pytest.raises(ValueError):
+        ops.lru_scan(a, b, impl="triton")
+    with pytest.raises(ValueError):
+        ops.attention(q, k, k, impl="auto")
+
+
+def test_sequence_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rglru_scan as krg
+    x = torch.zeros((2, 8, 64))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kfa.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        krg.rglru_scan(x, x)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        krg.rglru_scan(x.double(), x.double())
+
+
+def test_sequence_kernels_are_built_and_bound():
+    """Both sources are in the library's build and have ctypes
+    signatures (pointers as c_void_p, so none is cut to 32 bits)."""
+    names = {p.name for p in build._sources()}
+    assert {"flash_attention.cu", "rglru_scan.cu"} <= names
+    for fn, n_ptr in (("qf_flash_attention", 4), ("qf_rglru_scan", 3)):
+        argtypes, _ = build._SIGNATURES[fn]
+        assert argtypes[:n_ptr] == [build._VP] * n_ptr
+        assert argtypes[-1] is build._VP       # the stream
+        text = "".join(p.read_text() for p in build._sources())
+        assert f'extern "C" int {fn}(' in text
