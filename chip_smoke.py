@@ -36,7 +36,15 @@ repository, it exits non-zero before printing any result. Phases:
    decode step with a prefill of S+1 tokens. Each sequence kernel is
    held against its plain version on the path's inputs and on ragged
    shapes, then timed; then profiler breakdowns of one prefill and one
-   decode step, and ``python -m repro_torch.launch.serve`` as a smoke.
+   decode step, and ``python -m repro_torch.launch.serve`` as a smoke;
+6. RWKV6 serving: RWKV6-7B at full width (32 layers, d_model 4096, 64
+   heads of 64, bf16, 7,576,752,128 params) with the reference init's
+   zero decay, bonus and mixing tensors redrawn from a seed, the same
+   steps as phase 5: one prefill of B=4 x S=4096 with exactly 32
+   gla_chunked launches (w handed over in fp32), the same budgets, 32
+   decode tokens, the first of them against a prefill of S+1 tokens
+   (the kernel at chunk 1), the kernel against its plain version on the
+   path's inputs and ragged shapes, profiles and the serve CLI.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -100,6 +108,9 @@ SEQ_KERNELS = {
     "rglru_scan": dict(
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:48"),
+    "gla_chunked": dict(
+        source="src/repro_torch/kernels/csrc/gla_chunked.cu",
+        replaces="src/repro/kernels/gla_chunked.py:73"),
 }
 
 def smi(query: str) -> str:
@@ -184,10 +195,11 @@ class Recorder:
              "mse": "mse",
              "ensemble_commutator_trace": "ensemble_commutator_trace"}
 
-    def __init__(self, names=None):
+    def __init__(self, names=None, observe=None):
         from repro_torch.kernels import ops
         self.ops = ops
         self.names = names or self.NAMES
+        self.observe = observe      # called as observe(kernel, args, kw)
         self.calls = {k: {} for k in self.names.values()}
         self.saved = {}
 
@@ -203,6 +215,8 @@ class Recorder:
                 seen = self.calls[_k].setdefault(
                     key, [0, tuple(a.detach() for a in args), kw])
                 seen[0] += 1
+                if self.observe is not None:
+                    self.observe(_k, args, kw)
                 return _orig(*args, **kw)
             setattr(self.ops, fn, wrapped)
         return self
@@ -504,11 +518,27 @@ def allowed_pairs(sq, sk, causal, window):
     return n
 
 
+def gla_flops(b, s, h, dh, chunk):
+    """fp32 operations of the chunked GLA form at these inputs: per
+    (b, h, chunk) of L tokens, the inter term and the state update
+    (2 L dh^2 each), the decayed scores of the L(L-1)/2 strictly lower
+    pairs (subtract, exp, two multiplies and an add per channel), the
+    bonus (3 per token-channel), scores @ v over the L(L+1)/2 pairs
+    (2 per value column), the per-element log-decay, its cumulative sum
+    and the decayed q and k (9 per token-channel), and the state's decay
+    (2 per entry)."""
+    el = chunk * dh
+    per_chunk = (4 * chunk * dh * dh + 5 * dh * chunk * (chunk - 1) // 2
+                 + 3 * el + dh * chunk * (chunk + 1) + 9 * el + 2 * dh * dh)
+    return per_chunk * b * h * (s // chunk)
+
+
 def seq_bound_ms(name, args, kw):
     """Least time on an H100 for the function at these inputs: bytes
     (inputs once, outputs once) at HBM rate against the operations at the
-    peak for their type (bf16 tensor cores for bf16 inputs, fp32 CUDA
-    cores otherwise), the larger of the two."""
+    peak for their type (bf16 tensor cores for bf16 attention, fp32 CUDA
+    cores otherwise: GLA's arithmetic is fp32 by contract), the larger of
+    the two."""
     if name == "flash_attention":
         q, k, v = args                          # (B, Sq, H, dh), (B, Sk, K, dh)
         b, sq, h, dh = q.shape
@@ -517,6 +547,15 @@ def seq_bound_ms(name, args, kw):
                               kw.get("window", 0))
         flops = 4 * dh * pairs * b * h          # QK^T and PV, 2 each per MAC
         peak = BF16_FLOPS if q.element_size() == 2 else FP32_FLOPS
+    elif name == "gla_chunked":
+        from repro_torch.kernels.gla_chunked import kernel_chunk
+        r, k, v, w, u = args                    # (B, S, H, dh); u (H, dh)
+        b, s, h, dh = r.shape
+        nbytes = (r.element_size() * 4 * r.numel()      # r, k, v, out
+                  + w.element_size() * w.numel() + 4 * u.numel()
+                  + 4 * b * h * dh * dh)                 # the final state
+        flops = gla_flops(b, s, h, dh, kernel_chunk(kw["chunk"]))
+        peak = FP32_FLOPS
     else:
         a, b_ = args
         nbytes = a.element_size() * 3 * a.numel()
@@ -528,8 +567,12 @@ def seq_bound_ms(name, args, kw):
 
 
 def seq_ragged_cases(device):
-    """Edge shapes, seeded: Sq != Sk, S not a multiple of the 64-row tile,
-    a window below the tile, rows left with no allowed key, GQA 10:1."""
+    """Edge shapes, seeded. Attention: Sq != Sk, S not a multiple of the
+    64-row tile, a window below the tile, rows left with no allowed key,
+    GQA 10:1. GLA: S = 1, S = 17 at chunk 1, 48 at chunk 16, a chunk of
+    128 (run as two of 64), dh 8 and 64, odd H, w at the RWKV6 clip's
+    ends (1.9e-24, below the 1e-20 clamp, and 1 - 6.1e-6), fp32 and bf16
+    r/k/v, w fp32 and bf16."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(11)
 
@@ -538,6 +581,15 @@ def seq_ragged_cases(device):
 
     def u(dtype, *shape):
         return torch.rand(shape, generator=g).to(device, dtype)
+
+    def gla(dtype, b, s, h, dh, chunk, ends=False, w_dtype=torch.float32):
+        w = torch.rand((b, s, h, dh), generator=g) * 0.5 + 0.45
+        if ends:
+            w = torch.tensor([1.9e-24, 1.0 - 6.1e-6])[
+                torch.randint(0, 2, w.shape, generator=g)]
+        return ((r(dtype, b, s, h, dh), r(dtype, b, s, h, dh),
+                 r(dtype, b, s, h, dh), w.to(device, w_dtype),
+                 r(torch.float32, h, dh)), dict(chunk=chunk))
 
     bf, f32 = torch.bfloat16, torch.float32
     attn = [((r(bf, 1, 100, 10, 256), r(bf, 1, 37, 1, 256),
@@ -553,7 +605,13 @@ def seq_ragged_cases(device):
     scan = [((u(f32, 3, 77, 300), r(f32, 3, 77, 300)), {}),
             ((u(bf, 3, 77, 300), r(bf, 3, 77, 300)), {}),
             ((u(f32, 1, 5, 2560), r(f32, 1, 5, 2560)), {})]
-    return {"flash_attention": attn, "rglru_scan": scan}
+    glas = [gla(bf, 2, 1, 3, 64, 1), gla(f32, 2, 17, 3, 8, 1, ends=True),
+            gla(bf, 2, 17, 5, 64, 1, ends=True),
+            gla(f32, 2, 48, 5, 64, 16, ends=True),
+            gla(bf, 1, 48, 3, 8, 16, ends=True),
+            gla(f32, 1, 48, 3, 64, 16, w_dtype=bf),
+            gla(f32, 1, 128, 3, 64, 128)]
+    return {"flash_attention": attn, "rglru_scan": scan, "gla_chunked": glas}
 
 
 def no_impl(kw):
@@ -561,40 +619,53 @@ def no_impl(kw):
 
 
 def check_and_time_seq(rec, ragged):
-    """Hold each sequence kernel against its plain version on the path's
-    recorded inputs and on ragged shapes (fp32: 1e-5 of the plain result's
-    scale; bf16: one bf16 ulp of it), then time kernel, plain version and
-    (attention only) SDPA at the path's shape. Raises on a disagreement."""
+    """Hold each sequence kernel the phase recorded against its plain
+    version on the path's recorded inputs and on ragged shapes, every
+    output (GLA: out and the final state) to its own tolerance: fp32 to
+    KERNEL_RTOL of the plain result's scale (GLA's longest reduction, the
+    state's sum over S tokens, runs chunk by chunk in the same order in
+    both; each chunk's add rounds at 6e-8 of the state's scale, and 256
+    such roundings of either sign add to ~1e-6), bf16 to one bf16 ulp of
+    it. Then time kernel, plain version and (attention only) SDPA at the
+    path's shape. Raises on a disagreement."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import gla_chunked as kgla
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru_scan as krg
-    op = {"flash_attention": ops.attention, "rglru_scan": ops.lru_scan}
+    op = {"flash_attention": ops.attention, "rglru_scan": ops.lru_scan,
+          "gla_chunked": ops.gla_chunked}
     results = {}
-    for name in SEQ_KERNELS:
-        calls = rec.calls[name]
+    for name, calls in rec.calls.items():
         if not calls:
             raise RuntimeError(f"the path never called {name}")
         worst = 0.0
         cases = [(f"path {list(key)} x{cnt}", args, no_impl(kw))
                  for key, (cnt, args, kw) in calls.items()]
-        cases += [(f"ragged {[list(a.shape) for a in args]} {kw}", args, kw)
+        cases += [(f"ragged {[list(a.shape) for a in args]} "
+                   f"{[str(a.dtype)[6:] for a in args]} {kw}", args, kw)
                   for args, kw in ragged[name]]
         for label, args, kw in cases:
             got = op[name](*args, **kw)
             want = op[name](*args, **dict(kw, impl="xla"))
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            scale = max(1.0, float(want.float().abs().max()))
-            rtol = BF16_RTOL if want.dtype == torch.bfloat16 else KERNEL_RTOL
-            ok = err <= rtol * scale
-            say(f"  {name:16s} {label}: max_abs_err {err:.3e} (tol "
-                f"{rtol:.2e} x scale {scale:.3g}) {'ok' if ok else 'FAIL'}")
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            ok, parts = True, []
+            for g_, w_ in zip(got, want):
+                err = float((g_.float() - w_.float()).abs().max())
+                scale = max(1.0, float(w_.float().abs().max()))
+                rtol = BF16_RTOL if w_.dtype == torch.bfloat16 else KERNEL_RTOL
+                ok = ok and err <= rtol * scale
+                parts.append(f"max_abs_err {err:.3e} (tol {rtol:.2e} x "
+                             f"scale {scale:.3g})")
+                if label.startswith("path"):
+                    worst = max(worst, err)
+            say(f"  {name:16s} {label}: {'; '.join(parts)} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"{name} disagrees with its plain version")
-            if label.startswith("path"):
-                worst = max(worst, err)
         (cnt, args, kw), = calls.values()      # one shape on the path
         kw = no_impl(kw)
         b_ms, b_by = seq_bound_ms(name, args, kw)
@@ -627,6 +698,16 @@ def check_and_time_seq(rec, ragged):
                 raise RuntimeError("SDPA yardstick disagrees with the plain "
                                    "attention")
             lib_ms = cuda_ms(lib, reps=5, warmup=1)
+        elif name == "gla_chunked":
+            r, k, v, w, u = args
+            dense = [ops._dense(x) for x in (r, k, v, w)] + [
+                ops._dense(u.float())]      # what ops hands the kernel
+            k_ms = cuda_ms(lambda: kgla.gla_chunked(*dense, **kw), reps=10,
+                           warmup=2)
+            p_ms = cuda_ms(lambda: ref.gla_chunked_ref(r, k, v, w, u,
+                                                       kw["chunk"]),
+                           reps=3, warmup=1)
+            lib_ms = None   # no single PyTorch call computes chunked GLA
         else:
             a, b = args
             k_ms = cuda_ms(lambda: krg.rglru_scan(a, b), reps=20, warmup=2)
@@ -634,8 +715,8 @@ def check_and_time_seq(rec, ragged):
                            warmup=1)
             lib_ms = None          # no single PyTorch call is a linear scan
         say(f"  {name:16s} timed at {[list(x.shape) for x in args]} "
-            f"{args[0].dtype} x{cnt}: kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, library "
+            f"{[str(x.dtype)[6:] for x in args]} {kw} x{cnt}: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.1f}x")
         results[name] = dict(name=name, route="cuda", **SEQ_KERNELS[name],
@@ -650,60 +731,35 @@ def logit_dev(got, want):
                  / want.float().abs().max())
 
 
-def phase_serve(device="cuda"):
+def nudge_(p32, device, slab=1 << 26):
+    """Move every fp32 weight one ulp, up or down at random (seeded), in
+    place, ``slab`` elements at a time (no full-size temporaries)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(2)
+    for v in p32.values():
+        up = torch.randint(0, 2, v.shape, generator=g, device=device,
+                           dtype=torch.bool).view(-1)
+        flat = v.view(-1)
+        for i in range(0, flat.numel(), slab):
+            part = flat[i:i + slab]
+            part.copy_(torch.nextafter(part, torch.where(
+                up[i:i + slab], float("inf"), float("-inf"))))
+        del up
+
+
+def check_prefill_budgets(cfg, params, batch, logits, cache):
+    """The kernel prefill (``logits``, ``cache``) against the same prefill
+    through the plain versions: bf16 logits within the bf16 budget (the
+    plain bf16 prefill's deviation from the plain fp32 one, same weights
+    and tokens), and the fp32 kernel prefill within the plain fp32
+    prefill's deviation when every weight moves one ulp. Prints each cache
+    entry's deviation; returns the bf16 budget."""
     import dataclasses
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.configs.shapes import concrete_batch
-    from repro_torch.kernels import build
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import Model
-    b, s, n_gen = SERVE_B, SERVE_S, SERVE_GEN
-    cfg = get_config("recurrentgemma-2b")
-    say(f"== phase 5: {cfg.name} serving at full width ({cfg.n_layers} "
-        f"layers {cfg.block_pattern}, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, window "
-        f"{cfg.window}, {cfg.dtype}): B={b}, S={s}, {n_gen} decode tokens")
-    model, plain = Model(cfg), Model(cfg, impl="xla")
-    t0 = time.time()
-    params = model.init(seed=0, device=device)
-    torch.cuda.synchronize()
-    say(f"  init {model.num_params():,} params in {time.time() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-    batch = concrete_batch(cfg, b, s, torch.Generator().manual_seed(1),
-                           kind="prefill", device=device)
-    prefill = make_prefill_step(model)
-    with Recorder({"attention": "flash_attention",
-                   "lru_scan": "rglru_scan"}) as rec:
-        prefill(params, batch)                  # warm-up, inputs recorded
-        torch.cuda.synchronize()
-
-    # the main path: one prefill with the launch counts zeroed around it
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    logits, cache = prefill(params, batch)
-    end.record()
-    torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    prefill_ms = start.elapsed_time(end)
-    say(f"  launches in one prefill: {launches}")
-    want = {"flash_attention": 8, "rglru_scan": 18}
-    if launches != want:
-        raise RuntimeError(f"prefill launched {launches}, expected {want}")
-    more = [cuda_ms(lambda: prefill(params, batch), reps=1, warmup=0)
-            for _ in range(2)]
-    say(f"  prefill {prefill_ms:.3f} ms (then {more[0]:.3f}, {more[1]:.3f}; "
-        f"CUDA events), peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB, {b * s / prefill_ms * 1e3:,.0f} prompt tokens/s")
-    if tuple(logits.shape) != (b, cfg.vocab_size) or not bool(
-            torch.isfinite(logits).all()):
-        raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite")
-
-    # the same prefill through the plain versions; both again in fp32
-    plain_logits, plain_cache = make_prefill_step(plain)(params, batch)
+    plain_logits, plain_cache = make_prefill_step(Model(cfg, impl="xla"))(
+        params, batch)
     dev = logit_dev(logits, plain_logits)
     for key in sorted(cache):
         say(f"    cache {key} {tuple(cache[key].shape)} {cache[key].dtype}: "
@@ -715,16 +771,11 @@ def phase_serve(device="cuda"):
     plain_step32 = make_prefill_step(Model(cfg32, impl="xla"))
     plain32, _ = plain_step32(p32, batch)
     kern32, _ = make_prefill_step(Model(cfg32))(p32, batch)
-    # the model's own fp32 noise floor: every weight moved one fp32 ulp,
-    # up or down at random (seeded), through the plain versions
-    g = torch.Generator(device=device).manual_seed(2)
-    for k, v in p32.items():
-        up = torch.randint(0, 2, v.shape, generator=g, device=device,
-                           dtype=torch.bool)
-        p32[k] = torch.nextafter(v, torch.where(up, float("inf"),
-                                                float("-inf")))
+    # the model's own fp32 noise floor: every weight one ulp off, plain
+    nudge_(p32, logits.device)
     nudged32, _ = plain_step32(p32, batch)
     del p32
+    torch.cuda.empty_cache()
     budget = logit_dev(plain_logits, plain32)
     dev32, floor32 = logit_dev(kern32, plain32), logit_dev(nudged32, plain32)
     ok = dev <= budget and dev32 <= floor32
@@ -736,8 +787,20 @@ def phase_serve(device="cuda"):
     if not ok:
         raise RuntimeError("the kernel prefill deviates from the plain one "
                            "beyond its budget")
+    return budget
 
-    # decode: the prefill cache moved into a S + n_gen cache, greedy
+
+def decode_and_check(cfg, model, params, batch, logits, cache, budget,
+                     n_gen):
+    """Move the prefill cache into a S + n_gen cache and greedy-decode
+    n_gen tokens through ``make_serve_step`` (ms/token by CUDA events);
+    then hold the first decode step against a prefill of the prompt and
+    its token (S + 1) within the bf16 budget. Returns that prefill's
+    launch counts."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    b, s = batch["tokens"].shape
     serve = make_serve_step(model)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     warm = model.extend_cache(cache, s + n_gen)
@@ -745,6 +808,8 @@ def phase_serve(device="cuda"):
     del warm
     dcache = model.extend_cache(cache, s + n_gen)
     first, tokens = None, []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(n_gen):
         tok, step_logits, dcache = serve(params, dcache,
@@ -762,45 +827,218 @@ def phase_serve(device="cuda"):
     if not (bool(torch.isfinite(step_logits).all())
             and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size):
         raise RuntimeError("decode gave non-finite logits or bad tokens")
-    # the first decode step against a prefill of the prompt + its token
+    del dcache
     longer = {"tokens": torch.cat([batch["tokens"],
                                    torch.argmax(logits, -1).int()[:, None]],
                                   1)}
-    ext_logits, _ = prefill(params, longer)
+    build.reset_launches()
+    ext_logits, _ = make_prefill_step(model)(params, longer)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
     dev_dec = logit_dev(first, ext_logits)
     ok = dev_dec <= budget
-    say(f"  first decode step vs prefill of S+1 = {s + 1} tokens: "
-        f"{dev_dec:.3e} of the scale (budget {budget:.3e}) "
-        f"{'ok' if ok else 'FAIL'}")
+    say(f"  first decode step vs prefill of S+1 = {s + 1} tokens "
+        f"(launches {launches}): {dev_dec:.3e} of the scale (budget "
+        f"{budget:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError("decode disagrees with prefill")
-    del ext_logits, dcache
+    return launches
+
+
+def prefill_main_path(prefill, params, batch, want):
+    """The main path: one prefill with the launch counts zeroed just
+    before and read just after (they must be ``want``), timed by CUDA
+    events, then twice more; prints ms, tokens/s and peak memory."""
+    import torch
+    from repro_torch.kernels import build
+    b, s = batch["tokens"].shape
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits, cache = prefill(params, batch)
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    prefill_ms = start.elapsed_time(end)
+    say(f"  launches in one prefill: {launches}")
+    if launches != want:
+        raise RuntimeError(f"prefill launched {launches}, expected {want}")
+    more = [cuda_ms(lambda: prefill(params, batch), reps=1, warmup=0)
+            for _ in range(2)]
+    say(f"  prefill {prefill_ms:.3f} ms (then {more[0]:.3f}, {more[1]:.3f}; "
+        f"CUDA events), peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB, {b * s / prefill_ms * 1e3:,.0f} prompt tokens/s")
+    return logits, cache, launches
+
+
+def profile_serving(model, params, batch, logits, cache, n_gen):
+    """Profiler breakdowns of one prefill and one decode step."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    b, s = batch["tokens"].shape
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    profile_device(f"prefill B={b} S={s}", lambda: prefill(params, batch))
+    dcache = model.extend_cache(cache, s + n_gen)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    profile_device(f"one decode step at position {s}", lambda: serve(
+        params, dcache, {"tokens": tok[:, None]}, s))
+
+
+def serve_cli(arch):
+    say(f"  python -m repro_torch.launch.serve --arch {arch}:")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", arch], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    for line in (out.stdout + out.stderr).strip().splitlines()[-4:]:
+        say("    " + line)
+    if out.returncode != 0:
+        raise RuntimeError("the serve CLI failed")
+
+
+def phase_serve(device="cuda"):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import Model
+    b, s, n_gen = SERVE_B, SERVE_S, SERVE_GEN
+    cfg = get_config("recurrentgemma-2b")
+    say(f"== phase 5: {cfg.name} serving at full width ({cfg.n_layers} "
+        f"layers {cfg.block_pattern}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, window "
+        f"{cfg.window}, {cfg.dtype}): B={b}, S={s}, {n_gen} decode tokens")
+    model = Model(cfg)
+    t0 = time.time()
+    params = model.init(seed=0, device=device)
+    torch.cuda.synchronize()
+    say(f"  init {model.num_params():,} params in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    batch = concrete_batch(cfg, b, s, torch.Generator().manual_seed(1),
+                           kind="prefill", device=device)
+    prefill = make_prefill_step(model)
+    with Recorder({"attention": "flash_attention",
+                   "lru_scan": "rglru_scan"}) as rec:
+        prefill(params, batch)                  # warm-up, inputs recorded
+        torch.cuda.synchronize()
+    logits, cache, launches = prefill_main_path(
+        prefill, params, batch, {"flash_attention": 8, "rglru_scan": 18})
+    if tuple(logits.shape) != (b, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite")
+    budget = check_prefill_budgets(cfg, params, batch, logits, cache)
+    decode_and_check(cfg, model, params, batch, logits, cache, budget, n_gen)
 
     say("  sequence kernels against their plain versions, at the prefill's "
         "inputs and ragged shapes:")
     results = check_and_time_seq(rec, seq_ragged_cases(device))
     del rec
     torch.cuda.empty_cache()
-    profile_device(f"prefill B={b} S={s}", lambda: prefill(params, batch))
-    dcache = model.extend_cache(cache, s + n_gen)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    profile_device(f"one decode step at position {s}", lambda: serve(
-        params, dcache, {"tokens": tok[:, None]}, s))
-    del dcache
+    profile_serving(model, params, batch, logits, cache, n_gen)
     say(f"  card during phase 5: "
         f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     del params, cache
     torch.cuda.empty_cache()
+    serve_cli("recurrentgemma-2b")
+    for name, row in results.items():
+        row["launches"] = launches[name]
+    return results
 
-    say("  python -m repro_torch.launch.serve --arch recurrentgemma-2b:")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          "--arch", "recurrentgemma-2b"], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
-    for line in (out.stdout + out.stderr).strip().splitlines()[-4:]:
-        say("    " + line)
-    if out.returncode != 0:
-        raise RuntimeError("the serve CLI failed")
+
+# ------------------------------------------------- phase 6: RWKV6 serving
+def redraw_rwkv(params, seed):
+    """Draw the reference init's zero tensors of the RWKV6 block anew
+    (seeded), in place: w0 uniform in [-8, 1], w_lora_b and ts_lora_b
+    N(0, 0.1), u N(0, 0.5), the mixing coefficients uniform in [0, 1].
+    At the reference's init w is exp(-1) in every channel at every token,
+    the bonus is 0 and the token shift does nothing, so the kernel would
+    never meet a data-dependent decay."""
+    import torch
+    dev = next(iter(params.values())).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, kind):
+        if kind == "uniform":
+            return torch.rand(shape, generator=g, device=dev)
+        return torch.randn(shape, generator=g, device=dev)
+    for key, val in params.items():
+        name = key.rsplit("/", 1)[-1]
+        if name == "w0":
+            val.copy_(draw(val.shape, "uniform") * 9.0 - 8.0)
+        elif name in ("w_lora_b", "ts_lora_b"):
+            val.copy_(0.1 * draw(val.shape, "normal"))
+        elif name == "u":
+            val.copy_(0.5 * draw(val.shape, "normal"))
+        elif name in ("mu", "mu_base", "mu_k", "mu_r"):
+            val.copy_(draw(val.shape, "uniform"))
+
+
+def phase_rwkv(device="cuda"):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import Model
+    b, s, n_gen = SERVE_B, SERVE_S, SERVE_GEN
+    cfg = get_config("rwkv6-7b")
+    say(f"== phase 6: {cfg.name} serving at full width ({cfg.n_layers} "
+        f"layers {cfg.block_pattern}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, gla_chunk {cfg.gla_chunk}, {cfg.dtype}): B={b}, "
+        f"S={s}, {n_gen} decode tokens")
+    model = Model(cfg)
+    t0 = time.time()
+    params = model.init(seed=0, device=device)
+    redraw_rwkv(params, seed=1)
+    torch.cuda.synchronize()
+    say(f"  init {model.num_params():,} params in {time.time() - t0:.1f} s "
+        f"(decay, bonus and mixing tensors redrawn), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    batch = concrete_batch(cfg, b, s, torch.Generator().manual_seed(1),
+                           kind="prefill", device=device)
+    prefill = make_prefill_step(model)
+    w_seen = {"low": 0, "high": 0, "all": 0, "dtypes": set()}
+
+    def w_share(kernel, args, kw):
+        w = args[3]
+        w_seen["low"] += int((w < 1e-3).sum())
+        w_seen["high"] += int((w > 0.999).sum())
+        w_seen["all"] += w.numel()
+        w_seen["dtypes"].add((str(args[0].dtype), str(w.dtype)))
+    with Recorder({"gla_chunked": "gla_chunked"}, observe=w_share) as rec:
+        prefill(params, batch)                  # warm-up, inputs recorded
+        torch.cuda.synchronize()
+    say(f"  w on the path: {w_seen['low'] / w_seen['all']:.4f} below 1e-3, "
+        f"{w_seen['high'] / w_seen['all']:.4f} above 0.999 over "
+        f"{w_seen['all']:,} decays; (r, w) dtypes {sorted(w_seen['dtypes'])}")
+    if w_seen["dtypes"] != {("torch.bfloat16", "torch.float32")}:
+        raise RuntimeError("the RWKV layer must hand w to the kernel in fp32")
+    logits, cache, launches = prefill_main_path(
+        prefill, params, batch, {"gla_chunked": cfg.n_layers})
+    if tuple(logits.shape) != (b, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite")
+    budget = check_prefill_budgets(cfg, params, batch, logits, cache)
+    s1 = decode_and_check(cfg, model, params, batch, logits, cache, budget,
+                          n_gen)
+    if s1 != {"gla_chunked": cfg.n_layers}:
+        raise RuntimeError(f"the S+1 prefill (chunk 1) launched {s1}")
+
+    say("  gla_chunked against its plain version, at the prefill's inputs "
+        "and ragged shapes:")
+    results = check_and_time_seq(rec, seq_ragged_cases(device))
+    del rec
+    torch.cuda.empty_cache()
+    profile_serving(model, params, batch, logits, cache, n_gen)
+    say(f"  card during phase 6: "
+        f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    say(f"  peak memory since the timed prefill "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, cache
+    torch.cuda.empty_cache()
+    serve_cli("rwkv6-7b")
     for name, row in results.items():
         row["launches"] = launches[name]
     return results
@@ -825,6 +1063,7 @@ def main() -> int:
     for name, row in results.items():
         row["launches"] = launches[name]
     results.update(phase_serve())
+    results.update(phase_rwkv())
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

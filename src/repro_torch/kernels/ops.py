@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import fidelity as _fid
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gla_chunked as _gla
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import zgemm as _zgemm
@@ -90,3 +91,25 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, *, impl: str = "pallas"
     if _plain(a, impl):
         return ref.rglru_scan_ref(a, b)
     return _rg.rglru_scan(_dense(a), _dense(b))
+
+
+def gla_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor, *, chunk: int,
+                impl: str = "pallas"):
+    """RWKV6 wkv as chunked gated linear attention: r, k, v, w
+    (B, S, H, dh) with w in (0, 1) (keep it fp32), u (H, dh), ``chunk``
+    dividing S -> (out (B, S, H, dh) in r's dtype, final state
+    (B, H, dh, dh) fp32). The model layer's entry."""
+    if _plain(r, impl):
+        return ref.gla_chunked_ref(r, k, v, w, u, chunk)
+    return _gla.gla_chunked(_dense(r), _dense(k), _dense(v), _dense(w),
+                            _dense(u.float()), chunk=chunk)
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+        u: torch.Tensor, *, chunk: int = 16, impl: str = "pallas"
+        ) -> torch.Tensor:
+    """RWKV6 linear attention, the reference's ``ops.wkv`` signature:
+    out only. Its plain route is the chunked form (the reference's is the
+    step recurrence; the tests hold the two together)."""
+    return gla_chunked(r, k, v, w, u, chunk=chunk, impl=impl)[0]

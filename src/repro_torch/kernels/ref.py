@@ -3,8 +3,8 @@
 Each computes the same function as its kernel with the kernel's
 precision contract. The quantum kernels: complex128 in, fp32
 arithmetic, complex128 (or float64) out. The sequence kernels
-(attention, the RG-LRU scan): fp32 or bf16 in, fp32 arithmetic, out in
-the input's dtype. The ``ops`` wrappers take these for tensors on the
+(attention, the RG-LRU scan, chunked GLA): fp32 or bf16 in, fp32
+arithmetic, out in the input's dtype (GLA's final state in fp32). The ``ops`` wrappers take these for tensors on the
 CPU, and ``chip_smoke.py`` holds each kernel against its plain version
 on the card, like for like. The JAX package's ``repro.kernels.ref`` is
 the oracle they are tested against.
@@ -102,3 +102,88 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         h = a32[:, t] * h + b32[:, t]
         out[:, t] = h
     return out.to(a.dtype)
+
+
+# log(w) is clamped here before the cumulative sums: decays below it
+# (the RWKV6 block reaches exp(-e^4) ~ 1.9e-24) count as 1e-20
+GLA_W_FLOOR = 1e-20
+# fp32 elements of one slab of the pairwise decay tensor (256 MB)
+GLA_SLAB_ELEMS = 1 << 26
+
+
+def gla_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, chunk: int):
+    """RWKV6 wkv as chunked gated linear attention (the reference's
+    ``models/layers/rwkv.py::gla_chunked_ref``, and the plain version of
+    the CUDA kernel).
+
+    r, k, v, w (B, S, H, dh) with w in (0, 1), any float dtypes; u (H, dh);
+    ``chunk`` divides S. Returns out (B, S, H, dh) in r's dtype and the
+    final state (B, H, dh, dh) in fp32. Per chunk, with lp the inclusive
+    cumulative log-decay (summed left to right, as the kernel does) and
+    lp_prev = lp - log w:
+
+        out[t] = sum_{i<t} (sum_c r_tc k_ic e^{lp_prev,tc - lp_ic}) v_i
+               + (sum_c r_tc k_tc u_c) v_t + (r_t * e^{lp_prev,t}) S
+        S     <- e^{lp_last} * S + sum_i (k_i * e^{lp_last - lp_i}) v_i^T
+
+    Every exponent is <= 0. The pairwise tensor (B, n, t, i, H, dh) is
+    built a slab of chunks at a time, so a full-width prefill stays
+    within a few GB."""
+    b, s, h, dh = r.shape
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence {s}")
+    n = s // chunk
+    r_, k_, v_ = (x.float().reshape(b, n, chunk, h, dh) for x in (r, k, v))
+    logw = torch.log(torch.clamp_min(w.float(), GLA_W_FLOOR)).reshape(
+        b, n, chunk, h, dh)
+    lp = logw.clone()
+    for t in range(1, chunk):
+        lp[:, :, t] += lp[:, :, t - 1]
+    lp_prev = lp - logw
+
+    # intra-chunk: the strictly lower pairs, then the u bonus
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=r.device
+                     ).tril(-1)[:, :, None, None]
+    bonus = (r_ * k_ * u.float()).sum(-1, keepdim=True) * v_
+    out = torch.empty_like(bonus)
+    slab = max(1, GLA_SLAB_ELEMS // (b * chunk * chunk * h * dh))
+    for n0 in range(0, n, slab):
+        sl = slice(n0, n0 + slab)
+        pair = lp_prev[:, sl, :, None] - lp[:, sl, None]  # (b,n,t,i,h,c)
+        dec = torch.where(tri, pair.exp_(), 0.0)
+        del pair
+        a = dec.mul_(r_[:, sl, :, None]).mul_(k_[:, sl, None]).sum(-1)
+        del dec
+        out[:, sl] = torch.einsum("bntih,bnihe->bnthe", a, v_[:, sl]) \
+            + bonus[:, sl]
+    del bonus
+
+    # inter-chunk: the (dh, dh) state carried across chunks
+    q_dec = r_ * torch.exp(lp_prev)
+    k_dec = k_ * torch.exp(lp[:, :, -1:] - lp)
+    decay = torch.exp(lp[:, :, -1])[..., None]            # (b,n,h,c,1)
+    state = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    for i in range(n):
+        out[:, i] += torch.einsum("bthc,bhce->bthe", q_dec[:, i], state)
+        kv = torch.einsum("bthc,bthe->bhce", k_dec[:, i], v_[:, i])
+        state = decay[:, i] * state + kv
+    return out.reshape(b, s, h, dh).to(r.dtype), state
+
+
+def gla_recurrence_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The step-by-step RWKV6 recurrence (the reference's
+    ``kernels/ref.py::gla_recurrence_ref``, the definitional oracle):
+    out_t = r_t (S_{t-1} + diag(u) k_t v_t^T), S_t = diag(w_t) S_{t-1}
+    + k_t v_t^T; fp32 state, out in r's dtype."""
+    b, s, h, dh = r.shape
+    r_, k_, v_, w_ = (x.float() for x in (r, k, v, w))
+    u_ = u.float()[..., None]
+    state = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    out = torch.empty((b, s, h, dh), dtype=torch.float32, device=r.device)
+    for t in range(s):
+        kv = k_[:, t, :, :, None] * v_[:, t, :, None, :]
+        out[:, t] = torch.einsum("bhc,bhce->bhe", r_[:, t], state + u_ * kv)
+        state = w_[:, t, :, :, None] * state + kv
+    return out.to(r.dtype)

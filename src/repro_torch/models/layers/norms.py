@@ -17,3 +17,17 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def groupnorm_heads(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                    n_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm with one group per head over the last dim (RWKV6 'ln_x').
+    x: (..., H*dh). The variance is the population one (``jnp.var``):
+    torch's default ``var`` is the unbiased estimate, hence
+    ``correction=0``."""
+    shp = x.shape
+    xh = x.reshape(shp[:-1] + (n_heads, shp[-1] // n_heads)).float()
+    mu = xh.mean(dim=-1, keepdim=True)
+    var = xh.var(dim=-1, keepdim=True, correction=0)
+    y = ((xh - mu) / torch.sqrt(var + eps)).reshape(shp)
+    return (y * scale.float() + bias.float()).to(x.dtype)

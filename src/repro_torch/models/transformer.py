@@ -3,9 +3,9 @@
 The reference scans over "pattern cycles" (one cycle = one repetition of
 cfg.block_pattern); here a Python loop walks the leading ``n_cycles``
 axis of the stacked params ("stack/{pos}/{kind}/..."). Remainder layers
-(n_layers % cycle_len, "rem/{i}/{kind}/...") follow unstacked. This
-slice ports the block kinds "attn", "local" and "rec"; "rwkv" and
-"moe" raise.
+(n_layers % cycle_len, "rem/{i}/{kind}/...") follow unstacked. The
+port has the block kinds "attn", "local", "rec" and "rwkv"; "moe"
+raises.
 
 Modes:
   train   — full sequence, no caches
@@ -21,14 +21,14 @@ import torch
 
 from repro_torch.models import params as pp
 from repro_torch.models.layers import attention as attn
-from repro_torch.models.layers import rglru
+from repro_torch.models.layers import rglru, rwkv
 from repro_torch.models.layers.embeddings import (embed_tokens,
                                                    init_embeddings, unembed)
 from repro_torch.models.layers.mlp import init_mlp, mlp
 from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 
 ATTN_KINDS = ("attn", "local")
-PORTED_KINDS = ATTN_KINDS + ("rec",)
+PORTED_KINDS = ATTN_KINDS + ("rec", "rwkv")
 
 
 def _check(cfg) -> None:
@@ -48,6 +48,11 @@ def _check(cfg) -> None:
 
 def init_block(ini, pfx: str, kind: str, cfg, stack: int = 0) -> None:
     init_rmsnorm(ini, f"{pfx}/ln1", cfg.d_model, stack)
+    if kind == "rwkv":
+        rwkv.init_rwkv_time_mix(ini, f"{pfx}/tm", cfg, stack)
+        init_rmsnorm(ini, f"{pfx}/ln2", cfg.d_model, stack)
+        rwkv.init_rwkv_channel_mix(ini, f"{pfx}/cm", cfg, stack)
+        return
     if kind in ATTN_KINDS:
         attn.init_attention(ini, f"{pfx}/attn", cfg, stack)
     elif kind == "rec":
@@ -88,6 +93,16 @@ def block_cache(kind: str, cfg, batch: int, max_len: int, *, device
             "h": torch.zeros((batch, cfg.d_rnn), dtype=torch.float32,
                              device=device),
         }
+    if kind == "rwkv":
+        return {
+            "shift_tm": torch.zeros((batch, cfg.d_model),
+                                    dtype=cfg.torch_dtype, device=device),
+            "shift_cm": torch.zeros((batch, cfg.d_model),
+                                    dtype=cfg.torch_dtype, device=device),
+            "wkv": torch.zeros((batch, cfg.n_heads, cfg.head_dim,
+                                cfg.head_dim), dtype=torch.float32,
+                               device=device),
+        }
     raise NotImplementedError(f"block kind {kind!r}")
 
 
@@ -114,8 +129,8 @@ def init_cache(cfg, batch: int, max_len: int, *, device
 def extend_cache(cfg, cache: Dict[str, torch.Tensor], max_len: int
                  ) -> Dict[str, torch.Tensor]:
     """A prefill cache (k/v over the S prompt positions) copied into a
-    zero ``max_len`` decode cache: k/v at offset 0, conv and h states as
-    they are."""
+    zero ``max_len`` decode cache: k/v at offset 0, the recurrent states
+    (conv, h; shift_tm, shift_cm, wkv) as they are."""
     out = {}
     for key, v in cache.items():
         if key.endswith("/k") or key.endswith("/v"):
@@ -172,6 +187,28 @@ def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
             new_cache.update(cache)
         elif mode == "prefill":
             new_cache.update({"conv": new_conv, "h": new_h})
+
+    elif kind == "rwkv":
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        dec = mode == "decode"
+        y, (new_shift_tm, new_wkv) = rwkv.rwkv_time_mix(
+            pp.subtree(p, "tm"), h, cfg,
+            shift_state=cache["shift_tm"] if dec else None,
+            wkv_state=cache["wkv"] if dec else None, impl=impl)
+        x = x + y
+        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        y, new_shift_cm = rwkv.rwkv_channel_mix(
+            pp.subtree(p, "cm"), h, cfg,
+            shift_state=cache["shift_cm"] if dec else None)
+        x = x + y
+        state = {"shift_tm": new_shift_tm, "shift_cm": new_shift_cm,
+                 "wkv": new_wkv}
+        if dec:
+            for key, val in state.items():
+                cache[key].copy_(val)
+            new_cache.update(cache)
+        elif mode == "prefill":
+            new_cache.update(state)
 
     else:
         raise NotImplementedError(f"block kind {kind!r}")

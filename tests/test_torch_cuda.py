@@ -172,3 +172,156 @@ def test_model_prefill_with_kernels_matches_plain(cuda_device):
         w = want_cache[key]
         assert float((cache[key] - w).abs().max()) <= 1e-3 * float(
             w.abs().max()), key
+
+
+# ---------------------------------------------------------------- gla
+BF16_ULP = 2.0 ** -7   # one bf16 rounding of the same fp32 value
+
+
+def _gla_case(gen, b, s, h, dh, dtype, device, w_ends=False,
+              w_dtype=torch.float32):
+    def r(*shape):
+        return 0.5 * torch.randn(shape, generator=gen)
+    w = torch.sigmoid(torch.randn((b, s, h, dh), generator=gen)) * 0.5 + 0.45
+    if w_ends:   # the RWKV6 clip's ends, exp(-e^4) and exp(-e^-12)
+        ends = torch.tensor([1.9e-24, 1.0 - 6.1e-6])
+        w = ends[torch.randint(0, 2, w.shape, generator=gen)]
+    return ([x.to(device, dtype) for x in (r(b, s, h, dh), r(b, s, h, dh),
+                                           r(b, s, h, dh))]
+            + [w.to(device, w_dtype), r(h, dh).to(device)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_kernel_agrees_and_counts(cuda_device, dtype):
+    """out and the final state against the plain chunked version: fp32
+    at 1e-5 of the scale, bf16 outputs within one bf16 ulp of it."""
+    from repro_torch.kernels import gla_chunked as kgla
+    gen = torch.Generator().manual_seed(8)
+    # (b, s, h, dh, chunk, w at the clip's ends, w dtype): the model's
+    # chunk 16 and chunk 1, a chunk of the whole sequence (64), one above
+    # the kernel's 64 (run as two sub-chunks), S = 1, dh 8, odd H
+    cases = [(2, 48, 3, 64, 16, False, torch.float32),
+             (1, 17, 3, 8, 1, False, torch.float32),
+             (2, 1, 5, 64, 1, False, torch.float32),
+             (1, 64, 2, 64, 64, True, torch.float32),
+             (1, 128, 2, 32, 128, False, torch.float32),
+             (2, 32, 3, 64, 16, False, torch.bfloat16)]
+    build.reset_launches()
+    for b, s, h, dh, chunk, ends, w_dtype in cases:
+        args = _gla_case(gen, b, s, h, dh, dtype, cuda_device, ends, w_dtype)
+        out, state = kgla.gla_chunked(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        want, want_state = ref.gla_chunked_ref(*args, chunk)
+        assert out.dtype == dtype and out.shape == (b, s, h, dh)
+        assert state.dtype == torch.float32 and state.shape == (b, h, dh, dh)
+        tol = BF16_ULP if dtype == torch.bfloat16 else RTOL
+        scale = float(want.float().abs().max())
+        err = float((out.float() - want.float()).abs().max())
+        assert err <= tol * scale, (b, s, h, dh, chunk, err, scale)
+        s_scale = max(float(want_state.abs().max()), 1e-30)
+        assert float((state - want_state).abs().max()) <= RTOL * s_scale
+    assert dict(build.LAUNCHES) == {"gla_chunked": len(cases)}
+
+
+@pytest.mark.cuda
+def test_gla_wrapper_refuses_bad_operands(cuda_device):
+    from repro_torch.kernels import gla_chunked as kgla
+    gen = torch.Generator().manual_seed(9)
+    r, k, v, w, u = _gla_case(gen, 1, 16, 2, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kgla.gla_chunked(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu(),
+                         chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        kgla.gla_chunked(r.transpose(1, 2), k, v, w, u, chunk=16)
+    with pytest.raises(ValueError):
+        kgla.gla_chunked(r, k.bfloat16(), v, w, u, chunk=16)
+    with pytest.raises(ValueError):
+        kgla.gla_chunked(r, k, v, w, u.bfloat16(), chunk=16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kgla.gla_chunked(r.double(), k.double(), v.double(), w, u, chunk=16)
+    with pytest.raises(ValueError, match="divide"):
+        kgla.gla_chunked(r, k, v, w, u, chunk=5)
+    with pytest.raises(ValueError):
+        kgla.gla_chunked(r[:, :8].contiguous(), k, v, w, u, chunk=8)
+    big = [torch.zeros((1, 4, 1, 128), device=cuda_device)] * 4
+    with pytest.raises(ValueError, match="head_dim"):
+        kgla.gla_chunked(*big, torch.zeros((1, 128), device=cuda_device),
+                         chunk=4)
+    # ops makes a strided operand dense and u fp32 before the launch
+    out, _ = ops.gla_chunked(r.transpose(1, 2).contiguous().transpose(1, 2),
+                             k, v, w, u.bfloat16(), chunk=16)
+    want, _ = ref.gla_chunked_ref(r, k, v, w, u.bfloat16(), 16)
+    assert float((out - want).abs().max()) <= RTOL * float(want.abs().max())
+
+
+def _rwkv_params(cfg, device):
+    """The reduced RWKV6 model with its zero-initialised decay, bonus and
+    mixing tensors redrawn, so that w spans the clip's range."""
+    from repro_torch.models import Model
+    params = Model(cfg).init(seed=0, device=device)
+    gen = torch.Generator().manual_seed(5)
+    draws = {"w0": lambda s: torch.rand(s, generator=gen) * 18 - 13,
+             "w_lora_b": lambda s: 0.1 * torch.randn(s, generator=gen),
+             "ts_lora_b": lambda s: 0.1 * torch.randn(s, generator=gen),
+             "u": lambda s: 0.5 * torch.randn(s, generator=gen)}
+    for key, val in params.items():
+        name = key.rsplit("/", 1)[-1]
+        if name in draws:
+            val.copy_(draws[name](val.shape))
+        elif name in ("mu", "mu_base", "mu_k", "mu_r"):
+            val.copy_(torch.rand(val.shape, generator=gen))
+    return params
+
+
+@pytest.mark.cuda
+def test_rwkv_layer_hands_w_to_the_kernel_in_fp32(cuda_device, monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.models import Model
+    cfg = get_config("rwkv6-7b").reduced(dtype="bfloat16",
+                                         param_dtype="bfloat16")
+    params = _rwkv_params(cfg, cuda_device)
+    seen, orig = [], ops.gla_chunked
+
+    def recording(r, k, v, w, u, **kw):
+        seen.append((r.dtype, w.dtype, float(w.min()), float(w.max())))
+        return orig(r, k, v, w, u, **kw)
+    monkeypatch.setattr(ops, "gla_chunked", recording)
+    batch = concrete_batch(cfg, 2, 64, torch.Generator().manual_seed(1),
+                           kind="prefill", device=cuda_device)
+    build.reset_launches()
+    Model(cfg).prefill(params, batch)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"gla_chunked": cfg.n_layers}
+    assert len(seen) == cfg.n_layers
+    for r_dtype, w_dtype, w_min, w_max in seen:
+        assert (r_dtype, w_dtype) == (torch.bfloat16, torch.float32)
+        assert w_min < 1e-3 and w_max > 0.999
+
+
+@pytest.mark.cuda
+def test_rwkv_prefill_with_kernels_matches_plain(cuda_device):
+    """RWKV6 reduced (fp32), the redrawn params: one prefill through the
+    kernel and one through its plain version, with S a multiple of the
+    chunk and not (the chunk-1 path). The whole-model gate of
+    tests/test_torch_rwkv.py."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.models import Model
+    cfg = get_config("rwkv6-7b").reduced()
+    params = _rwkv_params(cfg, cuda_device)
+    for s in (96, 37):
+        batch = concrete_batch(cfg, 2, s, torch.Generator().manual_seed(1),
+                               kind="prefill", device=cuda_device)
+        build.reset_launches()
+        got, cache = Model(cfg).prefill(params, batch)
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == {"gla_chunked": cfg.n_layers}
+        want, want_cache = Model(cfg, impl="xla").prefill(params, batch)
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+        for key in want_cache:
+            w = want_cache[key]
+            assert float((cache[key] - w).abs().max()) <= 1e-4 * float(
+                w.abs().max()), key

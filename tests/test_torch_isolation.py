@@ -45,6 +45,8 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.kernels.build" in res["modules"]
     assert "repro_torch.models.model" in res["modules"]
     assert "repro_torch.launch.serve" in res["modules"]
+    assert "repro_torch.models.layers.rwkv" in res["modules"]
+    assert "repro_torch.kernels.gla_chunked" in res["modules"]
     assert res["bad"] == []
 
 
