@@ -35,8 +35,10 @@ repository, it exits non-zero before printing any result. Phases:
    prefill's deviation when every weight moves one ulp, and the first
    decode step with a prefill of S+1 tokens. Each sequence kernel is
    held against its plain version on the path's inputs and on ragged
-   shapes, then timed; then profiler breakdowns of one prefill and one
-   decode step, and ``python -m repro_torch.launch.serve`` as a smoke;
+   shapes, then timed (attention also element by element, with the
+   design its machine code shows and the fp32-storage kernel's time);
+   then profiler breakdowns of one prefill and one decode step, and
+   ``python -m repro_torch.launch.serve`` as a smoke;
 6. RWKV6 serving: RWKV6-7B at full width (32 layers, d_model 4096, 64
    heads of 64, bf16, 7,576,752,128 params) with the reference init's
    zero decay, bonus and mixing tensors redrawn from a seed, the same
@@ -103,7 +105,7 @@ KERNELS = {
 }
 SEQ_KERNELS = {
     "flash_attention": dict(
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:82"),
     "rglru_scan": dict(
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -698,6 +700,28 @@ def check_and_time_seq(rec, ragged):
                 raise RuntimeError("SDPA yardstick disagrees with the plain "
                                    "attention")
             lib_ms = cuda_ms(lib, reps=5, warmup=1)
+            got = kfa.flash_attention(qf, kf, vf, **kw).float()
+            want = ref.attention_ref(qf, kf, vf, **kw).float()
+            terms = ref.attention_ref(qf.float(), kf.float(), vf.float().abs(),
+                                      **kw)
+            excess = (((got - want).abs() - bf16_ulp(want)).clamp_min(0)
+                      / terms.clamp_min(1e-30))
+            say(f"  {name:16s} path, element by element: "
+                f"{float((got != want).float().mean()):.4%} differ, the "
+                f"largest excess over one bf16 ulp {float(excess.max()):.3e} "
+                f"of (P |V|) / l")
+            del got, want, terms, excess
+            b, sq, h, dh = q.shape
+            flops = 4 * dh * b * h * allowed_pairs(sq, k.shape[1], **kw)
+            q32, k32, v32 = (x.float() for x in (qf, kf, vf))
+            f32_ms = cuda_ms(lambda: kfa.flash_attention(q32, k32, v32, **kw),
+                             reps=2, warmup=1)
+            del q32, k32, v32
+            say(f"  {name:16s} {kfa.bf16_design()} design: "
+                f"{flops / k_ms / 1e9:.1f} TFLOP/s on allowed pairs, "
+                f"{100 * b_ms / k_ms:.1f}% of the bound, {k_ms / lib_ms:.3f}x "
+                f"SDPA's time; the fp32-storage kernel (CUDA cores) "
+                f"{f32_ms:.4f} ms at this shape")
         elif name == "gla_chunked":
             r, k, v, w, u = args
             dense = [ops._dense(x) for x in (r, k, v, w)] + [
@@ -723,6 +747,14 @@ def check_and_time_seq(rec, ragged):
                              max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     return results
+
+
+def bf16_ulp(x):
+    """Spacing of bf16 at |x| (0 at 0): 2^(e - 7) for |x| in [2^e, 2^(e+1))."""
+    import torch
+    mant, exp = torch.frexp(x.float())
+    return torch.where(mant == 0, torch.zeros_like(mant),
+                       torch.ldexp(torch.ones_like(mant), exp - 8))
 
 
 def logit_dev(got, want):

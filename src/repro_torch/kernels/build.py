@@ -17,6 +17,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -132,6 +133,17 @@ def load():
                 fn.argtypes, fn.restype = argtypes, restype
             _lib = lib
     return _lib
+
+
+def sass() -> dict:
+    """Each kernel's machine code in the built library (``cuobjdump
+    --dump-sass``), by mangled function name."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "--dump-sass", str(build())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    parts = re.split(r"\n\s*Function : ", text)[1:]
+    return {p.split("\n", 1)[0].strip(): p for p in parts}
 
 
 def check(err: int, what: str) -> None:

@@ -42,4 +42,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // dtype codes of the sequence kernels' C entry points
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
+// bf16 attention on the tensor cores (flash_attention_wgmma.cu)
+int flash_attention_bf16(const void* q, const void* k, const void* v,
+                         void* out, int bh, int bk, int sq, int sk, int dh,
+                         int causal, int window, void* stream);
+
 }  // namespace qf

@@ -1,6 +1,7 @@
 // Causal / sliding-window flash attention with grouped-query heads:
-// online softmax, every product and sum in fp32, fp32 or bf16 storage,
-// output in q's dtype.
+// online softmax, every product and sum in fp32, fp32 storage. bf16
+// storage runs on the tensor cores instead (flash_attention_wgmma.cu);
+// the C entry point below picks the kernel by dtype.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention
 // (_flash_kernel), the Pallas TPU kernel that streams 128-key blocks
@@ -15,16 +16,13 @@
 // by 1/sqrt(D). A row with no allowed key writes 0 (the TPU kernel's
 // max(l, 1e-30) guard); such rows only arise when Sq > Sk + window - 1.
 //
-// What bounds it on an H100: operations. At the RecurrentGemma-2B
-// prefill shape (B*H = 40, S = 4096, D = 256, window 2048) the allowed
-// pairs need 258 GFLOP against 185 MB of q, k, v and out. That work is
-// 0.26 ms on the bf16 tensor cores; this first kernel runs it on the
-// fp32 CUDA cores (67 TFLOP/s, so 3.9 ms at the very best), because the
-// contract keeps P in fp32 for the PV product. wgmma is later work.
+// What bounds it on an H100: operations, on the fp32 CUDA cores (67
+// TFLOP/s): fp32 inputs have no tensor-core path that keeps the fp32
+// products (TF32 keeps 10 bits).
 //
 // Design: one 256-thread block per (64 query rows, head). The q tile
 // stays in shared memory for the whole walk over key tiles of 64; each
-// k/v tile is staged once into shared memory, converted to fp32. Shared
+// k/v tile is staged once into shared memory, transposed for K. Shared
 // memory at D = 256 is Q^T 68 KB + K^T 68 KB + V 65 KB + P^T 17 KB =
 // 223,232 bytes of the 232,448 a block may have (one block per SM).
 // Thread (ty, tx) of a 16 x 16 grid owns query rows 4ty..4ty+3: it
@@ -72,10 +70,10 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int group,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int group,
              int sq, int sk, int causal, int window) {
   constexpr int kNJ = D / 64;    // float4 column groups per thread
   constexpr int kVP = D + 4;     // pitch of V rows (floats)
@@ -88,15 +86,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
-  const T* qb = q + static_cast<size_t>(bh) * sq * D;
-  const T* kb = k + static_cast<size_t>(bh / group) * sk * D;
-  const T* vb = v + static_cast<size_t>(bh / group) * sk * D;
+  const float* qb = q + static_cast<size_t>(bh) * sq * D;
+  const float* kb = k + static_cast<size_t>(bh / group) * sk * D;
+  const float* vb = v + static_cast<size_t>(bh / group) * sk * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, d = idx - r * D;
     qt[d * kQP + r] =
-        q0 + r < sq ? qf::to_f32(qb[static_cast<size_t>(q0 + r) * D + d]) : 0.f;
+        q0 + r < sq ? qb[static_cast<size_t>(q0 + r) * D + d] : 0.f;
   }
 
   float acc[4][4 * kNJ];
@@ -123,8 +121,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = idx / D, d = idx - c * D;
       const bool in = k0 + c < sk;
       const size_t off = static_cast<size_t>(k0 + c) * D + d;
-      kt[d * kKP + c] = in ? qf::to_f32(kb[off]) : 0.f;
-      vs[c * kVP + d] = in ? qf::to_f32(vb[off]) : 0.f;
+      kt[d * kKP + c] = in ? kb[off] : 0.f;
+      vs[c * kVP + d] = in ? vb[off] : 0.f;
     }
     __syncthreads();
 
@@ -201,7 +199,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + static_cast<size_t>(bh) * sq * D;
+  float* ob = out + static_cast<size_t>(bh) * sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
@@ -212,38 +210,37 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         ob[static_cast<size_t>(row) * D + 64 * n + 4 * tx + e] =
-            qf::from_f32<T>(acc[i][4 * n + e] / denom);
+            acc[i][4 * n + e] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int group, int sq, int sk, int causal, int window, void* stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_kernel<T, D><<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), group, sq, sk, causal,
-      window);
+  flash_kernel<D><<<grid, kThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), group, sq, sk,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, void* out,
               int bh, int group, int sq, int sk, int dh, int causal,
               int window, void* stream) {
   switch (dh) {
     case 64:
-      return launch<T, 64>(q, k, v, out, bh, group, sq, sk, causal, window, stream);
+      return launch<64>(q, k, v, out, bh, group, sq, sk, causal, window, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, bh, group, sq, sk, causal, window, stream);
+      return launch<128>(q, k, v, out, bh, group, sq, sk, causal, window, stream);
     case 256:
-      return launch<T, 256>(q, k, v, out, bh, group, sq, sk, causal, window, stream);
+      return launch<256>(q, k, v, out, bh, group, sq, sk, causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -262,10 +259,10 @@ extern "C" int qf_flash_attention(const void* q, const void* k,
   const int group = bh / bk;
   switch (dtype) {
     case qf::kFloat32:
-      return launch_dh<float>(q, k, v, out, bh, group, sq, sk, dh, causal,
-                              window, stream);
+      return launch_dh(q, k, v, out, bh, group, sq, sk, dh, causal, window,
+                       stream);
     case qf::kBFloat16:
-      return launch_dh<__nv_bfloat16>(q, k, v, out, bh, group, sq, sk, dh,
+      return qf::flash_attention_bf16(q, k, v, out, bh, bk, sq, sk, dh,
                                       causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,11 +1,14 @@
 """CUDA wrapper: causal / sliding-window flash attention with GQA heads
-(source ``csrc/flash_attention.cu``).
+(sources ``csrc/flash_attention.cu``, fp32 on the CUDA cores, and
+``csrc/flash_attention_wgmma.cu``, bf16 on the tensor cores).
 
 q (BH, Sq, dh) and k/v (BH / G, Sk, dh), all fp32 or all bf16, on the
-card -> (BH, Sq, dh) in q's dtype, fp32 arithmetic inside; query row i
-reads kv row i // G. dh is 64, 128 or 256. Launches on PyTorch's current
-stream without synchronising; raises on a tensor off the card, a wrong
-dtype, shape or layout, a lazy view, and on a launch CUDA refuses.
+card -> (BH, Sq, dh) in q's dtype, the fp32 function inside (bf16: exact
+bf16 products summed in fp32, and P split into two bf16 halves for P V);
+query row i reads kv row i // G. dh is 64, 128 or 256. Launches on
+PyTorch's current stream without synchronising; raises on a tensor off
+the card, a wrong dtype, shape or layout, a lazy view, a bf16 operand
+not 16-byte aligned (TMA), and on a launch CUDA refuses.
 ``ops.attention`` is the dispatch that sends CPU tensors to
 ``ref.attention_ref``.
 """
@@ -35,6 +38,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {dh} not in {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, k, v)):
+        raise ValueError("flash_attention: bf16 operands must start on a "
+                         "16-byte boundary (the kernel loads them with TMA)")
     lib = build.load()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -45,3 +52,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     build.LAUNCHES["flash_attention"] += 1
     build.check(err, "flash_attention launch")
     return out
+
+
+def bf16_design() -> str:
+    """The tensor-core instruction the built bf16 kernels issue, read from
+    their machine code: "wgmma" (HGMMA), "mma.sync" (HMMA), else "none"."""
+    code = [t for name, t in build.sass().items()
+            if "flash_wgmma_kernel" in name]
+    if code and all("HGMMA" in t for t in code):
+        return "wgmma"
+    if code and all("HMMA" in t for t in code):
+        return "mma.sync"
+    return "none"

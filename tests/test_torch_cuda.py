@@ -125,6 +125,68 @@ def test_sequence_kernels_agree_and_count(cuda_device, dtype):
                                     "rglru_scan": 1}
 
 
+# The bf16 kernel against the fp32 function, element by element. Both
+# outputs are one bf16 rounding of fp32 values that differ by the order of
+# the sums and by P's split (2^-17 of each term |p v|, against 2^-8 for P
+# rounded to bf16 alone). So each element is within one bf16 ulp of the
+# plain one, plus 2^-15 of a = (P |V|) / l, the size of the terms summed
+# into it: an element near 0 by cancellation meets only the second term.
+# Only elements whose two fp32 values straddle a bf16 rounding boundary
+# differ at all. On an H100, in these cases: 0.06-0.19% of the elements
+# differ, and the largest excess over one ulp is 1.3e-6 a, 24x inside the
+# bound; with P rounded to bf16 alone 10.6-34.6% differ and the excess
+# reaches 1.7e-3-2.4e-3 a, 57-79x outside it.
+ATTN_TERM_TOL = 2.0 ** -15
+ATTN_SHARE_DIFFERING = 0.01
+ATTN_CASES = [(6, 3, 70, 70, 64, 0), (6, 3, 70, 70, 64, 20),
+              (4, 4, 33, 100, 128, 0), (4, 2, 100, 33, 64, 7),
+              (20, 2, 130, 130, 256, 50)]
+
+
+def bf16_ulp(x):
+    """Spacing of bf16 at |x| (0 at 0): 2^(e - 7) for |x| in [2^e, 2^(e+1))."""
+    mant, exp = torch.frexp(x.float())
+    return torch.where(mant == 0, torch.zeros_like(mant),
+                       torch.ldexp(torch.ones_like(mant), exp - 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_bf16_attention_within_one_ulp_of_the_fp32_function(cuda_device,
+                                                            case):
+    """(bh, bk, sq, sk, dh, window), causal: dh 64/128/256, GQA up to
+    10:1, Sq != Sk, windows below the 64-key tile, and (4, 2, 100, 33,
+    64, 7) with rows that have no allowed key (exactly 0 in both)."""
+    from repro_torch.kernels import flash_attention as kfa
+    bh, bk, sq, sk, dh, window = case
+    gen = torch.Generator().manual_seed(sum(case))
+    q, k, v = _attn_case(gen, bh, bk, sq, sk, dh, torch.bfloat16, cuda_device)
+    got = kfa.flash_attention(q, k, v, causal=True, window=window).float()
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v, causal=True, window=window).float()
+    terms = ref.attention_ref(q.float(), k.float(), v.float().abs(),
+                              causal=True, window=window)
+    excess = ((got - want).abs() - bf16_ulp(want)).clamp_min(0)
+    worst = float((excess - ATTN_TERM_TOL * terms).max())
+    share = float((got != want).float().mean())
+    print(f"{case}: differing {share:.4%}, excess over one ulp "
+          f"{float((excess / terms.clamp_min(1e-30)).max()):.3e} of a")
+    assert worst <= 0.0, case
+    assert share <= ATTN_SHARE_DIFFERING, case
+
+
+@pytest.mark.cuda
+def test_bf16_attention_runs_on_the_tensor_cores(cuda_device):
+    """The built bf16 kernels (dh 64, 128, 256) issue wgmma: HGMMA in
+    their machine code. A kernel back on the CUDA cores has none."""
+    from repro_torch.kernels import flash_attention as kfa
+    code = {name: text for name, text in build.sass().items()
+            if "flash_wgmma_kernel" in name}
+    assert len(code) == 3
+    assert all("HGMMA" in text for text in code.values())
+    assert kfa.bf16_design() == "wgmma"
+
+
 @pytest.mark.cuda
 def test_sequence_wrappers_refuse_bad_operands(cuda_device):
     from repro_torch.kernels import flash_attention as kfa

@@ -10,6 +10,8 @@ interpret mode, on the shape, dtype and window cases of
 against the reference's ``ops.attention(impl="xla")``, which repeats
 k/v where the port reads kv head h // G. ``tests/test_torch_cuda.py``
 covers the launches on a card."""
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -116,6 +118,80 @@ def test_attention_rows_with_no_allowed_key_are_zero():
     assert bool((got[:, :11].abs().amax(dim=-1) > 0).all())
 
 
+def split_p_attention(q, k, v, *, causal, window, split=True, tile=64):
+    """The bf16 CUDA kernel's arithmetic (csrc/flash_attention_wgmma.cu)
+    in plain PyTorch: scores of the bf16 inputs summed in fp32 and scaled
+    in the log2 domain, an online softmax over key tiles of 64, and P·V as
+    P_hi V + P_lo V with P_hi = bf16(P), P_lo = bf16(P - P_hi) and fp32
+    sums (``split=False``: P_hi alone, P rounded to bf16 as SDPA does).
+    q (BH, Sq, dh), k/v (BH / G, Sk, dh) -> fp32 (BH, Sq, dh)."""
+    g = q.shape[0] // k.shape[0]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(g, 0) for x in (k, v))
+    sl2 = math.log2(math.e) / math.sqrt(q.shape[-1])
+    o = torch.zeros(qf.shape)
+    m = torch.full(qf.shape[:2] + (1,), -1e30)
+    l = torch.zeros(m.shape)
+    rows = torch.arange(q.shape[1])[:, None]
+    for k0 in range(0, k.shape[1], tile):
+        cols = torch.arange(k0, min(k0 + tile, k.shape[1]))[None, :]
+        ok = torch.ones((rows.shape[0], cols.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= cols <= rows
+        if window > 0:
+            ok &= cols > rows - window
+        s = (qf @ kf[:, k0:k0 + tile].transpose(1, 2)) * sl2
+        m_new = torch.maximum(m, s.masked_fill(~ok, -1e30).amax(-1, True))
+        alpha, m = torch.exp2(m - m_new), m_new
+        p = torch.where(ok, torch.exp2(s - m), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if split else torch.zeros_like(p)
+        o = o * alpha + hi @ vf[:, k0:k0 + tile] + lo @ vf[:, k0:k0 + tile]
+    return o / l.clamp_min(1e-30)
+
+
+def bf16_ulp(x):
+    """Spacing of bf16 at |x| (0 at 0): 2^(e - 7) for |x| in [2^e, 2^(e+1))."""
+    mant, exp = torch.frexp(x.float())
+    return torch.where(mant == 0, torch.zeros_like(mant),
+                       torch.ldexp(torch.ones_like(mant), exp - 8))
+
+
+@pytest.mark.parametrize("bh,bk,sq,sk,dh,window",
+                         [(6, 3, 70, 70, 64, 20), (4, 4, 33, 100, 128, 0),
+                          (4, 2, 100, 33, 64, 7), (20, 2, 130, 130, 256, 50)])
+def test_attention_split_p_emulation(bh, bk, sq, sk, dh, window):
+    """The precision argument of the bf16 tensor-core kernel, runnable
+    without a card. Against the fp32 function of the bf16 inputs, the
+    split-P arithmetic misses by at most 2^-16 of a = (P |V|) / l, the
+    size of the terms summed into each element (2^-8 is one bf16 ulp);
+    P rounded to bf16 alone misses by more than 2^-10 of it. Rounded to
+    bf16, the emulation is within one bf16 ulp (+ 2^-15 a) of the Pallas
+    kernel in interpret mode and of ``attention_ref``."""
+    (jq, tq), (jk, tk), (jv, tv) = qkv(dh + window, bh, sq, sk, dh,
+                                       "bfloat16", bk=bk)
+    want = ref.attention_ref(tq.float(), tk.float(), tv.float(),
+                             causal=True, window=window)
+    terms = ref.attention_ref(tq.float(), tk.float(), tv.float().abs(),
+                              causal=True, window=window)
+    got = split_p_attention(tq, tk, tv, causal=True, window=window)
+    rounded = split_p_attention(tq, tk, tv, causal=True, window=window,
+                                split=False)
+    assert float(((got - want).abs() - 2.0 ** -16 * terms).max()) <= 0.0
+    assert float(((rounded - want).abs() - 2.0 ** -10 * terms).max()) > 0.0
+    g = bh // bk
+    pallas = jflash(jq, jnp.repeat(jk, g, axis=0), jnp.repeat(jv, g, axis=0),
+                    causal=True, window=window, block_q=64, block_k=64,
+                    interpret=True)
+    got16 = got.bfloat16().float()
+    for other in (torch.as_tensor(np.asarray(pallas, np.float32)),
+                  ref.attention_ref(tq, tk, tv, causal=True,
+                                    window=window).float()):
+        excess = ((got16 - other).abs() - bf16_ulp(other)).clamp_min(0)
+        assert float((excess - 2.0 ** -15 * terms).max()) <= 0.0
+
+
 # ---------------------------------------------------------------- rglru
 @pytest.mark.parametrize("s,chunk", [(32, 8), (64, 16), (64, 64), (16, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -181,10 +257,12 @@ def test_sequence_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_sequence_kernels_are_built_and_bound():
-    """Both sources are in the library's build and have ctypes
-    signatures (pointers as c_void_p, so none is cut to 32 bits)."""
+    """The sources (attention: fp32 on the CUDA cores, bf16 on the
+    tensor cores) are in the library's build and the entry points have
+    ctypes signatures (pointers as c_void_p, so none is cut to 32 bits)."""
     names = {p.name for p in build._sources()}
-    assert {"flash_attention.cu", "rglru_scan.cu"} <= names
+    assert {"flash_attention.cu", "flash_attention_wgmma.cu",
+            "rglru_scan.cu"} <= names
     for fn, n_ptr in (("qf_flash_attention", 4), ("qf_rglru_scan", 3)):
         argtypes, _ = build._SIGNATURES[fn]
         assert argtypes[:n_ptr] == [build._VP] * n_ptr
