@@ -2,6 +2,7 @@
 """Drive the PyTorch port of QuantumFed on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-quantum [--src DIR]
 
 Runs on cuda:0 only; without a CUDA device, or outside a checkout of the
 repository, it exits non-zero before printing any result. Phases:
@@ -11,18 +12,22 @@ repository, it exits non-zero before printing any result. Phases:
    toolchain versions;
 2. kernels: record the inputs the main path hands each kernel (one probe
    round of phase 3's configuration), then hold every kernel against its
-   plain PyTorch version on those inputs and on ragged shapes, and time
-   kernel, plain version and (where one PyTorch call computes the same
-   function) that library call with CUDA events;
+   plain PyTorch version on those inputs and on ragged shapes (the trace
+   twice, bit for bit), and time kernel, plain version and (where one
+   PyTorch call computes the same function) that library call with CUDA
+   events, and the kernel's device time per launch with torch.profiler;
 3. main path: the paper's experiment (examples/quickstart.py): widths
    (2,3,2), N=100, N_p=10, I_l=2, eta=1, eps=0.1, Eq. 6 product, 50
    rounds with impl="pallas", evaluated every 10 rounds. The launch
    counts are zeroed just before and read just after; every kernel must
    have run, and the final test fidelity must exceed 0.95;
 4. wide cell: widths (4,5,4), N=20, N_p=10, I_l=2: one round with the
-   kernels against one in complex128 PyTorch from the same params and
-   selection, then ms/round of both impls for both cells, and a profiler
-   breakdown of one kernel round of each cell;
+   kernels (launches counted) against one in complex128 PyTorch from the
+   same params and selection, the kernels checked and timed as in phase 2
+   at every shape of that round (zgemm's and the trace's rows join the
+   result), then ms/round of both impls for both cells, and a profiler
+   breakdown of one kernel round of each cell with the trace kernels'
+   device time;
 5. serving: RecurrentGemma-2B at full width (26 layers, d_model 2560,
    bf16, random weights from a seed) prefills B=4 prompts of S=4096
    tokens through ``make_prefill_step`` (launch counts zeroed before,
@@ -48,9 +53,18 @@ repository, it exits non-zero before printing any result. Phases:
    (the kernel at chunk 1), the kernel against its plain version on the
    path's inputs and ragged shapes, profiles and the serve CLI.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
-so the script exits non-zero and never prints that line.
+The second-to-last line is a JSON object with one entry per kernel and
+shape: each kernel at the main path's most frequent shape (launches of
+phase 3, or of one prefill), then zgemm and the trace at each shape of
+the (4,5,4) round (launches in one round, ``"cell"`` set); the quantum
+rows carry ``device_us``. The last line is ``{"ok": true, "device":
+{...}}``. Any failed check raises, so the script exits non-zero and never
+prints that line.
+
+``--time-quantum`` runs none of that: it times the quantum path of the
+checkout whose ``src`` is DIR (this one by default) and prints one JSON
+line (see ``time_quantum``), so that two checkouts can be compared on
+one card, in turns, each in its own process.
 """
 import json
 import os
@@ -60,7 +74,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# the port that runs: this checkout's, or another's under --src
+SRC = (Path(sys.argv[sys.argv.index("--src") + 1]).resolve()
+       if "--src" in sys.argv[:-1] else ROOT / "src")
+sys.path.insert(0, str(SRC))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and fp32 FLOP/s
 # outside the tensor cores, which is what these fp32 CUDA-core kernels use.
@@ -190,9 +207,19 @@ def phase_build():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def layout(x):
+    """"dense", or what the kernel's wrapper would refuse in ``x`` as it
+    is: a strided layout, a lazy conjugate or negative bit."""
+    tags = [tag for tag, on in (("strided", not x.is_contiguous()),
+                                ("conj", x.is_conj()), ("neg", x.is_neg()))
+            if on]
+    return "+".join(tags) or "dense"
+
+
 class Recorder:
     """Wraps ``ops`` dispatch functions to keep the first inputs of every
-    distinct shape (and keyword set) the main path hands each kernel."""
+    distinct shape (and keyword set, and layout where an operand is not
+    dense) the main path hands each kernel."""
     NAMES = {"complex_matmul": "zgemm", "fidelity": "fidelity",
              "mse": "mse",
              "ensemble_commutator_trace": "ensemble_commutator_trace"}
@@ -213,6 +240,9 @@ class Recorder:
             def wrapped(*args, _orig=orig, _k=kernel, **kw):
                 key = (tuple(tuple(a.shape) for a in args)
                        + tuple(sorted(kw.items())))
+                lay = tuple(layout(a) for a in args)
+                if any(t != "dense" for t in lay):
+                    key += (("layout", lay),)
                 # the tensors themselves, lazy conjugate views included
                 seen = self.calls[_k].setdefault(
                     key, [0, tuple(a.detach() for a in args), kw])
@@ -268,21 +298,55 @@ def ragged_cases():
             "ensemble_commutator_trace": [
                 (rc(2, 3, 5, 4, 3), rc(2, 3, 3, 4, 3)),
                 (rc(2, 2, 7, 8, 3), rc(2, 2, 7, 8, 3)),
-                # keep-row tiles of 3, 3, 2 and b staged one row at a time
-                (rc(1, 2, 2, 8, 300), rc(1, 2, 7, 8, 300))]}
+                # rows of 19,200 bytes: one a row a tile, b in two chunks
+                (rc(1, 2, 2, 8, 300), rc(1, 2, 7, 8, 300)),
+                # a split into row ranges with a short last one, odd
+                # dk * dr
+                (rc(2, 2, 300, 5, 3), rc(2, 2, 3, 5, 3)),
+                (rc(3, 2, 77, 6, 5), rc(3, 2, 9, 6, 5)),
+                # b's 12 rows padded to the register tile of 8: in row
+                # ranges, then in one launch over n
+                (rc(70, 4, 300, 4, 3), rc(70, 4, 12, 4, 3)),
+                (rc(70, 4, 20, 4, 3), rc(70, 4, 12, 4, 3))]}
+
+
+def device_us(fn, args, n=5):
+    """Device time per call of ``fn(*args)``, summed over every kernel it
+    launches (torch.profiler over ``n`` calls after one warm-up), in
+    microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(*args)
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise RuntimeError("the profiler saw no device time")
+    return sum(spans) / n
 
 
 def check_and_time(rec, ragged):
     """Hold each kernel against its plain version on every recorded input
-    (and the ragged cases), then time kernel, plain version and library
-    call at every recorded shape; the most frequent one, and the largest
-    error on the path's own inputs, go into the result. Raises on a
-    disagreement."""
+    (and the ragged cases; the trace twice, bit for bit), then time
+    kernel, plain version and library call at every recorded shape.
+    Returns {kernel: [row per shape, most frequent first]}, each row with
+    the largest error on the path's own inputs, and the device time per
+    launch (profiler) of the kernel alone. Raises on a disagreement."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import fidelity as kfid
+    from repro_torch.kernels import zgemm as kz
     op = {"zgemm": ops.complex_matmul, "fidelity": ops.fidelity,
           "mse": ops.mse,
           "ensemble_commutator_trace": ops.ensemble_commutator_trace}
+    wrapper = {"zgemm": kz.zgemm, "fidelity": kfid.fidelity_batch,
+               "mse": kfid.mse_batch,
+               "ensemble_commutator_trace": kz.ensemble_commutator_trace}
     plain = {"zgemm": ref.zgemm_ref, "fidelity": ref.fidelity_ref,
              "mse": ref.mse_ref,
              "ensemble_commutator_trace": ref.ensemble_commutator_trace_ref}
@@ -314,16 +378,26 @@ def check_and_time(rec, ragged):
             err = float((got - want).abs().max())
             scale = max(1.0, float(want.abs().max()))
             ok = err <= KERNEL_RTOL * scale
+            same = ""
+            if name == "ensemble_commutator_trace":
+                # no atomics: the same inputs give the same bits
+                again = op[name](*args)
+                ok = ok and torch.equal(got, again)
+                same = ", repeat bit-identical" if torch.equal(
+                    got, again) else ", repeat DIFFERS"
             say(f"  {name:26s} {label}: max_abs_err {err:.3e} "
-                f"(tol {KERNEL_RTOL:.0e} x scale {scale:.3g}) "
+                f"(tol {KERNEL_RTOL:.0e} x scale {scale:.3g}){same} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise RuntimeError(f"{name} disagrees with its plain version")
+                raise RuntimeError(f"{name} disagrees with its plain version "
+                                   "or with itself")
             if label.startswith("path"):
                 worst = max(worst, err)
-        # every recorded shape is timed; the most frequent one reports
-        for key, (cnt, args, _) in sorted(calls.items(),
-                                          key=lambda kv: kv[1][0]):
+        # every recorded shape is timed, the most frequent one first (of
+        # equally frequent ones, the last recorded)
+        rows = results[name] = []
+        for key, (cnt, args, _) in reversed(sorted(calls.items(),
+                                                   key=lambda kv: kv[1][0])):
             k_ms = cuda_ms(op[name], *args)
             p_ms = cuda_ms(plain[name], *args)
             lib_ms = None
@@ -336,14 +410,27 @@ def check_and_time(rec, ragged):
                                        f"disagrees ({lib_err:.3e})")
                 lib_ms = cuda_ms(library[name], *args64)
             b_ms, b_by = bound_ms(name, args)
+            dev_us = device_us(wrapper[name], [ops._dense(x) for x in args])
+            plan = ""
+            if name == "ensemble_commutator_trace":
+                j, n, ea, dk, dr = args[0].shape
+                parts = kz._TRACE_PARTS[(j, n, ea, args[1].shape[2], dk, dr,
+                                         args[0].get_device())]
+                plan = (f", {parts} partial traces a j" if parts
+                        else ", one launch over n")
             say(f"  {name:26s} timed at {list(key)} x{cnt}: kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                f"{k_ms:.4f} ms (device {dev_us:.2f} us a launch{plan}), "
+                f"plain {p_ms:.4f} ms, library "
                 f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                 f"{b_ms:.6f} ms ({b_by})")
-            results[name] = dict(name=name, route="cuda", **KERNELS[name],
-                                 max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
-                                 bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=lib_ms)
+            rows.append(dict(name=name, route="cuda", **KERNELS[name],
+                             shape=[list(x.shape) for x in args],
+                             max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             device_us=dev_us, calls=cnt, key=key))
+            lay = [layout(x) for x in args]
+            if any(t != "dense" for t in lay):
+                rows[-1]["layout"] = lay
     return results
 
 
@@ -357,7 +444,9 @@ def phase_kernels():
         p = fed.server_round(params, ds, torch.Generator().manual_seed(1), cfg)
         fed.evaluate(p, *test, cfg.widths, impl=cfg.impl)
         torch.cuda.synchronize()
-    return check_and_time(rec, ragged_cases())
+    # the most frequent shape of each kernel reports
+    return {name: rows[0]
+            for name, rows in check_and_time(rec, ragged_cases()).items()}
 
 
 def evaluate_all(params, ds, test, cfg):
@@ -461,26 +550,43 @@ def profile_device(label, fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (tot, cnt) in top:
         say(f"    {tot / 1e3:9.3f} ms  x{cnt:5d}  {name[:70]}")
+    return by_name
 
 
 def profile_round(cfg, ds, params, label):
+    """Profile one round; prints the trace kernels' device time in it
+    (the partial and the reduction kernel) and their launches."""
     import torch
     from repro_torch.core.quantum import federated as fed
     gen = torch.Generator().manual_seed(6)
     fed.server_round(params, ds, gen, cfg)
-    profile_device(label, lambda: fed.server_round(params, ds, gen, cfg))
+    by_name = profile_device(label, lambda: fed.server_round(params, ds, gen,
+                                                             cfg))
+    ect = [v for k, v in by_name.items()
+           if "ect_partial_kernel" in k or "ect_reduce_kernel" in k]
+    ect_ms, ect_n = sum(t for t, _ in ect) / 1e3, sum(c for _, c in ect)
+    say(f"    trace kernels: {ect_ms:.3f} ms device time in this round "
+        f"over {ect_n} device launches")
 
 
 def phase_wide():
     import torch
     from repro_torch.core.quantum import federated as fed
+    from repro_torch.kernels import build
     say("== phase 4: wide cell (4,5,4), N=20, N_p=10, I_l=2")
     cfg_p, ds, test, params = main_cell(widths=(4, 5, 4), num_nodes=20)
     cfg_x = cfg_p._replace(impl="xla")
     with Recorder() as rec:
+        torch.cuda.synchronize()
+        build.reset_launches()
         p_k = fed.server_round(params, ds, torch.Generator().manual_seed(9),
                                cfg_p)
+        torch.cuda.synchronize()
+        round_launches = dict(build.LAUNCHES)
+        per_shape = {name: {key: seen[0] for key, seen in calls.items()}
+                     for name, calls in rec.calls.items()}
         fed.evaluate(p_k, *test, cfg_p.widths, impl=cfg_p.impl)
+    say(f"  launches in one kernel round: {round_launches}")
     p_x = fed.server_round(params, ds, torch.Generator().manual_seed(9), cfg_x)
     torch.cuda.synchronize()
     dev = max(float((a - b).abs().max()) for a, b in zip(p_k, p_x))
@@ -490,7 +596,18 @@ def phase_wide():
     if not ok:
         raise RuntimeError("wide cell: kernels disagree with complex128")
     say("  kernels at the wide cell's shapes:")
-    check_and_time(rec, {})
+    timed = check_and_time(rec, {})
+    # zgemm and the trace at every shape of the round join the result,
+    # with their launches in one round
+    rows = []
+    for name in ("zgemm", "ensemble_commutator_trace"):
+        if sum(per_shape[name].values()) != round_launches.get(name, 0):
+            raise RuntimeError(f"{name}: the round's calls and launches "
+                               "disagree")
+        for row in timed[name]:
+            n_round = per_shape[name].get(row["key"], 0)
+            if n_round:
+                rows.append(dict(row, launches=n_round, cell="(4,5,4) N=20"))
     cells = [("(2,3,2) N=100", main_cell()), ("(4,5,4) N=20",
                                               (cfg_p, ds, None, params))]
     timing = {}
@@ -505,7 +622,7 @@ def phase_wide():
         profile_round(cfg, cds, cparams, f"{label} impl=pallas")
     say(f"  card during timing: "
         f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    return timing
+    return rows
 
 
 # ------------------------------------------------------- phase 5: serving
@@ -744,6 +861,7 @@ def check_and_time_seq(rec, ragged):
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.1f}x")
         results[name] = dict(name=name, route="cuda", **SEQ_KERNELS[name],
+                             shape=[list(x.shape) for x in args],
                              max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     return results
@@ -1076,32 +1194,90 @@ def phase_rwkv(device="cuda"):
     return results
 
 
+# ------------------------------------------------- --time-quantum (A/B)
+def time_quantum(trials=3):
+    """ms/round of both quantum cells (phase 4's ``round_ms``, 10 rounds
+    after a warm-up, ``trials`` times), and ms per call through ``ops``
+    (``cuda_ms``, ``trials`` times) of zgemm at the (2,3,2) chain's and
+    the (4,5,4) density build's shapes, dense and with the second operand
+    column-major as QR returns it, beside ``torch.matmul`` on complex64 of
+    the same operands, and of the trace at the three shapes of those
+    cells. Seeded inputs; one JSON line of medians and trials."""
+    import statistics
+    import torch
+    from repro_torch.core.quantum import qnn
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(3)
+
+    def rc(*shape):
+        return torch.complex(torch.randn(shape, generator=gen,
+                                         dtype=torch.float64),
+                             torch.randn(shape, generator=gen,
+                                         dtype=torch.float64)).cuda()
+
+    def col_major(x):
+        return x.mT.contiguous().mT
+
+    cases = {}
+    for bsz, d in ((2, 16), (40, 64)):
+        a, b = rc(bsz, d, d), rc(bsz, d, d)
+        for lay, bb in (("dense", b), ("strided", col_major(b))):
+            cases[f"zgemm ({bsz},{d},{d}) {lay}"] = (ops.complex_matmul,
+                                                     (a, bb))
+            cases[f"torch.matmul ({bsz},{d},{d}) {lay}"] = (
+                torch.matmul, (a.to(torch.complex64),
+                               bb.to(torch.complex64)))
+    for label, sa, sb in (("(2,3,2)", (30, 4, 32, 8, 4), (30, 4, 1, 8, 4)),
+                          ("S1", (40, 4, 32, 64, 8), (40, 4, 16, 64, 8)),
+                          ("S2", (50, 4, 512, 32, 16), (50, 4, 1, 32, 16))):
+        cases[f"trace {label}"] = (ops.ensemble_commutator_trace,
+                                   (rc(*sa), rc(*sb)))
+    result = {"src": str(qnn.__file__).rsplit("/repro_torch/", 1)[0],
+              "card": smi("name,power.limit")}
+    for label, kw in (("(2,3,2) N=100", {}),
+                      ("(4,5,4) N=20", dict(widths=(4, 5, 4),
+                                            num_nodes=20))):
+        cfg, ds, _, params = main_cell(**kw)
+        ms = [round_ms(cfg, ds, params, reps=10) for _ in range(trials)]
+        result[f"round {label}"] = {"median": statistics.median(ms),
+                                    "trials": ms}
+    for label, (fn, args) in cases.items():
+        ms = [cuda_ms(fn, *args) for _ in range(trials)]
+        result[label] = {"median": statistics.median(ms), "trials": ms}
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
               "the port on the card only", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
-              "from a checkout of the repository", file=sys.stderr)
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no repro_torch in {SRC}; run it from a "
+              "checkout of the repository", file=sys.stderr)
         return 2
     torch.cuda.set_device(0)
+    if "--time-quantum" in sys.argv:
+        return time_quantum()
     t0 = time.time()
     phase_build()
     results = phase_kernels()
     launches = phase_main()
-    phase_wide()
     for name, row in results.items():
         row["launches"] = launches[name]
-    results.update(phase_serve())
-    results.update(phase_rwkv())
+    rows = list(results.values()) + phase_wide()
+    rows += list(phase_serve().values())
+    rows += list(phase_rwkv().values())
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in results.values()]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape"]
+    extra = ["device_us", "cell", "layout"]
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + [k for k in extra if k in r]}
+        for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -136,7 +136,9 @@ def haar_state(gen: torch.Generator, n_qubits: int, batch: tuple = (),
 
 def haar_unitary(gen: torch.Generator, d: int, batch: tuple = (),
                  dtype=DTYPE, device="cuda") -> torch.Tensor:
-    """Haar-random unitary via QR of a Ginibre matrix, phase-fixed."""
+    """Haar-random unitary via QR of a Ginibre matrix, phase-fixed, in
+    the row-major layout the kernels read (QR's Q is column-major, which
+    the first Eq. 6 product of each layer would otherwise copy)."""
     dev = resolve_device(device)
     shape = tuple(batch) + (d, d)
     re = _normal(gen, shape, dev)
@@ -144,7 +146,7 @@ def haar_unitary(gen: torch.Generator, d: int, batch: tuple = (),
     z = torch.complex(re, im).to(dtype) / (2.0 ** 0.5)
     q, r = torch.linalg.qr(z)
     diag = torch.diagonal(r, dim1=-2, dim2=-1)
-    return q * (diag / diag.abs())[..., None, :]
+    return (q * (diag / diag.abs())[..., None, :]).contiguous()
 
 
 def eigh_herm(k: torch.Tensor):

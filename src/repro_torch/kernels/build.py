@@ -37,7 +37,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "qf_zgemm": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP], _INT),
-    "qf_ect": ([_VP, _VP, _VP] + [_INT] * 6 + [_VP], _INT),
+    "qf_ect_parts": ([_INT] * 7, _INT),
+    "qf_ect": ([_VP] * 4 + [_INT] * 8 + [_VP], _INT),
     "qf_fidelity": ([_VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "qf_mse": ([_VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "qf_flash_attention": ([_VP] * 4 + [_INT] * 8 + [_VP], _INT),
@@ -123,8 +124,12 @@ def build() -> Path:
 
 
 def load():
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library (built at first use; once it is loaded,
+    no lock is taken)."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

@@ -8,8 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.zgemm import check_operand, stream_of
+from repro_torch.kernels.zgemm import check_operand, launch
 
 
 def _run(fn_name: str, phi: torch.Tensor, rho: torch.Tensor
@@ -17,17 +16,13 @@ def _run(fn_name: str, phi: torch.Tensor, rho: torch.Tensor
     check_operand(phi, "phi", 2)
     check_operand(rho, "rho", 3)
     n, d = phi.shape
-    if rho.shape != (n, d, d) or rho.device != phi.device:
+    dev = phi.get_device()
+    if rho.shape != (n, d, d) or rho.get_device() != dev:
         raise ValueError(f"{fn_name}: phi {tuple(phi.shape)}, rho "
                          f"{tuple(rho.shape)}")
-    lib = build.load()
-    out = torch.empty((n,), dtype=torch.float64, device=phi.device)
-    with torch.cuda.device(phi.device):
-        err = getattr(lib, "qf_" + fn_name)(
-            phi.data_ptr(), rho.data_ptr(), out.data_ptr(), n, d,
-            stream_of(phi))
-    build.LAUNCHES[fn_name] += 1
-    build.check(err, fn_name + " launch")
+    out = phi.new_empty((n,), dtype=torch.float64)
+    launch(fn_name, "qf_" + fn_name, dev, phi.data_ptr(), rho.data_ptr(),
+           out.data_ptr(), n, d)
     return out
 
 

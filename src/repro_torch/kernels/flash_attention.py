@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.zgemm import check_operand, stream_of
+from repro_torch.kernels.zgemm import check_operand, launch
 
 # dtype codes of the sequence kernels' C entry points (qf::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,8 +32,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         check_operand(x, name, 3, dtype=q.dtype)
     bh, sq, dh = q.shape
     bk, sk = k.shape[:2]
+    dev = q.get_device()
     if (v.shape != k.shape or k.shape[2] != dh or bh % bk
-            or k.device != q.device or v.device != q.device):
+            or k.get_device() != dev or v.get_device() != dev):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if dh not in HEAD_DIMS:
@@ -42,15 +43,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                          for x in (q, k, v)):
         raise ValueError("flash_attention: bf16 operands must start on a "
                          "16-byte boundary (the kernel loads them with TMA)")
-    lib = build.load()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.qf_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bk,
-            sq, sk, dh, int(causal), int(window), DTYPE_CODES[q.dtype],
-            stream_of(q))
-    build.LAUNCHES["flash_attention"] += 1
-    build.check(err, "flash_attention launch")
+    launch("flash_attention", "qf_flash_attention", dev, q.data_ptr(),
+           k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bk, sq, sk, dh,
+           int(causal), int(window), DTYPE_CODES[q.dtype])
     return out
 
 

@@ -16,9 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPE_CODES
-from repro_torch.kernels.zgemm import check_operand, stream_of
+from repro_torch.kernels.zgemm import check_operand, launch
 
 MAX_HEAD_DIM = 64
 MAX_CHUNK = 64
@@ -41,8 +40,9 @@ def gla_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_operand(w, "w", 4, dtype=w.dtype)
     check_operand(u, "u", 2, dtype=torch.float32)
     b, s, h, dh = r.shape
+    dev = r.get_device()
     if (any(x.shape != r.shape for x in (k, v, w)) or u.shape != (h, dh)
-            or any(x.device != r.device for x in (k, v, w, u))):
+            or any(x.get_device() != dev for x in (k, v, w, u))):
         raise ValueError(f"gla_chunked: r {tuple(r.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, w "
                          f"{tuple(w.shape)}, u {tuple(u.shape)}")
@@ -51,15 +51,10 @@ def gla_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if chunk < 1 or s % chunk:
         raise ValueError(f"gla_chunked: chunk {chunk} does not divide the "
                          f"sequence {s}")
-    lib = build.load()
     out = torch.empty_like(r)
-    state = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
-    with torch.cuda.device(r.device):
-        err = lib.qf_gla_chunked(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), out.data_ptr(), state.data_ptr(), b, s, h, dh,
-            kernel_chunk(chunk), DTYPE_CODES[r.dtype], DTYPE_CODES[w.dtype],
-            stream_of(r))
-    build.LAUNCHES["gla_chunked"] += 1
-    build.check(err, "gla_chunked launch")
+    state = r.new_empty((b, h, dh, dh), dtype=torch.float32)
+    launch("gla_chunked", "qf_gla_chunked", dev, r.data_ptr(), k.data_ptr(),
+           v.data_ptr(), w.data_ptr(), u.data_ptr(), out.data_ptr(),
+           state.data_ptr(), b, s, h, dh, kernel_chunk(chunk),
+           DTYPE_CODES[r.dtype], DTYPE_CODES[w.dtype])
     return out, state

@@ -20,12 +20,15 @@ from repro_torch.kernels import zgemm as _zgemm
 
 
 def _on_cpu(x: torch.Tensor) -> bool:
-    return x.device.type == "cpu"
+    return x.is_cpu
 
 
 def _dense(x: torch.Tensor) -> torch.Tensor:
     """The kernels read raw storage: materialise lazy conjugate/negative
-    views (``x.conj()`` only sets a bit) and make the layout contiguous."""
+    views (``x.conj()`` only sets a bit) and make the layout contiguous.
+    A tensor that is already all that is returned as it is."""
+    if x.is_contiguous() and not x.is_conj() and not x.is_neg():
+        return x
     return x.resolve_conj().resolve_neg().contiguous()
 
 

@@ -11,9 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPE_CODES
-from repro_torch.kernels.zgemm import check_operand, stream_of
+from repro_torch.kernels.zgemm import check_operand, launch
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -21,15 +20,12 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"a: expected float32 or bfloat16, got {a.dtype}")
     check_operand(a, "a", 3, dtype=a.dtype)
     check_operand(b, "b", 3, dtype=a.dtype)
-    if b.shape != a.shape or b.device != a.device:
+    dev = a.get_device()
+    if b.shape != a.shape or b.get_device() != dev:
         raise ValueError(f"rglru_scan: a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}")
     bsz, s, d = a.shape
-    lib = build.load()
     out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        err = lib.qf_rglru_scan(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                bsz, s, d, DTYPE_CODES[a.dtype], stream_of(a))
-    build.LAUNCHES["rglru_scan"] += 1
-    build.check(err, "rglru_scan launch")
+    launch("rglru_scan", "qf_rglru_scan", dev, a.data_ptr(), b.data_ptr(),
+           out.data_ptr(), bsz, s, d, DTYPE_CODES[a.dtype])
     return out

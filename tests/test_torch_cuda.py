@@ -83,6 +83,155 @@ def test_kernel_round_matches_complex128_round(cuda_device):
         assert abs(float(out["xla"][1][k]) - float(out["pallas"][1][k])) <= RTOL
 
 
+def _dev_c(rng, device, *shape):
+    return torch.as_tensor(rand_c(rng, *shape)).to(device)
+
+
+def _trace_agrees(a, b):
+    got = ops.ensemble_commutator_trace(a, b)
+    again = ops.ensemble_commutator_trace(a, b)
+    torch.cuda.synchronize()
+    want = ref.ensemble_commutator_trace_ref(a, b)
+    assert got.shape == want.shape and got.dtype == torch.complex128
+    err = float((got - want).abs().max())
+    assert err <= RTOL * float(want.abs().max()), (tuple(a.shape), err)
+    # partial traces summed in a fixed order, no atomics: same bits
+    assert torch.equal(got, again), tuple(a.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j,n,ea,eb,dk,dr", [
+    (3, 4, 32, 16, 64, 8),     # widths (4,5,4) layer 1, J cut from 40
+    (2, 4, 512, 1, 32, 16),    # widths (4,5,4) layer 2, J cut from 50
+])
+def test_trace_kernel_at_the_wide_shapes(cuda_device, j, n, ea, eb, dk, dr):
+    rng = np.random.default_rng(ea + eb)
+    build.reset_launches()
+    _trace_agrees(_dev_c(rng, cuda_device, j, n, ea, dk, dr),
+                  _dev_c(rng, cuda_device, j, n, eb, dk, dr))
+    assert dict(build.LAUNCHES) == {"ensemble_commutator_trace": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j,n,ea,eb,dk,dr", [
+    (2, 2, 300, 3, 5, 3),      # a in row ranges, the last one short;
+                               # dk*dr odd
+    (3, 2, 77, 9, 6, 5),       # b in two chunks of 5 and 4 rows
+    (1, 2, 2, 7, 8, 300),      # rows of 19,200 bytes: one a row a tile
+    (2, 3, 300, 2, 4, 7),      # Eb > 1 with a split
+    (70, 4, 300, 12, 4, 3),    # b's 12 rows padded to the register tile
+                               # of 8, a in row ranges
+    (70, 4, 20, 12, 4, 3),     # the same, one launch over n
+    (1, 1, 1, 1, 1, 1),
+])
+def test_trace_kernel_on_ragged_plans(cuda_device, j, n, ea, eb, dk, dr):
+    rng = np.random.default_rng(ea * eb + dk)
+    _trace_agrees(_dev_c(rng, cuda_device, j, n, ea, dk, dr),
+                  _dev_c(rng, cuda_device, j, n, eb, dk, dr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j,n,ea,eb,dk,dr,one_launch", [
+    (30, 4, 32, 1, 8, 4, True),     # widths (2,3,2), layer 1
+    (2, 3, 5, 3, 4, 3, True),
+    (3, 4, 32, 16, 64, 8, False),   # widths (4,5,4), layer 1
+    (2, 4, 512, 1, 32, 16, False),  # widths (4,5,4), layer 2
+])
+def test_trace_kernel_plans(cuda_device, j, n, ea, eb, dk, dr, one_launch):
+    """Small shapes take one launch that sums over n in the block and
+    writes T (no workspace); the wide ones write partial traces that a
+    second kernel sums. Either way the kernel agrees with its plain
+    version and repeats its bits."""
+    parts = build.load().qf_ect_parts(j, n, ea, eb, dk, dr,
+                                      torch.cuda.current_device())
+    assert parts >= 0 and (parts == 0) == one_launch
+    rng = np.random.default_rng(j * n + ea)
+    _trace_agrees(_dev_c(rng, cuda_device, j, n, ea, dk, dr),
+                  _dev_c(rng, cuda_device, j, n, eb, dk, dr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(40, 64, 64, 64), (3, 7, 9, 5),
+                                   (2, 33, 17, 40), (1, 65, 64, 1)])
+def test_zgemm_launches_on_the_current_stream(cuda_device, shape):
+    """Launched inside torch.cuda.stream(side) behind a long sleep, with
+    an operand written on that stream after the sleep: only a launch on
+    the side stream reads it written. Synchronised on that stream only."""
+    bsz, m, k, n = shape
+    rng = np.random.default_rng(m * n)
+    a = _dev_c(rng, cuda_device, bsz, m, k)
+    b = _dev_c(rng, cuda_device, bsz, k, n)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        a1 = a + 1.0
+        got = ops.complex_matmul(a1, b)
+    side.synchronize()
+    want = ref.zgemm_ref(a + 1.0, b)
+    assert got.shape == (bsz, m, n)
+    assert float((got - want).abs().max()) <= RTOL * float(want.abs().max())
+
+
+def _wrapper_operands(device):
+    """Each of the seven wrappers with good operands (keyword arguments
+    last)."""
+    from repro_torch.kernels import fidelity as kfid
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import gla_chunked as kgla
+    from repro_torch.kernels import rglru_scan as krg
+    from repro_torch.kernels import zgemm as kz
+    rng = np.random.default_rng(12)
+
+    def c(*shape):
+        return _dev_c(rng, device, *shape)
+
+    def f(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(device)
+    return {"zgemm": (kz.zgemm, [c(2, 4, 4), c(2, 4, 4)], {}),
+            "ensemble_commutator_trace": (kz.ensemble_commutator_trace,
+                                          [c(2, 2, 3, 4, 2),
+                                           c(2, 2, 2, 4, 2)], {}),
+            "fidelity": (kfid.fidelity_batch, [c(3, 4), c(3, 4, 4)], {}),
+            "mse": (kfid.mse_batch, [c(3, 4), c(3, 4, 4)], {}),
+            "flash_attention": (kfa.flash_attention,
+                                [f(2, 16, 64), f(2, 16, 64), f(2, 16, 64)],
+                                {}),
+            "rglru_scan": (krg.rglru_scan, [f(2, 16, 8), f(2, 16, 8)], {}),
+            "gla_chunked": (kgla.gla_chunked,
+                            [f(1, 16, 2, 8), f(1, 16, 2, 8), f(1, 16, 2, 8),
+                             torch.sigmoid(f(1, 16, 2, 8)), f(2, 8)],
+                            {"chunk": 16})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["zgemm", "ensemble_commutator_trace",
+                                    "fidelity", "mse", "flash_attention",
+                                    "rglru_scan", "gla_chunked"])
+def test_wrappers_refuse_views_layouts_dtypes_and_cpu(cuda_device, kernel):
+    """Called directly (not through ``ops``), every wrapper refuses a
+    lazy conjugate view, a lazy negative view, a non-contiguous tensor, a
+    wrong dtype and a tensor on the CPU, and launches nothing; the same
+    call with good operands launches once."""
+    fn, args, kw = _wrapper_operands(cuda_device)[kernel]
+    x = args[0]
+    wrong = torch.float64 if not x.is_complex() else torch.complex64
+    bad = {"conj": (x if x.is_complex() else torch.complex(x, x)).conj(),
+           "neg": torch._neg_view(x),
+           "strided": x.transpose(-1, -2),
+           "dtype": x.to(wrong),
+           "cpu": x.cpu()}
+    build.reset_launches()
+    for what, y in bad.items():
+        with pytest.raises(ValueError):
+            fn(y, *args[1:], **kw)
+        assert not build.LAUNCHES, what
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {kernel: 1}
+
+
 # ---------------------------------------------------------------- sequence
 BF16_ATOL = 2e-2   # the reference's own bf16 gate (tests/test_kernels.py)
 

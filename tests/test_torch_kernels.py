@@ -97,6 +97,72 @@ def test_ensemble_commutator_trace_plain(x64, j, n, ea, eb, dk, dr):
     assert rel_err(got, tr + 1j * ti) <= TOL
 
 
+def ect_emulated(a, b, te, fc, split):
+    """The CUDA trace kernel's order of arithmetic (``csrc/ect.cu``), in
+    fp32 torch. Under the plan (te, fc, split) one block takes one (j, n),
+    one range of a's rows (ranges of whole tiles of te rows, ``split`` of
+    them at most, the grid arithmetic of ect.cu) and one chunk of fc of
+    b's rows; it stages a tile at a time, forms the tile's Gram
+    G = conj(a_tile) b^T and adds G^T a_tile into its W, then folds W
+    against b into its partial trace. The partials of each j are summed
+    in order (n, range, chunk); the one-launch plan of small shapes (one
+    range, one chunk, a block over all n) sums in that order too."""
+    j, n, ea, dk, dr = a.shape
+    eb = b.shape[2]
+    a32 = a.to(torch.complex64).reshape(j, n, ea, dk * dr)
+    b32 = b.to(torch.complex64).reshape(j, n, eb, dk * dr)
+    tiles = -(-ea // te)
+    per = -(-tiles // split)
+    rows = per * te
+    out = torch.empty((j, dk, dk), dtype=torch.complex128)
+    for jj in range(j):
+        total = torch.zeros((dk, dk), dtype=torch.complex64)
+        for nn in range(n):
+            for e_begin in range(0, ea, rows):
+                e_end = min(ea, e_begin + rows)
+                for f0 in range(0, eb, fc):
+                    bs = b32[jj, nn, f0:f0 + fc]
+                    w = torch.zeros_like(bs)
+                    for e0 in range(e_begin, e_end, te):
+                        tile = a32[jj, nn, e0:min(e0 + te, e_end)]
+                        w += (tile.conj() @ bs.T).T @ tile
+                    total += torch.einsum(
+                        "far,fbr->ab", w.reshape(-1, dk, dr),
+                        bs.reshape(-1, dk, dr).conj())
+        out[jj] = total
+    return out
+
+
+@pytest.mark.parametrize("j,n,ea,eb,dk,dr", [
+    (3, 2, 32, 1, 8, 4),
+    (2, 2, 8, 4, 16, 2),
+    (2, 3, 5, 3, 4, 3),
+    (1, 2, 2, 6, 8, 4),
+    (2, 4, 32, 16, 64, 8),   # widths (4,5,4) layer 1, J cut from 40
+    (2, 4, 512, 1, 32, 16),  # widths (4,5,4) layer 2, J cut from 50
+])
+def test_ensemble_commutator_trace_emulation(x64, j, n, ea, eb, dk, dr):
+    """Every plan of the CUDA trace kernel computes the same function:
+    one block per (j, n) with a single tile, the finest split (tiles of
+    one row, b one row a chunk, as many ranges as tiles), and one between
+    (ragged tiles and chunks), each against the JAX oracle and the Pallas
+    kernel in interpret mode."""
+    rng = np.random.default_rng(ea * 7 + eb * 3 + dk)
+    a = rand_c(rng, j, n, ea, dk, dr)
+    b = rand_c(rng, j, n, eb, dk, dr)
+    want = jref.ensemble_commutator_trace_ref(jnp.asarray(a), jnp.asarray(b))
+    k = dk * dr
+    tr, ti = ject(*split(a.reshape(j, n, ea, k)),
+                  *split(b.reshape(j, n, eb, k)), d_keep=dk, interpret=True)
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    for te, fc, nsplit in ((ea, eb, 1), (1, 1, ea),
+                           (max(1, ea // 3), max(1, (eb + 1) // 2), 2)):
+        got = ect_emulated(ta, tb, te, fc, nsplit)
+        assert got.shape == (j, dk, dk) and got.dtype == torch.complex128
+        assert rel_err(got, want) <= TOL, (te, fc, nsplit)
+        assert rel_err(got, tr + 1j * ti) <= TOL, (te, fc, nsplit)
+
+
 def test_ops_on_cpu_take_the_plain_versions(x64):
     rng = np.random.default_rng(1)
     a, b = torch.as_tensor(rand_c(rng, 2, 5, 3)), torch.as_tensor(
@@ -126,10 +192,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_dense_materialises_lazy_views():
     """The kernels read raw storage, so ``ops`` resolves the conjugate
-    and negative bits of lazy views before any launch."""
+    and negative bits of lazy views before any launch; a tensor that is
+    already dense is handed on as it is, with no copy."""
     x = torch.complex(torch.randn(2, 3, 4, dtype=torch.float64),
                       torch.randn(2, 3, 4, dtype=torch.float64))
-    for view in (x.conj(), x.transpose(-1, -2).conj(), x.conj().imag):
+    for view in (x.conj(), x.transpose(-1, -2).conj(), x.conj().imag,
+                 torch._neg_view(x), torch._neg_view(x.real),
+                 x.transpose(-1, -2)):
         dense = ops._dense(view)
         assert not dense.is_conj() and not dense.is_neg()
         assert dense.is_contiguous() and torch.equal(dense, view)
+        assert dense.data_ptr() != x.data_ptr()
+    for dense in (x, x.real.contiguous(), x[0]):
+        assert ops._dense(dense) is dense

@@ -150,3 +150,18 @@ def test_haar_sampling_is_seeded_and_valid():
     assert psi.shape == (4, 2, 8)
     norms = torch.linalg.vector_norm(psi, dim=-1)
     assert float((norms - 1).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("d,batch", [(4, ()), (8, (3,)), (16, (2, 5))])
+def test_haar_unitary_is_row_major(d, batch):
+    """Haar unitaries (the initial params) come out in the dense row-major
+    layout the kernels read, with the phase-fixed QR factor's values."""
+    u = tql.haar_unitary(torch.Generator().manual_seed(d), d, batch=batch,
+                         device="cpu")
+    assert u.shape == batch + (d, d) and u.is_contiguous()
+    g = torch.Generator().manual_seed(d)
+    re = torch.randn(batch + (d, d), generator=g, dtype=torch.float64)
+    im = torch.randn(batch + (d, d), generator=g, dtype=torch.float64)
+    q, r = torch.linalg.qr(torch.complex(re, im) / 2.0 ** 0.5)
+    diag = torch.diagonal(r, dim1=-2, dim2=-1)
+    assert torch.equal(u, q * (diag / diag.abs())[..., None, :])
