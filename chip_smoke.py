@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-quantum [--src DIR]
+    python3 chip_smoke.py --time-seq [--src DIR]
 
 Runs on cuda:0 only; without a CUDA device, or outside a checkout of the
 repository, it exits non-zero before printing any result. Phases:
@@ -40,10 +41,13 @@ repository, it exits non-zero before printing any result. Phases:
    prefill's deviation when every weight moves one ulp, and the first
    decode step with a prefill of S+1 tokens. Each sequence kernel is
    held against its plain version on the path's inputs and on ragged
-   shapes, then timed (attention also element by element, with the
-   design its machine code shows and the fp32-storage kernel's time);
-   then profiler breakdowns of one prefill and one decode step, and
-   ``python -m repro_torch.launch.serve`` as a smoke;
+   shapes, then timed, with the device time per launch from the
+   profiler (attention also element by element, with the design its
+   machine code shows and the fp32-storage kernel's time, and the rows
+   more than one bf16 ulp off the plain version recomputed in fp64 and in
+   the kernel's order of arithmetic); then profiler breakdowns of one
+   prefill and one decode step, and ``python -m repro_torch.launch.serve``
+   as a smoke;
 6. RWKV6 serving: RWKV6-7B at full width (32 layers, d_model 4096, 64
    heads of 64, bf16, 7,576,752,128 params) with the reference init's
    zero decay, bonus and mixing tensors redrawn from a seed, the same
@@ -51,20 +55,25 @@ repository, it exits non-zero before printing any result. Phases:
    gla_chunked launches (w handed over in fp32), the same budgets, 32
    decode tokens, the first of them against a prefill of S+1 tokens
    (the kernel at chunk 1), the kernel against its plain version on the
-   path's inputs and ragged shapes, profiles and the serve CLI.
+   path's inputs and ragged shapes, and timed at both prefills' shapes
+   (chunk 16 and, for the S+1 prefill, chunk 1), profiles and the serve
+   CLI.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape: each kernel at the main path's most frequent shape (launches of
 phase 3, or of one prefill), then zgemm and the trace at each shape of
-the (4,5,4) round (launches in one round, ``"cell"`` set); the quantum
-rows carry ``device_us``. The last line is ``{"ok": true, "device":
+the (4,5,4) round (launches in one round, ``"cell"`` set), and
+gla_chunked at chunk 1 in the S+1 prefill (``"cell"`` set); every row
+carries ``device_us``. The last line is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and never
 prints that line.
 
 ``--time-quantum`` runs none of that: it times the quantum path of the
 checkout whose ``src`` is DIR (this one by default) and prints one JSON
 line (see ``time_quantum``), so that two checkouts can be compared on
-one card, in turns, each in its own process.
+one card, in turns, each in its own process. ``--time-seq`` does the
+same for gla_chunked (chunk 16 and chunk 1) and rglru_scan at the
+prefills' shapes (see ``time_seq``).
 """
 import json
 import os
@@ -98,8 +107,9 @@ MAIN_FIDELITY = 0.95
 # rounding of nearly the same fp32 value, so they differ by at most one
 # bf16 ulp: 2^-7 of the value at worst (8 significand bits).
 BF16_RTOL = 2.0 ** -7
-# the bf16 tensor-core peak: the least time for bf16 work on this card
+# the bf16 and TF32 tensor-core peaks (same data sheet, dense)
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 # SDPA as a yardstick computes the same attention in its own bf16 way;
 # it is checked against the plain version first, at the reference's own
 # bf16 gate (tests/test_kernels.py), relative to the output's scale.
@@ -313,21 +323,30 @@ def ragged_cases():
 def device_us(fn, args, n=5):
     """Device time per call of ``fn(*args)``, summed over every kernel it
     launches (torch.profiler over ``n`` calls after one warm-up), in
-    microseconds."""
+    microseconds. A profile counts only when it holds one device record
+    for every launch the host made (late in a long run the profiler has
+    dropped some, or all); up to four tries, then CUDA events around the
+    ``n`` calls, and a line says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn(*args)
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    if not spans:
-        raise RuntimeError("the profiler saw no device time")
-    return sum(spans) / n
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn(*args)
+            torch.cuda.synchronize()
+        events = prof.events()
+        spans = [e.time_range.end - e.time_range.start for e in events
+                 if e.device_type == DeviceType.CUDA]
+        launches = sum(1 for e in events if e.device_type == DeviceType.CPU
+                       and e.name.startswith(("cudaLaunch", "cuLaunch")))
+        if spans and len(spans) == launches:
+            return sum(spans) / n
+    say("  (the profiler lost device records: CUDA events instead)")
+    return 1e3 * cuda_ms(fn, *args, reps=n, warmup=0)
 
 
 def check_and_time(rec, ragged):
@@ -638,26 +657,42 @@ def allowed_pairs(sq, sk, causal, window):
 
 
 def gla_flops(b, s, h, dh, chunk):
-    """fp32 operations of the chunked GLA form at these inputs: per
-    (b, h, chunk) of L tokens, the inter term and the state update
-    (2 L dh^2 each), the decayed scores of the L(L-1)/2 strictly lower
-    pairs (subtract, exp, two multiplies and an add per channel), the
-    bonus (3 per token-channel), scores @ v over the L(L+1)/2 pairs
-    (2 per value column), the per-element log-decay, its cumulative sum
-    and the decayed q and k (9 per token-channel), and the state's decay
-    (2 per entry)."""
-    el = chunk * dh
-    per_chunk = (4 * chunk * dh * dh + 5 * dh * chunk * (chunk - 1) // 2
-                 + 3 * el + dh * chunk * (chunk + 1) + 9 * el + 2 * dh * dh)
-    return per_chunk * b * h * (s // chunk)
+    """fp32 operations of the chunked GLA form at these inputs, as
+    (products, the rest): per chunk of L tokens (the last one shorter
+    where L does not divide S), the products are the inter term and the
+    state update (2 L dh^2 each: a multiply and an add per term) and
+    scores @ v over the L(L+1)/2 pairs (2 per value column); the rest is
+    the decayed scores of the L(L-1)/2 strictly lower pairs (subtract,
+    exp, two multiplies and an add per channel), the bonus (3 per
+    token-channel), the per-element log-decay, its cumulative sum and the
+    decayed q and k (9 per token-channel), and the state's decay (one
+    multiply per entry)."""
+    def per_chunk(n):
+        return (4 * n * dh * dh + dh * n * (n + 1),
+                5 * dh * n * (n - 1) // 2 + 12 * n * dh + dh * dh)
+    whole, tail = divmod(s, chunk)
+    (p, q), (pt, qt) = per_chunk(chunk), per_chunk(tail)
+    return (b * h * (whole * p + (pt if tail else 0)),
+            b * h * (whole * q + (qt if tail else 0)))
+
+
+def gla_least_ms(b, s, h, dh):
+    """Least time on an H100 for GLA's operations at these inputs: the
+    function does not depend on the chunk, so the least over chunk
+    lengths (1 to 64; longer ones only cost more) of the products at the
+    3xTF32 rate (three TF32 tensor-core products each, as the kernel's
+    tensor-core path runs them) and the rest at the fp32 rate."""
+    return min(p / (TF32_FLOPS / 3) + q / FP32_FLOPS
+               for p, q in (gla_flops(b, s, h, dh, n) for n in range(1, 65))
+               ) * 1e3
 
 
 def seq_bound_ms(name, args, kw):
     """Least time on an H100 for the function at these inputs: bytes
     (inputs once, outputs once) at HBM rate against the operations at the
     peak for their type (bf16 tensor cores for bf16 attention, fp32 CUDA
-    cores otherwise: GLA's arithmetic is fp32 by contract), the larger of
-    the two."""
+    cores for the scan, ``gla_least_ms`` for GLA), the larger of the
+    two."""
     if name == "flash_attention":
         q, k, v = args                          # (B, Sq, H, dh), (B, Sk, K, dh)
         b, sq, h, dh = q.shape
@@ -667,14 +702,15 @@ def seq_bound_ms(name, args, kw):
         flops = 4 * dh * pairs * b * h          # QK^T and PV, 2 each per MAC
         peak = BF16_FLOPS if q.element_size() == 2 else FP32_FLOPS
     elif name == "gla_chunked":
-        from repro_torch.kernels.gla_chunked import kernel_chunk
         r, k, v, w, u = args                    # (B, S, H, dh); u (H, dh)
         b, s, h, dh = r.shape
         nbytes = (r.element_size() * 4 * r.numel()      # r, k, v, out
                   + w.element_size() * w.numel() + 4 * u.numel()
                   + 4 * b * h * dh * dh)                 # the final state
-        flops = gla_flops(b, s, h, dh, kernel_chunk(kw["chunk"]))
-        peak = FP32_FLOPS
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = gla_least_ms(b, s, h, dh)
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
     else:
         a, b_ = args
         nbytes = a.element_size() * 3 * a.numel()
@@ -827,7 +863,11 @@ def check_and_time_seq(rec, ragged):
                 f"{float((got != want).float().mean()):.4%} differ, the "
                 f"largest excess over one bf16 ulp {float(excess.max()):.3e} "
                 f"of (P |V|) / l")
-            del got, want, terms, excess
+            del terms, excess
+            attention_excess_finding(qf, kf, vf, kw, got, want)
+            del got, want
+            dev_us = device_us(lambda *x: kfa.flash_attention(*x, **kw),
+                               [qf, kf, vf])
             b, sq, h, dh = q.shape
             flops = 4 * dh * b * h * allowed_pairs(sq, k.shape[1], **kw)
             q32, k32, v32 = (x.float() for x in (qf, kf, vf))
@@ -849,22 +889,142 @@ def check_and_time_seq(rec, ragged):
                                                        kw["chunk"]),
                            reps=3, warmup=1)
             lib_ms = None   # no single PyTorch call computes chunked GLA
+            dev_us = device_us(lambda *x: kgla.gla_chunked(*x, **kw), dense)
         else:
             a, b = args
             k_ms = cuda_ms(lambda: krg.rglru_scan(a, b), reps=20, warmup=2)
             p_ms = cuda_ms(lambda: ref.rglru_scan_ref(a, b), reps=2,
                            warmup=1)
             lib_ms = None          # no single PyTorch call is a linear scan
+            dev_us = device_us(krg.rglru_scan, [a, b])
         say(f"  {name:16s} timed at {[list(x.shape) for x in args]} "
             f"{[str(x.dtype)[6:] for x in args]} {kw} x{cnt}: kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+            f"{k_ms:.4f} ms (device {dev_us:.2f} us a launch), plain "
+            f"{p_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.1f}x")
+            f"{b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.2f}x")
         results[name] = dict(name=name, route="cuda", **SEQ_KERNELS[name],
                              shape=[list(x.shape) for x in args],
                              max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             device_us=dev_us)
     return results
+
+
+def tensor_core_scores(q, k):
+    """q (..., m, dh) @ k (..., n, dh)^T of bf16 values as Hopper's tensor
+    cores sum them in fp32 (a model, fitted to the kernel's bits on the
+    serving path): per wgmma k-step, the 16 exact products and the
+    running sum are aligned to the largest exponent among them, each
+    truncated below 2^(e - 26), added exactly, and the sum truncated to
+    fp32 (toward 0). Returns fp32 (..., m, n)."""
+    import torch
+    qd, kd = q.double(), k.double()
+    acc = torch.zeros(qd.shape[:-1] + (kd.shape[-2],), dtype=torch.float64,
+                      device=q.device)
+    for k0 in range(0, q.shape[-1], 16):
+        terms = torch.cat([acc[..., None], qd[..., :, None, k0:k0 + 16]
+                           * kd[..., None, :, k0:k0 + 16]], -1)
+        e = torch.frexp(terms.abs().amax(-1, keepdim=True)).exponent
+        quantum = torch.ldexp(torch.ones_like(terms[..., :1]), e - 26)
+        total = (torch.trunc(terms / quantum) * quantum).sum(-1)
+        rn = total.float()
+        acc = torch.where(rn.double().abs() > total.abs(),
+                          torch.nextafter(rn, torch.zeros_like(rn)),
+                          rn).double()
+    return acc.float()
+
+
+def attention_excess_finding(qf, kf, vf, kw, got, want, limit=2048):
+    """Recompute the query rows where the bf16 kernel (``got``) is more than
+    one bf16 ulp off the plain version (``want``, both heads-major): in
+    fp64 from the bf16 inputs; in the plain version's fp32 arithmetic
+    (unrounded); and in the kernel's order of arithmetic in plain PyTorch
+    (scores summed as the tensor cores sum them, ``tensor_core_scores``,
+    then scaled by log2(e) / sqrt(dh) before the running max is
+    subtracted; online softmax over 64-key tiles; P split into bf16 hi +
+    lo), and the same with the scores of one fp32 matmul instead. Prints
+    the share of the kernel's differing bf16 values each emulation
+    reproduces and each version's largest error against fp64 there, in
+    units of a = (P |V|) / l, over at most ``limit`` rows. Returns the
+    finding: "order" when the kernel-order emulation reproduces at least
+    90% of them, else "fault"."""
+    import math
+    import torch
+    bad = (got - want).abs() > bf16_ulp(want)
+    rows = bad.any(-1).nonzero()
+    if rows.shape[0] == 0:
+        say("  step 0: no element more than one bf16 ulp off")
+        return "none"
+    n_rows, rows = rows.shape[0], rows[:limit]
+    g, dh, sk = qf.shape[0] // kf.shape[0], qf.shape[-1], kf.shape[1]
+    sl2 = math.log2(math.e) / math.sqrt(dh)
+    j = torch.arange(sk, device=qf.device)[None, :]
+    models = ("tensor-core sums", "one fp32 matmul")
+    n_el, same = 0, dict.fromkeys(models, 0)
+    err = dict.fromkeys(("kernel", "plain fp32") + models, 0.0)
+    xmax = 0.0
+    for bh in rows[:, 0].unique().tolist():
+        for part in rows[rows[:, 0] == bh, 1].split(128):
+            i = part
+            ok = torch.ones((i.numel(), sk), dtype=torch.bool,
+                            device=qf.device)
+            if kw["causal"]:
+                ok &= j <= i[:, None]
+            if kw["window"] > 0:
+                ok &= j > i[:, None] - kw["window"]
+            q, kk, vv = qf[bh, i], kf[bh // g], vf[bh // g]
+            p64 = torch.softmax((q.double() @ kk.double().T
+                                 / math.sqrt(dh)).masked_fill(
+                ~ok, float("-inf")), -1)
+            exact, a = p64 @ vv.double(), p64 @ vv.double().abs()
+            s32 = ((q.float() @ kk.float().T) / math.sqrt(dh)).masked_fill(
+                ~ok, float("-inf"))
+            p32 = (s32 - s32.amax(-1, keepdim=True)).exp()
+            b = bad[bh, i]
+            n_el += int(b.sum())
+            outs = {"kernel": got[bh, i],
+                    "plain fp32": (p32 @ vv.float()) / p32.sum(-1,
+                                                               keepdim=True)}
+            for model in models:
+                acc = (tensor_core_scores(q, kk) if model == models[0]
+                       else q.float() @ kk.float().T)
+                x = (acc * sl2).masked_fill(~ok, -1e30)
+                xmax = max(xmax, float(x[ok].abs().max()))
+                m = torch.full((i.numel(), 1), -1e30, device=qf.device)
+                l = torch.zeros_like(m)
+                o = torch.zeros((i.numel(), dh), device=qf.device)
+                for k0 in range(0, sk, 64):
+                    okt = ok[:, k0:k0 + 64]
+                    if not bool(okt.any()):
+                        continue
+                    xt = x[:, k0:k0 + 64]
+                    m_new = torch.maximum(m, xt.amax(-1, keepdim=True))
+                    alpha, m = torch.exp2(m - m_new), m_new
+                    p = torch.where(okt, torch.exp2(xt - m), 0.0)
+                    l = l * alpha + p.sum(-1, keepdim=True)
+                    hi = p.bfloat16().float()
+                    lo = (p - hi).bfloat16().float()
+                    vt = vv[k0:k0 + 64].float()
+                    o = o * alpha + hi @ vt + lo @ vt
+                outs[model] = o / l.clamp_min(1e-30)
+                same[model] += int((outs[model].bfloat16().float()
+                                    == got[bh, i])[b].sum())
+            for name, val in outs.items():
+                e = ((val.double() - exact).abs() / a.clamp_min(1e-300))[b]
+                err[name] = max(err[name], float(e.max()))
+    finding = "order" if same[models[0]] >= 0.9 * n_el else "fault"
+    say(f"  step 0: {n_el} elements in {n_rows} query rows more than one "
+        f"bf16 ulp off the plain version ({rows.shape[0]} rows recomputed, "
+        f"scaled scores up to {xmax:.1f} in log2 units); the kernel-order "
+        f"emulation gives the kernel's bf16 value at "
+        + ", ".join(f"{v} ({v / max(n_el, 1):.2%}) with {k}"
+                    for k, v in same.items())
+        + "; largest error against the fp64 function there, in units of "
+        "(P |V|) / l: " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + ": " + ("the rounding of fp32 arithmetic in the kernel's order"
+                  if finding == "order" else "NOT reproduced"))
+    return finding
 
 
 def bf16_ulp(x):
@@ -1171,8 +1331,10 @@ def phase_rwkv(device="cuda"):
             torch.isfinite(logits).all()):
         raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite")
     budget = check_prefill_budgets(cfg, params, batch, logits, cache)
-    s1 = decode_and_check(cfg, model, params, batch, logits, cache, budget,
-                          n_gen)
+    # the S+1 prefill's inputs (the kernel at chunk 1) are kept too
+    with Recorder({"gla_chunked": "gla_chunked"}) as rec1:
+        s1 = decode_and_check(cfg, model, params, batch, logits, cache,
+                              budget, n_gen)
     if s1 != {"gla_chunked": cfg.n_layers}:
         raise RuntimeError(f"the S+1 prefill (chunk 1) launched {s1}")
 
@@ -1180,6 +1342,9 @@ def phase_rwkv(device="cuda"):
         "and ragged shapes:")
     results = check_and_time_seq(rec, seq_ragged_cases(device))
     del rec
+    say("  gla_chunked at the S+1 prefill's inputs (chunk 1):")
+    row1 = check_and_time_seq(rec1, {"gla_chunked": []})["gla_chunked"]
+    del rec1
     torch.cuda.empty_cache()
     profile_serving(model, params, batch, logits, cache, n_gen)
     say(f"  card during phase 6: "
@@ -1191,7 +1356,9 @@ def phase_rwkv(device="cuda"):
     serve_cli("rwkv6-7b")
     for name, row in results.items():
         row["launches"] = launches[name]
-    return results
+    row1.update(launches=s1["gla_chunked"],
+                cell=f"RWKV6-7B S+1 = {s + 1} prefill, chunk 1")
+    return list(results.values()) + [row1]
 
 
 # ------------------------------------------------- --time-quantum (A/B)
@@ -1248,6 +1415,51 @@ def time_quantum(trials=3):
     return 0
 
 
+# ----------------------------------------------------- --time-seq (A/B)
+def seq_timing_inputs(device="cuda"):
+    """Seeded inputs at the sequence kernels' path shapes: GLA r, k, v
+    (4, 4096, 64, 64) bf16 with w fp32 drawn as the RWKV6 block's decay
+    exp(-exp(x)), x uniform over its clip [-12, 4], u (64, 64); the same at
+    4097 tokens (the S+1 prefill, chunk 1); the RG-LRU scan's a in (0, 1)
+    and b (4, 4096, 2560) fp32."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(12)
+
+    def gla(s):
+        rkv = [(0.5 * torch.randn((SERVE_B, s, 64, 64), generator=g)).to(
+            device, torch.bfloat16) for _ in range(3)]
+        x = torch.rand((SERVE_B, s, 64, 64), generator=g) * 16.0 - 12.0
+        return rkv + [torch.exp(-torch.exp(x)).to(device),
+                      (0.5 * torch.randn((64, 64), generator=g)).to(device)]
+    a = torch.rand((SERVE_B, SERVE_S, 2560), generator=g).to(device)
+    b = torch.randn((SERVE_B, SERVE_S, 2560), generator=g).to(device)
+    return {"gla_chunked (4,4096,64,64) bf16 chunk 16": ("gla", gla(SERVE_S),
+                                                         16),
+            "gla_chunked (4,4097,64,64) bf16 chunk 1": ("gla",
+                                                        gla(SERVE_S + 1), 1),
+            "rglru_scan (4,4096,2560) fp32": ("scan", (a, b), None)}
+
+
+def time_seq(trials=5):
+    """ms per call (``cuda_ms``, ``trials`` times) of gla_chunked and
+    rglru_scan through their wrappers at ``seq_timing_inputs``, for the
+    port under ``--src``; one JSON line of medians and trials."""
+    import statistics
+    from repro_torch.kernels import gla_chunked as kgla
+    from repro_torch.kernels import rglru_scan as krg
+    result = {"src": str(kgla.__file__).rsplit("/repro_torch/", 1)[0],
+              "card": smi("name,power.limit")}
+    for label, (kind, args, chunk) in seq_timing_inputs().items():
+        if kind == "gla":
+            fn = lambda: kgla.gla_chunked(*args, chunk=chunk)  # noqa: E731
+        else:
+            fn = lambda: krg.rglru_scan(*args)  # noqa: E731
+        ms = [cuda_ms(fn, reps=20, warmup=3) for _ in range(trials)]
+        result[label] = {"median": statistics.median(ms), "trials": ms}
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1261,6 +1473,8 @@ def main() -> int:
     torch.cuda.set_device(0)
     if "--time-quantum" in sys.argv:
         return time_quantum()
+    if "--time-seq" in sys.argv:
+        return time_seq()
     t0 = time.time()
     phase_build()
     results = phase_kernels()
@@ -1269,7 +1483,7 @@ def main() -> int:
         row["launches"] = launches[name]
     rows = list(results.values()) + phase_wide()
     rows += list(phase_serve().values())
-    rows += list(phase_rwkv().values())
+    rows += phase_rwkv()
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

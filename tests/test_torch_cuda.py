@@ -270,8 +270,45 @@ def test_sequence_kernels_agree_and_count(cuda_device, dtype):
     want = ref.rglru_scan_ref(a, b)
     tol = 5e-2 if dtype == torch.bfloat16 else RTOL
     assert float((got.float() - want.float()).abs().max()) <= tol
+    # the segmented scan's edges: S of 1, one 16-token sub-chunk plus one,
+    # a multiple of the 64-token segment, not one (4097: the S+1 prefill);
+    # D of one 32-channel tile, under one, and not a multiple of 32
+    for bsz, s, d in SCAN_CASES:
+        a = torch.rand((bsz, s, d), generator=gen).to(cuda_device, dtype)
+        b = torch.randn((bsz, s, d), generator=gen).to(cuda_device, dtype)
+        got = krg.rglru_scan(a, b)
+        torch.cuda.synchronize()
+        want = ref.rglru_scan_ref(a, b)
+        assert got.dtype == dtype and got.shape == (bsz, s, d)
+        tol = BF16_ULP if dtype == torch.bfloat16 else RTOL
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * scale, (bsz, s, d, err, scale)
     assert dict(build.LAUNCHES) == {"flash_attention": len(cases),
-                                    "rglru_scan": 1}
+                                    "rglru_scan": 1 + len(SCAN_CASES)}
+
+
+SCAN_CASES = [(2, 1, 64), (1, 17, 32), (3, 128, 300), (2, 4097, 77),
+              (1, 200, 2560), (4, 63, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_kernels_give_the_same_bits_on_repeat(cuda_device, dtype):
+    """No atomics and no order between blocks in the scan or the GLA
+    kernel: the same inputs give the same bits (out and GLA's state)."""
+    from repro_torch.kernels import gla_chunked as kgla
+    from repro_torch.kernels import rglru_scan as krg
+    gen = torch.Generator().manual_seed(10)
+    a = torch.rand((2, 4097, 300), generator=gen).to(cuda_device, dtype)
+    b = torch.randn((2, 4097, 300), generator=gen).to(cuda_device, dtype)
+    first = krg.rglru_scan(a, b)
+    assert torch.equal(first, krg.rglru_scan(a, b))
+    for s, dh, chunk in ((64, 64, 16), (33, 40, 1), (96, 64, 48)):
+        args = _gla_case(gen, 2, s, 3, dh, dtype, cuda_device)
+        out, state = kgla.gla_chunked(*args, chunk=chunk)
+        again, again_state = kgla.gla_chunked(*args, chunk=chunk)
+        assert torch.equal(out, again) and torch.equal(state, again_state)
 
 
 # The bf16 kernel against the fp32 function, element by element. Both
@@ -417,7 +454,7 @@ def test_gla_kernel_agrees_and_counts(cuda_device, dtype):
              (2, 1, 5, 64, 1, False, torch.float32),
              (1, 64, 2, 64, 64, True, torch.float32),
              (1, 128, 2, 32, 128, False, torch.float32),
-             (2, 32, 3, 64, 16, False, torch.bfloat16)]
+             (2, 32, 3, 64, 16, False, torch.bfloat16)] + GLA_TILE_CASES
     build.reset_launches()
     for b, s, h, dh, chunk, ends, w_dtype in cases:
         args = _gla_case(gen, b, s, h, dh, dtype, cuda_device, ends, w_dtype)
@@ -433,6 +470,29 @@ def test_gla_kernel_agrees_and_counts(cuda_device, dtype):
         s_scale = max(float(want_state.abs().max()), 1e-30)
         assert float((state - want_state).abs().max()) <= RTOL * s_scale
     assert dict(build.LAUNCHES) == {"gla_chunked": len(cases)}
+
+
+# The redesigned kernel's edges: dh 8, 32, 40 and 64 across its 32-column
+# tiles (one partial, one full, a full and a partial, two full); S of one
+# chunk; stages of several chunks (16 chunks of 1, 5 of 3 with a short
+# last stage, 2 of 8) and chunks above 16 (20: a sub-block of 16 and one
+# of 4; 48: three), at the clip's ends too; 4097 tokens at chunk 1 (the
+# S+1 prefill); rows of dh 5 and 6, which the kernel copies element by
+# element (not 16-byte pieces); chunks of 10 and 12, one chunk a stage
+# short of 16, on the tensor-core path (as 16 is), with w in fp32 and in
+# bf16.
+GLA_TILE_CASES = [(2, 16, 3, 8, 16, False, torch.float32),
+                  (1, 16, 2, 32, 16, True, torch.float32),
+                  (2, 33, 3, 40, 3, True, torch.float32),
+                  (1, 48, 2, 64, 1, True, torch.float32),
+                  (2, 32, 2, 64, 8, False, torch.float32),
+                  (1, 40, 2, 40, 20, True, torch.float32),
+                  (1, 96, 3, 64, 48, False, torch.float32),
+                  (1, 4097, 2, 64, 1, False, torch.float32),
+                  (2, 32, 3, 5, 16, True, torch.float32),
+                  (1, 40, 2, 6, 20, False, torch.float32),
+                  (1, 40, 2, 40, 10, True, torch.float32),
+                  (2, 36, 3, 64, 12, False, torch.bfloat16)]
 
 
 @pytest.mark.cuda

@@ -125,6 +125,113 @@ def test_decay_at_the_clip_ends(chunk):
     assert torch.equal(out, again)
 
 
+def tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: the low 13 of the 23
+    mantissa bits rounded to nearest, ties away from zero (an add of half
+    their range to the magnitude, then a mask)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(eq, a, b, terms=3):
+    """einsum ``eq`` of fp32 a and b as the tensor-core path runs it: each
+    operand split into TF32 hi + lo, the products hi hi, hi lo and lo hi
+    (``terms`` = 1: hi hi alone) exact, summed in fp64 and rounded once to
+    fp32 (the accumulation order inside mma.sync is the card's)."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    pairs = [(ah, bh), (ah, bl), (al, bh)][:terms]
+    return sum(torch.einsum(eq, x.double(), y.double())
+               for x, y in pairs).float()
+
+
+def gla_3xtf32(r, k, v, w, u, chunk, terms=3):
+    """The chunked form with its three products in 3xTF32, in the CUDA
+    kernel's order on its tensor-core path (csrc/gla_chunked.cu, a stage
+    of one chunk): per chunk the inter term from the state before it,
+    the state decayed then the update added, and out = inter +
+    scores @ v; the pairwise scores, decays and logs in fp32 as
+    ``ref.gla_chunked_ref`` forms them. Returns fp32 out and state."""
+    b, s, h, dh = r.shape
+    n = s // chunk
+    r_, k_, v_ = (x.float().reshape(b, n, chunk, h, dh) for x in (r, k, v))
+    logw = torch.log(torch.clamp_min(w.float(), 1e-20)).reshape(
+        b, n, chunk, h, dh)
+    lp = torch.cumsum(logw, 2)
+    for t in range(1, chunk):             # left to right, as the kernel
+        lp[:, :, t] = lp[:, :, t - 1] + logw[:, :, t]
+    lp_prev = lp - logw
+    tri = torch.ones((chunk, chunk), dtype=torch.bool).tril(-1)
+    pair = (lp_prev[:, :, :, None] - lp[:, :, None]).exp()   # b n t i h c
+    scores = (pair * r_[:, :, :, None] * k_[:, :, None]).sum(-1)
+    scores = torch.where(tri[:, :, None], scores, 0.0)        # b n t i h
+    diag = (r_ * k_ * u.float()).sum(-1)                      # b n t h
+    scores = scores + torch.diag_embed(diag.transpose(-1, -2)).permute(
+        0, 1, 3, 4, 2)
+    q_dec = r_ * torch.exp(lp_prev)
+    k_dec = k_ * torch.exp(lp[:, :, -1:] - lp)
+    decay = torch.exp(lp[:, :, -1])[..., None]                # b n h c 1
+    state = torch.zeros((b, h, dh, dh))
+    out = torch.empty((b, n, chunk, h, dh))
+    for i in range(n):
+        inter = mm_3xtf32("bthc,bhce->bthe", q_dec[:, i], state, terms)
+        state = decay[:, i] * state + mm_3xtf32(
+            "bthc,bthe->bhce", k_dec[:, i], v_[:, i], terms)
+        out[:, i] = inter + mm_3xtf32("btih,bihe->bthe", scores[:, i],
+                                      v_[:, i], terms)
+    return out.reshape(b, s, h, dh), state
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12 - 2.0 ** -20])
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -10), 1.0])
+    assert torch.equal(tf32(x), want)
+
+
+# 3xTF32 keeps each product to ~2^-22 of itself: against the plain
+# chunked form at the same chunk the tensor-core path's arithmetic is held
+# to 1e-6 of the scale, ten times tighter than the fp32 tolerance
+TOL_3XTF32 = 1e-6
+
+
+@pytest.mark.parametrize("chunk", [16, 12])
+@pytest.mark.parametrize("w_kind", ["random", "clip ends"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_3xtf32_products_hold_the_fp32_function(chunk, w_kind, dtype):
+    """The tensor-core path's arithmetic (3xTF32 products) against the
+    port's plain chunked form (1e-6 of the scale), the Pallas kernel in
+    interpret mode (1e-5) and the reference's step recurrence, on random
+    decays and at the decay clip's ends (as test_decay_at_the_clip_ends);
+    bf16-rounded r, k, v (v exact in TF32) too. At the clip's ends the
+    chunked form itself is up to ~3e-5 off the recurrence (the cumulative
+    log-decay reaches 16 x -46, rounded in fp32), so there the emulation
+    is held to no more than the plain form's distance plus 1e-6; with
+    random decays to 1e-5. One TF32 product alone (hi x hi) misses the
+    fp32 tolerance against the plain form."""
+    s = 48 if chunk == 16 else 36
+    rng = np.random.default_rng(6)
+    w = (np.where(rng.random((2, s, 2, 8)) < 0.5, W_LOW, W_HIGH)
+         if w_kind == "clip ends" else None)
+    arrays = gla_inputs(6, 2, s, 2, 8, w=w)
+    if dtype == "bfloat16":
+        arrays[:3] = [np.asarray(torch.as_tensor(x).bfloat16().float())
+                      for x in arrays[:3]]
+    j, t = both(arrays)
+    out, state = gla_3xtf32(*t, chunk)
+    plain, plain_state = ref.gla_chunked_ref(*t, chunk)
+    assert bool(torch.isfinite(out).all())
+    assert rel(out, plain) <= TOL_3XTF32
+    assert rel(state, plain_state) <= TOL_3XTF32
+    assert rel(out, jpallas(*j, chunk=chunk, interpret=True)) <= TOL32
+    rec = jref.gla_recurrence_ref(*j)
+    limit = rel(plain, rec) + TOL_3XTF32 if w_kind == "clip ends" else TOL32
+    assert rel(out, rec) <= limit
+    one, _ = gla_3xtf32(*t, chunk, terms=1)
+    assert rel(one, plain) > TOL32
+
+
 def test_keyless_first_token_gets_only_the_bonus():
     j, t = both(gla_inputs(5, 1, 16, 2, 8))
     r, k, v, _, u = t

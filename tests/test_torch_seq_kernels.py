@@ -10,7 +10,9 @@ interpret mode, on the shape, dtype and window cases of
 against the reference's ``ops.attention(impl="xla")``, which repeats
 k/v where the port reads kv head h // G. ``tests/test_torch_cuda.py``
 covers the launches on a card."""
+import importlib.util
 import math
+from pathlib import Path
 
 import pytest
 
@@ -25,6 +27,13 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E402
 from repro.kernels.rglru_scan import rglru_scan as jscan  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+
+# the tensor cores' score sums as modelled in chip_smoke.py (one copy)
+_SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
+tensor_core_scores = chip_smoke.tensor_core_scores
 
 TOL32 = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -118,12 +127,15 @@ def test_attention_rows_with_no_allowed_key_are_zero():
     assert bool((got[:, :11].abs().amax(dim=-1) > 0).all())
 
 
-def split_p_attention(q, k, v, *, causal, window, split=True, tile=64):
+def split_p_attention(q, k, v, *, causal, window, split=True, tile=64,
+                      tensor_core=False):
     """The bf16 CUDA kernel's arithmetic (csrc/flash_attention_wgmma.cu)
     in plain PyTorch: scores of the bf16 inputs summed in fp32 and scaled
     in the log2 domain, an online softmax over key tiles of 64, and P·V as
     P_hi V + P_lo V with P_hi = bf16(P), P_lo = bf16(P - P_hi) and fp32
-    sums (``split=False``: P_hi alone, P rounded to bf16 as SDPA does).
+    sums (``split=False``: P_hi alone, P rounded to bf16 as SDPA does;
+    ``tensor_core``: the scores summed as ``tensor_core_scores`` models
+    the tensor cores, else by one fp32 matmul).
     q (BH, Sq, dh), k/v (BH / G, Sk, dh) -> fp32 (BH, Sq, dh)."""
     g = q.shape[0] // k.shape[0]
     qf = q.float()
@@ -140,7 +152,10 @@ def split_p_attention(q, k, v, *, causal, window, split=True, tile=64):
             ok &= cols <= rows
         if window > 0:
             ok &= cols > rows - window
-        s = (qf @ kf[:, k0:k0 + tile].transpose(1, 2)) * sl2
+        if tensor_core:
+            s = tensor_core_scores(q, kf[:, k0:k0 + tile].bfloat16()) * sl2
+        else:
+            s = (qf @ kf[:, k0:k0 + tile].transpose(1, 2)) * sl2
         m_new = torch.maximum(m, s.masked_fill(~ok, -1e30).amax(-1, True))
         alpha, m = torch.exp2(m - m_new), m_new
         p = torch.where(ok, torch.exp2(s - m), 0.0)
@@ -192,6 +207,56 @@ def test_attention_split_p_emulation(bh, bk, sq, sk, dh, window):
         assert float((excess - 2.0 ** -15 * terms).max()) <= 0.0
 
 
+def attention_fp64(q, k, v, *, causal, window):
+    """The attention function in fp64 of the given (bf16) inputs, and
+    a = (P |V|) / l, the size of the terms summed into each element."""
+    g = q.shape[0] // k.shape[0]
+    kd, vd = (x.double().repeat_interleave(g, 0) for x in (k, v))
+    s = q.double() @ kd.transpose(1, 2) / math.sqrt(q.shape[-1])
+    i = torch.arange(q.shape[1])[:, None]
+    j = torch.arange(k.shape[1])[None, :]
+    ok = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool)
+    if causal:
+        ok &= j <= i
+    if window > 0:
+        ok &= j > i - window
+    p = torch.softmax(s.masked_fill(~ok, float("-inf")), -1)
+    return p @ vd, p @ vd.abs(), float(s[:, ok].abs().max())
+
+
+def test_attention_kernel_order_error_scales_with_the_logit_range():
+    """Isolating the bf16 kernel's excess over one bf16 ulp on the serving
+    path, whose logits are large (the reference init): every fp32 attention
+    rounds the scores at 2^-24 of their size, so each weight p carries a
+    relative error of about |x| 2^-24, x the largest score in log2 units,
+    and an output element one of that size times a = (P |V|) / l. The
+    kernel's order (``split_p_attention``: scores scaled before the max is
+    subtracted, P split hi + lo; with the scores of one fp32 matmul and
+    with the tensor cores' truncated sums) and the plain version's stay
+    within
+    2 |x| 2^-24 + 2^-15 of a of the fp64 function at every logit range,
+    and both errors grow with it: at |x| in the thousands they reach
+    1e-4 a, more than one bf16 ulp of an element near 0, so two fp32
+    versions may round to bf16 values more than one ulp apart there."""
+    errs = []
+    for scale in (1.0, 256.0, 1024.0):
+        (_, tq), (_, tk), (_, tv) = qkv(5, 4, 130, 130, 64, "bfloat16", bk=2)
+        tq = (tq.float() * scale).bfloat16()
+        kw = dict(causal=True, window=50)
+        exact, a, smax = attention_fp64(tq, tk, tv, **kw)
+        xmax = smax * math.log2(math.e)
+        bound = (2 * xmax * 2.0 ** -24 + 2.0 ** -15) * a
+        emu = split_p_attention(tq, tk, tv, **kw).double()
+        emu_tc = split_p_attention(tq, tk, tv, tensor_core=True,
+                                   **kw).double()
+        plain = ref.attention_ref(tq.float(), tk.float(), tv.float(),
+                                  **kw).double()
+        for got in (emu, emu_tc, plain):
+            assert float(((got - exact).abs() - bound).max()) <= 0.0, scale
+        errs.append(float(((emu - exact).abs() / a).max()))
+    assert errs[2] > 10 * errs[0] and errs[2] > 1e-4, errs
+
+
 # ---------------------------------------------------------------- rglru
 @pytest.mark.parametrize("s,chunk", [(32, 8), (64, 16), (64, 64), (16, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -218,6 +283,73 @@ def test_rglru_scan_plain_matches_associative_scan():
 
     _, h_assoc = jax.lax.associative_scan(combine, (ja, jb), axis=1)
     assert max_err(ref.rglru_scan_ref(ta, tb), h_assoc) <= TOL32
+
+
+def segmented_scan(a, b, sub=16, warps=4):
+    """The CUDA scan's arithmetic (csrc/rglru_scan.cu) in plain PyTorch:
+    segments of ``warps`` sub-chunks of ``sub`` tokens; each sub-chunk
+    run from h = 0 with its decay product P = a_0 a_1 ... (fp32, left to
+    right), the carry into each sub-chunk folded in order from the
+    segment's (carry = P_j carry + h_j), the sub-chunk run again from its
+    carry, and the next segment's carry folded over all its sub-chunks.
+    Every h update and fold is one fused multiply-add (one rounding, as
+    the kernel's fmaf: the product is exact in fp64). Returns a's dtype."""
+    def fma(x, y, z):
+        return (x.double() * y.double() + z.double()).float()
+    bsz, s, d = a.shape
+    a32, b32 = a.float(), b.float()
+    out = torch.empty((bsz, s, d))
+    carry = torch.zeros((bsz, d))
+    for s0 in range(0, s, sub * warps):
+        spans = [range(t0, min(t0 + sub, s))
+                 for t0 in range(s0, s0 + sub * warps, sub)]
+        parts = []
+        for span in spans:
+            p, h = torch.ones((bsz, d)), torch.zeros((bsz, d))
+            for t in span:
+                h = fma(a32[:, t], h, b32[:, t])
+                p = p * a32[:, t]
+            parts.append((p, h))
+        c = carry
+        for span, (p, h_end) in zip(spans, parts):
+            h = c
+            for t in span:
+                h = fma(a32[:, t], h, b32[:, t])
+                out[:, t] = h
+            c = fma(p, c, h_end)
+        carry = c
+    return out.to(a.dtype)
+
+
+@pytest.mark.parametrize("s,chunk", [(1, 1), (17, 17), (64, 64), (128, 64),
+                                     (200, 8), (4097, 17)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_segmented_scan_emulation(s, chunk, dtype):
+    """The carry fix-up of the CUDA scan runs out of the sequential order;
+    its emulation stays within 1e-5 of the output's scale of the Pallas
+    kernel in interpret mode and of the reference's sequential scan in
+    fp32, and within one bf16 ulp of them in bf16 (S of 1, one 16-token
+    sub-chunk plus one, one 64-token segment, a multiple of it, neither,
+    and the 4097 tokens of the S+1 prefill)."""
+    rng = np.random.default_rng(s)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((2, s, 8)) - 2.0))
+    b = rng.standard_normal((2, s, 8))
+    (ja, ta), (jb, tb) = both(a, dtype), both(b, dtype)
+    got = segmented_scan(ta, tb)
+    assert got.dtype == ta.dtype and got.shape == (2, s, 8)
+    for want in (jref.rglru_scan_ref(ja, jb),
+                 jscan(ja, jb, chunk=chunk, interpret=True)):
+        want = torch.tensor(f32(want))
+        scale = float(want.abs().max())
+        if dtype == "bfloat16":
+            assert bool(((got.float() - want).abs()
+                         <= bf16_ulp(want)).all())
+        else:
+            assert max_err(got, want) <= TOL32 * scale
+    # past one segment the fold is not the sequential order of the same
+    # fused steps (one sub-chunk over the whole sequence): bits differ
+    if s > 64 and dtype == "float32":
+        assert not torch.equal(got, segmented_scan(ta, tb, sub=s, warps=1))
 
 
 # ---------------------------------------------------------------- dispatch
