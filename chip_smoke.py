@@ -17,6 +17,8 @@ repository, it exits non-zero before printing any result. Phases:
    twice, bit for bit), and time kernel, plain version and (where one
    PyTorch call computes the same function) that library call with CUDA
    events, and the kernel's device time per launch with torch.profiler;
+   fidelity and mse also beside the launch floor (a one-element PyTorch
+   op, back to back, and its device time);
 3. main path: the paper's experiment (examples/quickstart.py): widths
    (2,3,2), N=100, N_p=10, I_l=2, eta=1, eps=0.1, Eq. 6 product, 50
    rounds with impl="pallas", evaluated every 10 rounds. The launch
@@ -57,16 +59,31 @@ repository, it exits non-zero before printing any result. Phases:
    (the kernel at chunk 1), the kernel against its plain version on the
    path's inputs and ragged shapes, and timed at both prefills' shapes
    (chunk 16 and, for the S+1 prefill, chunk 1), profiles and the serve
-   CLI.
+   CLI;
+7. engines: at BENCH_engine.json's widths (2,3,2), (3,4,3), (4,5,4) and
+   (3,3,3,3) (4 nodes, 2 a round, I_l = 2, 4 pairs a node), one round of
+   each engine (local, local_opb, dense) and impl from the same params:
+   the complex128 engines within 1e-10 of the dense oracle, the kernel
+   rounds within 1e-5, every kernel shape of those rounds against its
+   plain version, then ms/round of each; one local_opb round of phase
+   4's (4,5,4) cell with the kernels (launch counts zeroed before, read
+   after; zgemm at the av^H B_j shapes (40,1|16,512) x (40,512,512), 18
+   launches), its zgemm shapes checked and timed into the result, and
+   the operands ``ops._dense`` copied counted; the certified
+   approximate-rank cells (BENCH_engine.json's APPROX_SETS) through
+   ``server_round_certified`` under both impls, each certificate at or
+   above the deviation of the approximate K's from the exact engine's
+   on the round's node batch, with approximate and exact ms/round.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape: each kernel at the main path's most frequent shape (launches of
 phase 3, or of one prefill), then zgemm and the trace at each shape of
-the (4,5,4) round (launches in one round, ``"cell"`` set), and
-gla_chunked at chunk 1 in the S+1 prefill (``"cell"`` set); every row
-carries ``device_us``. The last line is ``{"ok": true, "device":
-{...}}``. Any failed check raises, so the script exits non-zero and never
-prints that line.
+the (4,5,4) round (launches in one round, ``"cell"`` set),
+gla_chunked at chunk 1 in the S+1 prefill (``"cell"`` set), and zgemm at
+each shape of phase 7's (4,5,4) local_opb round (``"cell"`` set); every
+row carries ``device_us``, and fidelity's and mse's the launch floor.
+The last line is ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the script exits non-zero and never prints that line.
 
 ``--time-quantum`` runs none of that: it times the quantum path of the
 checkout whose ``src`` is DIR (this one by default) and prints one JSON
@@ -349,13 +366,14 @@ def device_us(fn, args, n=5):
     return 1e3 * cuda_ms(fn, *args, reps=n, warmup=0)
 
 
-def check_and_time(rec, ragged):
-    """Hold each kernel against its plain version on every recorded input
-    (and the ragged cases; the trace twice, bit for bit), then time
-    kernel, plain version and library call at every recorded shape.
-    Returns {kernel: [row per shape, most frequent first]}, each row with
-    the largest error on the path's own inputs, and the device time per
-    launch (profiler) of the kernel alone. Raises on a disagreement."""
+def check_and_time(rec, ragged, names=tuple(KERNELS), timed=True):
+    """Hold each kernel of ``names`` against its plain version on every
+    recorded input (and the ragged cases; the trace twice, bit for bit),
+    then, when ``timed``, time kernel, plain version and library call at
+    every recorded shape. Returns {kernel: [row per shape, most frequent
+    first]}, each row with the largest error on the path's own inputs,
+    and the device time per launch (profiler) of the kernel alone. Raises
+    on a disagreement, or when the path never called one of ``names``."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import fidelity as kfid
@@ -381,7 +399,7 @@ def check_and_time(rec, ragged):
             "jnekr,jnfkr,jneas,jnfbs->jab", a.conj(), b, a, b.conj()),
     }
     results = {}
-    for name in KERNELS:
+    for name in names:
         calls = rec.calls[name]
         if not calls:
             raise RuntimeError(f"the path never called {name}")
@@ -412,6 +430,8 @@ def check_and_time(rec, ragged):
                                    "or with itself")
             if label.startswith("path"):
                 worst = max(worst, err)
+        if not timed:
+            continue
         # every recorded shape is timed, the most frequent one first (of
         # equally frequent ones, the last recorded)
         rows = results[name] = []
@@ -464,8 +484,36 @@ def phase_kernels():
         fed.evaluate(p, *test, cfg.widths, impl=cfg.impl)
         torch.cuda.synchronize()
     # the most frequent shape of each kernel reports
-    return {name: rows[0]
+    rows = {name: rows[0]
             for name, rows in check_and_time(rec, ragged_cases()).items()}
+    floor_ms, floor_us = launch_floor()
+    for name in ("fidelity", "mse"):
+        row = rows[name]
+        row.update(floor_ms=floor_ms, floor_device_us=floor_us)
+        say(f"  {name}: kernel {row['ms']:.4f} ms, device "
+            f"{row['device_us']:.2f} us a launch; the launch floor "
+            f"{floor_ms:.4f} ms, device {floor_us:.2f} us: the kernel takes "
+            f"{row['ms'] / floor_ms:.2f}x / "
+            f"{row['device_us'] / floor_us:.2f}x "
+            f"the floor, so it is "
+            f"{'within' if row['ms'] <= 2 * floor_ms else 'NOT within'} "
+            f"twice the floor's time (at least half the floor's rate)")
+    return rows
+
+
+def launch_floor():
+    """The least a launch costs through PyTorch on this card: a one-element
+    op (``add_`` on one fp64 value), back to back, by CUDA events (ms per
+    call, as ``cuda_ms`` times the kernels) and its device time per launch
+    by the profiler (us). The yardstick of the kernels whose work is far
+    below a launch."""
+    import torch
+    x = torch.zeros(1, dtype=torch.float64, device="cuda")
+    ms = cuda_ms(x.add_, 1.0)
+    us = device_us(x.add_, [1.0])
+    say(f"  launch floor: a one-element add_ takes {ms:.4f} ms a call "
+        f"(CUDA events, 100 back to back), {us:.2f} us of device time")
+    return ms, us
 
 
 def evaluate_all(params, ds, test, cfg):
@@ -1361,6 +1409,244 @@ def phase_rwkv(device="cuda"):
     return list(results.values()) + [row1]
 
 
+# ------------------------------------------------------ phase 7: engines
+# BENCH_engine.json's engine cells (benchmarks/bench_engine.py): 4 nodes,
+# 2 a round, I_l = 2, 4 pairs a node, eta 1, eps 0.05, Eq. 6; data, params
+# and the round drawn from seeds 0, 1 and 2.
+ENGINE_WIDTHS = ((2, 3, 2), (3, 4, 3), (4, 5, 4), (3, 3, 3, 3))
+# its certified approximate-rank cells (APPROX_SETS), same config
+APPROX_SETS = (
+    ((3, 4, 3), dict(interval_length=2, rank_tol=1e-3, rank_cap=6)),
+    ((4, 5, 4), dict(interval_length=2, rank_tol=1e-3, rank_cap=6)),
+    ((5, 6, 5), dict(interval_length=1, rank_tol=1e-3, rank_cap=4)),
+    ((5, 6, 5), dict(interval_length=1, rank_tol=1e-3, rank_cap=4,
+                     minibatch=2)),
+)
+# complex128 engines against one another: the reference's oracle budget
+# (tests/test_engine_equivalence.py)
+ENGINE_TOL = 1e-10
+
+
+def engine_cell(widths, **overrides):
+    """The config, data and params of one BENCH_engine.json cell."""
+    import torch
+    from repro_torch.core.quantum import data as qdata
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.core.quantum import qnn
+    cfg = fed.QuantumFedConfig(**dict(
+        dict(widths=widths, num_nodes=4, nodes_per_round=2,
+             interval_length=2, eta=1.0, eps=0.05), **overrides))
+    _, ds, _ = qdata.make_federated_dataset(
+        torch.Generator().manual_seed(0), widths[0], 4, 4, n_test=4,
+        device="cuda")
+    params = qnn.init_params(torch.Generator().manual_seed(1), widths,
+                             device="cuda")
+    return cfg, ds, params
+
+
+def max_dev(xs, ys):
+    return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
+
+
+def engines_agree(card):
+    """One round of every engine and impl at each engine width, from the
+    same params and round seed: the complex128 engines against the dense
+    oracle at ENGINE_TOL, every kernel round against it at ROUND_TOL; the
+    kernels then held against their plain versions at every shape the
+    kernel rounds recorded. Then ms/round of each (CUDA events, 10 rounds
+    after a warm-up; 3 for dense at (4,5,4)) and the peak memory of each
+    width's rounds."""
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.core.quantum import qnn
+    with Recorder() as rec:
+        for widths in ENGINE_WIDTHS:
+            cfg, ds, params = engine_cell(widths)
+            out = {}
+            for engine in qnn.ENGINES:
+                for impl in qnn.IMPLS:
+                    out[engine, impl] = fed.server_round(
+                        params, ds, torch.Generator().manual_seed(2),
+                        cfg._replace(engine=engine, impl=impl))
+            oracle = out["dense", "xla"]
+            devs = {key: max_dev(p, oracle) for key, p in out.items()
+                    if key != ("dense", "xla")}
+            bad = [key for key, d in devs.items()
+                   if d > (ENGINE_TOL if key[1] == "xla" else ROUND_TOL)]
+            say(f"  {widths}: one round against the dense oracle "
+                f"(complex128 tol {ENGINE_TOL:.0e}, kernels {ROUND_TOL:.0e}): "
+                + ", ".join(f"{e}/{i} {d:.3e}" for (e, i), d in devs.items())
+                + (" ok" if not bad else f" FAIL {bad}"))
+            if bad:
+                raise RuntimeError(f"engines disagree at {widths}: {bad}")
+    say("  the kernel rounds' every shape against the plain versions:")
+    check_and_time(rec, {}, names=("zgemm", "ensemble_commutator_trace"),
+                   timed=False)
+    del rec
+    timing = {}
+    for widths in ENGINE_WIDTHS:
+        cfg, ds, params = engine_cell(widths)
+        torch.cuda.reset_peak_memory_stats()
+        for engine in qnn.ENGINES:
+            for impl in qnn.IMPLS:
+                reps = 3 if engine == "dense" and widths == (4, 5, 4) else 10
+                ms = round_ms(cfg._replace(engine=engine, impl=impl), ds,
+                              params, reps)
+                timing[f"{widths} {engine} {impl}"] = ms
+                say(f"  {widths} engine={engine} impl={impl}: {ms:.3f} "
+                    f"ms/round (CUDA events, {reps} rounds after a warm-up; "
+                    f"{card})")
+        say(f"  {widths}: peak memory of these rounds "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return timing
+
+
+def opb_zgemm_rows():
+    """One ``local_opb`` round of phase 4's (4,5,4) cell (N_p = 10, 4 pairs
+    a node) with the kernels, launch counts zeroed just before and read
+    just after: it must launch zgemm, 18 times at the av^H B_j shapes
+    ((40,1,512) and (40,16,512) conjugated, against (40,512,512)), and
+    agree with its complex128 round and the local engine's. Every zgemm
+    shape it records is checked and timed; the rows carry their launches
+    in the round. Counts the operands ``ops._dense`` copied."""
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.kernels import build
+    cfg, ds, _, params = main_cell(widths=(4, 5, 4), num_nodes=20)
+    cfg = cfg._replace(engine="local_opb")
+    with Recorder() as rec:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        p_k = fed.server_round(params, ds, torch.Generator().manual_seed(9),
+                               cfg)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_shape = {key: seen[0] for key, seen in rec.calls["zgemm"].items()}
+    big = {key: n for key, n in per_shape.items()
+           if key[1] == (40, 512, 512)}
+    say(f"  (4,5,4) N=20 local_opb round with the kernels: launches "
+        f"{launches}, {sum(big.values())} at the av^H B_j shapes; peak "
+        f"memory {peak:.3f} GiB")
+    if launches.get("zgemm", 0) == 0 or sum(big.values()) != 18:
+        raise RuntimeError("the local_opb round did not run zgemm at its "
+                           "operator shapes 18 times")
+    if sum(per_shape.values()) != launches["zgemm"]:
+        raise RuntimeError("zgemm: the round's calls and launches disagree")
+    copies = [(cnt, sum(16 * x.numel() for x in args if layout(x) != "dense"))
+              for cnt, args, _ in rec.calls["zgemm"].values()
+              if any(layout(x) != "dense" for x in args)]
+    say(f"  ops._dense copied an operand in {sum(c for c, _ in copies)} of "
+        f"the round's {launches['zgemm']} zgemm calls, "
+        f"{sum(c * b for c, b in copies) / 1e6:.3f} MB in all (the "
+        f"conjugated av; every B_j reached the kernel dense)")
+    for impl, engine in (("xla", "local_opb"), ("xla", "local")):
+        p_x = fed.server_round(params, ds, torch.Generator().manual_seed(9),
+                               cfg._replace(impl=impl, engine=engine))
+        dev = max_dev(p_k, p_x)
+        say(f"  against the {engine} round in complex128: {dev:.3e} "
+            f"(tol {ROUND_TOL:.0e}) {'ok' if dev <= ROUND_TOL else 'FAIL'}")
+        if dev > ROUND_TOL:
+            raise RuntimeError("local_opb: kernels disagree with complex128")
+    rows = []
+    for row in check_and_time(rec, {}, names=("zgemm",))["zgemm"]:
+        rows.append(dict(row, launches=per_shape[row["key"]],
+                         cell="(4,5,4) local_opb"))
+    return rows
+
+
+def certified_sweep(card):
+    """The certified approximate-rank cells: ``server_round_certified``
+    under both impls (the kernel round's launches zeroed before and read
+    after: the trace kernel and zgemm must run; its kernel shapes held
+    against the plain versions), approximate and exact ms/round (CUDA
+    events, 3 rounds after a warm-up), and on the round's node batch (its
+    two nodes, the first minibatch-sized slice of each) the max-abs
+    deviation of the approximate K's from the exact local engine's,
+    node by node, at most that node's certificate (the kernel path plus
+    the kernels' fp32 budget of the K's scale). Raises otherwise."""
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.core.quantum import qnn
+    from repro_torch.kernels import build
+    results = []
+    for widths, knobs in APPROX_SETS:
+        cfg, ds, params = engine_cell(widths, **knobs)
+        exact = cfg._replace(rank_tol=0.0, rank_cap=None)
+        label = f"{widths} {knobs}"
+        bounds, ms = {}, {}
+        for impl in qnn.IMPLS:
+            c = cfg._replace(impl=impl)
+            with Recorder() as rec:
+                torch.cuda.synchronize()
+                build.reset_launches()
+                p, _, bound = fed.server_round_certified(
+                    params, ds, torch.Generator().manual_seed(2), c)
+                torch.cuda.synchronize()
+                launches = dict(build.LAUNCHES)
+            if impl == "pallas":
+                if not (launches.get("zgemm") and launches.get(
+                        "ensemble_commutator_trace")):
+                    raise RuntimeError(f"{label}: the certified kernel round "
+                                       f"launched {launches}")
+                check_and_time(rec, {}, names=("zgemm",
+                                               "ensemble_commutator_trace"),
+                               timed=False)
+            del rec
+            if unitarity_err(p) > ROUND_TOL:
+                raise RuntimeError(f"{label}: params left the unitaries")
+            bounds[impl] = float(bound)
+            ms[impl] = (round_ms(c, ds, params, 3),
+                        round_ms(exact._replace(impl=impl), ds, params, 3))
+        # the certificate is linear algebra outside the kernels; the
+        # rounds' later steps start from params the kernels moved by ~1e-7
+        if abs(bounds["pallas"] - bounds["xla"]) > ROUND_TOL * bounds["xla"]:
+            raise RuntimeError(f"{label}: the kernel round's certificate is "
+                               f"not the complex128 round's {bounds}")
+        mb = cfg.minibatch or ds.phi_in.shape[1]
+        phi_in, phi_out = ds.phi_in[:2, :mb], ds.phi_out[:2, :mb]
+        p2 = [u.expand((2,) + u.shape) for u in params]
+        k_exact = qnn.update_matrices(p2, phi_in, phi_out, widths, cfg.eta)
+        scale = max(float(k.abs().max()) for k in k_exact)
+        for impl in qnn.IMPLS:
+            k_apx, b = qnn.update_matrices(
+                p2, phi_in, phi_out, widths, cfg.eta, impl=impl,
+                rank_tol=cfg.rank_tol, rank_cap=cfg.rank_cap, with_bound=True)
+            dev = torch.stack([(a - e).abs().reshape(2, -1).amax(-1)
+                               for a, e in zip(k_apx, k_exact)]).amax(0)
+            slack = 0.0 if impl == "xla" else KERNEL_RTOL * scale
+            ok = bool((dev <= b + slack + 1e-12).all())
+            say(f"  {label} impl={impl}: approx {ms[impl][0]:.3f} ms/round, "
+                f"exact local {ms[impl][1]:.3f} ms/round ({card}); round "
+                f"err_bound {bounds[impl]:.6g}; node batch: max |K - K_exact| "
+                f"{dev.tolist()} <= certificate {b.tolist()}"
+                f"{f' + {slack:.2e}' if slack else ''} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{label}: the certificate does not "
+                                   "dominate the deviation")
+            results.append(dict(widths=list(widths), impl=impl, **knobs,
+                                approx_ms=ms[impl][0], exact_ms=ms[impl][1],
+                                err_bound=bounds[impl]))
+    return results
+
+
+def phase_engines():
+    """Phase 7: the quantum engine family on the card."""
+    card = smi("name,power.limit")
+    say("== phase 7: engines local, local_opb and dense, both impls, at "
+        "BENCH_engine.json's cells (4 nodes, 2 a round, I_l = 2, 4 pairs a "
+        "node); the local_opb zgemm shapes; the certified approximate-rank "
+        "cells")
+    t0 = time.time()
+    engines_agree(card)
+    rows = opb_zgemm_rows()
+    certified_sweep(card)
+    say(f"  phase 7 took {time.time() - t0:.1f} s")
+    return rows
+
+
 # ------------------------------------------------- --time-quantum (A/B)
 def time_quantum(trials=3):
     """ms/round of both quantum cells (phase 4's ``round_ms``, 10 rounds
@@ -1484,11 +1770,12 @@ def main() -> int:
     rows = list(results.values()) + phase_wide()
     rows += list(phase_serve().values())
     rows += phase_rwkv()
+    rows += phase_engines()
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape"]
-    extra = ["device_us", "cell", "layout"]
+    extra = ["device_us", "cell", "layout", "floor_ms", "floor_device_us"]
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + [k for k in extra if k in r]}
         for r in rows]}))

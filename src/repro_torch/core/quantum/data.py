@@ -5,7 +5,9 @@ A Haar-random unitary U_g on the input space is the target; pairs are
 (|phi_in>, U_g|phi_in>) with Haar-random inputs, split across nodes
 either sorted by a scalar key of the input vector (the paper's non-iid
 partition) or shuffled. Unequal node sizes pad every node to the largest
-count and carry the true counts in ``QuantumDataset.n_per``.
+count and carry the true counts in ``QuantumDataset.n_per``. Noisy data
+(``pollute``, the paper's Fig. 3): the first ceil(ratio N_n) pairs of
+each node are replaced by independent random input and output states.
 
 The port draws from a ``torch.Generator``; it does not replay the
 reference's ``jax.random`` streams, so parity tests hand both packages
@@ -13,8 +15,10 @@ the same arrays (``repro_torch.convert``).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.quantum import linalg as ql
@@ -58,6 +62,32 @@ def make_pairs(gen: torch.Generator, u_target: torch.Tensor, n_pairs: int,
     phi_in = ql.haar_state(gen, n_qubits, batch=(n_pairs,),
                            device=u_target.device)
     return phi_in, phi_in @ u_target.transpose(-1, -2)
+
+
+def pollute(gen: torch.Generator, phi_in: torch.Tensor,
+            phi_out: torch.Tensor, noise_ratio: float, n_qubits: int,
+            counts: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replace the first ceil(ratio * N_n) pairs of each node with random
+    input and output states drawn from ``gen`` (the paper's noisy data).
+
+    phi_in/phi_out: (num_nodes, n_per, d). counts: the per-node TRUE pair
+    counts N_n of an unequal-size dataset (the slot count when None). The
+    noisy count is exactly ceil(ratio * N_n), computed in float64 with a
+    tiny downward guard, so a ratio like 0.3 gives 3 of 10, never 4."""
+    n_nodes, n_per = phi_in.shape[:2]
+    rnd_in = ql.haar_state(gen, n_qubits, batch=(n_nodes, n_per),
+                           device=phi_in.device)
+    rnd_out = ql.haar_state(gen, int(math.log2(phi_out.shape[-1])),
+                            batch=(n_nodes, n_per), device=phi_out.device)
+    cnt = (np.full((n_nodes,), n_per, np.float64) if counts is None
+           else counts.cpu().numpy().astype(np.float64))
+    n_noisy = np.ceil(np.float64(noise_ratio) * cnt - 1e-9).astype(np.int64)
+    n_noisy = torch.from_numpy(np.maximum(n_noisy, 0)).to(phi_in.device)
+    mask = (torch.arange(n_per, device=phi_in.device)[None, :]
+            < n_noisy[:, None])[..., None]
+    return (torch.where(mask, rnd_in, phi_in),
+            torch.where(mask, rnd_out, phi_out))
 
 
 def _pack_nodes(phi_in: torch.Tensor, phi_out: torch.Tensor,
@@ -111,14 +141,16 @@ def partition_iid(gen: torch.Generator, phi_in: torch.Tensor,
 
 def make_federated_dataset(gen: torch.Generator, n_qubits: int,
                            num_nodes: int, n_per_node: int,
-                           iid: bool = False, n_test: int = 32,
+                           noise_ratio: float = 0.0, iid: bool = False,
+                           n_test: int = 32,
                            node_sizes: Optional[Sequence[int]] = None,
                            device="cuda"
                            ) -> Tuple[torch.Tensor, QuantumDataset,
                                       Tuple[torch.Tensor, torch.Tensor]]:
     """Returns (u_target, train dataset per node, clean test pairs), all
-    on ``device``. node_sizes: explicit per-node pair counts (overrides
-    num_nodes / n_per_node)."""
+    on ``device``. noise_ratio > 0 pollutes each node's first
+    ceil(ratio N_n) pairs (``pollute``). node_sizes: explicit per-node
+    pair counts (overrides num_nodes / n_per_node)."""
     u_target = make_target_unitary(gen, n_qubits, device=device)
     if node_sizes is not None:
         num_nodes = len(node_sizes)
@@ -130,5 +162,9 @@ def make_federated_dataset(gen: torch.Generator, n_qubits: int,
         ds = partition_iid(gen, phi_in, phi_out, num_nodes, node_sizes)
     else:
         ds = partition_non_iid(phi_in, phi_out, num_nodes, node_sizes)
+    if noise_ratio > 0.0:
+        noisy_in, noisy_out = pollute(gen, ds.phi_in, ds.phi_out,
+                                      noise_ratio, n_qubits, counts=ds.n_per)
+        ds = QuantumDataset(noisy_in, noisy_out, ds.n_per)
     test = make_pairs(gen, u_target, n_test, n_qubits)
     return u_target, ds, test

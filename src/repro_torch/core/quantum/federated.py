@@ -13,6 +13,11 @@ product, ``aggregate_product`` reuses the node pass's eigh factors at the
 upload scale (e^{i eps (wK)} = V e^{i eps w lam} V^H), so each K is
 factored once per round.
 
+``cfg.engine`` picks the node pass's simulation path (``qnn.ENGINES``);
+with the approximate-rank knobs set, ``server_round_certified`` also
+returns the round's error certificate, the per-node bounds weighted by
+the Alg. 2 weights.
+
 The port's randomness comes from a ``torch.Generator``; it does not
 replay the reference's ``jax.random`` keys.
 """
@@ -61,19 +66,30 @@ class QuantumFedConfig(NamedTuple):
     screen_tol: float = 0.05
 
 
+# the reference's server optimisers (``repro.core.fed.server_opt``); the
+# port has "none" only
+SERVER_OPTS = ("none", "momentum", "nesterov")
+
+
 def check_supported(cfg: QuantumFedConfig) -> QuantumFedConfig:
-    """Fail loudly on config values whose paths the port does not have."""
+    """Fail loudly on config values whose paths the port does not have
+    (NotImplementedError) and on values no path accepts (ValueError)."""
+    if cfg.engine not in qnn.ENGINES:
+        raise ValueError(f"unknown engine {cfg.engine!r}; use one of "
+                         f"{qnn.ENGINES}")
+    if (ql.resolve_approx(cfg.rank_tol, cfg.rank_cap, cfg.ensemble_dtype)
+            is not None and cfg.engine != "local"):
+        raise ValueError(
+            "approximate rank (rank_tol/rank_cap/ensemble_dtype) is "
+            f"engine='local' only; engine={cfg.engine!r} is an exact "
+            "oracle/baseline")
     missing = []
-    if cfg.engine != "local":
-        missing.append(f"engine={cfg.engine!r}")
     if cfg.topology != "flat":
         missing.append(f"topology={cfg.topology!r}")
     if cfg.fanout not in ("auto", "vmap"):
         missing.append(f"fanout={cfg.fanout!r}")
     if cfg.participation_method not in ("auto", "dense"):
         missing.append(f"participation_method={cfg.participation_method!r}")
-    if (cfg.rank_tol, cfg.rank_cap, cfg.ensemble_dtype) != (0.0, None, None):
-        missing.append("approximate rank (rank_tol/rank_cap/ensemble_dtype)")
     if cfg.defense is not None:
         missing.append(f"defense={cfg.defense!r}")
     if missing:
@@ -107,8 +123,9 @@ def _minibatch(gen: torch.Generator, phi_in, phi_out, mask, size: int):
 def node_update(params: qnn.Params, phi_in: torch.Tensor,
                 phi_out: torch.Tensor, gen: torch.Generator, eta, eps,
                 cfg: QuantumFedConfig, mask: Optional[torch.Tensor] = None,
-                return_factors: bool = False):
-    """QuanFedNode: I_l temporary-update steps on each node's local data.
+                return_factors: bool = False, with_bound: bool = False):
+    """QuanFedNode: I_l temporary-update steps on each node's local data,
+    through ``cfg.engine`` (and the approximate-rank knobs).
 
     params: the global layers (m, d, d), shared by every node at the
     start of the round. phi_in/phi_out: (P, n_per, d) for P nodes;
@@ -117,31 +134,45 @@ def node_update(params: qnn.Params, phi_in: torch.Tensor,
     Returns the per-step update matrices per layer, stacked
     (P, I_l, m, d, d); with ``return_factors`` also their eigh factors
     (lam (P, I_l, m, d), v (P, I_l, m, d, d)), the ones the temporary
-    updates were formed from.
+    updates were formed from; with ``with_bound`` last the (P,) float64
+    per-node certificates, each summed over the interval's steps (zeros
+    for exact configs).
     """
     p_nodes, n_per = phi_in.shape[:2]
     p = [u.expand((p_nodes,) + u.shape) for u in params]
     ks_seq, fac_seq = [], []
+    bound = 0.0
     for _ in range(cfg.interval_length):
         if cfg.minibatch is not None and cfg.minibatch < n_per:
             b_in, b_out, b_w = _minibatch(gen, phi_in, phi_out, mask,
                                           cfg.minibatch)
         else:
             b_in, b_out, b_w = phi_in, phi_out, mask
-        ks = qnn.update_matrices(p, b_in, b_out, cfg.widths, eta,
-                                 impl=cfg.impl, weights=b_w)
+        out = qnn.update_matrices(p, b_in, b_out, cfg.widths, eta,
+                                  engine=cfg.engine, impl=cfg.impl,
+                                  weights=b_w, rank_tol=cfg.rank_tol,
+                                  rank_cap=cfg.rank_cap,
+                                  ensemble_dtype=cfg.ensemble_dtype,
+                                  with_bound=with_bound)
+        if with_bound:
+            ks, step_bound = out
+            bound = bound + step_bound
+        else:
+            ks = out
         factors = qnn.eigh_updates(ks)
         p = qnn.apply_updates_eigh(p, factors, eps, impl=cfg.impl)
         ks_seq.append(ks)
         fac_seq.append(factors)
     ks_all = [torch.stack([ks[l] for ks in ks_seq], 1)
               for l in range(len(params))]
-    if not return_factors:
-        return ks_all
-    factors = [(torch.stack([f[l][0] for f in fac_seq], 1),
-                torch.stack([f[l][1] for f in fac_seq], 1))
-               for l in range(len(params))]
-    return ks_all, factors
+    out = [ks_all]
+    if return_factors:
+        out.append([(torch.stack([f[l][0] for f in fac_seq], 1),
+                     torch.stack([f[l][1] for f in fac_seq], 1))
+                    for l in range(len(params))])
+    if with_bound:
+        out.append(bound)
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 def _chain(us: torch.Tensor, upd: torch.Tensor, impl: str) -> torch.Tensor:
@@ -202,16 +233,18 @@ def select_phase(dataset: QuantumDataset, gen: torch.Generator,
 
 def local_phase(params: qnn.Params, dataset: QuantumDataset,
                 sel: torch.Tensor, gen: torch.Generator,
-                cfg: QuantumFedConfig, with_factors: bool = False):
+                cfg: QuantumFedConfig, with_factors: bool = False,
+                with_bound: bool = False):
     """Phase 2: the QuanFedNode pass of every selected node; per layer
-    (N_p, I_l, m, d, d), plus the eigh factors with ``with_factors``."""
+    (N_p, I_l, m, d, d), plus the eigh factors with ``with_factors`` and
+    the (N_p,) per-node certificates with ``with_bound``."""
     check_supported(cfg)
     sel = sel.to(dataset.phi_in.device)
     vmask = dataset.valid_mask()
     return node_update(params, dataset.phi_in[sel], dataset.phi_out[sel],
                        gen, cfg.eta, cfg.eps, cfg,
                        None if vmask is None else vmask[sel],
-                       return_factors=with_factors)
+                       return_factors=with_factors, with_bound=with_bound)
 
 
 def _factors_survive_wire(cfg: QuantumFedConfig) -> bool:
@@ -253,6 +286,36 @@ def server_round(params: qnn.Params, dataset: QuantumDataset,
     ks_all, factors = out if reuse else (out, None)
     ks_all = transmit_phase(ks_all, gen, cfg)
     return aggregate_phase(params, ks_all, weights, cfg, factors=factors)
+
+
+def server_round_certified(params: qnn.Params, dataset: QuantumDataset,
+                           gen: torch.Generator, cfg: QuantumFedConfig,
+                           server_opt: str = "none"):
+    """``server_round`` that also returns the round's approximation-error
+    certificate: ``(new_params, None, err_bound)``, the None standing for
+    the reference's server-optimiser state. err_bound is a float64 scalar
+    bounding the total max-abs deviation of the round's update matrices
+    from the exact engine's, sum_n w_n bound_n over the selected nodes
+    (per-node bounds of ``qnn.update_matrices(with_bound=True)``, Alg. 2
+    weights); exactly 0.0 with the approximate-rank knobs off, where the
+    new params are those of ``server_round`` bit for bit. The port has
+    ``server_opt="none"`` only."""
+    if server_opt not in SERVER_OPTS:
+        raise ValueError(f"unknown server_opt {server_opt!r}; registered: "
+                         f"{list(SERVER_OPTS)}")
+    if server_opt != "none":
+        raise NotImplementedError(
+            f"not in the port yet: server_opt={server_opt!r}")
+    sel, _, weights = select_phase(dataset, gen, cfg)
+    reuse = _factors_survive_wire(cfg)
+    out = local_phase(params, dataset, sel, gen, cfg, with_factors=reuse,
+                      with_bound=True)
+    (ks_all, factors, bounds) = out if reuse else (out[0], None, out[1])
+    ks_all = transmit_phase(ks_all, gen, cfg)
+    new_params = aggregate_phase(params, ks_all, weights, cfg,
+                                 factors=factors)
+    err_bound = torch.sum(weights.to(bounds.device, torch.float64) * bounds)
+    return new_params, None, err_bound
 
 
 def evaluate(params: qnn.Params, phi_in: torch.Tensor,

@@ -151,6 +151,74 @@ def test_trace_kernel_plans(cuda_device, j, n, ea, eb, dk, dr, one_launch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16])
+def test_zgemm_at_the_local_opb_operator_shapes(cuda_device, m):
+    """The local_opb engine's av^H B_j at (4,5,4) with 10 nodes of 4
+    pairs: a (40, m, 512) conjugated (a lazy view the dispatch
+    materialises) against (40, 512, 512), one launch each."""
+    rng = np.random.default_rng(m)
+    a = _dev_c(rng, cuda_device, 40, m, 512)
+    b = _dev_c(rng, cuda_device, 40, 512, 512)
+    build.reset_launches()
+    got = ops.complex_matmul(a.conj(), b)
+    torch.cuda.synchronize()
+    want = ref.zgemm_ref(a.conj(), b)
+    assert dict(build.LAUNCHES) == {"zgemm": 1}
+    assert float((got - want).abs().max()) <= RTOL * float(want.abs().max())
+    exact = a.conj() @ b
+    assert float((got - exact).abs().max()) <= RTOL * float(exact.abs().max())
+
+
+@pytest.mark.cuda
+def test_three_engines_agree_on_the_card(cuda_device):
+    """One round of local, local_opb and dense at (3,4,3) (4 nodes, 2 a
+    round, I_l = 2) from the same params: complex128 within 1e-10 of the
+    dense oracle, the kernel rounds within 1e-5; the certified engine's
+    per-node bound dominates its deviation from the exact K's; reduced
+    ensemble storage reaches the trace kernel widened, within its
+    precision (f32 1e-5, bf16 5e-2, as the reference's gate)."""
+    widths = (3, 4, 3)
+    _, ds, _ = qdata.make_federated_dataset(
+        torch.Generator().manual_seed(0), 3, 4, 4, n_test=4,
+        device=cuda_device)
+    params = qnn.init_params(torch.Generator().manual_seed(1), widths,
+                             device=cuda_device)
+    out = {}
+    for engine in qnn.ENGINES:
+        for impl in qnn.IMPLS:
+            cfg = fed.QuantumFedConfig(widths=widths, num_nodes=4,
+                                       nodes_per_round=2, interval_length=2,
+                                       eps=0.05, engine=engine, impl=impl)
+            out[engine, impl] = fed.server_round(
+                params, ds, torch.Generator().manual_seed(2), cfg)
+    for (engine, impl), p in out.items():
+        dev = max(float((a - b).abs().max())
+                  for a, b in zip(p, out["dense", "xla"]))
+        assert dev <= (1e-10 if impl == "xla" else RTOL), (engine, impl, dev)
+    p2 = [u.expand((2,) + u.shape) for u in params]
+    exact = qnn.update_matrices(p2, ds.phi_in[:2], ds.phi_out[:2], widths,
+                                1.0)
+    for impl in qnn.IMPLS:
+        ks, bound = qnn.update_matrices(p2, ds.phi_in[:2], ds.phi_out[:2],
+                                        widths, 1.0, impl=impl, rank_tol=1e-3,
+                                        rank_cap=6, with_bound=True)
+        dev = torch.stack([(k - e).abs().reshape(2, -1).amax(-1)
+                           for k, e in zip(ks, exact)]).amax(0)
+        slack = 0.0 if impl == "xla" else RTOL * max(
+            float(e.abs().max()) for e in exact)
+        assert bool((dev <= bound + slack + 1e-12).all()), (dev, bound)
+    # complex64 storage: widened to complex128 at the trace kernel
+    for dtype, tol in (("f32", 1e-5), ("bf16", 5e-2)):
+        ks, bound = qnn.update_matrices(p2, ds.phi_in[:2], ds.phi_out[:2],
+                                        widths, 1.0, impl="pallas",
+                                        ensemble_dtype=dtype, with_bound=True)
+        assert all(k.dtype == torch.complex128 for k in ks)
+        assert float(bound.abs().max()) == 0.0
+        dev = max(float((k - e).abs().max()) for k, e in zip(ks, exact))
+        assert dev <= tol, (dtype, dev)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(40, 64, 64, 64), (3, 7, 9, 5),
                                    (2, 33, 17, 40), (1, 65, 64, 1)])
 def test_zgemm_launches_on_the_current_stream(cuda_device, shape):

@@ -226,16 +226,42 @@ def test_minibatch_draws_valid_pairs_per_node(x64):
     assert herm <= 1e-12
 
 
-@pytest.mark.parametrize("bad", [dict(engine="dense"),
+@pytest.mark.parametrize("bad", [dict(participation_method="sampled"),
                                  dict(topology="two_level", pods=2),
                                  dict(defense="clip"),
-                                 dict(rank_tol=1e-3),
+                                 dict(defense="trimmed_mean"),
                                  dict(upload_noise=0.1),
                                  dict(quantize_bits=8),
                                  dict(fanout="shard_map")])
 def test_unported_options_are_refused(bad):
     _, tcfg = config("xla", **bad)
     with pytest.raises(NotImplementedError):
+        fed.check_supported(tcfg)
+
+
+@pytest.mark.parametrize("ok", [dict(engine="local"),
+                                dict(engine="local_opb"),
+                                dict(engine="dense"),
+                                dict(rank_tol=1e-3),
+                                dict(rank_cap=4),
+                                dict(ensemble_dtype="bf16"),
+                                dict(rank_tol=1e-3, rank_cap=6,
+                                     ensemble_dtype="f32")])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_ported_engines_and_approx_knobs_pass(ok, impl):
+    _, tcfg = config(impl, **ok)
+    assert fed.check_supported(tcfg) is tcfg
+
+
+@pytest.mark.parametrize("bad", [dict(engine="dense", rank_tol=1e-3),
+                                 dict(engine="local_opb", rank_cap=2),
+                                 dict(engine="dense", ensemble_dtype="f32"),
+                                 dict(engine="sparse"),
+                                 dict(rank_tol=1.5),
+                                 dict(ensemble_dtype="f16")])
+def test_approx_knobs_outside_the_local_engine_are_refused(bad):
+    _, tcfg = config("xla", **bad)
+    with pytest.raises(ValueError):
         fed.check_supported(tcfg)
 
 
