@@ -73,14 +73,31 @@ repository, it exits non-zero before printing any result. Phases:
    approximate-rank cells (BENCH_engine.json's APPROX_SETS) through
    ``server_round_certified`` under both impls, each certificate at or
    above the deviation of the approximate K's from the exact engine's
-   on the round's node batch, with approximate and exact ms/round.
+   on the round's node batch, with approximate and exact ms/round;
+8. fed core: benchmarks/bench_robust.py's grid (widths (2,3,2), N=20,
+   N_p=10, I_l=2, 60 rounds a cell) of six strategies (undefended average
+   and product, clip, trimmed_mean, median, the screened product) under
+   three attacks (clean, 20% persistent sign-flip at scale 5 with the
+   bench's scanned seed, 30% crash) through ``faulted_round``, the bench's
+   two gates, and one round of 30% corrupt uploads (undefended NaN,
+   defended finite); on phase 3's cell one round of Hermitian upload noise
+   and of 8-bit quantisation and 3 of server momentum and Nesterov, each
+   against its complex128 round; the weighted and dropout schedules and
+   the sampled draw at N = 1,000,000 (ms per draw, dense and Floyd); the
+   stacked round of 300 bench_serve.py SPEC_A slots with and without
+   momentum, under both impls, against solo rounds, with the launches of
+   one round, ms against 30 solo rounds scaled to 300, and peak memory;
+   the kernels at the shapes of one screened round and one stacked round
+   (their rows in the result, ``"cell"`` set).
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape: each kernel at the main path's most frequent shape (launches of
 phase 3, or of one prefill), then zgemm and the trace at each shape of
 the (4,5,4) round (launches in one round, ``"cell"`` set),
-gla_chunked at chunk 1 in the S+1 prefill (``"cell"`` set), and zgemm at
-each shape of phase 7's (4,5,4) local_opb round (``"cell"`` set); every
+gla_chunked at chunk 1 in the S+1 prefill (``"cell"`` set), zgemm at
+each shape of phase 7's (4,5,4) local_opb round, and zgemm, the trace and
+fidelity at each shape of phase 8's screened and stacked rounds (``"cell"``
+set); every
 row carries ``device_us``, and fidelity's and mse's the launch floor.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and never prints that line.
@@ -1647,6 +1664,500 @@ def phase_engines():
     return rows
 
 
+# ------------------------------------------------------ phase 8: fed core
+# benchmarks/bench_robust.py's grid: its strategies (STRATEGIES, lines
+# 48-56), their families, 20 nodes with 10 a round, I_l = 2, 4 pairs a
+# node, 16 test pairs (the screen's probe), eta 1, eps 0.1, 60 rounds
+ROBUST_STRATEGIES = {
+    "none_avg": dict(aggregation="average"),
+    "none_prod": dict(aggregation="product"),
+    "clip": dict(aggregation="average", defense="clip", clip_norm=0.5),
+    "trimmed_mean": dict(aggregation="average", defense="trimmed_mean",
+                         trim_frac=0.3),
+    "median": dict(aggregation="average", defense="median"),
+    "screen": dict(aggregation="product", defense="screen",
+                   screen_tol=0.005),
+}
+ROBUST_FAMILY = {"none_avg": "none_avg", "clip": "none_avg",
+                 "trimmed_mean": "none_avg", "median": "none_avg",
+                 "none_prod": "none_prod", "screen": "none_prod"}
+ROBUST_N, ROBUST_BYZ, ROBUST_ROUNDS = 20, 0.2, 60
+# the bench's gate: a defended strategy keeps this share of its family's
+# clean fidelity under the Byzantine attack; the undefended average not
+ROBUST_KEEP = 0.95
+# bench_serve.py's SPEC_A, the multi-tenant serving regime, at a group of
+# 300 slots; the solo baseline runs SOLO_CAP of them (its SEQ_CAP idea)
+STACK_S, SOLO_CAP, STACK_CHECKED = 300, 30, 8
+
+
+def scan_byzantine_seed(rate, target_hits, num_nodes=ROBUST_N,
+                        max_seed=2000):
+    """bench_robust.py's scan: the first fault seed whose persistent
+    sign-flip draw marks exactly ``target_hits`` of ``num_nodes``."""
+    from repro_torch.core.fed import faults
+    for seed in range(max_seed):
+        model = faults.DrawFault("sign_flip", rate, seed, 1.0)
+        if sum(model.hits(n, 0) for n in range(num_nodes)) == target_hits:
+            return seed
+    raise RuntimeError(f"no seed under {max_seed} marks {target_hits}")
+
+
+def robust_attacks(byz_seed):
+    """bench_robust.py's attacks: kind, rate, seed, scale."""
+    return {"clean": None, "byz20": ("sign_flip", ROBUST_BYZ, byz_seed, 5.0),
+            "crash30": ("crash", 0.3, 11, 3.0)}
+
+
+def faulted_round(params, smom, dataset, gen, cfg, model, r, *, probe=None,
+                  server_opt="none", min_participants=1):
+    """One synchronous round under a fault model, as the reference's
+    ``SyncScheduler._robust_step`` applies it: the per-node (coeff, drop,
+    delay) of each selected node; dead uploads zeroed outright, the
+    survivors' scaled by their coefficient; the weights renormalised over
+    the survivors; a loud failure below ``min_participants``. The port of
+    the reference's API scheduler replaces this. Returns (params, smom,
+    survivors)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    sel, pmask, weights = fed.select_phase(dataset, gen, cfg)
+    ks = fed.local_phase(params, dataset, sel, gen, cfg)
+    ks = fed.transmit_phase(ks, gen, cfg)
+    coeff = np.ones(sel.shape[0])
+    survive = pmask.cpu().numpy() > 0.0
+    for i, node in enumerate(sel.tolist()):
+        if not survive[i] or model is None:
+            continue
+        c, drop, _ = model(node, r)
+        if drop:
+            survive[i] = False
+            continue
+        coeff[i] = c
+    n_surv = int(survive.sum())
+    if n_surv < min_participants:
+        raise RuntimeError(f"round {r}: {n_surv} of {sel.shape[0]} uploads "
+                           f"survived (min_participants={min_participants})")
+    if model is not None and bool(np.any(coeff != 1.0)):
+        cv = torch.tensor(np.where(survive, coeff, 0.0), device=sel.device)
+        ks = [k * cv.reshape((-1,) + (1,) * (k.dim() - 1)) for k in ks]
+    w = weights.double().cpu().numpy() * survive
+    w = torch.tensor(w / max(w.sum(), 1e-12), dtype=torch.float32,
+                     device=sel.device)
+    new, smom = fed.aggregate_phase(params, ks, w, cfg, smom=smom,
+                                    server_opt=server_opt, probe=probe)
+    return new, smom, n_surv
+
+
+def robust_setup():
+    """bench_robust.py's cell in the port: data from seed 7, params from
+    seed 0, the kernels."""
+    import torch
+    from repro_torch.core.quantum import data as qdata
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.core.quantum import qnn
+    _, ds, test = qdata.make_federated_dataset(
+        torch.Generator().manual_seed(7), 2, ROBUST_N, n_per_node=4,
+        n_test=16, device="cuda")
+    params = qnn.init_params(torch.Generator().manual_seed(0), (2, 3, 2),
+                             device="cuda")
+    base = dict(widths=(2, 3, 2), num_nodes=ROBUST_N, nodes_per_round=10,
+                interval_length=2, eta=1.0, eps=0.1, impl="pallas")
+    return base, ds, test, params
+
+
+def robust_grid(card):
+    """The 6 x 3 defense x attack grid, 60 faulted rounds a cell, beside
+    the reference's CPU grid; the bench's two gates; one round of
+    corrupt uploads."""
+    import torch
+    from repro_torch.core.fed import faults
+    from repro_torch.core.quantum import federated as fed
+    base, ds, test, params0 = robust_setup()
+    byz_seed = scan_byzantine_seed(ROBUST_BYZ, int(round(ROBUST_BYZ
+                                                         * ROBUST_N)))
+    ref = json.loads((ROOT / "BENCH_robust.json").read_text())
+    say(f"  sign-flip seed scan: {byz_seed} (BENCH_robust.json: "
+        f"{ref['byz_seed']})")
+    if byz_seed != ref["byz_seed"]:
+        raise RuntimeError("the fault draws disagree with the reference's")
+    grid, per, t0, n_rounds = {}, {}, time.time(), 0
+    for sname, skw in ROBUST_STRATEGIES.items():
+        cfg = fed.QuantumFedConfig(**base, **skw)
+        probe = test if skw.get("defense") == "screen" else None
+        grid[sname] = {}
+        torch.cuda.synchronize()
+        t1 = time.time()
+        for aname, attack in robust_attacks(byz_seed).items():
+            model = None if attack is None else faults.DrawFault(*attack)
+            params, gen = params0, torch.Generator().manual_seed(0)
+            for r in range(ROBUST_ROUNDS):
+                params, _, _ = faulted_round(params, None, ds, gen, cfg,
+                                             model, r, probe=probe)
+            n_rounds += ROBUST_ROUNDS
+            grid[sname][aname] = float(fed.evaluate(
+                params, *test, cfg.widths, impl=cfg.impl)["fidelity"])
+        per[sname] = 1e3 * (time.time() - t1) / (3 * ROBUST_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    say(f"  {n_rounds} faulted rounds with the kernels in {wall:.1f} s "
+        f"({1e3 * wall / n_rounds:.2f} ms a round with its host fault loop, "
+        f"{card}); final test fidelity, this port on the card | the "
+        f"reference's CPU grid (BENCH_robust.json, {ref['rounds']} rounds, "
+        f"its own draws):")
+    for sname, row in grid.items():
+        say(f"    {sname:>13s}: " + ", ".join(
+            f"{a} {v:.6f} | {ref['grid'][sname][a]:.6f}"
+            for a, v in row.items()) + f"; {per[sname]:.2f} ms a round")
+    keep = {s: grid[s]["byz20"] / max(grid[ROBUST_FAMILY[s]]["clean"], 1e-12)
+            for s in ROBUST_STRATEGIES}
+    defended = [s for s in ROBUST_STRATEGIES if s not in ("none_avg",
+                                                          "none_prod")]
+    best = max(defended, key=lambda s: keep[s])
+    holds, breaks = keep[best] >= ROBUST_KEEP, keep["none_avg"] < ROBUST_KEEP
+    say("  byz20 retention of the family's clean fidelity: " + ", ".join(
+        f"{s} {v:.4f} (ref {ref['byz20_retention'][s]})"
+        for s, v in keep.items()))
+    say(f"  gates: best defended {best} {keep[best]:.4f} >= {ROBUST_KEEP} "
+        f"{'ok' if holds else 'FAIL'}; undefended average "
+        f"{keep['none_avg']:.4f} < {ROBUST_KEEP} "
+        f"{'ok' if breaks else 'FAIL'}")
+    if not (holds and breaks):
+        raise RuntimeError("the robust grid's gates do not hold")
+    # one round of corrupt (NaN) uploads at 30%
+    model = faults.DrawFault("corrupt", 0.3, 2, 5.0)
+    fids = {}
+    for sname in ("none_avg", "median", "screen"):
+        skw = ROBUST_STRATEGIES[sname]
+        cfg = fed.QuantumFedConfig(**base, **skw)
+        gen = torch.Generator().manual_seed(0)
+        sel = fed.select_phase(ds, torch.Generator().manual_seed(0), cfg)[0]
+        hit = sum(model.hits(n, 0) for n in sel.tolist())
+        p, _, _ = faulted_round(params0, None, ds, gen, cfg, model, 0,
+                                probe=test if sname == "screen" else None)
+        fids[sname] = float(fed.evaluate(p, *test, cfg.widths,
+                                         impl=cfg.impl)["fidelity"])
+        if hit == 0:
+            raise RuntimeError("the corrupt draw hit no selected node")
+    ok = (fids["none_avg"] != fids["none_avg"]
+          and all(fids[s] == fids[s] for s in ("median", "screen")))
+    say(f"  one round of 30% corrupt uploads: test fidelity " + ", ".join(
+        f"{s} {v:.6f}" for s, v in fids.items())
+        + f" (undefended NaN, defended finite) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("corrupt uploads: undefended must go NaN, "
+                           "defended stay finite")
+
+
+def channel_rounds(card):
+    """On phase 3's cell: one round of Hermitian upload noise and of 8-bit
+    quantisation, and 3 rounds of the Eq. 8 average with server momentum
+    and with Nesterov momentum: each kernel round against the complex128
+    round from the same params, selection and draws, and unitary."""
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    cfg0, ds, _, params0 = main_cell()
+    cases = [("hermitian noise 0.1", dict(upload_noise=0.1), "none", 1),
+             ("8-bit quantisation", dict(quantize_bits=8), "none", 1),
+             ("average + momentum", dict(aggregation="average"), "momentum",
+              3),
+             ("average + nesterov", dict(aggregation="average"), "nesterov",
+              3)]
+    for label, kw, server_opt, rounds in cases:
+        cfg_k = cfg0._replace(**kw)
+        state = {impl: (params0, None) for impl in ("pallas", "xla")}
+        for r in range(rounds):
+            out = {}
+            for impl in ("pallas", "xla"):
+                p, m = state[impl]
+                g = torch.Generator().manual_seed(40 + r)
+                sel, _, w = fed.select_phase(ds, g, cfg_k)
+                ks = fed.local_phase(p, ds, sel, g, cfg_k._replace(impl=impl))
+                tx = fed.transmit_phase(ks, g, cfg_k)
+                out[impl] = (fed.aggregate_phase(
+                    p, tx, w, cfg_k._replace(impl=impl), smom=m,
+                    server_opt=server_opt), tx)
+                state[impl] = out[impl][0]
+            dev = max_dev(state["pallas"][0], state["xla"][0])
+            u_err = unitarity_err(state["pallas"][0])
+            ok = dev <= ROUND_TOL and u_err <= ROUND_TOL
+            note = ""
+            if not ok and "quantize_bits" in kw and u_err <= ROUND_TOL:
+                # stochastic rounding is discontinuous: an element whose
+                # uniform falls between the two rounds' fractional parts
+                # lands one grid step apart. Count those; the kernel
+                # combine is then held on the complex128 round's uploads.
+                flips = quantize_flips(out["pallas"][1], out["xla"][1],
+                                       kw["quantize_bits"])
+                again, _ = fed.aggregate_phase(params0, out["xla"][1], w,
+                                               cfg_k, server_opt=server_opt)
+                dev2 = max_dev(again, out["xla"][0][0])
+                ok = flips > 0 and dev2 <= ROUND_TOL
+                note = (f"; {flips} rounding decisions flipped, the kernel "
+                        f"combine on the complex128 uploads {dev2:.3e}")
+            say(f"  {label}, round {r + 1}: kernels vs complex128 "
+                f"{dev:.3e}, unitarity {u_err:.3e} (tol {ROUND_TOL:.0e})"
+                f"{note} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{label}: the kernel round disagrees")
+        if server_opt != "none" and state["pallas"][1] is None:
+            raise RuntimeError(f"{label}: no momentum state")
+    # ms/round of each (CUDA events, 10 rounds after a warm-up)
+    for label, kw, server_opt, _ in cases:
+        cfg_k = cfg0._replace(**kw)
+        gen = torch.Generator().manual_seed(5)
+        fed.server_round_opt(params0, None, ds, gen, cfg_k,
+                             server_opt=server_opt)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        p, m = params0, None
+        for _ in range(10):
+            p, m = fed.server_round_opt(p, m, ds, gen, cfg_k,
+                                        server_opt=server_opt)
+        end.record()
+        torch.cuda.synchronize()
+        say(f"  {label}: {start.elapsed_time(end) / 10:.3f} ms/round with "
+            f"the kernels ({card})")
+
+
+def quantize_flips(xs, ys, bits):
+    """Elements of two quantised upload lists more than half a grid step
+    apart, per real and imaginary part (the grid: max |part| over
+    2^{bits-1} - 1 levels)."""
+    levels = 2 ** (bits - 1) - 1
+    n = 0
+    for x, y in zip(xs, ys):
+        for a, b in ((x.real, y.real), (x.imag, y.imag)):
+            n += int(((a - b).abs() > 0.5 * b.abs().max() / levels).sum())
+    return n
+
+
+def schedule_checks(card):
+    """weighted and dropout (0.3) rounds on phase 3's cell against their
+    complex128 rounds; 200 dropout draws with no all-dropped mask; the
+    sampled draw at N = 1,000,000, N_p = 10 (auto must pick Floyd), and
+    ms per draw of the dense and the sampled methods there."""
+    import torch
+    from repro_torch.core.fed import participation
+    from repro_torch.core.quantum import federated as fed
+    cfg0, ds, _, params = main_cell()
+    for label, kw in (("weighted", dict(participation="weighted")),
+                      ("dropout 0.3", dict(participation="dropout",
+                                           dropout_rate=0.3))):
+        c = cfg0._replace(**kw)
+        out = {impl: fed.server_round(params, ds,
+                                      torch.Generator().manual_seed(3),
+                                      c._replace(impl=impl))
+               for impl in ("pallas", "xla")}
+        sel, mask, w = fed.select_phase(ds, torch.Generator().manual_seed(3),
+                                        c)
+        dev = max_dev(out["pallas"], out["xla"])
+        ok = (dev <= ROUND_TOL and len(set(sel.tolist())) == 10
+              and abs(float(w.sum()) - 1.0) <= 1e-6 and float(mask.sum()) >= 1)
+        say(f"  {label}: sel {sel.tolist()}, mask {mask.tolist()}, weights "
+            f"sum {float(w.sum()):.7f}; kernel round vs complex128 {dev:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label} participation failed")
+    g = torch.Generator().manual_seed(1)
+    dropped = sum(float(participation.sample_nodes(
+        g, 100, 10, device="cuda", schedule="dropout",
+        dropout_rate=0.3)[1].sum()) == 0.0 for _ in range(200))
+    if dropped:
+        raise RuntimeError("dropout returned an all-dropped mask")
+    n, k = 1_000_000, 10
+    auto = participation.sample_nodes(torch.Generator().manual_seed(2), n, k,
+                                      device="cuda")[0]
+    floyd = participation.sample_nodes(torch.Generator().manual_seed(2), n, k,
+                                       device="cuda", method="sampled")[0]
+    dense = participation.sample_nodes(torch.Generator().manual_seed(2), n, k,
+                                       device="cuda", method="dense")[0]
+    ok = (torch.equal(auto, floyd) and not torch.equal(auto, dense)
+          and len(set(auto.tolist())) == k and 0 <= int(auto.min())
+          and int(auto.max()) < n)
+    times = {}
+    for method in ("dense", "sampled"):
+        g = torch.Generator().manual_seed(4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            participation.sample_nodes(g, n, k, device="cuda", method=method)
+        torch.cuda.synchronize()
+        times[method] = (time.perf_counter() - t0) / 20 * 1e3
+    say(f"  N = {n:,}, N_p = {k}: auto drew {auto.tolist()} = Floyd's draw, "
+        f"not the dense one, distinct and in range {'ok' if ok else 'FAIL'}; "
+        f"200 dropout draws, none all-dropped; ms per draw (host clock, "
+        f"20 draws, CPU generator, result on the card): dense "
+        f"{times['dense']:.3f}, sampled {times['sampled']:.3f} ({card})")
+    if not ok:
+        raise RuntimeError("the sampled draw is not Floyd's or not valid")
+
+
+def stack_cell(s=STACK_S):
+    """bench_serve.py's SPEC_A group at s slots: widths (2,3,2), N = 2,
+    N_p = 2, 2 pairs a node, I_l = 1, Eq. 8 average; one dataset shared
+    by the group (as the bench builds it), each slot's params from its
+    own seed, eta 0.5 + (i % 7) * 0.25 (the bench's tenants) and eps
+    0.05 + (i % 5) * 0.025."""
+    import torch
+    from repro_torch.core.quantum import data as qdata
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.core.quantum import qnn
+    _, ds, _ = qdata.make_federated_dataset(
+        torch.Generator().manual_seed(0), 2, 2, 2, n_test=2, device="cuda")
+    solo = [qnn.init_params(torch.Generator().manual_seed(100 + i),
+                            (2, 3, 2), device="cuda") for i in range(s)]
+    params = [torch.stack(x) for x in zip(*solo)]
+    sds = qdata.QuantumDataset(ds.phi_in.expand((s,) + ds.phi_in.shape),
+                               ds.phi_out.expand((s,) + ds.phi_out.shape))
+    eta = torch.tensor([0.5 + (i % 7) * 0.25 for i in range(s)],
+                       dtype=torch.float64, device="cuda")
+    eps = torch.tensor([0.05 + (i % 5) * 0.025 for i in range(s)],
+                       dtype=torch.float64, device="cuda")
+    cfg = fed.QuantumFedConfig(widths=(2, 3, 2), num_nodes=2,
+                               nodes_per_round=2, interval_length=1,
+                               aggregation="average", impl="pallas")
+    return cfg, ds, sds, solo, params, eta, eps
+
+
+def stacked_rounds(card):
+    """One stacked round of STACK_S slots with and without momentum under
+    both impls: STACK_CHECKED slots against solo ``server_round_opt``
+    calls from the same state and generator (1e-10 in complex128,
+    ROUND_TOL with the kernels); the stacked kernel round's launches
+    (counts zeroed before, read after) against one solo kernel round's;
+    ms per stacked round against SOLO_CAP solo rounds scaled to
+    STACK_S, and the peak memory; then the batched eigh of the node
+    pass's K's at this size, plain and through ``eigh_herm``'s finite
+    mask (ms and the peak above its input)."""
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.kernels import build
+    cfg, ds, sds, solo, params, eta, eps = stack_cell()
+    s = STACK_S
+
+    def gens():
+        return [torch.Generator().manual_seed(1000 + i) for i in range(s)]
+    for server_opt in ("none", "momentum"):
+        for impl in ("xla", "pallas"):
+            c = cfg._replace(impl=impl)
+            smom = None         # round 0: the zero momentum state
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            got, new_m, _ = fed.server_round_stacked(
+                params, sds, gens(), c, smom=smom, eta=eta, eps=eps,
+                server_opt=server_opt)
+            torch.cuda.synchronize()
+            stacked = dict(build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            build.reset_launches()
+            fed.server_round_opt(solo[0], None, ds,
+                                 torch.Generator().manual_seed(1000), c._replace(
+                                     eta=float(eta[0]), eps=float(eps[0])),
+                                 server_opt=server_opt)
+            torch.cuda.synchronize()
+            one = dict(build.LAUNCHES)
+            tol = ENGINE_TOL if impl == "xla" else ROUND_TOL
+            dev = 0.0
+            for i in range(STACK_CHECKED):
+                want, want_m = fed.server_round_opt(
+                    solo[i], None, ds, torch.Generator().manual_seed(1000 + i),
+                    c._replace(eta=float(eta[i]), eps=float(eps[i])),
+                    server_opt=server_opt)
+                dev = max(dev, max_dev([x[i] for x in got], want))
+                if server_opt != "none":
+                    dev = max(dev, max_dev([x[i] for x in new_m], want_m))
+            ok = dev <= tol and (impl == "xla" or (stacked == one
+                                                    and stacked))
+            say(f"  stacked S={s} server_opt={server_opt} impl={impl}: "
+                f"{STACK_CHECKED} slots vs solo rounds {dev:.3e} (tol "
+                f"{tol:.0e}); launches stacked {stacked} vs one solo round "
+                f"{one}; peak memory {peak:.3f} GiB "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("the stacked round disagrees with solo "
+                                   "rounds or launches more kernels")
+            # ms: one stacked round, and SOLO_CAP solo rounds
+            st_ms = cuda_ms(lambda: fed.server_round_stacked(
+                params, sds, gens(), c, smom=smom, eta=eta, eps=eps,
+                server_opt=server_opt), reps=5, warmup=1)
+            g = torch.Generator().manual_seed(7)
+
+            def solo_rounds():
+                for i in range(SOLO_CAP):
+                    fed.server_round_opt(solo[i], None, ds, g, c._replace(
+                        eta=float(eta[i]), eps=float(eps[i])),
+                        server_opt=server_opt)
+            so_ms = cuda_ms(solo_rounds, reps=1, warmup=1)
+            scaled = so_ms * s / SOLO_CAP
+            say(f"    {st_ms:.3f} ms per stacked round of {s} slots; "
+                f"{SOLO_CAP} solo rounds {so_ms:.3f} ms, scaled to {s}: "
+                f"{scaled:.3f} ms ({scaled / st_ms:.1f}x the stacked round; "
+                f"CUDA events, {card})")
+    # the peak is the batched eigh of the node pass's K's: cuSOLVER's
+    # workspace, and what the finite mask of eigh_herm adds to it
+    from repro_torch.core.quantum import linalg as ql
+    g = torch.Generator().manual_seed(8)
+    for shape in ((2 * s, 3, 8, 8), (2 * s, 2, 16, 16)):
+        a = torch.randn(shape, generator=g, dtype=torch.complex128).cuda()
+        k = a + a.mH
+        for label, fn in (("torch.linalg.eigh", torch.linalg.eigh),
+                          ("eigh_herm", ql.eigh_herm)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn(k)
+            torch.cuda.synchronize()
+            extra = (torch.cuda.max_memory_allocated() - base) / 2**20
+            say(f"  {label} of {shape} complex128 (the node pass's K's): "
+                f"{cuda_ms(fn, k, reps=20, warmup=2):.4f} ms, peak "
+                f"{extra:.1f} MiB above its input ({card})")
+
+
+def phase_fed_core():
+    """Phase 8: the rest of the fed core on the card."""
+    import torch
+    from repro_torch.core.quantum import federated as fed
+    card = smi("name,power.limit")
+    say("== phase 8: fed core: bench_robust.py's defense x attack grid, "
+        "upload channels and server momentum, participation schedules, the "
+        "stacked multi-tenant round")
+    t0 = time.time()
+    robust_grid(card)
+    channel_rounds(card)
+    schedule_checks(card)
+    stacked_rounds(card)
+    # the kernels at the shapes this phase brings: one screened round of
+    # the grid (candidate chains, the probe's densities and fidelities),
+    # one stacked kernel round
+    rows = []
+    base, ds, test, params = robust_setup()
+    cfg = fed.QuantumFedConfig(**base, **ROBUST_STRATEGIES["screen"])
+    cells = [("screen round (2,3,2) N=20", lambda: faulted_round(
+        params, None, ds, torch.Generator().manual_seed(0), cfg, None, 0,
+        probe=test))]
+    scfg, _, sds, _, sparams, eta, eps = stack_cell()
+    cells.append((f"stacked S={STACK_S} SPEC_A", lambda: fed.server_round_stacked(
+        sparams, sds, [torch.Generator().manual_seed(i)
+                       for i in range(STACK_S)], scfg, eta=eta, eps=eps)))
+    for label, run in cells:
+        with Recorder() as rec:
+            run()
+            torch.cuda.synchronize()
+        say(f"  kernels at the shapes of one {label}:")
+        names = tuple(n for n in ("zgemm", "ensemble_commutator_trace",
+                                  "fidelity") if rec.calls[n])
+        timed = check_and_time(rec, {}, names=names)
+        for name in names:
+            for row in timed[name]:
+                rows.append(dict(row, launches=rec.calls[name][row["key"]][0],
+                                 cell=label))
+    say(f"  phase 8 took {time.time() - t0:.1f} s")
+    return rows
+
+
 # ------------------------------------------------- --time-quantum (A/B)
 def time_quantum(trials=3):
     """ms/round of both quantum cells (phase 4's ``round_ms``, 10 rounds
@@ -1771,6 +2282,7 @@ def main() -> int:
     rows += list(phase_serve().values())
     rows += phase_rwkv()
     rows += phase_engines()
+    rows += phase_fed_core()
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -7,6 +7,12 @@ of paths ("stack/{pos}/{kind}/..." with a leading n_cycles axis,
 "rem/{i}/{kind}/..." without) to arrays. These functions take and give
 numpy arrays only (``np.asarray`` of a JAX array is one), so the port
 never touches JAX.
+
+A stacked round's state carries a leading session axis S on every array
+(params per layer (S, m_l, d, d), dataset fields (S, N, ...)); these
+functions carry it as they carry any other axis. The server optimiser's
+momentum is a per-layer list like params, or None before its first
+step (``smom_to_torch``).
 """
 from __future__ import annotations
 
@@ -27,12 +33,26 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 
 def params_to_torch(params: Sequence[np.ndarray], device="cuda"
                     ) -> List[torch.Tensor]:
-    """Per-layer (m_l, d, d) arrays -> complex128 tensors on ``device``."""
+    """Per-layer (m_l, d, d) arrays (or (S, m_l, d, d) stacked) ->
+    complex128 tensors on ``device``."""
     return [_tensor(p, ql.DTYPE, device) for p in params]
 
 
 def params_to_numpy(params: Sequence[torch.Tensor]) -> List[np.ndarray]:
     return [p.detach().resolve_conj().cpu().numpy() for p in params]
+
+
+def smom_to_torch(smom: Optional[Sequence[np.ndarray]], device="cuda"
+                  ) -> Optional[List[torch.Tensor]]:
+    """Server momentum, per layer (I_l, m_l, d, d) or stacked (S, I_l,
+    m_l, d, d) -> complex128 tensors on ``device``; None stays None (the
+    zero round-0 state)."""
+    return None if smom is None else params_to_torch(smom, device)
+
+
+def smom_to_numpy(smom: Optional[Sequence[torch.Tensor]]
+                  ) -> Optional[List[np.ndarray]]:
+    return None if smom is None else params_to_numpy(smom)
 
 
 def states_to_torch(phi, device="cuda") -> torch.Tensor:

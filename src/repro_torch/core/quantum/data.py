@@ -25,7 +25,9 @@ from repro_torch.core.quantum import linalg as ql
 
 
 class QuantumDataset(NamedTuple):
-    """Per-node quantum data: (num_nodes, n_per_node, dim) state vectors.
+    """Per-node quantum data: (num_nodes, n_per_node, dim) state vectors
+    (with a leading session axis S on every field when stacked for
+    ``federated.server_round_stacked``).
 
     n_per: optional (num_nodes,) int32 TRUE pair counts when nodes are
     unequal; entries past a node's count are zero padding. None means
@@ -36,20 +38,22 @@ class QuantumDataset(NamedTuple):
     n_per: Optional[torch.Tensor] = None
 
     def node_counts(self) -> torch.Tensor:
-        """(num_nodes,) float32 data volumes N_n (Alg. 2 weights)."""
+        """(num_nodes,) float32 data volumes N_n (Alg. 2 weights); a
+        stacked dataset (a leading session axis S on every field) gives
+        (S, num_nodes)."""
         if self.n_per is not None:
             return self.n_per.to(torch.float32)
-        return torch.full((self.phi_in.shape[0],), float(self.phi_in.shape[1]),
+        return torch.full(self.phi_in.shape[:-2], float(self.phi_in.shape[-2]),
                           dtype=torch.float32, device=self.phi_in.device)
 
     def valid_mask(self) -> Optional[torch.Tensor]:
-        """(num_nodes, n_max) float32 validity mask, or None when every
-        slot is valid."""
+        """(num_nodes, n_max) float32 validity mask ((S, num_nodes, n_max)
+        when stacked), or None when every slot is valid."""
         if self.n_per is None:
             return None
-        n_max = self.phi_in.shape[1]
+        n_max = self.phi_in.shape[-2]
         idx = torch.arange(n_max, device=self.n_per.device)
-        return (idx[None, :] < self.n_per[:, None]).to(torch.float32)
+        return (idx < self.n_per[..., None]).to(torch.float32)
 
 
 def make_target_unitary(gen: torch.Generator, n_qubits: int,

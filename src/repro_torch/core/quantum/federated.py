@@ -4,34 +4,49 @@
 One round is four phases: ``select_phase`` (participation sampling and
 the Alg. 2 weights), ``local_phase`` (the QuanFedNode pass of every
 selected node), ``transmit_phase`` (channel model and wire cast) and
-``aggregate_phase`` (the Eq. 6 product or Eq. 8 average combine).
-``server_round`` composes them. The nodes of a round run as one batch
-on an explicit leading node axis, where the reference ``vmap``s.
+``aggregate_phase`` (the Eq. 6 product or Eq. 8 average combine, an
+optional Byzantine-robust defense, optional server momentum on the
+averaged generators). ``server_round`` / ``server_round_opt`` /
+``server_round_certified`` compose them. The nodes of a round run as one
+batch on an explicit leading node axis, where the reference ``vmap``s.
+
+Every phase body runs on a leading session axis S: a solo round is the
+stack of one. ``server_round_stacked`` drives S independent federations
+of one structural config (their own params, data, draws, eta, eps and
+momentum) as one round: the node pass runs over S * N_p nodes and every
+combine chain over (S * m, d, d), so a stacked round launches as many
+kernels as a solo one.
 
 When the transmit phase is an exact identity and the combine is the
-product, ``aggregate_product`` reuses the node pass's eigh factors at the
-upload scale (e^{i eps (wK)} = V e^{i eps w lam} V^H), so each K is
-factored once per round.
+undefended product, ``aggregate_product`` reuses the node pass's eigh
+factors at the upload scale (e^{i eps (wK)} = V e^{i eps w lam} V^H), so
+each K is factored once per round.
 
 ``cfg.engine`` picks the node pass's simulation path (``qnn.ENGINES``);
 with the approximate-rank knobs set, ``server_round_certified`` also
 returns the round's error certificate, the per-node bounds weighted by
 the Alg. 2 weights.
 
-The port's randomness comes from a ``torch.Generator``; it does not
-replay the reference's ``jax.random`` keys.
+The port's randomness comes from ``torch.Generator``s; it does not
+replay the reference's ``jax.random`` keys. Each phase takes its draws
+from the generator it is given, in a fixed order (selection, the
+interval's minibatches, the channel), so the parity tests inject the
+reference's selection and uploads instead.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core.fed import channel as fchannel
 from repro_torch.core.fed import participation, strategies
+from repro_torch.core.fed import server_opt as fserver_opt
 from repro_torch.core.quantum import linalg as ql
 from repro_torch.core.quantum import qnn
 from repro_torch.core.quantum.data import QuantumDataset
+
+Gens = Union[torch.Generator, Sequence[torch.Generator]]
 
 
 class QuantumFedConfig(NamedTuple):
@@ -46,34 +61,33 @@ class QuantumFedConfig(NamedTuple):
     eps: float = 0.1
     minibatch: Optional[int] = None   # None => GD; int => SGD mini-batch
     aggregation: str = "product"      # strategy registry (fed.strategies)
-    upload_noise: float = 0.0
+    upload_noise: float = 0.0         # channel registry: "hermitian"
     engine: str = "local"
     impl: str = "xla"                 # "xla" torch | "pallas" CUDA kernels
-    participation: str = "uniform"
-    participation_method: str = "auto"
-    dropout_rate: float = 0.0
+    participation: str = "uniform"    # schedule registry
+    participation_method: str = "auto"    # uniform-draw cost policy
+    dropout_rate: float = 0.0         # straggler rate for "dropout"
     fanout: str = "auto"
     topology: str = "flat"
     pods: Optional[int] = None
     pod_assignment: str = "block"
-    quantize_bits: Optional[int] = None
+    quantize_bits: Optional[int] = None  # channel registry: "quantize"
     rank_tol: float = 0.0
     rank_cap: Optional[int] = None
     ensemble_dtype: Optional[str] = None
-    defense: Optional[str] = None
-    trim_frac: float = 0.2
-    clip_norm: float = 1.0
-    screen_tol: float = 0.05
+    defense: Optional[str] = None     # strategies.DEFENSES
+    trim_frac: float = 0.2            # trimmed_mean: trim fraction/side
+    clip_norm: float = 1.0            # clip: per-matrix Frobenius bound
+    screen_tol: float = 0.05          # screen: allowed fidelity drop
 
 
-# the reference's server optimisers (``repro.core.fed.server_opt``); the
-# port has "none" only
-SERVER_OPTS = ("none", "momentum", "nesterov")
+SERVER_OPTS = fserver_opt.SERVER_OPTS
 
 
 def check_supported(cfg: QuantumFedConfig) -> QuantumFedConfig:
     """Fail loudly on config values whose paths the port does not have
-    (NotImplementedError) and on values no path accepts (ValueError)."""
+    (NotImplementedError: the two-level topology and the pod fan-out)
+    and on values no path accepts (ValueError)."""
     if cfg.engine not in qnn.ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; use one of "
                          f"{qnn.ENGINES}")
@@ -83,53 +97,86 @@ def check_supported(cfg: QuantumFedConfig) -> QuantumFedConfig:
             "approximate rank (rank_tol/rank_cap/ensemble_dtype) is "
             f"engine='local' only; engine={cfg.engine!r} is an exact "
             "oracle/baseline")
+    agg = strategies.get_aggregation(cfg.aggregation)
+    strategies.validate_defense(cfg.defense, agg.combine)
+    if cfg.defense in ("trimmed_mean", "median") and cfg.topology != "flat":
+        raise ValueError(
+            f"defense {cfg.defense!r} needs every upload at the server "
+            "(order statistics do not decompose over pod partial sums) — "
+            "topology='flat' only")
     missing = []
     if cfg.topology != "flat":
         missing.append(f"topology={cfg.topology!r}")
     if cfg.fanout not in ("auto", "vmap"):
         missing.append(f"fanout={cfg.fanout!r}")
-    if cfg.participation_method not in ("auto", "dense"):
-        missing.append(f"participation_method={cfg.participation_method!r}")
-    if cfg.defense is not None:
-        missing.append(f"defense={cfg.defense!r}")
     if missing:
         raise NotImplementedError("not in the port yet: " + ", ".join(missing))
     qnn._check_impl(cfg.impl)
-    strategies.get_aggregation(cfg.aggregation)
     participation.validate(cfg.participation)
+    participation.validate_method(cfg.participation_method)
     fchannel.resolve_channel(cfg.upload_noise, cfg.quantize_bits)
     return cfg
 
 
-def _minibatch(gen: torch.Generator, phi_in, phi_out, mask, size: int):
+def _approx_on(cfg: QuantumFedConfig) -> bool:
+    return ql.resolve_approx(cfg.rank_tol, cfg.rank_cap,
+                             cfg.ensemble_dtype) is not None
+
+
+def _gen_list(gen: Gens) -> List[torch.Generator]:
+    return [gen] if isinstance(gen, torch.Generator) else list(gen)
+
+
+def _lead(x, ndim: int):
+    """A scalar as it is, or a tensor with one value per entry of the
+    leading axis, shaped to broadcast against ``ndim``-dim arrays."""
+    if not torch.is_tensor(x):
+        return x
+    return x.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def _per_node(x, p: int):
+    """A per-session scalar or (S,) tensor as one value per node of the
+    S * p node batch (each session's value repeated p times)."""
+    return x.repeat_interleave(p) if torch.is_tensor(x) else x
+
+
+def _minibatch(gens: List[torch.Generator], phi_in, phi_out, mask,
+               size: int):
     """Per-node SGD draw of ``size`` pairs without replacement (valid
-    pairs only when a mask is given)."""
+    pairs only when a mask is given). The nodes split into len(gens)
+    equal blocks, block b drawing from gens[b] in node order."""
     p, n_per = phi_in.shape[:2]
+    per = p // len(gens)
     rows = []
     for node in range(p):
+        gen = gens[node // per]
         if mask is None:
             idx = torch.randperm(n_per, generator=gen, device=gen.device)
         else:
             prob = mask[node].to(gen.device, torch.float64)
             idx = torch.multinomial(prob, size, replacement=False,
                                     generator=gen)
-        rows.append(idx[:size])
-    idx = torch.stack(rows).to(phi_in.device)
+        rows.append(idx[:size].to(phi_in.device))
+    idx = torch.stack(rows)
     take = torch.arange(p, device=phi_in.device)[:, None]
     b_w = None if mask is None else mask[take, idx]
     return phi_in[take, idx], phi_out[take, idx], b_w
 
 
 def node_update(params: qnn.Params, phi_in: torch.Tensor,
-                phi_out: torch.Tensor, gen: torch.Generator, eta, eps,
+                phi_out: torch.Tensor, gen: Gens, eta, eps,
                 cfg: QuantumFedConfig, mask: Optional[torch.Tensor] = None,
                 return_factors: bool = False, with_bound: bool = False):
     """QuanFedNode: I_l temporary-update steps on each node's local data,
     through ``cfg.engine`` (and the approximate-rank knobs).
 
-    params: the global layers (m, d, d), shared by every node at the
-    start of the round. phi_in/phi_out: (P, n_per, d) for P nodes;
-    mask: optional (P, n_per) validity mask of padded nodes.
+    params: the global layers (m, d, d) shared by every node, or
+    (P, m, d, d) one per node. phi_in/phi_out: (P, n_per, d) for P
+    nodes; mask: optional (P, n_per) validity mask of padded nodes.
+    eta, eps: scalars, or (P,) tensors of one value per node (K is
+    linear in eta: a per-node eta scales the unit-eta K's). gen: one
+    generator, or one per equal block of nodes (the minibatch draws).
 
     Returns the per-step update matrices per layer, stacked
     (P, I_l, m, d, d); with ``return_factors`` also their eigh factors
@@ -138,29 +185,36 @@ def node_update(params: qnn.Params, phi_in: torch.Tensor,
     per-node certificates, each summed over the interval's steps (zeros
     for exact configs).
     """
+    gens = _gen_list(gen)
     p_nodes, n_per = phi_in.shape[:2]
-    p = [u.expand((p_nodes,) + u.shape) for u in params]
+    p = [u if u.dim() == 4 else u.expand((p_nodes,) + u.shape)
+         for u in params]
+    eta_scale = eta if torch.is_tensor(eta) else None
+    eta_k = 1.0 if eta_scale is not None else eta
+    eps_k = _lead(eps, 3)
     ks_seq, fac_seq = [], []
     bound = 0.0
     for _ in range(cfg.interval_length):
         if cfg.minibatch is not None and cfg.minibatch < n_per:
-            b_in, b_out, b_w = _minibatch(gen, phi_in, phi_out, mask,
+            b_in, b_out, b_w = _minibatch(gens, phi_in, phi_out, mask,
                                           cfg.minibatch)
         else:
             b_in, b_out, b_w = phi_in, phi_out, mask
-        out = qnn.update_matrices(p, b_in, b_out, cfg.widths, eta,
+        out = qnn.update_matrices(p, b_in, b_out, cfg.widths, eta_k,
                                   engine=cfg.engine, impl=cfg.impl,
                                   weights=b_w, rank_tol=cfg.rank_tol,
                                   rank_cap=cfg.rank_cap,
                                   ensemble_dtype=cfg.ensemble_dtype,
                                   with_bound=with_bound)
+        ks, step_bound = out if with_bound else (out, None)
+        if eta_scale is not None:
+            ks = [k * _lead(eta_scale, 4).to(k.real.dtype) for k in ks]
+            if with_bound:
+                step_bound = step_bound * eta_scale.to(torch.float64)
         if with_bound:
-            ks, step_bound = out
             bound = bound + step_bound
-        else:
-            ks = out
         factors = qnn.eigh_updates(ks)
-        p = qnn.apply_updates_eigh(p, factors, eps, impl=cfg.impl)
+        p = qnn.apply_updates_eigh(p, factors, eps_k, impl=cfg.impl)
         ks_seq.append(ks)
         fac_seq.append(factors)
     ks_all = [torch.stack([ks[l] for ks in ks_seq], 1)
@@ -175,12 +229,300 @@ def node_update(params: qnn.Params, phi_in: torch.Tensor,
     return out[0] if len(out) == 1 else tuple(out)
 
 
-def _chain(us: torch.Tensor, upd: torch.Tensor, impl: str) -> torch.Tensor:
-    """acc <- upd[T-1] @ ... @ upd[0] @ us, one product per step
-    (upd: (T, m, d, d))."""
-    for u in upd:
+def _chain(us: torch.Tensor, seq: torch.Tensor, impl: str) -> torch.Tensor:
+    """acc <- seq[T-1] @ ... @ seq[0] @ us, one product per step over the
+    whole batch (seq: (T, *us.shape))."""
+    for u in seq:
         us = qnn.bmm(u, us, impl=impl)
     return us
+
+
+def _steps_first(upd: torch.Tensor) -> torch.Tensor:
+    """(S, T, m, d, d) -> the (T, S, m, d, d) chain sequence, each step
+    one dense batch."""
+    return upd.transpose(0, 1).contiguous()
+
+
+# ------------------------------------------------- combines, session axis
+# Shapes below: params per layer (S, m, d, d); uploads per layer
+# (S, P, I_l, m, d, d); weights (S, P) float32; eps and beta scalars or
+# (S,) tensors; momentum per layer (S, I_l, m, d, d) or None.
+
+def _product(params, ks_all, weights, eps, impl, factors=None):
+    """Eq. 6 for every session: U <- prod_{k=I_l}^{1} prod_n
+    e^{i eps w_n K_{n,k}} U, one chain over (S * m, d, d)."""
+    new_params = []
+    for li, (us, ks) in enumerate(zip(params, ks_all)):
+        s, p, il = ks.shape[:3]
+        if factors is None:
+            w = weights[:, :, None, None, None, None].to(ks.dtype)
+            upd = ql.expm_herm(ks * w, _lead(eps, 5))
+        else:
+            lam, v = factors[li]
+            wl = weights[:, :, None, None, None].to(lam.dtype)
+            upd = ql.expm_eigh(lam * wl, v, _lead(eps, 5))
+        # interval step k outermost (k = 1 first), node n innermost
+        seq = upd.permute(2, 1, 0, 3, 4, 5).reshape(
+            (il * p, s) + upd.shape[3:])
+        new_params.append(_chain(us, seq, impl))
+    return new_params
+
+
+def _probe_fidelity(params: qnn.Params, probe, widths, impl):
+    """Mean fidelity of ``params`` on the server's probe batch: layers
+    (m, d, d) with probe states (X, d) give a scalar, layers (B, m, d, d)
+    with (B, X, d) one mean per entry of B."""
+    phi_in, phi_out = probe
+    rho = qnn.outputs(params, phi_in, widths, impl=impl)
+    return torch.mean(qnn.batched_fidelity(phi_out, rho, impl=impl), dim=-1)
+
+
+def _screen_uploads(params, ks_all, weights, eps, cfg: QuantumFedConfig,
+                    probe):
+    """defense="screen", the behavioural defense of the Eq. 6 product.
+    Each node's CANDIDATE model (its own update chain e^{i eps K_{n,k}}
+    on the global params) is scored on the server's probe batch; uploads
+    whose fidelity falls more than ``screen_tol`` below the pre-round
+    baseline are quarantined: weight zeroed (mass renormalised over the
+    survivors) and generators zeroed so a NaN payload cannot reach the
+    eigh. A NaN candidate fidelity compares False and quarantines
+    itself. The S * P candidates run as one batch on the node axis.
+    probe: (phi_in, phi_out), each (S, X, d). Returns ``(clean, weights,
+    keep)``."""
+    if probe is None:
+        raise ValueError(
+            "defense='screen' needs a server probe batch: pass "
+            "probe=(phi_in, phi_out), e.g. the held-out test pairs")
+    s, p = weights.shape
+    base = _probe_fidelity(params, probe, cfg.widths, cfg.impl)     # (S,)
+    eps_n = _per_node(eps, p)
+    cand = []
+    for us, ks in zip(params, ks_all):
+        upd = ql.expm_herm(ks.flatten(0, 1), _lead(eps_n, 4))
+        cand.append(_chain(us.repeat_interleave(p, 0), _steps_first(upd),
+                           cfg.impl))
+    cprobe = tuple(x.repeat_interleave(p, 0) for x in probe)
+    fids = _probe_fidelity(cand, cprobe, cfg.widths, cfg.impl).reshape(s, p)
+    keep = fids >= base[:, None] - cfg.screen_tol          # NaN => False
+    w = weights * keep.to(weights.dtype)
+    w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12)
+    kb = keep.reshape(s, p, 1, 1, 1, 1)
+    clean = [torch.where(kb, ks, torch.zeros((), dtype=ks.dtype,
+                                             device=ks.device))
+             for ks in ks_all]
+    return clean, w, keep
+
+
+def _finite(ks_all) -> torch.Tensor:
+    """(S, P) bool: each node's upload is finite in every layer."""
+    s, p = ks_all[0].shape[:2]
+    return strategies.finite_nodes([k.flatten(0, 1) for k in ks_all]
+                                   ).reshape(s, p)
+
+
+def _clip_uploads(ks_all, weights, clip_norm: float):
+    """defense="clip": per-matrix Frobenius norm-clip of every uploaded
+    generator; non-finite uploads are zeroed and de-weighted (their mass
+    renormalised over the finite nodes). Returns ``(clean, weights)``."""
+    s, p = weights.shape
+    fin = _finite(ks_all)
+    w = weights * fin.to(weights.dtype)
+    w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12)
+    fb = fin.reshape(s, p, 1, 1, 1, 1)
+    clean = []
+    for ks in ks_all:
+        f = strategies.clip_factors(ks, clip_norm)      # (..., 1, 1) real
+        clean.append(torch.where(fb, ks * f.to(ks.real.dtype),
+                                 torch.zeros((), dtype=ks.dtype,
+                                             device=ks.device)))
+    return clean, w
+
+
+def _aggregate(params, smom, ks_all, weights, eps, beta,
+               cfg: QuantumFedConfig, server_opt: str, factors=None,
+               probe=None):
+    """The strategy's combine for every session, with ``cfg.defense``
+    and, for average combines, server momentum on the averaged
+    generators K̄_k. Returns ``(new_params, new_smom)``, new_smom None
+    when ``server_opt == "none"``."""
+    agg = strategies.get_aggregation(cfg.aggregation)
+    strategies.validate_defense(cfg.defense, agg.combine)
+    fserver_opt.validate(server_opt)
+    if agg.combine == "product":
+        if server_opt != "none":
+            raise ValueError(
+                f"server_opt={server_opt!r} smooths the additive Eq. 8 "
+                "delta; the Eq. 6 product has none (aggregation "
+                f"{cfg.aggregation!r})")
+        if cfg.defense == "screen":
+            ks_all, weights, _ = _screen_uploads(params, ks_all, weights,
+                                                 eps, cfg, probe)
+            factors = None  # factor the SANITIZED K's, not the raw ones
+        return _product(params, ks_all, weights, eps, cfg.impl,
+                        factors), None
+    if cfg.defense == "clip":
+        ks_all, weights = _clip_uploads(ks_all, weights, cfg.clip_norm)
+    robust = cfg.defense in ("trimmed_mean", "median")
+    # order statistics treat every valid node equally: the data-volume
+    # weights only gate validity (a 0-weight or non-finite upload never
+    # enters the sort window)
+    valid = (weights > 0) & _finite(ks_all) if robust else None
+    k_bars = [strategies.robust_combine(ks.transpose(0, 1), valid.T,
+                                        cfg.defense, cfg.trim_frac)
+              if robust else _weighted_mean(ks, weights) for ks in ks_all]
+    return _average(params, smom, k_bars, eps, beta, server_opt, cfg.impl)
+
+
+def _weighted_mean(ks, weights):
+    """Eq. 8's K_k = sum_n w_n K_{n,k} per session: (S, I_l, m, d, d)."""
+    return torch.einsum("sn,snk...->sk...", weights.to(ks.dtype), ks)
+
+
+def _average(params, smom, k_bars, eps, beta, server_opt: str, impl: str):
+    """U <- prod_{k=I_l}^{1} e^{i eps K_eff,k} U per session, K_eff the
+    mean generators k_bars after the server momentum step (k_bars
+    themselves for ``server_opt="none"``). Returns ``(new_params,
+    new_smom)``."""
+    new_params, new_smom = [], []
+    for i, (us, k_bar) in enumerate(zip(params, k_bars)):
+        m2, eff = fserver_opt.generator_step(
+            server_opt, _lead(beta, 5), None if smom is None else smom[i],
+            k_bar)
+        upd = ql.expm_herm(eff, _lead(eps, 4))    # e^{i eps K_eff}: unitary
+        new_params.append(_chain(us, _steps_first(upd), impl))
+        new_smom.append(m2)
+    return new_params, (None if server_opt == "none" else new_smom)
+
+
+# ------------------------------------------------ phases, session axis
+def _gather_nodes(dataset: QuantumDataset, sel: torch.Tensor):
+    """The selected nodes' (S * P, n_per, d) states and validity mask."""
+    s = sel.shape[0]
+    take = torch.arange(s, device=sel.device)[:, None]
+    vmask = dataset.valid_mask()
+    return (dataset.phi_in[take, sel].flatten(0, 1),
+            dataset.phi_out[take, sel].flatten(0, 1),
+            None if vmask is None else vmask[take, sel].flatten(0, 1))
+
+
+def _select(dataset: QuantumDataset, gens: List[torch.Generator],
+            cfg: QuantumFedConfig):
+    """Each session's selection from its own generator: (sel, pmask,
+    weights), each (S, P), on the dataset's device (made on the host
+    and copied once)."""
+    dev = dataset.phi_in.device
+    counts = dataset.node_counts()                            # (S, N)
+    host = counts.cpu() if cfg.participation == "weighted" else None
+    sels, masks = [], []
+    for s, gen in enumerate(gens):
+        sel, mask = participation.sample_nodes(
+            gen, cfg.num_nodes, cfg.nodes_per_round, device="cpu",
+            schedule=cfg.participation,
+            node_sizes=None if host is None else host[s],
+            dropout_rate=cfg.dropout_rate, method=cfg.participation_method)
+        sels.append(sel)
+        masks.append(mask)
+    sel, pmask = torch.stack(sels).to(dev), torch.stack(masks).to(dev)
+    weights = participation.round_weights(cfg.participation,
+                                          torch.gather(counts, 1, sel), pmask)
+    return sel, pmask, weights
+
+
+def _local(params, dataset: QuantumDataset, sel: torch.Tensor,
+           gens: Optional[List[torch.Generator]], eta, eps,
+           cfg: QuantumFedConfig, with_factors: bool, with_bound: bool):
+    """The node pass of every session's selected nodes as one batch of
+    S * P nodes; outputs regrouped per session: uploads (S, P, I_l, m,
+    d, d) per layer, factors likewise, bounds (S, P)."""
+    s, p = sel.shape
+    phi_in, phi_out, mask = _gather_nodes(dataset, sel.to(
+        dataset.phi_in.device))
+    out = node_update([u.repeat_interleave(p, 0) for u in params], phi_in,
+                      phi_out, gens if gens is not None else [],
+                      _per_node(eta, p), _per_node(eps, p), cfg, mask,
+                      return_factors=with_factors, with_bound=with_bound)
+    out = out if isinstance(out, tuple) else (out,)
+
+    def split(x):
+        return x.reshape((s, p) + x.shape[1:])
+    ks = [split(k) for k in out[0]]
+    res = [ks]
+    if with_factors:
+        res.append([(split(lam), split(v)) for lam, v in out[1]])
+    if with_bound:
+        res.append(split(out[-1]))
+    return res[0] if len(res) == 1 else tuple(res)
+
+
+def _transmit(ks_all, gens: Optional[List[torch.Generator]],
+              cfg: QuantumFedConfig):
+    """Each session's uploads through the channel (its own generator),
+    then the strategy's wire cast."""
+    ch = fchannel.resolve_channel(cfg.upload_noise, cfg.quantize_bits)
+    agg = strategies.get_aggregation(cfg.aggregation)
+    if not isinstance(ch, fchannel.IdentityChannel):
+        ks_all = [torch.stack(parts) for parts in zip(*(
+            ch(gen, [k[i] for k in ks_all]) for i, gen in enumerate(gens)))]
+    return strategies.wire_cast(ks_all, agg)
+
+
+def _factors_survive_wire(cfg: QuantumFedConfig) -> bool:
+    """True when the node pass's eigh factors are still valid at the
+    aggregate phase: product combine over an exact-identity wire, no
+    defense (the screened product re-weights quarantined uploads)."""
+    agg = strategies.get_aggregation(cfg.aggregation)
+    return (agg.combine == "product" and agg.wire_dtype is None
+            and cfg.upload_noise == 0.0 and cfg.quantize_bits is None
+            and cfg.defense is None)
+
+
+def _round(params, smom, dataset: QuantumDataset,
+           gens: Optional[List[torch.Generator]],
+           sel: Optional[torch.Tensor], eta, eps, beta,
+           cfg: QuantumFedConfig, server_opt: str, probe, certify: bool):
+    """select -> local -> transmit -> aggregate for S sessions. Returns
+    ``(new_params, new_smom, err_bound (S,) float64)``."""
+    if sel is None:
+        sel, _, weights = _select(dataset, gens, cfg)
+    else:
+        sel = sel.to(dataset.phi_in.device)
+        weights = participation.round_weights(
+            cfg.participation, torch.gather(dataset.node_counts(), 1, sel),
+            torch.ones(sel.shape, dtype=torch.float32, device=sel.device))
+    reuse = _factors_survive_wire(cfg)
+    out = _local(params, dataset, sel, gens, eta, eps, cfg,
+                 with_factors=reuse, with_bound=certify)
+    out = out if isinstance(out, tuple) else (out,)
+    ks_all = out[0]
+    factors = out[1] if reuse else None
+    ks_all = _transmit(ks_all, gens, cfg)
+    new_params, new_smom = _aggregate(params, smom, ks_all, weights, eps,
+                                      beta, cfg, server_opt, factors, probe)
+    if certify:
+        err = torch.sum(weights.to(torch.float64) * out[-1].to(
+            weights.device), dim=-1)
+    else:
+        err = torch.zeros(sel.shape[:1], dtype=torch.float64,
+                          device=sel.device)
+    return new_params, new_smom, err
+
+
+# ----------------------------------------------------- solo entry points
+def _one(xs):
+    return None if xs is None else [x[None] for x in xs]
+
+
+def _unone(xs):
+    return None if xs is None else [x[0] for x in xs]
+
+
+def _one_dataset(ds: QuantumDataset) -> QuantumDataset:
+    return QuantumDataset(ds.phi_in[None], ds.phi_out[None],
+                          None if ds.n_per is None else ds.n_per[None])
+
+
+def _one_probe(probe):
+    return None if probe is None else tuple(x[None] for x in probe)
 
 
 def aggregate_product(params: qnn.Params, ks_all: List[torch.Tensor],
@@ -189,46 +531,29 @@ def aggregate_product(params: qnn.Params, ks_all: List[torch.Tensor],
     """Eq. 6: U^{l,j} = prod_{k=I_l}^{1} prod_n e^{i eps w_n K_{n,k}},
     then U_{t+1} = U^{l,j} U_t^{l,j}. factors: optional per-layer eigh
     factors of the unscaled K's from the node pass."""
-    new_params = []
-    for li, (us, ks) in enumerate(zip(params, ks_all)):
-        # ks: (N_p, I_l, m, d, d); the float32 weights are cast here only
-        if factors is None:
-            w = weights[:, None, None, None, None].to(ks.dtype)
-            upd = ql.expm_herm(ks * w, eps)
-        else:
-            lam, v = factors[li]
-            wl = weights[:, None, None, None].to(lam.dtype)
-            upd = ql.expm_eigh(lam * wl, v, eps)
-        # interval step k outermost (k = 1 first), node n innermost
-        seq = upd.transpose(0, 1).reshape((-1,) + upd.shape[2:])
-        new_params.append(_chain(us, seq, impl))
-    return new_params
+    fac = None if factors is None else [(lam[None], v[None])
+                                        for lam, v in factors]
+    return _unone(_product(_one(params), _one(ks_all), weights[None], eps,
+                           impl, fac))
 
 
 def aggregate_average(params: qnn.Params, ks_all: List[torch.Tensor],
                       weights: torch.Tensor, eps, *, impl: str = "xla"
                       ) -> qnn.Params:
     """Eq. 8: K_k = sum_n w_n K_{n,k};  U = prod_{k=I_l}^{1} e^{i eps K_k}."""
-    new_params = []
-    for us, ks in zip(params, ks_all):
-        k_bar = torch.einsum("n,nk...->k...", weights.to(ks.dtype), ks)
-        new_params.append(_chain(us, ql.expm_herm(k_bar, eps), impl))
-    return new_params
+    k_bars = [_weighted_mean(ks[None], weights[None]) for ks in ks_all]
+    return _unone(_average(_one(params), None, k_bars, eps, 0.0, "none",
+                           impl)[0])
 
 
 def select_phase(dataset: QuantumDataset, gen: torch.Generator,
                  cfg: QuantumFedConfig):
     """Phase 1: ``(sel, pmask, weights)`` for one round; the weights are
-    the float32 data volumes N_n / N_t of the selected nodes."""
+    the float32 Alg. 2 weights of the selected nodes, paired with the
+    schedule (``participation.round_weights``)."""
     check_supported(cfg)
-    dev = dataset.phi_in.device
-    counts = dataset.node_counts()
-    sel, pmask = participation.sample_nodes(
-        gen, cfg.num_nodes, cfg.nodes_per_round,
-        schedule=cfg.participation, device=dev)
-    weights = participation.round_weights(cfg.participation, counts[sel],
-                                          pmask)
-    return sel, pmask, weights
+    sel, pmask, weights = _select(_one_dataset(dataset), [gen], cfg)
+    return sel[0], pmask[0], weights[0]
 
 
 def local_phase(params: qnn.Params, dataset: QuantumDataset,
@@ -239,83 +564,141 @@ def local_phase(params: qnn.Params, dataset: QuantumDataset,
     (N_p, I_l, m, d, d), plus the eigh factors with ``with_factors`` and
     the (N_p,) per-node certificates with ``with_bound``."""
     check_supported(cfg)
-    sel = sel.to(dataset.phi_in.device)
-    vmask = dataset.valid_mask()
-    return node_update(params, dataset.phi_in[sel], dataset.phi_out[sel],
-                       gen, cfg.eta, cfg.eps, cfg,
-                       None if vmask is None else vmask[sel],
-                       return_factors=with_factors, with_bound=with_bound)
-
-
-def _factors_survive_wire(cfg: QuantumFedConfig) -> bool:
-    """True when the node pass's eigh factors are still valid at the
-    aggregate phase: product combine over an exact-identity wire."""
-    agg = strategies.get_aggregation(cfg.aggregation)
-    return (agg.combine == "product" and agg.wire_dtype is None
-            and cfg.upload_noise == 0.0 and cfg.quantize_bits is None
-            and cfg.defense is None)
+    out = _local(_one(params), _one_dataset(dataset),
+                 sel.to(dataset.phi_in.device)[None], [gen], cfg.eta,
+                 cfg.eps, cfg, with_factors, with_bound)
+    if not isinstance(out, tuple):
+        return _unone(out)
+    res = [_unone(out[0])]
+    if with_factors:
+        res.append([(lam[0], v[0]) for lam, v in out[1]])
+    if with_bound:
+        res.append(out[-1][0])
+    return tuple(res)
 
 
 def transmit_phase(ks_all: List[torch.Tensor], gen: torch.Generator,
                    cfg: QuantumFedConfig) -> List[torch.Tensor]:
     """Phase 3: channel model, then the strategy's wire cast."""
-    ch = fchannel.resolve_channel(cfg.upload_noise, cfg.quantize_bits)
-    agg = strategies.get_aggregation(cfg.aggregation)
-    return strategies.wire_cast(ch(gen, ks_all), agg)
+    return _unone(_transmit(_one(ks_all), [gen], cfg))
 
 
 def aggregate_phase(params: qnn.Params, ks_all: List[torch.Tensor],
                     weights: torch.Tensor, cfg: QuantumFedConfig,
-                    factors=None) -> qnn.Params:
-    """Phase 4: the strategy's combine into the global model."""
+                    smom=None, server_opt: str = "none",
+                    server_beta: float = 0.9, probe=None, factors=None):
+    """Phase 4: the strategy's combine into the global model; returns
+    ``(new_params, new_smom)``. ``ks_all`` may stack any number of
+    uploads. smom: per-layer (I_l, m, d, d) momentum, None for the zero
+    round-0 state. probe: the server's (phi_in, phi_out) screening batch
+    for ``cfg.defense == "screen"``. factors: the node pass's eigh
+    factors, valid when ``_factors_survive_wire(cfg)``."""
     check_supported(cfg)
-    agg = strategies.get_aggregation(cfg.aggregation)
-    if agg.combine == "product":
-        return aggregate_product(params, ks_all, weights, cfg.eps,
-                                 impl=cfg.impl, factors=factors)
-    return aggregate_average(params, ks_all, weights, cfg.eps,
-                             impl=cfg.impl)
+    fac = None if factors is None else [(lam[None], v[None])
+                                        for lam, v in factors]
+    new_params, new_smom = _aggregate(
+        _one(params), _one(smom), _one(ks_all), weights[None], cfg.eps,
+        server_beta, cfg, server_opt, fac, _one_probe(probe))
+    return _unone(new_params), _unone(new_smom)
+
+
+def server_round_certified(params: qnn.Params, dataset: QuantumDataset,
+                           gen: torch.Generator, cfg: QuantumFedConfig,
+                           smom=None, server_opt: str = "none",
+                           server_beta: float = 0.9, probe=None):
+    """One QuanFedPS iteration that also returns the round's
+    approximation-error certificate: ``(new_params, new_smom,
+    err_bound)``. new_smom: the server momentum state (None for
+    ``server_opt="none"``). err_bound is a float64 scalar bounding the
+    total max-abs deviation of the round's update matrices from the
+    exact engine's, sum_n w_n bound_n over the selected nodes; exactly
+    0.0 with the approximate-rank knobs off, where the new params are
+    those of ``server_round_opt`` bit for bit."""
+    check_supported(cfg)
+    fserver_opt.validate(server_opt)
+    new_params, new_smom, err = _round(
+        _one(params), _one(smom), _one_dataset(dataset), [gen], None,
+        cfg.eta, cfg.eps, server_beta, cfg, server_opt, _one_probe(probe),
+        certify=True)
+    return _unone(new_params), _unone(new_smom), err[0]
+
+
+def server_round_opt(params: qnn.Params, smom, dataset: QuantumDataset,
+                     gen: torch.Generator, cfg: QuantumFedConfig,
+                     server_opt: str = "none", server_beta: float = 0.9,
+                     probe=None):
+    """``server_round`` threading the server-optimiser momentum state:
+    returns ``(new_params, new_smom)`` (new_smom None when server_opt is
+    "none"). probe: the server's (phi_in, phi_out) screening batch,
+    required when ``cfg.defense == "screen"``."""
+    check_supported(cfg)
+    fserver_opt.validate(server_opt)
+    new_params, new_smom, _ = _round(
+        _one(params), _one(smom), _one_dataset(dataset), [gen], None,
+        cfg.eta, cfg.eps, server_beta, cfg, server_opt, _one_probe(probe),
+        certify=False)
+    return _unone(new_params), _unone(new_smom)
 
 
 def server_round(params: qnn.Params, dataset: QuantumDataset,
                  gen: torch.Generator, cfg: QuantumFedConfig) -> qnn.Params:
     """One QuanFedPS iteration: select -> local -> transmit -> aggregate."""
-    sel, _, weights = select_phase(dataset, gen, cfg)
-    reuse = _factors_survive_wire(cfg)
-    out = local_phase(params, dataset, sel, gen, cfg, with_factors=reuse)
-    ks_all, factors = out if reuse else (out, None)
-    ks_all = transmit_phase(ks_all, gen, cfg)
-    return aggregate_phase(params, ks_all, weights, cfg, factors=factors)
+    return server_round_opt(params, None, dataset, gen, cfg)[0]
 
 
-def server_round_certified(params: qnn.Params, dataset: QuantumDataset,
-                           gen: torch.Generator, cfg: QuantumFedConfig,
-                           server_opt: str = "none"):
-    """``server_round`` that also returns the round's approximation-error
-    certificate: ``(new_params, None, err_bound)``, the None standing for
-    the reference's server-optimiser state. err_bound is a float64 scalar
-    bounding the total max-abs deviation of the round's update matrices
-    from the exact engine's, sum_n w_n bound_n over the selected nodes
-    (per-node bounds of ``qnn.update_matrices(with_bound=True)``, Alg. 2
-    weights); exactly 0.0 with the approximate-rank knobs off, where the
-    new params are those of ``server_round`` bit for bit. The port has
-    ``server_opt="none"`` only."""
-    if server_opt not in SERVER_OPTS:
-        raise ValueError(f"unknown server_opt {server_opt!r}; registered: "
-                         f"{list(SERVER_OPTS)}")
-    if server_opt != "none":
-        raise NotImplementedError(
-            f"not in the port yet: server_opt={server_opt!r}")
-    sel, _, weights = select_phase(dataset, gen, cfg)
-    reuse = _factors_survive_wire(cfg)
-    out = local_phase(params, dataset, sel, gen, cfg, with_factors=reuse,
-                      with_bound=True)
-    (ks_all, factors, bounds) = out if reuse else (out[0], None, out[1])
-    ks_all = transmit_phase(ks_all, gen, cfg)
-    new_params = aggregate_phase(params, ks_all, weights, cfg,
-                                 factors=factors)
-    err_bound = torch.sum(weights.to(bounds.device, torch.float64) * bounds)
-    return new_params, None, err_bound
+def server_round_stacked(params: qnn.Params, dataset: QuantumDataset,
+                         gens_or_sels, cfg: QuantumFedConfig, *,
+                         smom=None, eta=None, eps=None,
+                         server_opt: str = "none", server_beta=None,
+                         probe=None):
+    """One QuanFedPS round for a STACK of S independent federations of
+    one structural config (the multi-tenant serving hot path).
+
+    Every argument carries a leading session axis S: ``params`` per
+    layer (S, m, d, d), ``dataset`` a ``QuantumDataset`` with every field
+    stacked, ``smom`` per layer (S, I_l, m, d, d) or None, ``probe``
+    (phi_in, phi_out) each (S, X, d). ``gens_or_sels``: S generators,
+    session s drawing its selection, minibatches and channel from the
+    s-th as a solo round would; or an (S, N_p) tensor of selections,
+    whose weights are then the selected nodes' data volumes with every
+    node kept (no other draw may be needed: GD and the identity
+    channel). ``eta`` / ``eps`` / ``server_beta`` are scalars or (S,)
+    tensors (None: cfg.eta, cfg.eps, 0.9).
+
+    The node pass runs over S * N_p nodes and the combine chains over
+    (S * m, d, d), so the round launches as many kernels as one solo
+    round. Returns ``(new_params, new_smom, err_bounds)``, err_bounds
+    (S,) float64 (zeros for exact configs)."""
+    check_supported(cfg)
+    fserver_opt.validate(server_opt)
+    dev = params[0].device
+    if torch.is_tensor(gens_or_sels):
+        gens, sel = None, gens_or_sels
+        needs = [name for name, on in (
+            ("minibatch", cfg.minibatch is not None),
+            ("a channel", not isinstance(fchannel.resolve_channel(
+                cfg.upload_noise, cfg.quantize_bits),
+                fchannel.IdentityChannel)),
+            ("dropout", cfg.participation == "dropout")) if on]
+        if needs:
+            raise ValueError("injected selections leave no generator for "
+                             f"{', '.join(needs)}: pass one generator per "
+                             "session instead")
+    else:
+        gens, sel = list(gens_or_sels), None
+    s = params[0].shape[0]
+    if (sel.shape[0] if gens is None else len(gens)) != s:
+        raise ValueError(f"{s} sessions in params, but "
+                         f"{sel.shape[0] if gens is None else len(gens)} "
+                         "generators or selections")
+
+    def vec(v, default):
+        v = default if v is None else v
+        return torch.as_tensor(v, dtype=torch.float64, device=dev).expand(s)
+
+    return _round(params, smom, dataset, gens, sel, vec(eta, cfg.eta),
+                  vec(eps, cfg.eps), vec(server_beta, 0.9), cfg, server_opt,
+                  probe, certify=_approx_on(cfg))
 
 
 def evaluate(params: qnn.Params, phi_in: torch.Tensor,

@@ -330,8 +330,20 @@ def haar_unitary(gen: torch.Generator, d: int, batch: tuple = (),
 
 def eigh_herm(k: torch.Tensor):
     """Eigendecomposition (lam, v) of Hermitian K: the factorisation one
-    round reuses for every exponential of the same K."""
-    return torch.linalg.eigh(k)
+    round reuses for every exponential of the same K.
+
+    A matrix holding a NaN or inf gets all-NaN factors and the others
+    their own, as ``jnp.linalg.eigh`` gives them (``torch.linalg.eigh``
+    raises on such a batch instead): the batch is factored with the
+    non-finite matrices zeroed, then their factors are set to NaN. No
+    branch on finiteness, so no host sync. An entry is finite where
+    x * 0 == 0 (inf * 0 and NaN * 0 are NaN): two elementwise passes,
+    where ``torch.isfinite`` of a complex tensor takes nine."""
+    finite = (k * 0 == 0).flatten(-2).all(-1)
+    lam, v = torch.linalg.eigh(torch.where(finite[..., None, None], k, 0.0))
+    nan = float("nan")
+    return (torch.where(finite[..., None], lam, nan),
+            torch.where(finite[..., None, None], v, complex(nan, nan)))
 
 
 def expm_eigh(lam: torch.Tensor, v: torch.Tensor, scale) -> torch.Tensor:

@@ -664,3 +664,119 @@ def test_rwkv_prefill_with_kernels_matches_plain(cuda_device):
             w = want_cache[key]
             assert float((cache[key] - w).abs().max()) <= 1e-4 * float(
                 w.abs().max()), key
+
+
+@pytest.mark.cuda
+def test_eigh_of_a_batch_with_a_nan_matrix_on_the_card(cuda_device):
+    """cuSOLVER sees the finite-masked batch: the NaN matrix gets NaN
+    factors, the others the CPU's exponentials."""
+    from repro_torch.core.quantum import linalg as ql
+    rng = np.random.default_rng(3)
+    a = rand_c(rng, 3, 4, 4)
+    k = torch.as_tensor((a + np.conj(np.swapaxes(a, -1, -2))) / 2)
+    k[1] = float("nan")
+    lam, v = ql.eigh_herm(k.to(cuda_device))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(lam[1]).all()) and bool(torch.isnan(v[1]).all())
+    got = ql.expm_herm(k.to(cuda_device), 0.3).cpu()
+    want = ql.expm_herm(k, 0.3)
+    assert bool(torch.isnan(got[1]).all())
+    assert float((got[[0, 2]] - want[[0, 2]]).abs().max()) <= 1e-10
+
+
+def _stack_cell(device, s):
+    """s sessions of bench_serve's SPEC_A shape: widths (2,3,2), N = 2,
+    N_p = 2, 2 pairs a node, I_l = 1, average; own data and params."""
+    sess = []
+    for i in range(s):
+        _, ds, _ = qdata.make_federated_dataset(
+            torch.Generator().manual_seed(100 + i), 2, 2, 2, n_test=2,
+            device=device)
+        sess.append((qnn.init_params(torch.Generator().manual_seed(200 + i),
+                                     (2, 3, 2), device=device), ds))
+    params = [torch.stack(x) for x in zip(*(p for p, _ in sess))]
+    ds = qdata.QuantumDataset(torch.stack([d.phi_in for _, d in sess]),
+                              torch.stack([d.phi_out for _, d in sess]))
+    return sess, params, ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("server_opt", ["none", "momentum"])
+def test_stacked_round_launches_one_rounds_kernels(cuda_device, server_opt):
+    """A stack of 8 sessions with per-slot eta and eps: the kernel round
+    within 1e-5 of each session's solo complex128 round, and as many
+    kernel launches as one solo kernel round."""
+    s = 8
+    sess, params, ds = _stack_cell(cuda_device, s)
+    cfg = fed.QuantumFedConfig(widths=(2, 3, 2), num_nodes=2,
+                               nodes_per_round=2, interval_length=1,
+                               aggregation="average", impl="pallas")
+    eta = torch.linspace(0.5, 2.0, s, dtype=torch.float64)
+    eps = torch.linspace(0.05, 0.2, s, dtype=torch.float64)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got, smom, _ = fed.server_round_stacked(
+        params, ds, [torch.Generator().manual_seed(i) for i in range(s)], cfg,
+        eta=eta, eps=eps, server_opt=server_opt)
+    torch.cuda.synchronize()
+    stacked = dict(build.LAUNCHES)
+    build.reset_launches()
+    fed.server_round_opt(sess[0][0], None, sess[0][1],
+                         torch.Generator().manual_seed(0), cfg,
+                         server_opt=server_opt)
+    torch.cuda.synchronize()
+    assert stacked == dict(build.LAUNCHES) and stacked.get("zgemm")
+    assert stacked.get("ensemble_commutator_trace")
+    for i, (p, d) in enumerate(sess):
+        want, _ = fed.server_round_opt(
+            p, None, d, torch.Generator().manual_seed(i),
+            cfg._replace(impl="xla", eta=float(eta[i]), eps=float(eps[i])),
+            server_opt=server_opt)
+        dev = max(float((g[i] - w).abs().max()) for g, w in zip(got, want))
+        assert dev <= RTOL, (i, dev)
+    assert (smom is None) == (server_opt == "none")
+
+
+@pytest.mark.cuda
+def test_screened_round_on_the_card(cuda_device):
+    """The screened product with a corrupt node: the kernel round within
+    1e-5 of the complex128 round, finite, the corrupt upload quarantined,
+    and the probe scored through the fidelity kernel."""
+    from repro_torch.core.fed import faults
+    widths = (2, 3, 2)
+    _, ds, test = qdata.make_federated_dataset(
+        torch.Generator().manual_seed(4), 2, 6, 3, n_test=8,
+        device=cuda_device)
+    params = qnn.init_params(torch.Generator().manual_seed(5), widths,
+                             device=cuda_device)
+    model = faults.DrawFault("corrupt", 0.3, 2, 5.0)
+    sel = torch.arange(6, device=cuda_device)
+    bad = torch.tensor([model.hits(n, 0) for n in range(6)])
+    assert bool(bad.any()) and not bool(bad.all())
+    coeff = torch.tensor([model(n, 0)[0] for n in range(6)],
+                         device=cuda_device)
+    out = {}
+    for impl in ("xla", "pallas"):
+        cfg = fed.QuantumFedConfig(widths=widths, num_nodes=6,
+                                   nodes_per_round=6, interval_length=2,
+                                   aggregation="product", defense="screen",
+                                   screen_tol=0.01, impl=impl)
+        ks = fed.local_phase(params, ds, sel, torch.Generator(), cfg)
+        ks = [k * coeff.reshape(-1, 1, 1, 1, 1) for k in ks]
+        weights = torch.full((6,), 1 / 6, device=cuda_device)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        _, _, keep = fed._screen_uploads(
+            [p[None] for p in params], [k[None] for k in ks], weights[None],
+            cfg.eps, cfg, tuple(x[None] for x in test))
+        new, _ = fed.aggregate_phase(params, ks, weights, cfg, probe=test)
+        torch.cuda.synchronize()
+        if impl == "pallas":
+            assert build.LAUNCHES.get("fidelity") and build.LAUNCHES.get(
+                "zgemm")
+        assert not bool((keep[0].cpu() & bad).any())
+        out[impl] = new
+    dev = max(float((a - b).abs().max())
+              for a, b in zip(out["pallas"], out["xla"]))
+    assert dev <= RTOL and all(bool(torch.isfinite(p.abs()).all())
+                               for p in out["pallas"])

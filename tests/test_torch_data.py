@@ -95,7 +95,7 @@ def test_participation():
     with pytest.raises(ValueError):
         participation.sample_nodes(None, 5, 4, schedule="full", device="cpu")
     with pytest.raises(ValueError):
-        participation.validate("weighted")
+        participation.validate("stratified")
     sizes = np.array([3.0, 4.0, 2.0, 4.0], np.float32)
     m = np.array([1.0, 1.0, 0.0, 1.0], np.float32)
     got = participation.round_weights("uniform", torch.tensor(sizes),
@@ -125,8 +125,13 @@ def test_wire_cast_matches_reference(x64, name):
 def test_channel_identity_and_refusals():
     ks = [torch.ones(2, 2)]
     assert channel.resolve_channel()(None, ks) is ks
-    for kw in (dict(upload_noise=0.1), dict(quantize_bits=8)):
-        with pytest.raises(NotImplementedError):
+    assert isinstance(channel.resolve_channel(upload_noise=0.1),
+                      channel.HermitianNoiseChannel)
+    assert isinstance(channel.resolve_channel(quantize_bits=8),
+                      channel.QuantizationChannel)
+    for kw in (dict(upload_noise=0.1, quantize_bits=8),
+               dict(quantize_bits=1), dict(quantize_bits=17)):
+        with pytest.raises(ValueError):
             channel.resolve_channel(**kw)
 
 

@@ -526,11 +526,11 @@ def test_server_round_per_engine_matches_reference(x64, engine, impl,
     out = fed.local_phase(tparams, tds, tsel, torch.Generator(), tcfg,
                           with_factors=reuse)
     ks, factors = out if reuse else (out, None)
-    got = fed.aggregate_phase(tparams, fed.transmit_phase(
+    got, _ = fed.aggregate_phase(tparams, fed.transmit_phase(
         ks, torch.Generator(), tcfg), tweights, tcfg, factors=factors)
     tol = TOL if impl == "xla" else KERNEL_TOL
     assert err(got, want) <= tol
-    dense = fed.aggregate_phase(tparams, fed.local_phase(
+    dense, _ = fed.aggregate_phase(tparams, fed.local_phase(
         tparams, tds, tsel, torch.Generator(),
         tcfg._replace(engine="dense", impl="xla")), tweights,
         tcfg._replace(engine="dense", impl="xla"))
@@ -541,7 +541,8 @@ def test_server_round_certified(x64):
     """Exact cfg: bound 0 and the params of server_round bit for bit;
     approx cfg: err_bound = sum_n w_n bound_n of the selected nodes'
     own certificates (not the sum over nodes before the weights), and
-    finite unitary params; other server optimisers are refused."""
+    finite unitary params; server momentum on the average combine
+    returns its state, and unknown server optimisers are refused."""
     _, tcfg = configs(num_nodes=4, nodes_per_round=3)
     _, (tparams, tds) = round_setup()
     plain = fed.server_round(tparams, tds, torch.Generator().manual_seed(3),
@@ -564,9 +565,17 @@ def test_server_round_certified(x64):
     assert float(bound_a) < float(bounds.sum())
     for p in p_apx:
         assert bool(ql.is_unitary(p, 1e-10))
-    with pytest.raises(NotImplementedError):
+    # server momentum needs the Eq. 8 average; it refuses the product
+    with pytest.raises(ValueError):
         fed.server_round_certified(tparams, tds, torch.Generator(), acfg,
                                    server_opt="momentum")
+    mcfg = acfg._replace(aggregation="average")
+    _, smom, bound_m = fed.server_round_certified(
+        tparams, tds, torch.Generator().manual_seed(3), mcfg,
+        server_opt="momentum")
+    assert [tuple(m.shape) for m in smom] == [(2,) + tuple(p.shape)
+                                             for p in tparams]
+    assert float(bound_m) > 0.0
     with pytest.raises(ValueError):
         fed.server_round_certified(tparams, tds, torch.Generator(), acfg,
                                    server_opt="adam")

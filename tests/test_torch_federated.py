@@ -163,7 +163,7 @@ def test_round_with_reference_selection(x64, impl, aggregation):
     out = fed.local_phase(tparams, tds, tsel, gen(), tcfg, with_factors=reuse)
     ks, factors = out if reuse else (out, None)
     ks = fed.transmit_phase(ks, gen(), tcfg)
-    got = fed.aggregate_phase(tparams, ks, tweights, tcfg, factors=factors)
+    got, _ = fed.aggregate_phase(tparams, ks, tweights, tcfg, factors=factors)
     assert max_err(got, want) <= TOLS[impl]
 
 
@@ -181,7 +181,7 @@ def test_round_unequal_nodes_with_reference_selection(x64):
     want = jfed.server_round(params, ds, ROUND_KEY, jcfg)
     ks, factors = fed.local_phase(tparams, tds, tsel, gen(), tcfg,
                                   with_factors=True)
-    got = fed.aggregate_phase(tparams, ks, tweights, tcfg, factors=factors)
+    got, _ = fed.aggregate_phase(tparams, ks, tweights, tcfg, factors=factors)
     assert max_err(got, want) <= TOLS["xla"]
 
 
@@ -209,7 +209,7 @@ def test_server_round_is_its_phases_under_one_generator(x64):
     ks, factors = fed.local_phase(tparams, tds, sel, g, tcfg,
                                   with_factors=True)
     ks = fed.transmit_phase(ks, g, tcfg)
-    want = fed.aggregate_phase(tparams, ks, weights, tcfg, factors=factors)
+    want, _ = fed.aggregate_phase(tparams, ks, weights, tcfg, factors=factors)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
         eye = torch.eye(a.shape[-1], dtype=a.dtype)
@@ -226,16 +226,33 @@ def test_minibatch_draws_valid_pairs_per_node(x64):
     assert herm <= 1e-12
 
 
-@pytest.mark.parametrize("bad", [dict(participation_method="sampled"),
-                                 dict(topology="two_level", pods=2),
-                                 dict(defense="clip"),
-                                 dict(defense="trimmed_mean"),
-                                 dict(upload_noise=0.1),
-                                 dict(quantize_bits=8),
+@pytest.mark.parametrize("bad", [dict(topology="two_level", pods=2),
                                  dict(fanout="shard_map")])
 def test_unported_options_are_refused(bad):
     _, tcfg = config("xla", **bad)
     with pytest.raises(NotImplementedError):
+        fed.check_supported(tcfg)
+
+
+@pytest.mark.parametrize("ok", [dict(participation_method="sampled"),
+                                dict(aggregation="average", defense="clip"),
+                                dict(aggregation="average",
+                                     defense="trimmed_mean"),
+                                dict(upload_noise=0.1),
+                                dict(quantize_bits=8)])
+def test_ported_fed_core_options_pass(ok):
+    _, tcfg = config("xla", **ok)
+    assert fed.check_supported(tcfg) is tcfg
+
+
+@pytest.mark.parametrize("bad", [dict(aggregation="product",
+                                      defense="median"),
+                                 dict(aggregation="average",
+                                      defense="screen"),
+                                 dict(upload_noise=0.1, quantize_bits=8)])
+def test_fed_core_configs_no_path_accepts_are_refused(bad):
+    _, tcfg = config("xla", **bad)
+    with pytest.raises(ValueError):
         fed.check_supported(tcfg)
 
 
@@ -265,7 +282,7 @@ def test_approx_knobs_outside_the_local_engine_are_refused(bad):
         fed.check_supported(tcfg)
 
 
-@pytest.mark.parametrize("bad", [dict(participation="weighted"),
+@pytest.mark.parametrize("bad", [dict(participation="stratified"),
                                  dict(aggregation="median"),
                                  dict(impl="cuda")])
 def test_unknown_names_are_refused(bad):

@@ -125,6 +125,31 @@ def test_eigh_expm(x64, d):
     assert err(rebuilt, k) <= TOL
 
 
+@pytest.mark.parametrize("bad", ["all", "one"])
+def test_eigh_of_a_batch_with_a_nan_matrix(x64, bad):
+    """A non-finite matrix gets all-NaN factors, as ``jnp.linalg.eigh``
+    gives them, and the rest of the batch its own: ``torch.linalg.eigh``
+    alone raises on such a batch (the corrupt fault ships NaN
+    generators, and the undefended round must go NaN, not raise)."""
+    rng = np.random.default_rng(3)
+    k = rand_herm(rng, 4, batch=(3,))
+    if bad == "all":
+        k[1] = np.nan
+    else:
+        k[1, 2, 0] = np.nan
+    lam, v = tql.eigh_herm(t(k))
+    jlam, jv = jql.eigh_herm(jnp.asarray(k))
+    assert bool(torch.isnan(lam[1]).all()) and bool(torch.isnan(v[1]).all())
+    assert bool(np.isnan(np.asarray(jlam[1])).all())
+    for i in (0, 2):
+        assert bool(torch.isfinite(lam[i]).all())
+        assert err(lam[i], jlam[i]) <= TOL
+    got = tql.expm_herm(t(k), 0.3)
+    want = jql.expm_herm(jnp.asarray(k), 0.3)
+    assert bool(torch.isnan(got[1]).all())
+    assert err(got[[0, 2]], np.asarray(want)[[0, 2]]) <= TOL
+
+
 def test_fidelity_and_mse(x64):
     rng = np.random.default_rng(3)
     phi = rand_c(rng, 4, 6, 8)
