@@ -19,11 +19,16 @@ repository, it exits non-zero before printing any result. Phases:
    events, and the kernel's device time per launch with torch.profiler;
    fidelity and mse also beside the launch floor (a one-element PyTorch
    op, back to back, and its device time);
-3. main path: the paper's experiment (examples/quickstart.py): widths
-   (2,3,2), N=100, N_p=10, I_l=2, eta=1, eps=0.1, Eq. 6 product, 50
-   rounds with impl="pallas", evaluated every 10 rounds. The launch
-   counts are zeroed just before and read just after; every kernel must
-   have run, and the final test fidelity must exceed 0.95;
+3. main path: the paper's experiment through the port's
+   ``FederationSession`` (examples/torch_quickstart.py's spec): widths
+   (2,3,2), N=100, N_p=10, I_l=2, eta=1, eps=0.1, Eq. 6 product,
+   impl="pallas", the data from the spec's recipe on the card, 50 rounds
+   with ``EvalEvery(10)``. The launch counts are zeroed just before and
+   read just after; every kernel must have run, and the final test
+   fidelity must exceed 0.95. Then ms/round through the session beside
+   the bare ``server_round`` loop from the same params and round keys
+   (which must end on the same params bit for bit): the session's
+   overhead;
 4. wide cell: widths (4,5,4), N=20, N_p=10, I_l=2: one round with the
    kernels (launches counted) against one in complex128 PyTorch from the
    same params and selection, the kernels checked and timed as in phase 2
@@ -78,9 +83,10 @@ repository, it exits non-zero before printing any result. Phases:
    N_p=10, I_l=2, 60 rounds a cell) of six strategies (undefended average
    and product, clip, trimmed_mean, median, the screened product) under
    three attacks (clean, 20% persistent sign-flip at scale 5 with the
-   bench's scanned seed, 30% crash) through ``faulted_round``, the bench's
-   two gates, and one round of 30% corrupt uploads (undefended NaN,
-   defended finite); on phase 3's cell one round of Hermitian upload noise
+   bench's scanned seed, 30% crash), each cell a ``FederationSession``
+   whose sync scheduler applies the faults (``_robust_step``), the
+   bench's two gates, and one round of 30% corrupt uploads (undefended
+   NaN, defended finite); on phase 3's cell one round of Hermitian upload noise
    and of 8-bit quantisation and 3 of server momentum and Nesterov, each
    against its complex128 round; the weighted and dropout schedules and
    the sampled draw at N = 1,000,000 (ms per draw, dense and Floyd); the
@@ -88,7 +94,16 @@ repository, it exits non-zero before printing any result. Phases:
    momentum, under both impls, against solo rounds, with the launches of
    one round, ms against 30 solo rounds scaled to 300, and peak memory;
    the kernels at the shapes of one screened round and one stacked round
-   (their rows in the result, ``"cell"`` set).
+   (their rows in the result, ``"cell"`` set);
+9. the federation API on the card: kill-and-resume of a 4-round session
+   cut after 2 rounds (saved, resumed) against the straight run, bit for
+   bit, under sync, overlapped and async (cut mid-buffer); the (4,5,4)
+   N=20 cell, 10 rounds through the session under both impls beside the
+   bare loop; 10 commits each of the async and overlapped schedulers on
+   phase 3's cell (ms/commit, the simulated clock); and faulted sync
+   runs (phase 8's crash and Byzantine fault models, a round deadline
+   that forces retries) through ``SyncScheduler._robust_step``, with
+   their survivors and retries.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape: each kernel at the main path's most frequent shape (launches of
@@ -320,11 +335,6 @@ def main_cell(widths=(2, 3, 2), num_nodes=100, impl="pallas", device="cuda"):
     return cfg, ds, test, params
 
 
-def train_set(ds):
-    return (ds.phi_in.reshape(-1, ds.phi_in.shape[-1]),
-            ds.phi_out.reshape(-1, ds.phi_out.shape[-1]))
-
-
 def ragged_cases():
     """Edge shapes the kernels mask rather than pad, seeded."""
     import torch
@@ -533,13 +543,6 @@ def launch_floor():
     return ms, us
 
 
-def evaluate_all(params, ds, test, cfg):
-    from repro_torch.core.quantum import federated as fed
-    tr = fed.evaluate(params, *train_set(ds), cfg.widths, impl=cfg.impl)
-    te = fed.evaluate(params, *test, cfg.widths, impl=cfg.impl)
-    return float(tr["fidelity"]), float(te["fidelity"]), float(te["mse"])
-
-
 def unitarity_err(params):
     import torch
     worst = 0.0
@@ -549,31 +552,121 @@ def unitarity_err(params):
     return worst
 
 
+def main_spec(**overrides):
+    """examples/torch_quickstart.py's spec (the paper's experiment), with
+    ``overrides`` replaced."""
+    import dataclasses
+    import importlib.util
+    path = ROOT / "examples" / "torch_quickstart.py"
+    mod_spec = importlib.util.spec_from_file_location("torch_quickstart",
+                                                      path)
+    quickstart = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(quickstart)
+    return dataclasses.replace(quickstart.make_spec(), **overrides)
+
+
+def cuda_timed(fn):
+    """(ms, result) of one call of ``fn``, CUDA events around it."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def session_vs_bare(spec, rounds, label, card):
+    """ms/round of ``rounds`` sync rounds through ``FederationSession.run``
+    and through the bare ``server_round`` loop from the same params and
+    round keys, in turns (bare, session, session, bare, twice; CUDA
+    events around each loop, after one warm-up round of each); medians
+    of each side's four runs. The two loops must end on the same params,
+    bit for bit. Returns (session ms, bare ms)."""
+    import statistics
+    import torch
+    from repro_torch.core.fed import api
+    from repro_torch.core.fed.api import rng
+    from repro_torch.core.quantum import federated as fed
+    sub = api.QuantumSubstrate(spec)
+    ref = api.FederationSession.create(spec, 7, substrate=sub)
+    p0 = [p.clone() for p in ref.state]
+    keys = [ref.round_key(t) for t in range(rounds)]
+
+    def session(n=rounds):
+        sess = api.FederationSession.create(spec, 7, substrate=sub,
+                                            params=p0)
+
+        def run():
+            sess.run(n)
+            return sess.state
+        return cuda_timed(run)
+
+    def bare(n=rounds):
+        def loop():
+            params = p0
+            for t in range(n):
+                params = fed.server_round(params, sub.dataset,
+                                          rng.generator(keys[t]), sub.cfg)
+            return params
+        return cuda_timed(loop)
+    session(1)
+    bare(1)
+    times = {"bare": [], "session": []}
+    ends = {}
+    for kind in ("bare", "session", "session", "bare") * 2:
+        ms, ends[kind] = (bare if kind == "bare" else session)()
+        times[kind].append(ms / rounds)
+    same = all(torch.equal(a, b) for a, b in zip(ends["bare"],
+                                                   ends["session"]))
+    s_ms = statistics.median(times["session"])
+    b_ms = statistics.median(times["bare"])
+    say(f"  {label} impl={spec.impl}: median {s_ms:.3f} ms/round through "
+        f"the session ({', '.join(f'{t:.3f}' for t in times['session'])}) "
+        f"vs {b_ms:.3f} ms/round for the bare server_round loop "
+        f"({', '.join(f'{t:.3f}' for t in times['bare'])}); overhead "
+        f"{s_ms - b_ms:+.3f} ms/round ({rounds} rounds a run, turns bare, "
+        f"session, session, bare, twice, CUDA events, {card}); same params "
+        f"bit for bit: {same}")
+    if not same:
+        raise RuntimeError(f"{label}: the session's sync rounds differ "
+                           "from the bare round loop")
+    return s_ms, b_ms
+
+
 def phase_main():
     import torch
-    from repro_torch.core.quantum import federated as fed
+    from repro_torch.core.fed import api
     from repro_torch.kernels import build
-    say("== phase 3: main path, widths (2,3,2), N=100, N_p=10, I_l=2, "
-        "50 rounds, impl=pallas")
-    cfg, ds, test, params = main_cell()
-    gen = torch.Generator().manual_seed(0)
+    say("== phase 3: main path through FederationSession: "
+        "examples/torch_quickstart.py's spec, widths (2,3,2), N=100, "
+        "N_p=10, I_l=2, 50 rounds, EvalEvery(10), impl=pallas")
+    card = smi("name,power.limit")
+    spec = main_spec()
+    # the data from the spec's recipe, made on the card
+    sess = api.FederationSession.create(spec, 7, rounds=50)
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.time()
-    for it in range(1, 51):
-        params = fed.server_round(params, ds, gen, cfg)
-        if it % 10 == 0:
-            tr, te, mse = evaluate_all(params, ds, test, cfg)
-            say(f"  round {it:3d}: train fidelity {tr:.6f}, test fidelity "
-                f"{te:.6f}, test mse {mse:.3e}")
+    hist = sess.run(50, callbacks=[api.EvalEvery(10)])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(build.LAUNCHES)
+    for i, it in enumerate(hist["iteration"]):
+        say(f"  round {it:3d}: train fidelity {hist['train_fidelity'][i]:.6f}"
+            f", test fidelity {hist['test_fidelity'][i]:.6f}, test mse "
+            f"{hist['test_mse'][i]:.3e}")
     say(f"  launches in this phase: {launches}")
-    say(f"  host wall {wall:.3f} s for 50 rounds + 5 evaluations")
+    say(f"  host wall {wall:.3f} s for 50 rounds + 6 evaluations through "
+        f"the session")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"main path never launched {missing}")
+    if sess.round != 50 or hist["iteration"][-1] != 50:
+        raise RuntimeError(f"the session stopped at round {sess.round}")
+    params = sess.state
     for p in params:
         if not bool(torch.isfinite(p.abs()).all()):
             raise RuntimeError("non-finite params after training")
@@ -581,9 +674,11 @@ def phase_main():
     say(f"  final unitarity error {u_err:.3e}")
     if u_err > 1e-4:
         raise RuntimeError("params drifted from unitary")
+    te = hist["test_fidelity"][-1]
     if not te > MAIN_FIDELITY:
         raise RuntimeError(f"final test fidelity {te} <= {MAIN_FIDELITY}")
     say(f"  final test fidelity {te:.6f} > {MAIN_FIDELITY}: ok")
+    session_vs_bare(spec, 50, "(2,3,2) N=100", card)
     return launches
 
 
@@ -1708,71 +1803,47 @@ def robust_attacks(byz_seed):
             "crash30": ("crash", 0.3, 11, 3.0)}
 
 
-def faulted_round(params, smom, dataset, gen, cfg, model, r, *, probe=None,
-                  server_opt="none", min_participants=1):
-    """One synchronous round under a fault model, as the reference's
-    ``SyncScheduler._robust_step`` applies it: the per-node (coeff, drop,
-    delay) of each selected node; dead uploads zeroed outright, the
-    survivors' scaled by their coefficient; the weights renormalised over
-    the survivors; a loud failure below ``min_participants``. The port of
-    the reference's API scheduler replaces this. Returns (params, smom,
-    survivors)."""
-    import numpy as np
-    import torch
-    from repro_torch.core.quantum import federated as fed
-    sel, pmask, weights = fed.select_phase(dataset, gen, cfg)
-    ks = fed.local_phase(params, dataset, sel, gen, cfg)
-    ks = fed.transmit_phase(ks, gen, cfg)
-    coeff = np.ones(sel.shape[0])
-    survive = pmask.cpu().numpy() > 0.0
-    for i, node in enumerate(sel.tolist()):
-        if not survive[i] or model is None:
-            continue
-        c, drop, _ = model(node, r)
-        if drop:
-            survive[i] = False
-            continue
-        coeff[i] = c
-    n_surv = int(survive.sum())
-    if n_surv < min_participants:
-        raise RuntimeError(f"round {r}: {n_surv} of {sel.shape[0]} uploads "
-                           f"survived (min_participants={min_participants})")
-    if model is not None and bool(np.any(coeff != 1.0)):
-        cv = torch.tensor(np.where(survive, coeff, 0.0), device=sel.device)
-        ks = [k * cv.reshape((-1,) + (1,) * (k.dim() - 1)) for k in ks]
-    w = weights.double().cpu().numpy() * survive
-    w = torch.tensor(w / max(w.sum(), 1e-12), dtype=torch.float32,
-                     device=sel.device)
-    new, smom = fed.aggregate_phase(params, ks, w, cfg, smom=smom,
-                                    server_opt=server_opt, probe=probe)
-    return new, smom, n_surv
+def robust_spec(strategy, attack=None, **overrides):
+    """bench_robust.py's cell as a spec: phase 3's widths, N=20, N_p=10,
+    I_l=2, 4 pairs a node, 16 test pairs (the screen's probe), data seed
+    7, the kernels; ``strategy`` from ROBUST_STRATEGIES, ``attack`` a
+    (kind, rate, seed, scale) of ``robust_attacks`` or None."""
+    fault = {} if attack is None else dict(
+        zip(("fault_model", "fault_rate", "fault_seed", "fault_scale"),
+            attack))
+    return main_spec(num_nodes=ROBUST_N, n_test=16, data_seed=7,
+                     **ROBUST_STRATEGIES[strategy], **fault, **overrides)
 
 
 def robust_setup():
-    """bench_robust.py's cell in the port: data from seed 7, params from
-    seed 0, the kernels."""
+    """bench_robust.py's cell in the port: the data from the spec's
+    recipe (seed 7), params from seed 0."""
     import torch
-    from repro_torch.core.quantum import data as qdata
-    from repro_torch.core.quantum import federated as fed
+    from repro_torch.core.fed import api
     from repro_torch.core.quantum import qnn
-    _, ds, test = qdata.make_federated_dataset(
-        torch.Generator().manual_seed(7), 2, ROBUST_N, n_per_node=4,
-        n_test=16, device="cuda")
+    sub = api.QuantumSubstrate(robust_spec("none_avg"))
     params = qnn.init_params(torch.Generator().manual_seed(0), (2, 3, 2),
                              device="cuda")
-    base = dict(widths=(2, 3, 2), num_nodes=ROBUST_N, nodes_per_round=10,
-                interval_length=2, eta=1.0, eps=0.1, impl="pallas")
-    return base, ds, test, params
+    return sub.dataset, sub.test, params
+
+
+def robust_session(strategy, attack, ds, test, params):
+    """A session of the robust cell from the given data and params; its
+    sync scheduler applies the attack's faults (``_robust_step``)."""
+    from repro_torch.core.fed import api
+    spec = robust_spec(strategy, attack)
+    sub = api.QuantumSubstrate(spec, dataset=ds, test=test)
+    return api.FederationSession.create(spec, 0, substrate=sub,
+                                        params=params)
 
 
 def robust_grid(card):
-    """The 6 x 3 defense x attack grid, 60 faulted rounds a cell, beside
-    the reference's CPU grid; the bench's two gates; one round of
-    corrupt uploads."""
+    """The 6 x 3 defense x attack grid, 60 faulted rounds a cell through
+    the session's sync scheduler, beside the reference's CPU grid; the
+    bench's two gates; one round of corrupt uploads."""
     import torch
-    from repro_torch.core.fed import faults
-    from repro_torch.core.quantum import federated as fed
-    base, ds, test, params0 = robust_setup()
+    from repro_torch.core.fed.api import rng
+    ds, test, params0 = robust_setup()
     byz_seed = scan_byzantine_seed(ROBUST_BYZ, int(round(ROBUST_BYZ
                                                          * ROBUST_N)))
     ref = json.loads((ROOT / "BENCH_robust.json").read_text())
@@ -1781,29 +1852,23 @@ def robust_grid(card):
     if byz_seed != ref["byz_seed"]:
         raise RuntimeError("the fault draws disagree with the reference's")
     grid, per, t0, n_rounds = {}, {}, time.time(), 0
-    for sname, skw in ROBUST_STRATEGIES.items():
-        cfg = fed.QuantumFedConfig(**base, **skw)
-        probe = test if skw.get("defense") == "screen" else None
+    for sname in ROBUST_STRATEGIES:
         grid[sname] = {}
         torch.cuda.synchronize()
         t1 = time.time()
         for aname, attack in robust_attacks(byz_seed).items():
-            model = None if attack is None else faults.DrawFault(*attack)
-            params, gen = params0, torch.Generator().manual_seed(0)
-            for r in range(ROBUST_ROUNDS):
-                params, _, _ = faulted_round(params, None, ds, gen, cfg,
-                                             model, r, probe=probe)
+            sess = robust_session(sname, attack, ds, test, params0)
+            sess.run(ROBUST_ROUNDS)
             n_rounds += ROBUST_ROUNDS
-            grid[sname][aname] = float(fed.evaluate(
-                params, *test, cfg.widths, impl=cfg.impl)["fidelity"])
+            grid[sname][aname] = sess.evaluate()["test_fidelity"]
         per[sname] = 1e3 * (time.time() - t1) / (3 * ROBUST_ROUNDS)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    say(f"  {n_rounds} faulted rounds with the kernels in {wall:.1f} s "
-        f"({1e3 * wall / n_rounds:.2f} ms a round with its host fault loop, "
-        f"{card}); final test fidelity, this port on the card | the "
-        f"reference's CPU grid (BENCH_robust.json, {ref['rounds']} rounds, "
-        f"its own draws):")
+    say(f"  {n_rounds} rounds through the session's sync scheduler with "
+        f"the kernels in {wall:.1f} s ({1e3 * wall / n_rounds:.2f} ms a "
+        f"round with its host fault loop, {card}); final test fidelity, "
+        f"this port on the card | the reference's CPU grid "
+        f"(BENCH_robust.json, {ref['rounds']} rounds, its own draws):")
     for sname, row in grid.items():
         say(f"    {sname:>13s}: " + ", ".join(
             f"{a} {v:.6f} | {ref['grid'][sname][a]:.6f}"
@@ -1824,18 +1889,15 @@ def robust_grid(card):
     if not (holds and breaks):
         raise RuntimeError("the robust grid's gates do not hold")
     # one round of corrupt (NaN) uploads at 30%
-    model = faults.DrawFault("corrupt", 0.3, 2, 5.0)
+    corrupt = ("corrupt", 0.3, 2, 5.0)
     fids = {}
     for sname in ("none_avg", "median", "screen"):
-        skw = ROBUST_STRATEGIES[sname]
-        cfg = fed.QuantumFedConfig(**base, **skw)
-        gen = torch.Generator().manual_seed(0)
-        sel = fed.select_phase(ds, torch.Generator().manual_seed(0), cfg)[0]
+        sess = robust_session(sname, corrupt, ds, test, params0)
+        sel = sess.substrate.select(rng.generator(sess.round_key(0)), 0).sel
+        model = sess.scheduler.faults
         hit = sum(model.hits(n, 0) for n in sel.tolist())
-        p, _, _ = faulted_round(params0, None, ds, gen, cfg, model, 0,
-                                probe=test if sname == "screen" else None)
-        fids[sname] = float(fed.evaluate(p, *test, cfg.widths,
-                                         impl=cfg.impl)["fidelity"])
+        sess.step()
+        fids[sname] = sess.evaluate()["test_fidelity"]
         if hit == 0:
             raise RuntimeError("the corrupt draw hit no selected node")
     ok = (fids["none_avg"] != fids["none_avg"]
@@ -2133,11 +2195,9 @@ def phase_fed_core():
     # the grid (candidate chains, the probe's densities and fidelities),
     # one stacked kernel round
     rows = []
-    base, ds, test, params = robust_setup()
-    cfg = fed.QuantumFedConfig(**base, **ROBUST_STRATEGIES["screen"])
-    cells = [("screen round (2,3,2) N=20", lambda: faulted_round(
-        params, None, ds, torch.Generator().manual_seed(0), cfg, None, 0,
-        probe=test))]
+    ds, test, params = robust_setup()
+    cells = [("screen round (2,3,2) N=20", robust_session(
+        "screen", None, ds, test, params).step)]
     scfg, _, sds, _, sparams, eta, eps = stack_cell()
     cells.append((f"stacked S={STACK_S} SPEC_A", lambda: fed.server_round_stacked(
         sparams, sds, [torch.Generator().manual_seed(i)
@@ -2156,6 +2216,146 @@ def phase_fed_core():
                                  cell=label))
     say(f"  phase 8 took {time.time() - t0:.1f} s")
     return rows
+
+
+# ------------------------------------------------- phase 9: the API
+# the faulted sync runs: phase 8's crash and Byzantine models on its cell
+# under the median defense, with a round deadline (s of simulated latency,
+# the counter model, seed 0) that leaves fewer than API_MIN_SURVIVORS of
+# the 10 uploads on time in some round, so those rounds re-dispatch
+API_DEADLINE, API_MIN_SURVIVORS, API_ROUNDS = 1.0, 6, 10
+
+
+def resume_checks(card):
+    """A 4-round session cut after 2 rounds, saved, resumed (from the file
+    alone: spec, data recipe, state, RNG and in-flight uploads) and run
+    2 more, against the straight 4-round run: params and history bit for
+    bit, under sync, overlapped and async (K = 3 of N_p = 10, so uploads
+    are in flight at the cut). The robust cell with the kernels."""
+    import tempfile
+    import torch
+    from repro_torch.core.fed import api
+    cases = {"sync": {}, "overlapped": dict(schedule="overlapped"),
+             "async": dict(schedule="async", async_commit=3)}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        for name, kw in cases.items():
+            spec = robust_spec("none_prod", **kw)
+            straight = api.FederationSession.create(spec, 3)
+            straight.run(4, callbacks=[api.EvalEvery(2)])
+            killed = api.FederationSession.create(spec, 3)
+            killed.run(2, callbacks=[api.EvalEvery(2)])
+            sched = killed.scheduler
+            in_flight = (len(sched.entries) if name == "async" else
+                         int(getattr(sched, "pending", None) is not None))
+            path = os.path.join(tmp, f"{name}.npz")
+            t0 = time.time()
+            killed.save(path)
+            save_ms = (time.time() - t0) * 1e3
+            del killed
+            t0 = time.time()
+            resumed = api.FederationSession.resume(path)
+            resume_ms = (time.time() - t0) * 1e3
+            resumed.run(2, callbacks=[api.EvalEvery(2)])
+            torch.cuda.synchronize()
+            same = (all(torch.equal(a, b) for a, b in zip(straight.state,
+                                                          resumed.state))
+                    and resumed.history == straight.history)
+            say(f"  kill at round 2, save ({save_ms:.1f} ms), resume "
+                f"({resume_ms:.1f} ms, the data rebuilt from the recipe), "
+                f"2 more rounds, schedule={name}: {in_flight} in flight at "
+                f"the cut; equal to the straight run bit for bit: {same}")
+            if not same or (name != "sync" and not in_flight):
+                raise RuntimeError(f"kill-and-resume under {name} is not "
+                                   "bit-exact on the card")
+
+
+def scheduler_commits(card, commits=10):
+    """``commits`` commits of the async (K = N_p / 2 = 5) and overlapped
+    schedulers on phase 3's cell: ms/commit (host clock around the
+    commits, ended by a synchronize), the simulated clock, and the
+    params unitary and finite."""
+    import torch
+    from repro_torch.core.fed import api
+    for name, kw in (("async", dict(schedule="async")),
+                     ("overlapped", dict(schedule="overlapped"))):
+        sess = api.FederationSession.create(main_spec(**kw), 7)
+        sess.step()                                    # warm-up commit
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.run(commits)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / commits
+        u_err = unitarity_err(sess.state)
+        fid = sess.evaluate()["test_fidelity"]
+        clock = sess.sim_clock
+        extra = (f", {len(sess.scheduler.entries)} uploads buffered, "
+                 f"{sess.scheduler.dispatched} cohorts dispatched"
+                 if name == "async" else "")
+        say(f"  schedule={name}: {ms:.3f} ms/commit over {commits} commits "
+            f"after one warm-up (host clock, {card}); sim_clock "
+            f"{'none' if clock is None else f'{clock:.6f} s'}{extra}; test "
+            f"fidelity {fid:.6f} after {sess.round} commits; unitarity "
+            f"{u_err:.3e}")
+        if not (u_err <= 1e-4 and fid == fid):
+            raise RuntimeError(f"{name}: params not unitary or not finite")
+        if name == "async" and not clock > 0.0:
+            raise RuntimeError("async: the simulated clock did not advance")
+
+
+def faulted_sync(card):
+    """Phase 8's crash and Byzantine runs on its cell with the median
+    defense and a round deadline, through ``SyncScheduler._robust_step``:
+    per round the survivors and the retries; the deadline must force at
+    least one retry in each run, and every committed round keeps at
+    least API_MIN_SURVIVORS uploads."""
+    import torch
+    from repro_torch.core.fed import api
+    byz_seed = scan_byzantine_seed(ROBUST_BYZ, int(round(ROBUST_BYZ
+                                                         * ROBUST_N)))
+    ds, test, params0 = robust_setup()
+    for aname in ("crash30", "byz20"):
+        attack = robust_attacks(byz_seed)[aname]
+        spec = robust_spec("median", attack, round_deadline=API_DEADLINE,
+                           min_participants=API_MIN_SURVIVORS)
+        sub = api.QuantumSubstrate(spec, dataset=ds, test=test)
+        sess = api.FederationSession.create(spec, 0, substrate=sub,
+                                            params=params0)
+        if not sess.scheduler.robust:
+            raise RuntimeError("the faulted spec did not pick _robust_step")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = [sess.step() for _ in range(API_ROUNDS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / API_ROUNDS
+        surv = [int(m["n_survived"]) for m in rows]
+        retries = [int(m["n_retries"]) for m in rows]
+        fid = sess.evaluate()["test_fidelity"]
+        say(f"  faulted sync {aname} + deadline {API_DEADLINE} s "
+            f"(min_participants {API_MIN_SURVIVORS}, median): n_survived "
+            f"{surv}, n_retries {retries} ({sum(retries)} in all); "
+            f"{ms:.3f} ms a round with its retries (host clock, {card}); "
+            f"test fidelity {fid:.6f}")
+        if sum(retries) < 1 or min(surv) < API_MIN_SURVIVORS or fid != fid:
+            raise RuntimeError(f"faulted sync {aname}: no retry, too few "
+                               "survivors or non-finite params")
+
+
+def phase_api():
+    """Phase 9: the federation API on the card."""
+    card = smi("name,power.limit")
+    say("== phase 9: the federation API on the card: kill-and-resume, "
+        "the (4,5,4) cell through the session, async and overlapped "
+        "commits, faulted sync runs with retries")
+    t0 = time.time()
+    resume_checks(card)
+    for impl in ("pallas", "xla"):
+        session_vs_bare(main_spec(widths=(4, 5, 4), num_nodes=20, impl=impl),
+                        10, "(4,5,4) N=20", card)
+    scheduler_commits(card)
+    faulted_sync(card)
+    say(f"  phase 9 took {time.time() - t0:.1f} s")
 
 
 # ------------------------------------------------- --time-quantum (A/B)
@@ -2283,6 +2483,7 @@ def main() -> int:
     rows += phase_rwkv()
     rows += phase_engines()
     rows += phase_fed_core()
+    phase_api()
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

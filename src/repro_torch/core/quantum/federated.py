@@ -716,3 +716,32 @@ def evaluate(params: qnn.Params, phi_in: torch.Tensor,
     denom = torch.clamp(torch.sum(w), min=1e-12)
     return {"fidelity": torch.sum(w * fid) / denom,
             "mse": torch.sum(w * mse) / denom}
+
+
+def train(key: int, cfg: QuantumFedConfig, dataset: QuantumDataset,
+          test: Tuple[torch.Tensor, torch.Tensor], n_iterations: int,
+          params: Optional[qnn.Params] = None, eval_every: int = 1,
+          verbose: bool = False) -> Tuple[qnn.Params, Dict[str, list]]:
+    """DEPRECATED shim over ``repro_torch.core.fed.api`` — prefer
+    ``FederationSession`` (checkpointable, resumable, hookable).
+
+    Drives a session on the dataset's device with the pre-split
+    round-key plan (``create(..., rounds=n_iterations)``) and the legacy
+    eval cadence: round 0, every ``eval_every`` rounds and the last.
+    ``key`` is the port's int seed (``repro_torch.core.fed.api.rng``),
+    not a JAX key. Each record costs one host copy. Returns ``(params,
+    history)``."""
+    import warnings
+
+    from repro_torch.core.fed import api
+
+    warnings.warn("fed.train is a legacy shim; use repro_torch.core.fed."
+                  "api.FederationSession", DeprecationWarning, stacklevel=2)
+    spec = api.FedSpec.from_quantum_config(cfg)
+    sub = api.QuantumSubstrate(spec, dataset=dataset, test=test,
+                               device=dataset.phi_in.device)
+    sess = api.FederationSession.create(spec, key, substrate=sub,
+                                        params=params, rounds=n_iterations)
+    sess.run(n_iterations,
+             callbacks=[api.EvalEvery(eval_every, verbose=verbose)])
+    return sess.state, sess.history

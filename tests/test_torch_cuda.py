@@ -83,6 +83,54 @@ def test_kernel_round_matches_complex128_round(cuda_device):
         assert abs(float(out["xla"][1][k]) - float(out["pallas"][1][k])) <= RTOL
 
 
+@pytest.mark.cuda
+def test_session_round_launches_the_kernels(cuda_device, tmp_path):
+    """One sync round and one evaluation through ``FederationSession`` on
+    the card: the round launches zgemm and the trace and no fidelity or
+    mse kernel, the evaluation one fidelity and one mse launch each for
+    the train and the test pairs; the kernel session agrees with the
+    complex128 one, and a saved and resumed session continues on the
+    card bit for bit."""
+    from repro_torch.core.fed import api
+    out = {}
+    for impl in ("xla", "pallas"):
+        spec = api.FedSpec.quantum(widths=(2, 3, 2), num_nodes=6,
+                                   nodes_per_round=4, interval_length=2,
+                                   eps=0.05, impl=impl, n_per_node=3,
+                                   n_test=5, data_seed=1)
+        sess = api.FederationSession.create(spec, 0, device=cuda_device)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        sess.step()
+        torch.cuda.synchronize()
+        round_launches = dict(build.LAUNCHES)
+        build.reset_launches()
+        ev = sess.evaluate()
+        eval_launches = dict(build.LAUNCHES)
+        assert all(p.device.type == "cuda" for p in sess.state)
+        out[impl] = (sess, ev)
+        if impl == "pallas":
+            assert round_launches["zgemm"] > 0
+            assert round_launches["ensemble_commutator_trace"] > 0
+            assert "fidelity" not in round_launches
+            assert eval_launches == {"zgemm": 2, "fidelity": 2, "mse": 2}
+        else:
+            assert round_launches == {} and eval_launches == {}
+    dev = max(float((a - b).abs().max()) for a, b in
+              zip(out["xla"][0].state, out["pallas"][0].state))
+    assert dev <= RTOL
+    assert max(abs(out["xla"][1][k] - out["pallas"][1][k])
+               for k in out["xla"][1]) <= RTOL
+    sess = out["pallas"][0]
+    path = str(tmp_path / "card.npz")
+    sess.save(path)
+    resumed = api.FederationSession.resume(path, device=cuda_device)
+    sess.step()
+    resumed.step()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(sess.state, resumed.state))
+
+
 def _dev_c(rng, device, *shape):
     return torch.as_tensor(rand_c(rng, *shape)).to(device)
 

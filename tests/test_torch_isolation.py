@@ -47,8 +47,12 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.launch.serve" in res["modules"]
     assert "repro_torch.models.layers.rwkv" in res["modules"]
     assert "repro_torch.kernels.gla_chunked" in res["modules"]
-    for name in ("faults", "server_opt", "channel"):
+    for name in ("faults", "server_opt", "channel", "config",
+                 "cohort.latency", "cohort.topology", "api.spec",
+                 "api.phases", "api.substrate", "api.scheduler",
+                 "api.session"):
         assert f"repro_torch.core.fed.{name}" in res["modules"]
+    assert "repro_torch.checkpoint.checkpoint" in res["modules"]
     assert res["bad"] == []
 
 

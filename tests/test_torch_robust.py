@@ -7,9 +7,12 @@ The reference applies faults in its API's sync scheduler
 ``QuantumSubstrate.aggregate``; both sides here compose their own phases
 the same way (``faulted_round`` / ``ref_faulted_round``), with the
 reference's selection injected into the port and each package's own
-fault model (the draws are numpy's on both sides). impl="xla" agrees
-with the reference's complex128 round to <= 1e-10, impl="pallas" (the
-kernels' fp32 plain versions here) to <= 1e-5."""
+fault model (the draws are numpy's on both sides). The port's side
+applies the faults through its own scheduler's code
+(``scheduler.fault_effects`` / ``apply_effects``, what
+``_robust_step`` runs). impl="xla" agrees with the reference's
+complex128 round to <= 1e-10, impl="pallas" (the kernels' fp32 plain
+versions here) to <= 1e-5."""
 import functools
 
 import pytest
@@ -24,7 +27,8 @@ from repro.core.fed import faults as jfaults  # noqa: E402
 from repro.core.quantum import data as jdata  # noqa: E402
 from repro.core.quantum import federated as jfed  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.core.fed import faults  # noqa: E402
+from repro_torch.core.fed import api, faults  # noqa: E402
+from repro_torch.core.fed.api import scheduler  # noqa: E402
 from repro_torch.core.quantum import federated as fed  # noqa: E402
 
 TOLS = {"xla": 1e-10, "pallas": 1e-5}
@@ -89,10 +93,9 @@ def setup():
              torch.tensor(np.asarray(weights))))
 
 
-def effects(sel, mask, base_w, model, r, min_participants=1):
-    """The fault effects of ``SyncScheduler._robust_step`` on one cohort:
-    (coefficients, survivors, renormalised weights); a loud failure
-    below ``min_participants``."""
+def effects(sel, mask, base_w, model, r):
+    """The reference's fault effects (``SyncScheduler._robust_step``) on
+    one cohort: (coefficients, survivors, renormalised weights)."""
     coeff = np.ones(len(sel))
     survive = np.asarray(mask) > 0.0
     for i, node in enumerate(sel):
@@ -103,31 +106,24 @@ def effects(sel, mask, base_w, model, r, min_participants=1):
             survive[i] = False
             continue
         coeff[i] = c
-    if int(survive.sum()) < min_participants:
-        raise RuntimeError(f"{int(survive.sum())} of {len(sel)} uploads "
-                           f"survived (min_participants={min_participants})")
     w = np.asarray(base_w, np.float64) * survive
     return coeff, survive, w / max(w.sum(), 1e-12)
 
 
 def faulted_round(params, dataset, sel, weights, cfg, model, r, *,
-                  smom=None, server_opt="none", probe=None,
-                  min_participants=1):
+                  smom=None, server_opt="none", probe=None):
     """One synchronous round of the port under a fault model, with the
-    selection given: the per-node (coeff, drop, delay); dead uploads
-    zeroed outright, survivors scaled by their coefficient; the weights
-    renormalised over the survivors. The port of the reference's API
-    scheduler replaces this."""
+    selection given: the port's phases, and the fault effects applied by
+    its sync scheduler's own code."""
     ks = fed.local_phase(params, dataset, sel, torch.Generator(), cfg)
     ks = fed.transmit_phase(ks, torch.Generator(), cfg)
-    coeff, survive, w = effects(sel.tolist(), np.ones(len(sel)),
-                                weights.numpy(), model, r, min_participants)
-    if model is not None and bool(np.any(coeff != 1.0)):
-        cv = torch.tensor(np.where(survive, coeff, 0.0))
-        ks = [k * cv.reshape((-1,) + (1,) * (k.dim() - 1)) for k in ks]
-    return fed.aggregate_phase(params, ks, torch.tensor(w, dtype=torch.float32),
-                               cfg, smom=smom, server_opt=server_opt,
-                               server_beta=0.9, probe=probe)
+    coeff, survive = scheduler.fault_effects(sel.tolist(), np.ones(len(sel)),
+                                             model, r)
+    ks, w = scheduler.apply_effects(ks, weights.numpy(), coeff, survive,
+                                    model is not None)
+    return fed.aggregate_phase(params, ks, w, cfg, smom=smom,
+                               server_opt=server_opt, server_beta=0.9,
+                               probe=probe)
 
 
 def ref_faulted_round(params, ds, sel, weights, jcfg, model, r, *,
@@ -263,11 +259,20 @@ def test_undefended_corrupt_round_goes_nan_and_does_not_raise(x64,
 
 
 def test_faulted_round_fails_loudly_below_min_participants(x64):
-    _, tcfg = configs(aggregation="average")
-    _, (tparams, tds, _, tsel, tweights) = setup()
+    """Every upload crashes: the sync scheduler retries ``max_retries``
+    times, then fails loud; a screen without its probe batch is
+    refused."""
+    _, (tparams, tds, ttest, tsel, tweights) = setup()
+    spec = api.FedSpec.quantum(widths=WIDTHS, num_nodes=N,
+                               nodes_per_round=N_P, interval_length=2,
+                               eps=0.1, aggregation="average",
+                               fault_model="crash", fault_rate=1.0)
+    sub = api.QuantumSubstrate(spec, dataset=tds, test=ttest, device="cpu")
+    sess = api.FederationSession.create(spec, 0, substrate=sub,
+                                        params=tparams)
     with pytest.raises(RuntimeError, match="min_participants"):
-        faulted_round(tparams, tds, tsel, tweights, tcfg,
-                      faults.DrawFault("crash", 1.0, 0, 1.0), 0)
+        sess.step()
+    assert sess.round == 0
     with pytest.raises(ValueError, match="probe"):
         faulted_round(tparams, tds, tsel, tweights,
                       configs(**STRATEGIES["screen"])[1], None, 0)
