@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-quantum [--src DIR]
     python3 chip_smoke.py --time-seq [--src DIR]
+    python3 chip_smoke.py --time-serve
 
 Runs on cuda:0 only; without a CUDA device, or outside a checkout of the
 repository, it exits non-zero before printing any result. Phases:
@@ -103,7 +104,24 @@ repository, it exits non-zero before printing any result. Phases:
    phase 3's cell (ms/commit, the simulated clock); and faulted sync
    runs (phase 8's crash and Byzantine fault models, a round deadline
    that forces retries) through ``SyncScheduler._robust_step``, with
-   their survivors and retries.
+   their survivors and retries;
+10. cohorts and serving: the paper's figure experiments through the
+   session (examples/torch_fig2_interval.py's four interval runs at 50
+   rounds, each above 0.95 test fidelity; torch_fig2_wider.py's three
+   widths at 40; torch_fig3_noise.py's five noise ratios at 50, clean
+   test fidelity), launch counts zeroed before and read after each run;
+   bench_cohort.py's hierarchy cell ((2,3,2), N_p = 64 of 128 nodes, 8
+   pods): one round two-level against flat for both combines and strided
+   pods (1e-10 in complex128, ROUND_TOL with the kernels), zgemm at the
+   pod tier's and the merge's shapes into the result, ms/round flat and
+   two-level under both impls in turns; its cohort sweep (1k to 1M
+   nodes, N_p = 8; ms/round within 2x); bench_serve.py's cells at 100
+   and 1000 tenants through ``FederationServer`` (300 slots, 5 rounds a
+   tick, stacked against solo seconds, the sampled tenants against their
+   solo runs, a replay bit for bit), served == solo in complex128, a
+   tick's launches against k stacked rounds', park -> evict -> revive
+   bit-exact, a NaN-poisoned tenant quarantined alone, and a profile of
+   one 300-slot tick beside its generators' host time.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape: each kernel at the main path's most frequent shape (launches of
@@ -112,7 +130,9 @@ the (4,5,4) round (launches in one round, ``"cell"`` set),
 gla_chunked at chunk 1 in the S+1 prefill (``"cell"`` set), zgemm at
 each shape of phase 7's (4,5,4) local_opb round, and zgemm, the trace and
 fidelity at each shape of phase 8's screened and stacked rounds (``"cell"``
-set); every
+set), the fp32-storage attention at the prefill's shape (``"cell"``
+set; launches of phase 5's fp32 kernel prefill), and zgemm at the
+two-level tree's pod-tier and merge shapes (``"cell"`` set); every
 row carries ``device_us``, and fidelity's and mse's the launch floor.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and never prints that line.
@@ -122,7 +142,8 @@ checkout whose ``src`` is DIR (this one by default) and prints one JSON
 line (see ``time_quantum``), so that two checkouts can be compared on
 one card, in turns, each in its own process. ``--time-seq`` does the
 same for gla_chunked (chunk 16 and chunk 1) and rglru_scan at the
-prefills' shapes (see ``time_seq``).
+prefills' shapes (see ``time_seq``). ``--time-serve`` builds the kernels
+and runs bench_serve.py's 10,000-tenant cell alone (see ``time_serve``).
 """
 import json
 import os
@@ -556,12 +577,7 @@ def main_spec(**overrides):
     """examples/torch_quickstart.py's spec (the paper's experiment), with
     ``overrides`` replaced."""
     import dataclasses
-    import importlib.util
-    path = ROOT / "examples" / "torch_quickstart.py"
-    mod_spec = importlib.util.spec_from_file_location("torch_quickstart",
-                                                      path)
-    quickstart = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(quickstart)
+    quickstart = load_example("torch_quickstart")
     return dataclasses.replace(quickstart.make_spec(), **overrides)
 
 
@@ -1030,15 +1046,11 @@ def check_and_time_seq(rec, ragged):
                                [qf, kf, vf])
             b, sq, h, dh = q.shape
             flops = 4 * dh * b * h * allowed_pairs(sq, k.shape[1], **kw)
-            q32, k32, v32 = (x.float() for x in (qf, kf, vf))
-            f32_ms = cuda_ms(lambda: kfa.flash_attention(q32, k32, v32, **kw),
-                             reps=2, warmup=1)
-            del q32, k32, v32
             say(f"  {name:16s} {kfa.bf16_design()} design: "
                 f"{flops / k_ms / 1e9:.1f} TFLOP/s on allowed pairs, "
                 f"{100 * b_ms / k_ms:.1f}% of the bound, {k_ms / lib_ms:.3f}x "
-                f"SDPA's time; the fp32-storage kernel (CUDA cores) "
-                f"{f32_ms:.4f} ms at this shape")
+                f"SDPA's time")
+            results[FA32] = fp32_attention_row(q, k, v, kw, mask, flops)
         elif name == "gla_chunked":
             r, k, v, w, u = args
             dense = [ops._dense(x) for x in (r, k, v, w)] + [
@@ -1069,6 +1081,75 @@ def check_and_time_seq(rec, ragged):
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                              device_us=dev_us)
     return results
+
+
+FA32 = "flash_attention fp32"
+
+
+def fp32_attention_row(q, k, v, kw, mask, flops):
+    """The fp32-storage attention (``csrc/flash_attention.cu``, CUDA
+    cores) at the prefill's shape: the inputs cast to fp32, the kernel
+    against the plain fp32 version (KERNEL_RTOL of its scale), timed
+    beside it and beside SDPA in fp32 with the same boolean mask (checked
+    against the plain version first, at YARDSTICK_RTOL), its device time
+    a launch, and its bound at the fp32 rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    name = "flash_attention"
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+
+    def heads_major(x):
+        bx, sx, hx, dx = x.shape
+        return ops._dense(x.transpose(1, 2).reshape(bx * hx, sx, dx))
+    qf, kf, vf = (heads_major(x) for x in (q32, k32, v32))
+    got = kfa.flash_attention(qf, kf, vf, **kw)
+    want = ref.attention_ref(qf, kf, vf, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    ok = err <= KERNEL_RTOL * scale
+    say(f"  {name:16s} fp32 storage (CUDA cores) at the prefill's shape: "
+        f"max_abs_err {err:.3e} (tol {KERNEL_RTOL:.0e} x scale {scale:.3g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the fp32 attention disagrees with its plain "
+                           "version")
+    b, sq, h, dh = q.shape
+
+    def lib():
+        return F.scaled_dot_product_attention(
+            q32.transpose(1, 2), k32.transpose(1, 2), v32.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+    lib_out = lib().reshape(b * h, sq, dh)
+    lib_err = float((lib_out - want).abs().max())
+    del lib_out, got, want
+    say(f"  {name:16s} fp32 SDPA yardstick: max_abs_err {lib_err:.3e} (tol "
+        f"{YARDSTICK_RTOL:.0e} x scale {scale:.3g})")
+    if lib_err > YARDSTICK_RTOL * scale:
+        raise RuntimeError("fp32 SDPA disagrees with the plain attention")
+    k_ms = cuda_ms(lambda: kfa.flash_attention(qf, kf, vf, **kw), reps=3,
+                   warmup=1)
+    p_ms = cuda_ms(lambda: ref.attention_ref(qf, kf, vf, **kw), reps=2,
+                   warmup=1)
+    lib_ms = cuda_ms(lib, reps=3, warmup=1)
+    dev_us = device_us(lambda *x: kfa.flash_attention(*x, **kw),
+                       [qf, kf, vf], n=2)
+    b_ms, b_by = seq_bound_ms(name, (q32, k32, v32), kw)
+    say(f"  {name:16s} fp32 timed at {[list(x.shape) for x in (q, k, v)]} "
+        f"{kw}: kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch), "
+        f"plain {p_ms:.4f} ms, SDPA fp32 {lib_ms:.4f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by}); {flops / k_ms / 1e9:.1f} TFLOP/s on "
+        f"allowed pairs, kernel/bound {k_ms / b_ms:.2f}x, kernel/SDPA "
+        f"{k_ms / lib_ms:.3f}x")
+    return dict(name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces=SEQ_KERNELS[name]["replaces"],
+                shape=[list(x.shape) for x in (q, k, v)], max_abs_err=err,
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, device_us=dev_us,
+                cell="RecurrentGemma-2B fp32 prefill")
 
 
 def tensor_core_scores(q, k):
@@ -1223,9 +1304,11 @@ def check_prefill_budgets(cfg, params, batch, logits, cache):
     plain bf16 prefill's deviation from the plain fp32 one, same weights
     and tokens), and the fp32 kernel prefill within the plain fp32
     prefill's deviation when every weight moves one ulp. Prints each cache
-    entry's deviation; returns the bf16 budget."""
+    entry's deviation; returns the bf16 budget and the fp32 kernel
+    prefill's launches (counts zeroed just before it, read just after)."""
     import dataclasses
     import torch
+    from repro_torch.kernels import build
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import Model
     plain_logits, plain_cache = make_prefill_step(Model(cfg, impl="xla"))(
@@ -1240,7 +1323,11 @@ def check_prefill_budgets(cfg, params, batch, logits, cache):
     p32 = {k: v.float() for k, v in params.items()}
     plain_step32 = make_prefill_step(Model(cfg32, impl="xla"))
     plain32, _ = plain_step32(p32, batch)
+    torch.cuda.synchronize()
+    build.reset_launches()
     kern32, _ = make_prefill_step(Model(cfg32))(p32, batch)
+    torch.cuda.synchronize()
+    launches32 = dict(build.LAUNCHES)
     # the model's own fp32 noise floor: every weight one ulp off, plain
     nudge_(p32, logits.device)
     nudged32, _ = plain_step32(p32, batch)
@@ -1257,7 +1344,8 @@ def check_prefill_budgets(cfg, params, batch, logits, cache):
     if not ok:
         raise RuntimeError("the kernel prefill deviates from the plain one "
                            "beyond its budget")
-    return budget
+    say(f"  fp32 kernel prefill launches: {launches32}")
+    return budget, launches32
 
 
 def decode_and_check(cfg, model, params, batch, logits, cache, budget,
@@ -1398,7 +1486,10 @@ def phase_serve(device="cuda"):
     if tuple(logits.shape) != (b, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
         raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite")
-    budget = check_prefill_budgets(cfg, params, batch, logits, cache)
+    budget, launches32 = check_prefill_budgets(cfg, params, batch, logits,
+                                               cache)
+    if launches32.get("flash_attention") != launches["flash_attention"]:
+        raise RuntimeError(f"the fp32 prefill launched {launches32}")
     decode_and_check(cfg, model, params, batch, logits, cache, budget, n_gen)
 
     say("  sequence kernels against their plain versions, at the prefill's "
@@ -1413,7 +1504,8 @@ def phase_serve(device="cuda"):
     torch.cuda.empty_cache()
     serve_cli("recurrentgemma-2b")
     for name, row in results.items():
-        row["launches"] = launches[name]
+        row["launches"] = (launches32["flash_attention"] if name == FA32
+                           else launches[name])
     return results
 
 
@@ -1490,7 +1582,7 @@ def phase_rwkv(device="cuda"):
     if tuple(logits.shape) != (b, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
         raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite")
-    budget = check_prefill_budgets(cfg, params, batch, logits, cache)
+    budget, _ = check_prefill_budgets(cfg, params, batch, logits, cache)
     # the S+1 prefill's inputs (the kernel at chunk 1) are kept too
     with Recorder({"gla_chunked": "gla_chunked"}) as rec1:
         s1 = decode_and_check(cfg, model, params, batch, logits, cache,
@@ -2358,6 +2450,480 @@ def phase_api():
     say(f"  phase 9 took {time.time() - t0:.1f} s")
 
 
+# ------------------------------------------------- phase 10: cohorts, serving
+# bench_cohort.py's hierarchy cell: (2,3,2), N_p = 64 of 128 nodes, one
+# pair a node, I_l = 1, the Eq. 6 product, 8 pods, 20 rounds a run
+TREE_NP, TREE_PODS, TREE_ROUNDS = 64, 8, 20
+# bench_cohort.py's sweep: (2,2), N_p = 8, one pair a node, a 64-node base
+# set tiled to the total; ms/round must stay within 2x across the totals
+SWEEP_TOTALS, SWEEP_NP, SWEEP_BASE, SWEEP_ROUNDS = (
+    (1_000, 10_000, 100_000, 1_000_000), 8, 64, 20)
+SWEEP_SPREAD = 2.0
+# bench_serve.py's cells: a 90/10 mix of (2,3,2) and (2,2,2) tenants, 50
+# rounds each, 300 slots, 5 rounds a tick; the solo baseline steps
+# SERVE_SOLO of them and is scaled (bench_serve's SEQ_CAP idea)
+SERVE_TENANTS, SERVE_ROUNDS, SERVE_SLOTS, SERVE_K = (100, 1000), 50, 300, 5
+SERVE_SOLO, SERVE_BIG = 24, 10_000
+
+
+def load_example(name):
+    """A script of ``examples/`` as a module."""
+    import importlib.util
+    mod_spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
+def figure_runs(card):
+    """The paper's figure experiments through the port's session on the
+    card (examples/torch_fig2_interval.py, torch_fig2_wider.py,
+    torch_fig3_noise.py, the JAX scripts' specs, impl="pallas"): launch
+    counts zeroed before each run and read after it (every quantum kernel
+    must run), ms/round with the run's evaluations (the script's host
+    clock around ``session.run``, whose last evaluation copies to the
+    host), and Fig. 2's gate: every final test fidelity above
+    MAIN_FIDELITY, the paper's "all reach ~1"."""
+    import torch
+    from repro_torch.kernels import build
+    fig2 = load_example("torch_fig2_interval")
+    wider = load_example("torch_fig2_wider")
+    fig3 = load_example("torch_fig3_noise")
+    runs = [(f"fig2 {label}", fig2, fig2.make_spec(i, mb, impl="pallas"),
+             fig2.ITERS, True) for label, i, mb in fig2.RUNS]
+    runs += [(f"fig2_wider {w}", wider, wider.make_spec(w, impl="pallas"),
+              wider.ITERS, False) for w in wider.WIDTHS]
+    runs += [(f"fig3 noise {int(r * 100)}%", fig3,
+              fig3.make_spec(r, impl="pallas"), fig3.ITERS, False)
+             for r in fig3.RATIOS]
+    for label, mod, spec, iters, gated in runs:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        hist, secs = mod.run(spec, iters)
+        torch.cuda.synchronize()
+        ms = secs * 1e3 / iters
+        launches = dict(build.LAUNCHES)
+        tf, xf = hist["train_fidelity"][-1], hist["test_fidelity"][-1]
+        ok = (all(launches.get(k, 0) for k in KERNELS) and xf == xf
+              and (xf > MAIN_FIDELITY or not gated))
+        say(f"  {label:22s} {iters} rounds: train fidelity {tf:.6f}, test "
+            f"fidelity {xf:.6f}{' (clean test data)' if 'noise' in label else ''}"
+            f"; {ms:.3f} ms/round with {len(hist['iteration'])} evaluations "
+            f"(host clock, {card}); launches {launches} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: a kernel never ran, the params "
+                               "are not finite or the test fidelity is "
+                               f"not above {MAIN_FIDELITY}")
+
+
+def tree_spec(**overrides):
+    """bench_cohort.py's hierarchy cell as a spec (flat; the data from
+    the spec's recipe), impl="pallas"."""
+    from repro_torch.core.fed import api
+    return api.FedSpec.quantum(
+        (2, 3, 2), **{**dict(num_nodes=2 * TREE_NP, nodes_per_round=TREE_NP,
+                             n_per_node=1, interval_length=1,
+                             aggregation="product", n_test=2,
+                             impl="pallas"), **overrides})
+
+
+def tree_checks(card):
+    """One round from the same params and generator, two-level against
+    flat: both combines (the average with strided pods too) in complex128
+    (<= ENGINE_TOL) and with the kernels against the flat complex128
+    round (<= ROUND_TOL). Then ms/round of TREE_ROUNDS session rounds,
+    flat and two-level under both impls, in turns (flat, tree, tree,
+    flat; CUDA events, one warm-up run each). Returns the kernel rows at
+    the tree's pod-tier and merge shapes."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.core.fed import api
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.kernels import build
+    base = tree_spec()
+    sub = api.QuantumSubstrate(base)
+    params = api.FederationSession.create(base, 3, substrate=sub).state
+    two = dict(topology="two_level", pods=TREE_PODS)
+    for agg, extra in (("product", {}), ("average", {}),
+                       ("average", dict(pod_assignment="strided"))):
+        flat = base.to_quantum_config()._replace(aggregation=agg)
+        tree = flat._replace(**two, **extra)
+        want = fed.server_round(params, sub.dataset,
+                                torch.Generator().manual_seed(9),
+                                flat._replace(impl="xla"))
+        out = {}
+        for impl in ("xla", "pallas"):
+            build.reset_launches()
+            out[impl] = fed.server_round(params, sub.dataset,
+                                         torch.Generator().manual_seed(9),
+                                         tree._replace(impl=impl))
+            torch.cuda.synchronize()
+            out[impl + " launches"] = dict(build.LAUNCHES)
+        d64, d32 = max_dev(out["xla"], want), max_dev(out["pallas"], want)
+        ok = (d64 <= ENGINE_TOL and d32 <= ROUND_TOL
+              and out["pallas launches"].get("zgemm", 0) > 0)
+        say(f"  one round, two-level ({TREE_PODS} pods, "
+            f"{tree.pod_assignment}) vs flat, {agg}: complex128 {d64:.3e} "
+            f"(tol {ENGINE_TOL:.0e}), kernels vs flat complex128 {d32:.3e} "
+            f"(tol {ROUND_TOL:.0e}); kernel round launches "
+            f"{out['pallas launches']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the two-level round disagrees with the flat "
+                               "round")
+    # the kernels at the tree's combine shapes (one kernel round)
+    cfg = base.to_quantum_config()._replace(**two)
+    with Recorder() as rec:
+        fed.server_round(params, sub.dataset,
+                         torch.Generator().manual_seed(9), cfg)
+        torch.cuda.synchronize()
+    per, il = TREE_NP // TREE_PODS, cfg.interval_length
+    tree_shapes = {}
+    for w_in, w_out in zip(cfg.widths[:-1], cfg.widths[1:]):
+        d = 2 ** (w_in + 1)
+        tree_shapes[(TREE_PODS * il * w_out, d)] = "pod tier"
+        tree_shapes[(il * w_out, d)] = "merge and apply"
+    calls = rec.calls["zgemm"]
+    for key in list(calls):
+        a, b = key[0], key[1]
+        if (a[0], a[1]) not in tree_shapes or a[1:] != b[1:] or a[1] != a[2]:
+            del calls[key]
+    rec.calls = {"zgemm": calls}
+    rows = []
+    label = f"two_level (2,3,2) N_p={TREE_NP} pods={TREE_PODS}"
+    for row in check_and_time(rec, {}, names=("zgemm",))["zgemm"]:
+        part = tree_shapes[tuple(row["shape"][0][:2])]
+        say(f"    ({part}: {row['calls']} launches of "
+            f"{row['shape'][0]} a round; pods of {per})")
+        rows.append(dict(row, launches=row["calls"], cell=f"{label} {part}"))
+    # ms/round through the session, in turns
+    times = {}
+    for impl in ("pallas", "xla"):
+        specs = {"flat": dataclasses.replace(base, impl=impl),
+                 "tree": dataclasses.replace(base, impl=impl, **two)}
+        subs = {k: api.QuantumSubstrate(v, dataset=sub.dataset,
+                                        test=sub.test)
+                for k, v in specs.items()}
+
+        def run(kind, n=TREE_ROUNDS):
+            sess = api.FederationSession.create(specs[kind], 3,
+                                                substrate=subs[kind])
+            return cuda_timed(lambda: sess.run(n))[0] / n
+        run("flat", 1)
+        run("tree", 1)
+        for kind in ("flat", "tree", "tree", "flat"):
+            times.setdefault((impl, kind), []).append(run(kind))
+        f_ms = statistics.median(times[(impl, "flat")])
+        t_ms = statistics.median(times[(impl, "tree")])
+        say(f"  {label} impl={impl}: flat {f_ms:.3f} ms/round "
+            f"({', '.join(f'{t:.3f}' for t in times[(impl, 'flat')])}), "
+            f"two-level {t_ms:.3f} "
+            f"({', '.join(f'{t:.3f}' for t in times[(impl, 'tree')])}); "
+            f"two-level / flat {t_ms / f_ms:.3f} ({TREE_ROUNDS} rounds a "
+            f"run through the session, turns flat, tree, tree, flat, CUDA "
+            f"events, {card})")
+    return rows
+
+
+def cohort_sweep(card, totals=SWEEP_TOTALS, rounds=SWEEP_ROUNDS):
+    """bench_cohort.py's sweep on the card: the total cohort grows while
+    every round samples SWEEP_NP nodes (Floyd's draw past 4096 nodes);
+    the 64-node base set is tiled on the card to the total. ms/round of
+    ``rounds`` session rounds after two warm-up rounds (CUDA events).
+    Gate: the slowest total within SWEEP_SPREAD x the fastest."""
+    import torch
+    from repro_torch.core.fed import api
+    from repro_torch.core.quantum import data as qdata
+    _, base_ds, test = qdata.make_federated_dataset(
+        torch.Generator().manual_seed(1), 2, SWEEP_BASE, 1, n_test=2,
+        device="cuda")
+    ms = {}
+    for total in totals:
+        reps = -(-total // SWEEP_BASE)
+
+        def tile(x):
+            return x.repeat((reps,) + (1,) * (x.dim() - 1))[:total]
+        ds = qdata.QuantumDataset(tile(base_ds.phi_in), tile(base_ds.phi_out))
+        spec = api.FedSpec.quantum((2, 2), num_nodes=total,
+                                   nodes_per_round=SWEEP_NP, n_per_node=1,
+                                   interval_length=1, aggregation="average",
+                                   n_test=2, impl="pallas")
+        sub = api.QuantumSubstrate(spec, dataset=ds, test=test)
+        sess = api.FederationSession.create(spec, 0, substrate=sub)
+        sess.run(2)
+        ms[total] = cuda_timed(lambda: sess.run(rounds))[0] / rounds
+        say(f"  cohort sweep: {total:>9,} nodes, N_p = {SWEEP_NP}: "
+            f"{ms[total]:.3f} ms/round ({rounds} rounds through the session, "
+            f"CUDA events, method {spec.participation_method}, {card})")
+    spread = max(ms.values()) / min(ms.values())
+    ok = spread <= SWEEP_SPREAD
+    say(f"  cohort sweep spread: slowest / fastest {spread:.3f} (gate "
+        f"<= {SWEEP_SPREAD}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("ms/round grows with the total cohort")
+
+
+def serve_specs(impl="pallas"):
+    """bench_serve.py's two groups: SPEC_A (2,3,2) and SPEC_B (2,2,2), N =
+    N_p = 2, two pairs a node, I_l = 1, the average combine."""
+    import dataclasses
+    from repro_torch.core.fed import api
+    a = api.FedSpec.quantum((2, 3, 2), num_nodes=2, nodes_per_round=2,
+                            n_per_node=2, interval_length=1, n_test=2,
+                            aggregation="average", impl=impl)
+    return a, dataclasses.replace(a, widths=(2, 2, 2))
+
+
+class Tenants:
+    """bench_serve.py's tenant mix: tenant i is group B when i % 10 == 9
+    (10%), else group A, with eta 0.5 + (i % 7) * 0.25 and key i; each
+    group's dataset is built once on the card and shared (the tenants'
+    params differ by key)."""
+
+    def __init__(self, impl="pallas"):
+        from repro_torch.core.fed import api
+        self.api = api
+        self.specs = serve_specs(impl)
+        self.subs = [api.QuantumSubstrate(s) for s in self.specs]
+
+    def session(self, i, poison=False):
+        import dataclasses
+        import torch
+        g = int(i % 10 == 9)
+        spec = dataclasses.replace(self.specs[g], eta=0.5 + (i % 7) * 0.25)
+        base = self.subs[g]
+        ds = base.dataset
+        if poison:
+            ds = ds._replace(phi_in=torch.full_like(
+                ds.phi_in, complex(float("nan"), 0.0)))
+        sub = self.api.QuantumSubstrate(spec, dataset=ds, test=base.test)
+        return self.api.FederationSession.create(spec, i, substrate=sub)
+
+
+def serve_cell(card, tmp, n_tenants, tenants, rounds=SERVE_ROUNDS,
+               solo_n=SERVE_SOLO):
+    """bench_serve.py's cell: ``n_tenants`` tenants served ``rounds``
+    rounds each on SERVE_SLOTS slots, SERVE_K rounds a tick (``drain``,
+    host clock ended by a synchronize; launch counts zeroed before and
+    read after), against ``solo_n`` of the same tenants stepped solo
+    (scaled to ``n_tenants``). The sampled tenants' served params within
+    ROUND_TOL of their solo runs (kernels on both sides). Returns the
+    cell's record, the launches and the served params by tenant."""
+    import torch
+    from repro_torch.core.fed.serve import FederationServer
+    from repro_torch.kernels import build
+    served = [tenants.session(i) for i in range(n_tenants)]
+    server = FederationServer(slots=SERVE_SLOTS, rounds_per_tick=SERVE_K,
+                              store_dir=os.path.join(tmp, f"cell{n_tenants}"))
+    sids = [server.submit(session=s, rounds=rounds, sid=f"t{i:06d}")
+            for i, s in enumerate(served)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    ticks = server.drain()
+    torch.cuda.synchronize()
+    stacked_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    final = {i: [p.clone() for p in server.session(sid).state]
+             for i, sid in enumerate(sids)}
+    solo_ids = [round(j * (n_tenants - 1) / max(solo_n - 1, 1))
+                for j in range(min(solo_n, n_tenants))]
+    solo = [tenants.session(i) for i in solo_ids]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in solo:
+        for _ in range(rounds):
+            s.step()
+    torch.cuda.synchronize()
+    sequential_s = (time.perf_counter() - t0) * n_tenants / len(solo)
+    dev = max(max_dev(final[i], s.state) for i, s in zip(solo_ids, solo))
+    ok = (dev <= ROUND_TOL and launches.get("zgemm", 0) > 0
+          and launches.get("ensemble_commutator_trace", 0) > 0
+          and not server.quarantined and len(server.done) == n_tenants)
+    rec = {"tenants": n_tenants, "rounds": rounds, "slots": SERVE_SLOTS,
+           "rounds_per_tick": SERVE_K, "ticks": ticks,
+           "groups": len(server.groups), "stacked_s": stacked_s,
+           "sequential_s": sequential_s, "sequential_sampled": len(solo),
+           "sessions_per_s": n_tenants / stacked_s,
+           "rounds_per_s": n_tenants * rounds / stacked_s,
+           "speedup": sequential_s / stacked_s, "peak_gib": peak}
+    say(f"  serve {n_tenants} tenants x {rounds} rounds: {ticks} ticks, "
+        f"{len(server.groups)} groups, stacked {stacked_s:.3f} s, sequential "
+        f"{sequential_s:.3f} s ({len(solo)} stepped solo, scaled), "
+        f"{rec['sessions_per_s']:.2f} sessions/s, {rec['rounds_per_s']:.1f} "
+        f"rounds/s, {rec['speedup']:.2f}x; peak {peak:.3f} GiB (host clock, "
+        f"{card}); launches {launches}; the sampled tenants vs solo "
+        f"{dev:.3e} (tol {ROUND_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"serving {n_tenants} tenants: a served tenant "
+                           "differs from its solo run, a kernel never ran, "
+                           "or a tenant did not finish")
+    return rec, launches, final
+
+
+def serve_checks(card, tmp, tenants):
+    """Served == solo in complex128 (mixed groups, per-tenant eta,
+    multi-round ticks whose budgets k does not divide); a tick's launches
+    equal to k stacked rounds'; park -> evict -> revive bit-exact; one
+    NaN-poisoned tenant quarantined alone; the generators' share of a
+    300-slot tick, and a profile of one tick."""
+    import torch
+    from repro_torch.core.fed.api import rng
+    from repro_torch.core.fed.serve import FederationServer
+    from repro_torch.kernels import build
+
+    def server(name, **kw):
+        return FederationServer(store_dir=os.path.join(tmp, name), **kw)
+
+    def serve(srv, sessions, budgets):
+        sids = [srv.submit(session=s, rounds=r)
+                for s, r in zip(sessions, budgets)]
+        srv.drain()
+        return [[p.clone() for p in srv.session(sid).state] for sid in sids]
+    # served == solo in complex128
+    t64 = Tenants("xla")
+    budgets = [3, 6, 5, 1, 7, 4, 6, 2, 5, 3]
+    got = serve(server("x64", slots=4, rounds_per_tick=SERVE_K),
+                [t64.session(i) for i in range(10)], budgets)
+    dev = 0.0
+    for i, r in enumerate(budgets):
+        solo = t64.session(i)
+        for _ in range(r):
+            solo.step()
+        dev = max(dev, max_dev(got[i], solo.state))
+    ok = dev <= ENGINE_TOL
+    say(f"  served vs solo, complex128, 10 tenants of both groups on 4 "
+        f"slots, k = {SERVE_K}, budgets {budgets}: {dev:.3e} (tol "
+        f"{ENGINE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("a served tenant differs from its solo run")
+    # a tick's launches: k stacked rounds, each one solo round's
+    srv = server("tick", slots=8, rounds_per_tick=SERVE_K)
+    for i in range(8):
+        srv.submit(session=tenants.session(10 * i), rounds=SERVE_K)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    srv.tick()
+    torch.cuda.synchronize()
+    tick = dict(build.LAUNCHES)
+    solo = tenants.session(0)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    solo.step()
+    torch.cuda.synchronize()
+    one = dict(build.LAUNCHES)
+    ok = bool(one) and tick == {k: SERVE_K * v for k, v in one.items()}
+    say(f"  one tick of 8 SPEC_A tenants, k = {SERVE_K}: launches {tick}; "
+        f"one solo round {one} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("a tick does not launch k stacked rounds' kernels")
+    # park -> evict -> revive, on the card
+    ids = list(range(12))
+    free = serve(server("free", slots=4, rounds_per_tick=2),
+                 [tenants.session(i) for i in ids], [7] * 12)
+    capped = server("capped", slots=4, rounds_per_tick=2, max_live=5)
+    got = serve(capped, [tenants.session(i) for i in ids], [7] * 12)
+    same = all(torch_equal_all(g, f) for g, f in zip(got, free))
+    ok = same and capped.store.parks > 0 and capped.store.revives > 0
+    say(f"  park -> evict -> revive: 12 tenants, 4 slots, at most 5 live "
+        f"sessions: {capped.store.parks} parks, {capped.store.revives} "
+        f"revives; every tenant bit-equal to the uncapped server's: {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("park/revive on the card is not bit-exact")
+    # one poisoned tenant among eight
+    clean = serve(server("clean", slots=8, rounds_per_tick=SERVE_K),
+                  [tenants.session(i) for i in range(8)], [10] * 8)
+    bad = server("poison", slots=8, rounds_per_tick=SERVE_K)
+    got = serve(bad, [tenants.session(i, poison=i == 3) for i in range(8)],
+                [10] * 8)
+    dev = max(max_dev(g, c) for i, (g, c) in enumerate(zip(got, clean))
+              if i != 3)
+    bits = all(torch_equal_all(g, c) for i, (g, c) in enumerate(zip(got, clean))
+               if i != 3)
+    ok = list(bad.quarantined) == ["s000003"] and dev <= ENGINE_TOL
+    say(f"  poisoned tenant: quarantined {bad.quarantined}; the other 7 vs "
+        f"the same grid with clean data {dev:.3e} (tol {ENGINE_TOL:.0e}; "
+        f"bit-equal: {bits}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the poisoned tenant was not quarantined alone")
+    # the host's share: one round's generators at SERVE_SLOTS slots, and
+    # a profile of one tick of a full grid
+    t0 = time.perf_counter()
+    for _ in range(10):
+        [rng.generator(rng.fold_in(i, 5)) for i in range(SERVE_SLOTS)]
+    gen_ms = (time.perf_counter() - t0) * 1e3 / 10
+    srv = server("profile", slots=SERVE_SLOTS, rounds_per_tick=SERVE_K)
+    for i in range(SERVE_SLOTS):
+        srv.submit(session=tenants.session(10 * i), rounds=2 * SERVE_K)
+    srv.tick()
+    torch.cuda.synchronize()
+    profile_device(f"one tick of {SERVE_SLOTS} SPEC_A slots, k = {SERVE_K}",
+                   srv.tick)
+    say(f"    the {SERVE_SLOTS} per-slot round generators of one stacked "
+        f"round: {gen_ms:.3f} ms of host time ({SERVE_K * gen_ms:.3f} ms a "
+        f"tick; host clock, {card})")
+
+
+def phase_cohorts_serving():
+    """Phase 10: the figure experiments, the two-level tree and the
+    multi-tenant server on the card."""
+    import tempfile
+    card = smi("name,power.limit")
+    say("== phase 10: cohorts and serving: the paper's figures through the "
+        "session, the two-level tree (bench_cohort.py's hierarchy cell and "
+        "sweep), FederationServer (bench_serve.py's cells)")
+    t0 = time.time()
+    figure_runs(card)
+    rows = tree_checks(card)
+    cohort_sweep(card)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tenants = Tenants()
+        serve_cell(card, tmp, 8, tenants, rounds=SERVE_K, solo_n=1)  # warm-up
+        for n in SERVE_TENANTS:
+            rec, _, final = serve_cell(card, tmp, n, tenants)
+            if n == SERVE_TENANTS[0]:
+                _, _, again = serve_cell(card, tmp, n, tenants, solo_n=1)
+                same = all(torch_equal_all(final[i], again[i])
+                           for i in final)
+                say(f"  replay of the {n}-tenant submissions on a fresh "
+                    f"server: every tenant bit-equal: {same}")
+                if not same:
+                    raise RuntimeError("a replayed submission sequence "
+                                       "gave other bits")
+            say("  " + json.dumps({"serve_cell": rec}))
+        serve_checks(card, tmp, tenants)
+    say(f"  phase 10 took {time.time() - t0:.1f} s")
+    return rows
+
+
+def torch_equal_all(xs, ys):
+    import torch
+    return all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+
+def time_serve():
+    """bench_serve.py's 10,000-tenant cell on the card (``serve_cell``),
+    one JSON line."""
+    import tempfile
+    card = smi("name,power.limit")
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tenants = Tenants()
+        serve_cell(card, tmp, 8, tenants, rounds=SERVE_K, solo_n=1)
+        rec, launches, _ = serve_cell(card, tmp, SERVE_BIG, tenants)
+    print(json.dumps({"serve_cell": rec, "launches": launches,
+                      "card": card}), flush=True)
+    return 0
+
+
 # ------------------------------------------------- --time-quantum (A/B)
 def time_quantum(trials=3):
     """ms/round of both quantum cells (phase 4's ``round_ms``, 10 rounds
@@ -2472,6 +3038,9 @@ def main() -> int:
         return time_quantum()
     if "--time-seq" in sys.argv:
         return time_seq()
+    if "--time-serve" in sys.argv:
+        phase_build()
+        return time_serve()
     t0 = time.time()
     phase_build()
     results = phase_kernels()
@@ -2484,6 +3053,7 @@ def main() -> int:
     rows += phase_engines()
     rows += phase_fed_core()
     phase_api()
+    rows += phase_cohorts_serving()
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,6 +1,10 @@
 """The paper's own model: the 2-3-2 dissipative QNN trained by
 QuantumFed (§IV-A), with the Fig. 2/3 hyperparameters. The port's own
-copy of ``repro.configs.qnn_232``."""
+copy of ``repro.configs.qnn_232``: ``CONFIG`` is the frozen Fig. 2/3
+default, and the figure scripts build their variants through
+``config(**overrides)``, which validates the strategy names against the
+registries before any round runs."""
+from repro_torch.core.fed import participation, strategies
 from repro_torch.core.quantum.federated import QuantumFedConfig
 
 WIDTHS = (2, 3, 2)
@@ -18,3 +22,11 @@ CONFIG = QuantumFedConfig(
 N_PER_NODE = 4
 N_TEST = 32
 N_ITERATIONS = 50
+
+
+def config(**overrides) -> QuantumFedConfig:
+    """Fig. 2/3 defaults with registry-validated overrides."""
+    cfg = CONFIG._replace(**overrides)
+    strategies.get_aggregation(cfg.aggregation)
+    participation.validate(cfg.participation)
+    return cfg

@@ -1,7 +1,6 @@
 """Declarative aggregation-tree topology for cohort-scale federation
 (the port's own copy of ``repro.core.fed.cohort.topology``; the tree
-aggregation itself, ``hierarchy``, is not in the port yet, and the
-quantum round refuses ``topology="two_level"``).
+aggregation itself is ``hierarchy``).
 
 A federation round aggregates ``nodes_per_round`` local updates. The
 default topology is ``"flat"``: one combiner pass over every sampled

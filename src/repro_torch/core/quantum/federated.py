@@ -1,5 +1,5 @@
 """QuantumFed: QuanFedNode (Alg. 1) + QuanFedPS (Alg. 2), the port of
-``repro.core.quantum.federated`` on its flat, single-device path.
+``repro.core.quantum.federated`` on one device.
 
 One round is four phases: ``select_phase`` (participation sampling and
 the Alg. 2 weights), ``local_phase`` (the QuanFedNode pass of every
@@ -9,6 +9,9 @@ optional Byzantine-robust defense, optional server momentum on the
 averaged generators). ``server_round`` / ``server_round_opt`` /
 ``server_round_certified`` compose them. The nodes of a round run as one
 batch on an explicit leading node axis, where the reference ``vmap``s.
+``cfg.topology="two_level"`` routes either combine through the pod tree
+of ``repro_torch.core.fed.cohort.hierarchy`` (an exact reassociation,
+so its rounding differs from the flat chain's only in order).
 
 Every phase body runs on a leading session axis S: a solo round is the
 stack of one. ``server_round_stacked`` drives S independent federations
@@ -42,6 +45,8 @@ import torch
 from repro_torch.core.fed import channel as fchannel
 from repro_torch.core.fed import participation, strategies
 from repro_torch.core.fed import server_opt as fserver_opt
+from repro_torch.core.fed.cohort import hierarchy as fhierarchy
+from repro_torch.core.fed.cohort import topology as ftopology
 from repro_torch.core.quantum import linalg as ql
 from repro_torch.core.quantum import qnn
 from repro_torch.core.quantum.data import QuantumDataset
@@ -84,10 +89,22 @@ class QuantumFedConfig(NamedTuple):
 SERVER_OPTS = fserver_opt.SERVER_OPTS
 
 
+def _topology_of(cfg: QuantumFedConfig) -> Optional[ftopology.Topology]:
+    """The aggregation-tree ``Topology`` a cfg names, None for flat.
+    Validates first (pods dividing the cohort, block order for the
+    product combine), with the reference's messages."""
+    agg = strategies.get_aggregation(cfg.aggregation)
+    ftopology.validate_topology(
+        cfg.topology, cfg.pods, cfg.pod_assignment,
+        nodes_per_round=cfg.nodes_per_round, combine=agg.combine)
+    return ftopology.resolve_topology(cfg.topology, cfg.pods,
+                                      cfg.pod_assignment)
+
+
 def check_supported(cfg: QuantumFedConfig) -> QuantumFedConfig:
     """Fail loudly on config values whose paths the port does not have
-    (NotImplementedError: the two-level topology and the pod fan-out)
-    and on values no path accepts (ValueError)."""
+    (NotImplementedError: the ``shard_map`` pod fan-out) and on values
+    no path accepts (ValueError)."""
     if cfg.engine not in qnn.ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; use one of "
                          f"{qnn.ENGINES}")
@@ -104,13 +121,13 @@ def check_supported(cfg: QuantumFedConfig) -> QuantumFedConfig:
             f"defense {cfg.defense!r} needs every upload at the server "
             "(order statistics do not decompose over pod partial sums) — "
             "topology='flat' only")
-    missing = []
-    if cfg.topology != "flat":
-        missing.append(f"topology={cfg.topology!r}")
+    if _topology_of(cfg) is not None:
+        strategies.partial_kind(agg)    # fail loudly for tree-less combines
     if cfg.fanout not in ("auto", "vmap"):
-        missing.append(f"fanout={cfg.fanout!r}")
-    if missing:
-        raise NotImplementedError("not in the port yet: " + ", ".join(missing))
+        raise NotImplementedError(
+            f"not in the port yet: fanout={cfg.fanout!r} (the mesh fan-out, "
+            "ROADMAP.md Queue 1 item 7); one card runs the batched node "
+            "pass, fanout='auto' or 'vmap'")
     qnn._check_impl(cfg.impl)
     participation.validate(cfg.participation)
     participation.validate_method(cfg.participation_method)
@@ -248,9 +265,10 @@ def _steps_first(upd: torch.Tensor) -> torch.Tensor:
 # (S, P, I_l, m, d, d); weights (S, P) float32; eps and beta scalars or
 # (S,) tensors; momentum per layer (S, I_l, m, d, d) or None.
 
-def _product(params, ks_all, weights, eps, impl, factors=None):
+def _product(params, ks_all, weights, eps, impl, factors=None, topo=None):
     """Eq. 6 for every session: U <- prod_{k=I_l}^{1} prod_n
-    e^{i eps w_n K_{n,k}} U, one chain over (S * m, d, d)."""
+    e^{i eps w_n K_{n,k}} U, one chain over (S * m, d, d); under a
+    ``topo`` the same chain reassociated by pod (``hierarchy.tree_chain``)."""
     new_params = []
     for li, (us, ks) in enumerate(zip(params, ks_all)):
         s, p, il = ks.shape[:3]
@@ -261,6 +279,10 @@ def _product(params, ks_all, weights, eps, impl, factors=None):
             lam, v = factors[li]
             wl = weights[:, :, None, None, None].to(lam.dtype)
             upd = ql.expm_eigh(lam * wl, v, _lead(eps, 5))
+        if topo is not None:
+            new_params.append(fhierarchy.tree_chain(us, upd, topo,
+                                                    impl=impl))
+            continue
         # interval step k outermost (k = 1 first), node n innermost
         seq = upd.permute(2, 1, 0, 3, 4, 5).reshape(
             (il * p, s) + upd.shape[3:])
@@ -348,6 +370,7 @@ def _aggregate(params, smom, ks_all, weights, eps, beta,
     agg = strategies.get_aggregation(cfg.aggregation)
     strategies.validate_defense(cfg.defense, agg.combine)
     fserver_opt.validate(server_opt)
+    topo = _topology_of(cfg)
     if agg.combine == "product":
         if server_opt != "none":
             raise ValueError(
@@ -359,7 +382,7 @@ def _aggregate(params, smom, ks_all, weights, eps, beta,
                                                  eps, cfg, probe)
             factors = None  # factor the SANITIZED K's, not the raw ones
         return _product(params, ks_all, weights, eps, cfg.impl,
-                        factors), None
+                        factors, topo), None
     if cfg.defense == "clip":
         ks_all, weights = _clip_uploads(ks_all, weights, cfg.clip_norm)
     robust = cfg.defense in ("trimmed_mean", "median")
@@ -369,12 +392,17 @@ def _aggregate(params, smom, ks_all, weights, eps, beta,
     valid = (weights > 0) & _finite(ks_all) if robust else None
     k_bars = [strategies.robust_combine(ks.transpose(0, 1), valid.T,
                                         cfg.defense, cfg.trim_frac)
-              if robust else _weighted_mean(ks, weights) for ks in ks_all]
+              if robust else _weighted_mean(ks, weights, topo)
+              for ks in ks_all]
     return _average(params, smom, k_bars, eps, beta, server_opt, cfg.impl)
 
 
-def _weighted_mean(ks, weights):
-    """Eq. 8's K_k = sum_n w_n K_{n,k} per session: (S, I_l, m, d, d)."""
+def _weighted_mean(ks, weights, topo=None):
+    """Eq. 8's K_k = sum_n w_n K_{n,k} per session: (S, I_l, m, d, d);
+    the flat einsum, or under a ``topo`` the pod-partial sums merged
+    (``hierarchy.tree_mean_generators``)."""
+    if topo is not None:
+        return fhierarchy.tree_mean_generators(ks, weights, topo)
     return torch.einsum("sn,snk...->sk...", weights.to(ks.dtype), ks)
 
 

@@ -252,9 +252,21 @@ def test_classical_spec_constructs_and_its_substrate_is_refused():
 
 
 def test_two_level_spec_is_refused_by_the_port_round():
+    """The two-level spec is no longer refused: its substrate builds and
+    its session rounds equal the flat spec's (the tree reassociates the
+    Eq. 6 chain), while the mesh fan-out stays refused."""
     spec = api.FedSpec.quantum(**dict(QBASE, topology="two_level", pods=2))
-    with pytest.raises(NotImplementedError, match="two_level"):
-        api.QuantumSubstrate(spec, device="cpu")
+    flat = api.FedSpec.quantum(**QBASE)
+    tree = api.FederationSession.create(spec, 4, device="cpu")
+    ref = api.FederationSession.create(flat, 4, device="cpu")
+    tree.run(2)
+    ref.run(2)
+    assert max(float((a - b).abs().max())
+               for a, b in zip(tree.state, ref.state)) <= 1e-10
+    mesh = api.FedSpec.quantum(**dict(QBASE, topology="two_level", pods=2,
+                                      fanout="shard_map"))
+    with pytest.raises(NotImplementedError, match="shard_map"):
+        api.QuantumSubstrate(mesh, device="cpu")
 
 
 def test_api_exports_the_reference_names():

@@ -828,3 +828,84 @@ def test_screened_round_on_the_card(cuda_device):
               for a, b in zip(out["pallas"], out["xla"]))
     assert dev <= RTOL and all(bool(torch.isfinite(p.abs()).all())
                                for p in out["pallas"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregation", ["product", "average"])
+def test_tree_round_launches_the_kernels(cuda_device, aggregation):
+    """A two-level round (N_p = 8 in 4 pods, I_l = 2) with the kernels:
+    within 1e-5 of the flat complex128 round from the same generator.
+    The product tree replaces each layer's N_p * I_l chain steps by
+    (per - 1) pod steps, (pods - 1) merge steps and I_l applications,
+    all through zgemm; the average's combine launches as the flat one."""
+    widths, n_p, pods, il = (2, 3, 2), 8, 4, 2
+    _, ds, _ = qdata.make_federated_dataset(
+        torch.Generator().manual_seed(6), 2, n_p, 3, n_test=4,
+        device=cuda_device)
+    params = qnn.init_params(torch.Generator().manual_seed(7), widths,
+                             device=cuda_device)
+    flat = fed.QuantumFedConfig(widths=widths, num_nodes=n_p,
+                                nodes_per_round=n_p, interval_length=il,
+                                aggregation=aggregation, impl="pallas")
+    tree = flat._replace(topology="two_level", pods=pods)
+    launches = {}
+    for label, cfg in (("flat", flat), ("tree", tree)):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        got = fed.server_round(params, ds, torch.Generator().manual_seed(1),
+                               cfg)
+        torch.cuda.synchronize()
+        launches[label] = dict(build.LAUNCHES)
+    want = fed.server_round(params, ds, torch.Generator().manual_seed(1),
+                            flat._replace(impl="xla"))
+    dev = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    assert dev <= RTOL, dev
+    layers = len(widths) - 1
+    saved = (layers * (n_p * il - ((n_p // pods - 1) + (pods - 1) + il))
+             if aggregation == "product" else 0)
+    assert launches["tree"]["zgemm"] == launches["flat"]["zgemm"] - saved
+    assert launches["tree"]["ensemble_commutator_trace"] == \
+        launches["flat"]["ensemble_commutator_trace"] > 0
+
+
+@pytest.mark.cuda
+def test_served_tick_launches_k_stacked_rounds(cuda_device, tmp_path):
+    """Four tenants with their own eta on one stacked grid, a tick of
+    k = 3 rounds: the tick launches k times one solo kernel round's
+    kernels (a stacked round launches as many as one solo round), and
+    each tenant ends within 1e-5 of its solo complex128 session with the
+    same key (same cohorts)."""
+    import dataclasses
+
+    from repro_torch.core.fed.api import FederationSession, FedSpec
+    from repro_torch.core.fed.serve import FederationServer
+    spec = FedSpec.quantum((2, 3, 2), num_nodes=2, nodes_per_round=2,
+                           n_per_node=2, interval_length=1, n_test=2,
+                           aggregation="average", impl="pallas")
+    specs = [dataclasses.replace(spec, eta=0.5 + 0.25 * i) for i in range(4)]
+    k = 3
+    server = FederationServer(slots=4, rounds_per_tick=k,
+                              store_dir=str(tmp_path))
+    sids = [server.submit(s, key=i, rounds=k) for i, s in enumerate(specs)]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    stats = server.tick()
+    torch.cuda.synchronize()
+    tick = dict(build.LAUNCHES)
+    assert stats["retired"] == 4 and server.n_pending == 0
+    solo = FederationSession.create(specs[0], 0)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    solo.step()
+    torch.cuda.synchronize()
+    one = dict(build.LAUNCHES)
+    assert one.get("zgemm") and tick == {n: k * c for n, c in one.items()}
+    for i, (sid, s) in enumerate(zip(sids, specs)):
+        want = FederationSession.create(dataclasses.replace(s, impl="xla"),
+                                        i)
+        for _ in range(k):
+            want.step()
+        got = server.session(sid)
+        dev = max(float((a - b).abs().max())
+                  for a, b in zip(got.state, want.state))
+        assert got.round == k and dev <= RTOL, (i, dev)

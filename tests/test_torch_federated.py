@@ -226,12 +226,25 @@ def test_minibatch_draws_valid_pairs_per_node(x64):
     assert herm <= 1e-12
 
 
-@pytest.mark.parametrize("bad", [dict(topology="two_level", pods=2),
-                                 dict(fanout="shard_map")])
+@pytest.mark.parametrize("bad", [dict(fanout="shard_map"),
+                                 dict(fanout="shard_map",
+                                      topology="two_level", pods=2)])
 def test_unported_options_are_refused(bad):
     _, tcfg = config("xla", **bad)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         fed.check_supported(tcfg)
+
+
+@pytest.mark.parametrize("aggregation", ["product", "average"])
+def test_two_level_round_runs_and_equals_flat(x64, aggregation):
+    """topology="two_level" has a path: the round through the pod tree
+    (pods = 2) equals the flat round from the same generator."""
+    _, tcfg = config("xla", aggregation=aggregation)
+    _, (tparams, tds, _) = setup()
+    flat = fed.server_round(tparams, tds, gen(5), tcfg)
+    tree = fed.server_round(tparams, tds, gen(5),
+                            tcfg._replace(topology="two_level", pods=2))
+    assert max_err(flat, tree) <= TOLS["xla"]
 
 
 @pytest.mark.parametrize("ok", [dict(participation_method="sampled"),

@@ -50,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
     for name in ("faults", "server_opt", "channel", "config",
                  "cohort.latency", "cohort.topology", "api.spec",
                  "api.phases", "api.substrate", "api.scheduler",
-                 "api.session"):
+                 "api.session", "cohort.hierarchy", "serve",
+                 "serve.admission", "serve.store", "serve.groups",
+                 "serve.server"):
         assert f"repro_torch.core.fed.{name}" in res["modules"]
     assert "repro_torch.checkpoint.checkpoint" in res["modules"]
     assert res["bad"] == []
