@@ -5,6 +5,7 @@
     python3 chip_smoke.py --time-quantum [--src DIR]
     python3 chip_smoke.py --time-seq [--src DIR]
     python3 chip_smoke.py --time-serve
+    python3 chip_smoke.py --train-probe
 
 Runs on cuda:0 only; without a CUDA device, or outside a checkout of the
 repository, it exits non-zero before printing any result. Phases:
@@ -121,7 +122,33 @@ repository, it exits non-zero before printing any result. Phases:
    solo runs, a replay bit for bit), served == solo in complex128, a
    tick's launches against k stacked rounds', park -> evict -> revive
    bit-exact, a NaN-poisoned tenant quarantined alone, and a profile of
-   one 300-slot tick beside its generators' host time.
+   one 300-slot tick beside its generators' host time;
+11. training: RecurrentGemma-2B at full width and depth (26 layers, bf16
+   params, remat, random init from seed 0) trained by
+   ``make_train_step`` for 5 steps on one repeated B=1 x S=4096 batch of
+   the Bigram stream (seed 0) with launch/train.py's optimizer (AdamW,
+   fp32 moments, the global norm clipped to 1) and schedule at --lr 1e-2
+   --warmup 0: the loss finite at every step and lower at step 5 than
+   at step 1, each step's launches counted (zeroed before, read after)
+   and gated exactly (16 flash_attention, 8 flash_attention_bwd, 52
+   rglru_scan: the 16 remat-cycle recurrent layers forward, recompute
+   and reverse, the 2 remainder layers forward and reverse), the
+   reverse scans of step 1 counted apart inside the scan's adjoint and
+   gated (18), ms/step, tokens/s, peak memory and a profile's busy
+   share. Before it, RWKV6's backward under ``impl="pallas"`` must
+   raise NotImplementedError, and one cycle (3 layers, full width)
+   backpropagated through the kernels must give every parameter's
+   gradient close to the plain route's: in bf16 at the init within the
+   bf16 budget (the plain bf16 gradients' deviation from the plain fp32
+   ones), in fp32 storage with the stacked matrices at std
+   1/sqrt(d_in) within 1e-3 of each gradient's scale (each leaf
+   printed); a planted fault in the attention backward (dK = 0) and in
+   the scan's adjoint (da = 0) must each fail the fp32 gate. After it, the attention backward kernel at the
+   path's recorded inputs (bf16: within the bf16 budget of the plain
+   fp32 version; fp32 storage: 1e-4 of each gradient's scale) and on
+   ragged shapes, the same bits on repeat, timed beside its plain
+   version and SDPA's backward; the scan's reverse use against autograd
+   of the plain scan (1e-5), timed.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape: each kernel at the main path's most frequent shape (launches of
@@ -132,8 +159,10 @@ each shape of phase 7's (4,5,4) local_opb round, and zgemm, the trace and
 fidelity at each shape of phase 8's screened and stacked rounds (``"cell"``
 set), the fp32-storage attention at the prefill's shape (``"cell"``
 set; launches of phase 5's fp32 kernel prefill), and zgemm at the
-two-level tree's pod-tier and merge shapes (``"cell"`` set); every
-row carries ``device_us``, and fidelity's and mse's the launch floor.
+two-level tree's pod-tier and merge shapes (``"cell"`` set), and
+the attention backward and the scan's reverse use at the train step's
+shapes (launches a step, ``"cell"`` set); every row carries
+``device_us``, and fidelity's and mse's the launch floor.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and never prints that line.
 
@@ -144,6 +173,9 @@ one card, in turns, each in its own process. ``--time-seq`` does the
 same for gla_chunked (chunk 16 and chunk 1) and rglru_scan at the
 prefills' shapes (see ``time_seq``). ``--time-serve`` builds the kernels
 and runs bench_serve.py's 10,000-tenant cell alone (see ``time_serve``).
+``--train-probe`` builds the kernels and runs phase 11's model and
+batch at other learning rates and clips, without gates (see
+``train_probe``).
 """
 import json
 import os
@@ -2903,6 +2935,598 @@ def phase_cohorts_serving():
     return rows
 
 
+# ------------------------------------------------- phase 11: training
+# RecurrentGemma-2B at full width and depth trained on one card: B=1,
+# S=4096 (the config's train_4k length), bf16 params, remat on, the
+# Bigram stream from seed 0, 5 steps on one repeated batch with
+# launch/train.py's optimizer (``train.optimizer``: AdamW with fp32
+# moments, weight decay 0.01, the global norm clipped to 1) and schedule
+# (linear warmup then cosine) at --lr 1e-2 --warmup 0. At this init the
+# gradient's norm is far above the clip, and at a peak of 1e-3 the 5
+# steps leave the loss flat; ``--train-probe`` prints the norm, where it
+# sits, and the losses at other settings.
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 1, 4096, 5
+TRAIN_LR, TRAIN_WARMUP = 1e-2, 0
+# the attention backward in fp32 storage against its plain fp32 version:
+# relative to each gradient's scale; dK sums up to G x window = 20,480
+# products of P and dS a row in another order than the plain version
+BWD_RTOL = 1e-4
+# the reverse (adjoint) scan against autograd of the plain scan
+SCAN_BWD_RTOL = 1e-5
+# one cycle's gradients through the kernels in fp32 storage against the
+# plain route's, of each gradient's scale: the whole-model tolerance of
+# the card test test_forward_train_backprop_through_kernels_matches_plain
+GRAD_RTOL_FP32 = 1e-3
+ATTN_BWD = "flash_attention_bwd"
+SCAN_REV = "rglru_scan reverse"
+
+
+def train_launches(cfg):
+    """Launches of one train step, from the config (and, under
+    SCAN_REV, how many of the scan's are the backward's): each local layer's
+    attention forward twice (the forward and the recompute of its remat
+    cycle) and its backward once; each recurrent layer's scan in the
+    forward, the reverse scan of the backward, and the recompute where
+    the layer sits in a remat cycle (remainder layers are not
+    recomputed, as in the reference)."""
+    per_cycle = {kind: cfg.block_pattern.count(kind)
+                 for kind in ("local", "attn", "rec")}
+    rem = [cfg.block_pattern[i] for i in range(cfg.n_rem)]
+    recompute = 1 if cfg.remat else 0
+    attn_c = per_cycle["local"] + per_cycle["attn"]
+    attn_r = sum(k in ("local", "attn") for k in rem)
+    rec_c, rec_r = per_cycle["rec"], rem.count("rec")
+    return {"flash_attention": cfg.n_cycles * attn_c * (1 + recompute)
+            + attn_r,
+            ATTN_BWD: cfg.n_cycles * attn_c + attn_r,
+            "rglru_scan": cfg.n_cycles * rec_c * (2 + recompute)
+            + 2 * rec_r,
+            SCAN_REV: cfg.n_cycles * rec_c + rec_r}
+
+
+def attn_bwd_bound_ms(q, k, kw):
+    """Least time for the attention backward at these inputs: q, o, dO,
+    dQ and k, v, dK, dV crossing HBM once against the five products (10
+    dh FLOP an allowed pair) at the peak for the storage type (bf16
+    tensor cores, or fp32 CUDA cores)."""
+    bh, sq, dh = q.shape
+    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+    flops = 10 * dh * bh * allowed_pairs(sq, k.shape[1], kw["causal"],
+                                         kw["window"])
+    peak = BF16_FLOPS if q.element_size() == 2 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def grad_dev(got, want, scale):
+    return [float((g.float() - w.float()).abs().max()) / s
+            for g, w, s in zip(got, want, scale)]
+
+
+def attn_bwd_case(args, kw, label, budget_of=None):
+    """The backward kernel on (q, k, v, o, dO) against the plain fp32
+    version (the inputs cast to fp32), each gradient relative to its
+    scale. fp32 storage: within BWD_RTOL. bf16 storage: within the bf16
+    budget, the plain bf16 gradients' deviation from the plain fp32 ones
+    on the same inputs, plus BWD_RTOL for the kernel's order of
+    summation. Returns the worst deviation."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    got = kfa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = ref.attention_bwd_ref(*(x.float() for x in args), **kw)
+    scale = [max(float(w.abs().max()), 1e-30) for w in want]
+    dev = grad_dev(got, want, scale)
+    if args[0].dtype == torch.bfloat16:
+        plain = ref.attention_bwd_ref(*args, **kw)
+        budget = [b + BWD_RTOL for b in grad_dev(plain, want, scale)]
+        del plain
+    else:
+        budget = [BWD_RTOL] * 3
+    again = kfa.flash_attention_bwd(*args, **kw)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    ok = all(d <= b for d, b in zip(dev, budget)) and same
+    say(f"  {ATTN_BWD} {label}: dq/dk/dv "
+        + ", ".join(f"{d:.3e} (budget {b:.3e})" for d, b in zip(dev, budget))
+        + f" of each scale; same bits on repeat {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the attention backward kernel disagrees with "
+                           "its plain version")
+    return max(d * s for d, s in zip(dev, scale))
+
+
+def attn_bwd_ragged(device):
+    """Edge shapes, seeded, both storage types: S not a multiple of the
+    tiles (100: a short last key tile of 4 and query tile of 36), window
+    0 causal and non-causal, G = 1 and G = 10, a window below the tile,
+    Sq > Sk (rows with no allowed key), dh 64, 128, 256."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(12)
+
+    def case(dtype, bh, bk, sq, sk, dh, causal, window):
+        r = [torch.randn(shape, generator=g).to(device, dtype)
+             for shape in ((bh, sq, dh), (bk, sk, dh), (bk, sk, dh),
+                           (bh, sq, dh), (bh, sq, dh))]
+        return r, dict(causal=causal, window=window)
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        out += [case(dt, 10, 1, 100, 100, 256, True, 16),
+                case(dt, 3, 3, 77, 77, 64, True, 0),
+                case(dt, 2, 2, 65, 65, 128, False, 0),
+                case(dt, 4, 2, 130, 130, 64, False, 20),
+                case(dt, 2, 1, 100, 37, 64, True, 16)]
+    return out
+
+
+def sdpa_backward_ms(q, k, v, kw):
+    """SDPA forward + backward with the boolean window mask and
+    enable_gqa, minus its forward, at the path's shape, heads-major views
+    of the port's tensors; and the backend that ran (from the profiler's
+    kernel names). None where SDPA refuses the shape."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ref
+    bk, sk, dh = k.shape
+    g = q.shape[0] // bk
+    mask = ref.attention_mask(q.shape[1], sk, kw["causal"], kw["window"],
+                              q.device)
+    qs = q.reshape(1, bk * g, -1, dh).detach().requires_grad_()
+    ks = k.reshape(1, bk, sk, dh).detach().requires_grad_()
+    vs = v.reshape(1, bk, sk, dh).detach().requires_grad_()
+    do = torch.randn_like(qs)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qs, ks, vs), do)
+    try:
+        fwd_bwd()
+    except RuntimeError as e:
+        say(f"  SDPA backward refused: {str(e).splitlines()[0][:100]}")
+        return None, "none"
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    names = sorted(((e.time_range.end - e.time_range.start, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and e.name),
+                   reverse=True)
+    top = names[0][1] if names else ""
+    low = top.lower()
+    # late in a run the profiler may lose the device records' names
+    backend = ("unknown" if not top else "cudnn" if "cudnn" in low
+               else "flash" if "flash" in low
+               else "efficient" if "fmha" in low or "cutlass" in low
+               or "efficient" in low else "math")
+    with torch.no_grad():
+        f_ms = cuda_ms(fwd, reps=5, warmup=1)
+    fb_ms = cuda_ms(fwd_bwd, reps=5, warmup=1)
+    say(f"  SDPA ({backend}: {top[:60]}) forward {f_ms:.4f} ms, forward + "
+        f"backward {fb_ms:.4f} ms")
+    return fb_ms - f_ms, backend
+
+
+def one_cycle_params(cfg, params, well_conditioned=False):
+    """The full model's first cycle and its embedding. With
+    ``well_conditioned`` the stacked matrices are rescaled from the
+    init's std 1/sqrt(n_cycles) to the unstacked layer's 1/sqrt(d_in)
+    (the CPU tests' ``well_conditioned``): at the init's std the
+    attention softmax saturates and the attention and RG-LRU gradients
+    are rounding noise."""
+    import math
+    p1 = {}
+    for k, v in params.items():
+        if k.startswith("rem/"):
+            continue
+        if k.startswith("stack/"):
+            w = v[:1]
+            if well_conditioned and v.ndim >= 3:
+                w = (w.float() * math.sqrt(v.shape[0] / v.shape[1])
+                     ).to(v.dtype)
+            v = w
+        p1[k] = v
+    return p1
+
+
+def one_cycle_gate(cfg, params, batch):
+    """The fault's gate, on one cycle (3 layers, full width, the full
+    model's first cycle and its embedding), every parameter's gradient
+    printed with its bound:
+
+    - bf16 at the init: through the kernels against the plain versions',
+      within the bf16 budget (the plain bf16 gradient's deviation from
+      the plain fp32 one on the same weights and tokens), each relative
+      to the fp32 gradient's scale;
+    - fp32 storage at ``one_cycle_params(well_conditioned=True)``: through
+      the kernels against the plain versions', within GRAD_RTOL_FP32 of
+      each gradient's scale.
+
+    At the init the bf16 budgets come out near each gradient's own scale
+    (the saturated softmax and gates make the bf16 gradients rounding
+    noise), so the bf16 part cannot tell a wrong gradient; the fp32 part
+    can. Two planted faults, the attention backward's dK set to 0 and the
+    scan adjoint's da set to 0, must each fail the fp32 gate (the leaves
+    where the bf16 gate would catch them are printed too). Returns the
+    bf16 kernel pass's launches."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    cfg1 = dataclasses.replace(cfg, n_layers=cfg.cycle_len)
+    cfg32 = dataclasses.replace(cfg1, dtype="float32", param_dtype="float32")
+    p1 = one_cycle_params(cfg, params)
+    w32 = {k: v.float() for k, v in
+           one_cycle_params(cfg, params, well_conditioned=True).items()}
+    build.reset_launches()
+    loss_k, _, g_k = loss_and_grads(Model(cfg1), p1, batch)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    t0 = time.time()
+    loss_x, _, g_x = loss_and_grads(Model(cfg1, impl="xla"), p1, batch)
+    p32 = {k: v.float() for k, v in p1.items()}
+    loss_32, _, g_32 = loss_and_grads(Model(cfg32, impl="xla"), p32, batch)
+    del p32
+    loss_wx, _, h_x = loss_and_grads(Model(cfg32, impl="xla"), w32, batch)
+    torch.cuda.synchronize()
+    t_plain = time.time() - t0
+    scale = {k: max(float(g.abs().max()), 1e-30) for k, g in g_32.items()}
+    budget = {k: float((g_x[k].float() - g).abs().max()) / scale[k]
+              for k, g in g_32.items()}
+    del g_32
+    h_scale = {k: max(float(h.abs().max()), 1e-30) for k, h in h_x.items()}
+
+    def bf16_dev(g):
+        dev = {k: float((g[k].float() - g_x[k].float()).abs().max())
+               / scale[k] for k in sorted(budget)}
+        return dev, [k for k in dev if not dev[k] <= budget[k]]
+
+    def fp32_dev(h):
+        dev = {k: float((h[k] - h_x[k]).abs().max()) / h_scale[k]
+               for k in sorted(h_scale)}
+        return dev, [k for k in dev if not dev[k] <= GRAD_RTOL_FP32]
+
+    def kernel_grads():
+        return (loss_and_grads(Model(cfg1), p1, batch),
+                loss_and_grads(Model(cfg32), w32, batch))
+    dev, fails = bf16_dev(g_k)
+    loss_wk, _, h_k = loss_and_grads(Model(cfg32), w32, batch)
+    dev32, fails32 = fp32_dev(h_k)
+    del g_k, h_k
+    say(f"  one cycle ({cfg1.block_pattern}, {len(budget)} params): bf16 at "
+        f"the init, loss kernels {float(loss_k):.6f}, plain "
+        f"{float(loss_x):.6f}, plain fp32 {float(loss_32):.6f}; fp32 at std "
+        f"1/sqrt(d_in), kernels {float(loss_wk):.6f}, plain "
+        f"{float(loss_wx):.6f}; launches {launches} (plain passes "
+        f"{t_plain:.1f} s)")
+    say("  each gradient through the kernels against the plain route's, of "
+        "its scale: bf16 at the init (budget: plain bf16 vs plain fp32); "
+        f"fp32 at std 1/sqrt(d_in) (tol {GRAD_RTOL_FP32:.0e}):")
+    for k in dev:
+        say(f"    {k}: bf16 {dev[k]:.3e} (budget {budget[k]:.3e}); fp32 "
+            f"{dev32[k]:.3e} "
+            f"{'ok' if k not in fails and k not in fails32 else 'FAIL'}")
+    if fails or fails32:
+        raise RuntimeError("gradients through the kernels deviate from the "
+                           f"plain ones: bf16 {fails}, fp32 {fails32}")
+    bwd, adj = kfa.flash_attention_bwd, ops.lru_scan_adjoint
+
+    def no_dk(*args, **kw):
+        dq, dk, dv = bwd(*args, **kw)
+        return dq, torch.zeros_like(dk), dv
+
+    def no_da(scan, a, h, g):
+        da, db = adj(scan, a, h, g)
+        return torch.zeros_like(da), db
+    for label, mod, name, fn in (
+            ("attention dK = 0", kfa, "flash_attention_bwd", no_dk),
+            ("scan da = 0", ops, "lru_scan_adjoint", no_da)):
+        orig = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            (_, _, g_f), (_, _, h_f) = kernel_grads()
+        finally:
+            setattr(mod, name, orig)
+        caught, caught32 = bf16_dev(g_f)[1], fp32_dev(h_f)[1]
+        del g_f, h_f
+        say(f"  planted fault, {label}: the fp32 gate fails at {caught32}; "
+            f"the bf16 gate would at {caught}")
+        if not caught32:
+            raise RuntimeError(f"the gradient gate passed a planted fault "
+                               f"({label})")
+    del g_x, h_x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rwkv_training_refused(device):
+    """RWKV6's backward under impl="pallas" on the card must raise
+    NotImplementedError: the GLA kernel has no backward yet."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    cfg = get_config("rwkv6-7b").reduced()
+    model = Model(cfg)
+    params = model.init(seed=0, device=device)
+    g = torch.Generator().manual_seed(3)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 32), generator=g,
+                              dtype=torch.int32).to(device)
+             for k in ("tokens", "labels")}
+    try:
+        loss_and_grads(model, params, batch)
+    except NotImplementedError as e:
+        say(f"  RWKV6 training under impl='pallas' refused: {e}")
+        return
+    raise RuntimeError("RWKV6's backward through the GLA kernel did not "
+                       "raise")
+
+
+def phase_train(device="cuda"):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batches
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rglru_scan as krg
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import linear_warmup_cosine
+    torch.cuda.empty_cache()
+    cfg = get_config("recurrentgemma-2b")
+    b, s = TRAIN_B, TRAIN_S
+    say(f"== phase 11: {cfg.name} training at full width ({cfg.n_layers} "
+        f"layers {cfg.block_pattern}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, window "
+        f"{cfg.window}, {cfg.param_dtype} params, {cfg.opt_state_dtype} "
+        f"AdamW moments, remat {cfg.remat}): B={b}, S={s}, {TRAIN_STEPS} "
+        f"steps on one batch; {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB held on entry")
+    t0 = time.time()
+    model = Model(cfg)
+    params = model.init(seed=0, device=device)
+    batch = next(token_batches(cfg, b, s, seed=0, device=device))
+    torch.cuda.synchronize()
+    say(f"  init {model.num_params():,} params in {time.time() - t0:.1f} s")
+    rwkv_training_refused(device)
+    one_cycle_gate(cfg, params, batch)
+
+    opt = train.optimizer(cfg)
+    schedule = linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt)
+    per_step = train_launches(cfg)
+    rev_want = per_step.pop(SCAN_REV)
+    rec, rev = {}, []
+    bwd_orig, scan_orig = kfa.flash_attention_bwd, krg.rglru_scan
+    adj_orig = ops.lru_scan_adjoint
+
+    def bwd_rec(*args, **kw):
+        rec.setdefault(ATTN_BWD, (tuple(x.detach() for x in args), kw))
+        return bwd_orig(*args, **kw)
+
+    def scan_rec(a, b_):
+        rec.setdefault("rglru_scan", (a.detach(), b_.detach()))
+        return scan_orig(a, b_)
+
+    def adj_rec(scan, a, h, g):
+        # the adjoint's own scan launches, by the wrapper's count
+        before = build.LAUNCHES["rglru_scan"]
+        out = adj_orig(scan, a, h, g)
+        rev.append(build.LAUNCHES["rglru_scan"] - before)
+        return out
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        build.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if i == 0:
+            kfa.flash_attention_bwd, krg.rglru_scan = bwd_rec, scan_rec
+            ops.lru_scan_adjoint = adj_rec
+        start.record()
+        params, state, metrics = step_fn(params, state, batch, schedule(i))
+        end.record()
+        torch.cuda.synchronize()
+        kfa.flash_attention_bwd, krg.rglru_scan = bwd_orig, scan_orig
+        ops.lru_scan_adjoint = adj_orig
+        launches = dict(build.LAUNCHES)
+        if i == 0:
+            first = launches
+        losses.append(float(metrics["loss"]))
+        step_ms.append(start.elapsed_time(end))
+        say(f"  step {i + 1}: loss {losses[-1]:.6f}, lr "
+            f"{float(schedule(i)):.3e}, {step_ms[-1]:.1f} ms, launches "
+            f"{launches}")
+        if launches != per_step:
+            raise RuntimeError(f"train step launched {launches}, expected "
+                               f"{per_step}")
+        if not torch.isfinite(torch.tensor(losses[-1])):
+            raise RuntimeError("non-finite training loss")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"  step 1's backward: {sum(rev)} of its {first['rglru_scan']} "
+        f"rglru_scan launches in the scan's adjoint ({len(rev)} adjoints; "
+        f"expected {rev_want})")
+    if sum(rev) != rev_want:
+        raise RuntimeError(f"the scan's adjoint launched {sum(rev)} times, "
+                           f"expected {rev_want}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall: {losses}")
+    ms = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
+    say(f"  loss {losses[0]:.6f} -> {losses[-1]:.6f} (AdamW grad_clip "
+        f"{opt.grad_clip}, peak lr {TRAIN_LR}, warmup {TRAIN_WARMUP}); "
+        f"{ms:.1f} ms/step over steps 2-{TRAIN_STEPS} (CUDA events), "
+        f"{b * s / ms * 1e3:,.0f} tokens/s, peak {peak:.2f} GiB; card "
+        f"{smi('name,power.limit')}")
+    profile_device("one train step", lambda: step_fn(
+        params, state, batch, schedule(TRAIN_STEPS)))
+    del state, params
+    torch.cuda.empty_cache()
+
+    say("  the attention backward at the path's inputs and ragged shapes, "
+        "against its plain version:")
+    (q, k, v, o, do), kw = rec[ATTN_BWD]
+    worst = attn_bwd_case((q, k, v, o, do), kw, "path bf16")
+    p32 = tuple(x.float() for x in (q, k, v, o, do))
+    attn_bwd_case(p32, kw, "path fp32 storage")
+    for args, kw_r in attn_bwd_ragged(device):
+        attn_bwd_case(args, kw_r, f"ragged {[list(x.shape) for x in args[:2]]}"
+                      f" {str(args[0].dtype)[6:]} {kw_r}")
+    k_ms = cuda_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw),
+                   reps=5, warmup=1)
+    p_ms = cuda_ms(lambda: ref.attention_bwd_ref(q, k, v, o, do, **kw),
+                   reps=3, warmup=1)
+    k32_ms = cuda_ms(lambda: kfa.flash_attention_bwd(*p32, **kw), reps=3,
+                     warmup=1)
+    del p32
+    lib_ms, backend = sdpa_backward_ms(q, k, v, kw)
+    dev_us = device_us(lambda *x: kfa.flash_attention_bwd(*x, **kw),
+                       [q, k, v, o, do], n=3)
+    b_ms, b_by = attn_bwd_bound_ms(q, k, kw)
+    b32_ms, b32_by = attn_bwd_bound_ms(q.float(), k.float(), kw)
+    flops = 10 * q.shape[2] * q.shape[0] * allowed_pairs(
+        q.shape[1], k.shape[1], kw["causal"], kw["window"])
+    say(f"  {ATTN_BWD} timed at {[list(x.shape) for x in (q, k)]} bf16 {kw}: "
+        f"kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch; "
+        f"{flops / k_ms / 1e9:.1f} TFLOP/s on the five products), plain "
+        f"{p_ms:.4f} ms, SDPA backward ({backend}) "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.2f}x; fp32 "
+        f"storage {k32_ms:.4f} ms, bound {b32_ms:.6f} ms ({b32_by}), "
+        f"{k32_ms / b32_ms:.2f}x")
+
+    say("  the scan's reverse use at the path's inputs, against autograd "
+        "of the plain scan:")
+    a, bb = rec["rglru_scan"]
+    gy = torch.randn(a.shape, generator=torch.Generator(device=device)
+                     .manual_seed(4), device=device)
+    ah, bh = a.detach().requires_grad_(), bb.detach().requires_grad_()
+    h = ops._LruScanFn.apply(ah, bh, krg.rglru_scan)
+    got = torch.autograd.grad(h, (ah, bh), gy)
+    ap, bp = a.detach().requires_grad_(), bb.detach().requires_grad_()
+    want = torch.autograd.grad(ref.rglru_scan_ref(ap, bp), (ap, bp), gy)
+    scale = [max(float(w.abs().max()), 1e-30) for w in want]
+    sdev = grad_dev(got, want, scale)
+    ok = all(d <= SCAN_BWD_RTOL for d in sdev)
+    say(f"  da {sdev[0]:.3e}, db {sdev[1]:.3e} of each scale (tol "
+        f"{SCAN_BWD_RTOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the scan's adjoint disagrees with autograd of "
+                           "the plain scan")
+    hd = h.detach()
+    a_rev = torch.zeros_like(a)
+    a_rev[:, :-1] = a[:, 1:]
+    a_rev, g_rev = a_rev.flip(1), gy.flip(1)
+    r_ms = cuda_ms(lambda: krg.rglru_scan(a_rev, g_rev), reps=20, warmup=2)
+    adj_ms = cuda_ms(lambda: ops.lru_scan_adjoint(krg.rglru_scan, a, hd, gy),
+                     reps=20, warmup=2)
+    rp_ms = cuda_ms(lambda: ref.rglru_scan_ref(a_rev, g_rev), reps=2,
+                    warmup=1)
+    r_us = device_us(krg.rglru_scan, [a_rev, g_rev])
+    rb_ms, rb_by = seq_bound_ms("rglru_scan", (a_rev, g_rev), {})
+    rdev = float((krg.rglru_scan(a_rev, g_rev)
+                  - ref.rglru_scan_ref(a_rev, g_rev)).abs().max())
+    say(f"  {SCAN_REV} timed at {list(a.shape)} fp32: kernel {r_ms:.4f} ms "
+        f"(device {r_us:.2f} us a launch; the whole adjoint with its flips "
+        f"{adj_ms:.4f} ms), plain {rp_ms:.4f} ms, bound {rb_ms:.6f} ms "
+        f"({rb_by}), kernel/bound {r_ms / rb_ms:.2f}x; card "
+        f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del rec
+    torch.cuda.empty_cache()
+    cell = f"{cfg.name} train step B={b} S={s}"
+    return [dict(name=ATTN_BWD, route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 replaces=SEQ_KERNELS["flash_attention"]["replaces"],
+                 launches=first[ATTN_BWD],
+                 shape=[list(x.shape) for x in (q, k)],
+                 max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib_ms, device_us=dev_us,
+                 cell=cell),
+            dict(name=SCAN_REV, route="cuda", **SEQ_KERNELS["rglru_scan"],
+                 launches=sum(rev), shape=[list(a.shape)] * 2,
+                 max_abs_err=rdev, ms=r_ms, plain_ms=rp_ms, bound_ms=rb_ms,
+                 bound_by=rb_by, library_ms=None, device_us=r_us,
+                 cell=cell)]
+
+
+# ------------------------------------------------------ --train-probe
+# (peak lr, grad_clip) settings of phase 11's model, batch and optimizer
+PROBE_SETTINGS = ((1e-3, 1.0), (1e-3, 0.0), (1e-2, 1.0))
+
+
+def train_probe(device="cuda"):
+    """Phase 11's model, batch, optimizer and schedule (warmup 0), no
+    gate: step 1's gradient norm, the embedding's share of it and the
+    share of its elements that the clip to 1 puts below AdamW's eps; then
+    for each of PROBE_SETTINGS, from the same init, the share of weight
+    elements the first update leaves unchanged in bf16 (all, and all but
+    the embedding) and the 5 steps' losses."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batches
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import global_norm, linear_warmup_cosine
+    cfg = get_config("recurrentgemma-2b")
+    model = Model(cfg)
+    params = model.init(seed=0, device=device)
+    batch = next(token_batches(cfg, TRAIN_B, TRAIN_S, seed=0, device=device))
+    base = train.optimizer(cfg)
+    _, _, grads = loss_and_grads(model, params, batch)
+    gnorm = float(global_norm(grads))
+    emb = grads["embed/tokens"].float()
+    tiny = float((emb.abs() * min(1.0, 1.0 / gnorm) < base.eps).float()
+                 .mean())
+    say(f"train probe ({cfg.name}, B={TRAIN_B}, S={TRAIN_S}; card "
+        f"{smi('name,power.limit')}): step 1's global norm {gnorm:.4e}, "
+        f"{float(emb.norm()) / gnorm:.4f} of it in embed/tokens; clipped "
+        f"to 1, {tiny:.4f} of the embedding's elements are below eps "
+        f"{base.eps}")
+    del grads, emb, params
+    torch.cuda.empty_cache()
+    out = {"gnorm": gnorm, "tiny": tiny}
+    for lr, clip in PROBE_SETTINGS:
+        opt = dataclasses.replace(base, grad_clip=clip)
+        schedule = linear_warmup_cosine(lr, 0, TRAIN_STEPS)
+        params = model.init(seed=0, device=device)
+        state = opt.init(params)
+        step_fn = make_train_step(model, opt)
+        before = {k: v.clone() for k, v in params.items()}
+        losses = []
+        for i in range(TRAIN_STEPS):
+            params, state, metrics = step_fn(params, state, batch,
+                                             schedule(i))
+            losses.append(float(metrics["loss"]))
+            if i == 0:
+                same = {k: int((params[k] == v).sum())
+                        for k, v in before.items()}
+                del before
+        n_all = sum(v.numel() for v in params.values())
+        n_emb = params["embed/tokens"].numel()
+        kept = sum(same.values()) / n_all
+        kept_rest = (sum(same.values()) - same["embed/tokens"]) / (
+            n_all - n_emb)
+        say(f"  peak lr {lr}, grad_clip {clip}: step 1 leaves {kept:.4f} "
+            f"of the weights unchanged in bf16 ({kept_rest:.4f} outside "
+            f"the embedding); losses " + ", ".join(f"{x:.6f}" for x in losses))
+        out[f"lr {lr} clip {clip}"] = dict(losses=losses, unchanged=kept,
+                                           unchanged_rest=kept_rest)
+        del params, state
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
 def torch_equal_all(xs, ys):
     import torch
     return all(torch.equal(a, b) for a, b in zip(xs, ys))
@@ -3041,6 +3665,9 @@ def main() -> int:
     if "--time-serve" in sys.argv:
         phase_build()
         return time_serve()
+    if "--train-probe" in sys.argv:
+        phase_build()
+        return train_probe()
     t0 = time.time()
     phase_build()
     results = phase_kernels()
@@ -3054,6 +3681,7 @@ def main() -> int:
     rows += phase_fed_core()
     phase_api()
     rows += phase_cohorts_serving()
+    rows += phase_train()
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -3,7 +3,9 @@ QuantumFed (§IV-A), with the Fig. 2/3 hyperparameters. The port's own
 copy of ``repro.configs.qnn_232``: ``CONFIG`` is the frozen Fig. 2/3
 default, and the figure scripts build their variants through
 ``config(**overrides)``, which validates the strategy names against the
-registries before any round runs."""
+registries before any round runs. ``set_strategy_overrides`` installs
+process-wide strategy defaults that ``config`` applies under its own
+overrides."""
 from repro_torch.core.fed import participation, strategies
 from repro_torch.core.quantum.federated import QuantumFedConfig
 
@@ -24,9 +26,22 @@ N_TEST = 32
 N_ITERATIONS = 50
 
 
+# process-wide strategy defaults (a driver's --aggregation /
+# --participation); explicit per-call overrides win
+_OVERRIDES: dict = {}
+
+
 def config(**overrides) -> QuantumFedConfig:
     """Fig. 2/3 defaults with registry-validated overrides."""
-    cfg = CONFIG._replace(**overrides)
+    cfg = CONFIG._replace(**{**_OVERRIDES, **overrides})
     strategies.get_aggregation(cfg.aggregation)
     participation.validate(cfg.participation)
     return cfg
+
+
+def set_strategy_overrides(**kv) -> None:
+    """Install process-wide strategy defaults (validated)."""
+    probe = CONFIG._replace(**kv)
+    strategies.get_aggregation(probe.aggregation)
+    participation.validate(probe.participation)
+    _OVERRIDES.update(kv)

@@ -1,4 +1,5 @@
-"""Carry weights and data between the JAX reference and the port.
+"""Carry weights, data and optimizer state between the JAX reference
+and the port.
 
 The reference's quantum params are a list of complex arrays, one
 (m_l, d, d) stack per layer; its ``QuantumDataset`` holds ``phi_in``,
@@ -12,7 +13,8 @@ A stacked round's state carries a leading session axis S on every array
 (params per layer (S, m_l, d, d), dataset fields (S, N, ...)); these
 functions carry it as they carry any other axis. The server optimiser's
 momentum is a per-layer list like params, or None before its first
-step (``smom_to_torch``).
+step (``smom_to_torch``). An AdamW state is (step, m, v) with m and v
+trees like the params (``adamw_state_to_torch``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import torch
 from repro_torch.core.quantum import linalg as ql
 from repro_torch.core.quantum.data import QuantumDataset
 from repro_torch.models import Model
+from repro_torch.optim import AdamWState
+from repro_torch.optim.tree import tree_map
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -113,3 +117,29 @@ def model_params_to_numpy(params: Mapping[str, torch.Tensor]
     float32 (numpy has no bfloat16 of its own)."""
     return {k: (v.float() if v.dtype == torch.bfloat16 else v)
             .detach().cpu().numpy() for k, v in params.items()}
+
+
+def adamw_state_to_torch(state, device="cuda", dtype=None) -> AdamWState:
+    """The reference's ``AdamWState`` (or any (step, m, v) with numpy
+    leaves) -> the port's: step an int32 scalar on the CPU, m and v as
+    ``dtype`` (default: each array's own; bfloat16 via its bits) on
+    ``device``."""
+    dev = ql.resolve_device(device)
+    step, m, v = state
+
+    def leaf(x):
+        t = _array_to_torch(x)
+        return t.to(device=dev, dtype=dtype or t.dtype)
+    return AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                        dtype=torch.int32),
+                      m=tree_map(leaf, m), v=tree_map(leaf, v))
+
+
+def adamw_state_to_numpy(state: AdamWState):
+    """The port's ``AdamWState`` -> (step int32 array, m, v) with numpy
+    leaves, bfloat16 as float32."""
+    def leaf(x):
+        return (x.float() if x.dtype == torch.bfloat16 else x
+                ).detach().cpu().numpy()
+    return (np.asarray(int(state.step), np.int32), tree_map(leaf, state.m),
+            tree_map(leaf, state.v))

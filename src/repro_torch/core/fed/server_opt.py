@@ -1,6 +1,5 @@
 """Server-side outer optimiser for the aggregated federation delta (the
-port of ``repro.core.fed.server_opt``, without ``make_sgd``, which needs
-the classical optimiser package).
+port of ``repro.core.fed.server_opt``).
 
 Instead of applying the data-volume-weighted aggregate directly (Alg. 2
 / FedAvg), the server runs (Nesterov) momentum on the averaged Hermitian
@@ -13,7 +12,9 @@ Registry: ``"none"`` (the paper's server), ``"momentum"``,
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
+
+from repro_torch.optim.sgd import SGD
 
 SERVER_OPTS = ("none", "momentum", "nesterov")
 
@@ -23,6 +24,15 @@ def validate(name: str) -> str:
         raise ValueError(f"unknown server_opt {name!r}; registered: "
                          f"{list(SERVER_OPTS)}")
     return name
+
+
+def make_sgd(name: str, beta: float) -> Optional[SGD]:
+    """The ``optim/sgd.py`` optimizer a server_opt name denotes (for the
+    classical substrate's fp32 delta trees); None for ``"none"``."""
+    validate(name)
+    if name == "none":
+        return None
+    return SGD(momentum=beta, nesterov=(name == "nesterov"))
 
 
 def generator_step(name: str, beta, momentum: Any, kbar: Any

@@ -1,6 +1,8 @@
-"""CUDA wrapper: causal / sliding-window flash attention with GQA heads
+"""CUDA wrappers: causal / sliding-window flash attention with GQA heads
 (sources ``csrc/flash_attention.cu``, fp32 on the CUDA cores, and
-``csrc/flash_attention_wgmma.cu``, bf16 on the tensor cores).
+``csrc/flash_attention_wgmma.cu``, bf16 on the tensor cores) and its
+backward (``csrc/flash_attention_bwd.cu``, fp32 math on the CUDA cores,
+``flash_attention_bwd``).
 
 q (BH, Sq, dh) and k/v (BH / G, Sk, dh), all fp32 or all bf16, on the
 card -> (BH, Sq, dh) in q's dtype, the fp32 function inside (bf16: exact
@@ -48,6 +50,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bk, sq, sk, dh,
            int(causal), int(window), DTYPE_CODES[q.dtype])
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: int = 0):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` for the cotangent
+    ``dout`` of its output ``out``, each in q's dtype and shaped as its
+    input. One launch count for the two kernels of the C entry point (the
+    dQ pass, which also works out each row's log-sum-exp and D_i into an
+    fp32 workspace, then the dK/dV pass)."""
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        check_operand(x, name, 3, dtype=q.dtype)
+    bh, sq, dh = q.shape
+    bk, sk = k.shape[:2]
+    dev = q.get_device()
+    if (v.shape != k.shape or k.shape[2] != dh or bh % bk
+            or out.shape != q.shape or dout.shape != q.shape
+            or any(x.get_device() != dev for x in (k, v, out, dout))):
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {dh} not in "
+                         f"{HEAD_DIMS}")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    dd = torch.empty_like(lse)
+    launch("flash_attention_bwd", "qf_flash_attention_bwd", dev,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           lse.data_ptr(), dd.data_ptr(), bh, bk, sq, sk, dh, int(causal),
+           int(window), DTYPE_CODES[q.dtype])
+    return dq, dk, dv
 
 
 def bf16_design() -> str:

@@ -6,6 +6,16 @@ kernel's wrapper raises; a tensor on the CPU takes the kernel's plain
 version in ``ref``. The sequence ops also take ``impl="xla"``, which
 gives the plain version on any device. There is no other route and no
 fallback.
+
+Gradients. Plain torch differentiates every plain version. On the card,
+attention and the RG-LRU scan are ``torch.autograd.Function``s: the
+forward is the kernel's launch, the backward a kernel too (attention's
+own backward kernel; the scan's adjoint is the same scan kernel run on
+the reversed sequence). The kernels with no backward refuse an input
+that requires grad while autograd records, rather than return an output
+that would silently drop the gradient: the GLA kernel (RWKV6's wkv)
+with ``NotImplementedError``, the quantum kernels with ``ValueError``
+(the quantum path never uses autograd).
 """
 from __future__ import annotations
 
@@ -32,10 +42,22 @@ def _dense(x: torch.Tensor) -> torch.Tensor:
     return x.resolve_conj().resolve_neg().contiguous()
 
 
+def _records_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _no_grad_kernel(name: str, *xs: torch.Tensor) -> None:
+    if _records_grad(*xs):
+        raise ValueError(f"{name}: the CUDA kernel has no gradient; the "
+                         "quantum path never differentiates it (pass "
+                         "tensors that do not require grad)")
+
+
 def complex_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched complex matmul (B, M, K) @ (B, K, N) -> complex128."""
     if _on_cpu(a):
         return ref.zgemm_ref(a, b)
+    _no_grad_kernel("complex_matmul", a, b)
     return _zgemm.zgemm(_dense(a), _dense(b))
 
 
@@ -43,6 +65,7 @@ def fidelity(phi: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
     """Re<phi|rho|phi> per pair -> (N,) float64."""
     if _on_cpu(phi):
         return ref.fidelity_ref(phi, rho)
+    _no_grad_kernel("fidelity", phi, rho)
     return _fid.fidelity_batch(_dense(phi), _dense(rho))
 
 
@@ -50,6 +73,7 @@ def mse(phi: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
     """||rho - |phi><phi|||_F^2 per pair -> (N,) float64."""
     if _on_cpu(phi):
         return ref.mse_ref(phi, rho)
+    _no_grad_kernel("mse", phi, rho)
     return _fid.mse_batch(_dense(phi), _dense(rho))
 
 
@@ -59,13 +83,71 @@ def ensemble_commutator_trace(a: torch.Tensor, b: torch.Tensor
     a (J, N, Ea, dk, dr), b (J, N, Eb, dk, dr) -> (J, dk, dk) complex128."""
     if _on_cpu(a):
         return ref.ensemble_commutator_trace_ref(a, b)
+    _no_grad_kernel("ensemble_commutator_trace", a, b)
     return _zgemm.ensemble_commutator_trace(_dense(a), _dense(b))
 
 
-def _plain(x: torch.Tensor, impl: str) -> bool:
+def plain_route(x: torch.Tensor, impl: str) -> bool:
+    """Whether a sequence op on ``x`` takes the plain version (``impl
+    ="xla"``, or a tensor on the CPU) rather than the CUDA kernel."""
     if impl not in ("pallas", "xla"):
         raise ValueError(f"impl {impl!r}: 'pallas' or 'xla'")
     return impl == "xla" or _on_cpu(x)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """The flash-attention kernel with its backward kernel. Saves q, k,
+    v and the output (the backward works out each row's log-sum-exp
+    itself); dq, dk, dv come back in q's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out = _fa.flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd(
+            q, k, v, out, _dense(dout.to(q.dtype)), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def lru_scan_adjoint(scan, a: torch.Tensor, h: torch.Tensor,
+                     g: torch.Tensor):
+    """(da, db) of h = scan(a, b) (h_t = a_t h_{t-1} + b_t, h_0 = 0, over
+    axis 1) for the cotangent g of h. The adjoint dh_t = g_t + a_{t+1}
+    dh_{t+1} (zero past the end) is the same recurrence on the reversed
+    sequence, with a shifted one step left (last entry 0) and b = g, so
+    ``scan`` computes it; then da_t = dh_t h_{t-1} and db_t = dh_t."""
+    a_next = torch.zeros_like(a)
+    a_next[:, :-1] = a[:, 1:]
+    dh = scan(a_next.flip(1), g.to(a.dtype).flip(1)).flip(1)
+    h_prev = torch.zeros_like(h)
+    h_prev[:, 1:] = h[:, :-1]
+    return (dh * h_prev).to(a.dtype), dh
+
+
+class _LruScanFn(torch.autograd.Function):
+    """h = scan(a, b) with ``lru_scan_adjoint`` as its backward; ``scan``
+    is the kernel's wrapper on the card (``ref.rglru_scan_ref`` runs the
+    same algebra on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, a, b, scan):
+        h = scan(a, b)
+        ctx.save_for_backward(a, h)
+        ctx.scan = scan
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        da, db = lru_scan_adjoint(ctx.scan, a, h, g)
+        return da, db, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,11 +161,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qf = q.transpose(1, 2).reshape(b * h, sq, dh)
     kf = k.transpose(1, 2).reshape(b * kh, -1, dh)
     vf = v.transpose(1, 2).reshape(b * kh, -1, dh)
-    if _plain(q, impl):
+    if plain_route(q, impl):
         out = ref.attention_ref(qf, kf, vf, causal=causal, window=window)
     else:
-        out = _fa.flash_attention(_dense(qf), _dense(kf), _dense(vf),
-                                  causal=causal, window=window)
+        out = _FlashAttentionFn.apply(_dense(qf), _dense(kf), _dense(vf),
+                                      causal, window)
     return out.reshape(b, h, sq, dh).transpose(1, 2)
 
 
@@ -91,9 +173,9 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, *, impl: str = "pallas"
              ) -> torch.Tensor:
     """Diagonal linear recurrence h_t = a_t h_{t-1} + b_t, h_0 = 0, over
     axis 1 of (B, S, D) (RG-LRU)."""
-    if _plain(a, impl):
+    if plain_route(a, impl):
         return ref.rglru_scan_ref(a, b)
-    return _rg.rglru_scan(_dense(a), _dense(b))
+    return _LruScanFn.apply(_dense(a), _dense(b), _rg.rglru_scan)
 
 
 def gla_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,8 +185,13 @@ def gla_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, dh) with w in (0, 1) (keep it fp32), u (H, dh), ``chunk``
     dividing S -> (out (B, S, H, dh) in r's dtype, final state
     (B, H, dh, dh) fp32). The model layer's entry."""
-    if _plain(r, impl):
+    if plain_route(r, impl):
         return ref.gla_chunked_ref(r, k, v, w, u, chunk)
+    if _records_grad(r, k, v, w, u):
+        raise NotImplementedError(
+            "gla_chunked: the GLA kernel has no backward yet; RWKV6 "
+            "training on the card waits for it (ROADMAP.md, Queue 2: the "
+            "GLA backward kernel and RWKV6 training)")
     return _gla.gla_chunked(_dense(r), _dense(k), _dense(v), _dense(w),
                             _dense(u.float()), chunk=chunk)
 

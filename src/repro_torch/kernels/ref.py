@@ -76,19 +76,63 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.float().repeat_interleave(g, dim=0)
     vf = v.float().repeat_interleave(g, dim=0)
     s = (q.float() @ kf.transpose(1, 2)) / math.sqrt(float(q.shape[-1]))
-    qp = torch.arange(q.shape[1], device=q.device)[:, None]
-    kp = torch.arange(k.shape[1], device=q.device)[None, :]
-    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
-                      device=q.device)
+    mask = attention_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    if s.requires_grad:                    # autograd keeps every step
+        s = s.masked_fill(~mask, float("-inf"))
+        p = (s - s.detach().amax(dim=-1, keepdim=True).clamp_min(-1e30)
+             ).exp()
+    else:                                  # in place: s is (BH, Sq, Sk)
+        s.masked_fill_(~mask, float("-inf"))
+        p = s.sub_(s.amax(dim=-1, keepdim=True).clamp_min(-1e30)).exp_()
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return ((p @ vf) / denom).to(q.dtype)
+
+
+def attention_mask(sq: int, sk: int, causal: bool, window: int, device
+                   ) -> torch.Tensor:
+    """(Sq, Sk) bool: query i and key j pair when j <= i (causal) and
+    j > i - window (window > 0), positions from 0."""
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= kp <= qp
     if window > 0:
         mask &= kp > qp - window
-    s.masked_fill_(~mask, float("-inf"))
+    return mask
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *,
+                      causal: bool = True, window: int = 0):
+    """dq, dk, dv of ``attention_ref`` at (q, k, v) for the cotangent
+    ``do`` of its output ``o`` (the plain version of the CUDA kernel
+    ``csrc/flash_attention_bwd.cu``, by the same algorithm): fp32 math,
+    each row's log-sum-exp over its allowed keys, D_i = sum_c do_ic o_ic,
+    P recomputed, dS = P (do v^T - D); dq = scale dS k, dk = scale dS^T q
+    and dv = P^T do, dk and dv summed over the G query heads of each kv
+    head. A row with no allowed key has no gradient. Out in q's dtype
+    (the reference's ``_grad_dtype_fence``)."""
+    g = q.shape[0] // k.shape[0]
+    bk, sk, dh = k.shape
+    scale = 1.0 / math.sqrt(float(dh))
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(g, dim=0)
+    vf = v.float().repeat_interleave(g, dim=0)
+    mask = attention_mask(q.shape[1], sk, causal, window, q.device)
+    s = (qf @ kf.transpose(1, 2)).mul_(scale).masked_fill_(~mask,
+                                                            float("-inf"))
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
-    p = s.sub_(m).exp_()                   # in place: s is (BH, Sq, Sk)
-    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return ((p @ vf) / denom).to(q.dtype)
+    lsum = (s - m).exp_().sum(dim=-1, keepdim=True)
+    lse = torch.where(lsum > 0, m + torch.log(lsum), 0.0)
+    p = s.sub_(lse).exp_()                 # in place: s is (BH, Sq, Sk)
+    dd = (dof * of).sum(dim=-1, keepdim=True)
+    ds = (dof @ vf.transpose(1, 2)).sub_(dd).mul_(p)
+    dv = (p.transpose(1, 2) @ dof).view(bk, g, sk, dh).sum(1)
+    del p
+    dq = (ds @ kf).mul_(scale)
+    dk = (ds.transpose(1, 2) @ qf).mul_(scale).view(bk, g, sk, dh).sum(1)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,60 @@
-"""The serving steps shared by the launchers (the serving half of the
-port's ``repro.launch.steps``). PyTorch runs eagerly, so a step is the
-plain function; the mesh and sharding artifacts of the reference wait
-for the mesh tooling, and the train step for the training slice
-(ROADMAP.md)."""
+"""The step builders shared by the launchers (the port of
+``repro.launch.steps``). PyTorch runs eagerly, so a step is the plain
+function; the mesh and sharding artifacts of the reference wait for the
+mesh tooling (ROADMAP.md)."""
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.models import Model
+from repro_torch.models.model import mean_metrics
+from repro_torch.optim import AdamW
+
+
+def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch
+                   ) -> Tuple[torch.Tensor, Dict, Dict[str, torch.Tensor]]:
+    """(loss, metrics, grads) of ``model.loss_fn`` at ``params``, the
+    reference's ``jax.value_and_grad(model.loss_fn, has_aux=True)``.
+    ``params`` are not marked: the gradient is taken through detached
+    aliases of them. Whole-batch grads come in the params' dtypes; a
+    batch larger than ``cfg.microbatch`` is backpropagated a microbatch
+    at a time (loss / n each) into accumulators in ``cfg.accum_dtype``,
+    so one microbatch's activations are live at a time; the loss and
+    metrics are then the means over the microbatches, as the
+    reference's ``_loss_accum`` gives them."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    mbs = model.microbatches(batch)
+    if len(mbs) == 1:
+        loss, metrics = model.loss_fn(leaves, batch)
+        gs = torch.autograd.grad(loss, list(leaves.values()))
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                dict(zip(leaves, gs)))
+    dt = getattr(torch, model.cfg.accum_dtype)
+    grads = {k: torch.zeros(v.shape, dtype=dt, device=v.device)
+             for k, v in params.items()}
+    losses, per = [], []
+    for mb in mbs:
+        loss, metrics = model.loss_fn(leaves, mb)
+        gs = torch.autograd.grad(loss / len(mbs), list(leaves.values()))
+        for acc, g in zip(grads.values(), gs):
+            acc.add_(g.to(acc.dtype))
+        losses.append(loss.detach())
+        per.append({k: v.detach() for k, v in metrics.items()})
+    return sum(losses) / len(mbs), mean_metrics(per), grads
+
+
+def make_train_step(model: Model, opt: AdamW):
+    """``train_step(params, opt_state, batch, lr) -> (params, opt_state,
+    metrics)``, as the reference's. The reference donates params and
+    state to its jitted step; here the optimizer updates them in place
+    and returns them."""
+    def train_step(params, opt_state, batch, lr):
+        _, metrics, grads = loss_and_grads(model, params, batch)
+        new_params, new_state = opt.update(grads, opt_state, params, lr)
+        return new_params, new_state, metrics
+    return train_step
 
 
 def make_prefill_step(model: Model):

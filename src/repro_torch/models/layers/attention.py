@@ -24,6 +24,26 @@ from repro_torch.models.layers.embeddings import apply_rope
 NEG_INF = -2.0e38
 
 
+class _GradDtypeFence(torch.autograd.Function):
+    """Identity whose cotangent is cast back to x's dtype (the
+    reference's ``_fence``): the fp32 score path must not hand fp32
+    dq/dk/dv back to bf16 activations. Applied on the plain route; the
+    backward kernel gives q's dtype by construction."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def _grad_dtype_fence(x: torch.Tensor) -> torch.Tensor:
+    return _GradDtypeFence.apply(x)
+
+
 def init_attention(ini, pfx: str, cfg, stack: int = 0) -> None:
     d, h, k, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -113,6 +133,8 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
+        if ops.plain_route(q, impl):
+            q, k, v = (_grad_dtype_fence(t) for t in (q, k, v))
         out = ops.attention(q, k, v, causal=True, window=window, impl=impl)
         new_cache = {"k": k, "v": v}
     else:

@@ -26,14 +26,43 @@ def embed_tokens(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
     return x
 
 
+class _MatmulF32(torch.autograd.Function):
+    """x (M, K) @ w (K, N) of low-precision operands on the card, fp32
+    result (``torch.mm``'s ``out_dtype``, which has no derivative). The
+    backward takes the fp32 cotangent as two halves in the operands'
+    dtype (hi, and the rest lo: 16 significant bits in bf16) through the
+    same products summed in fp32, and casts each gradient to its
+    operand's dtype, as the transpose of the reference's
+    ``preferred_element_type`` dot does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        hi = g.to(x.dtype)
+        lo = (g - hi.float()).to(x.dtype)
+        f32 = torch.float32
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (torch.mm(hi, w.T, out_dtype=f32)
+                  + torch.mm(lo, w.T, out_dtype=f32)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (torch.mm(x.T, hi, out_dtype=f32)
+                  + torch.mm(x.T, lo, out_dtype=f32)).to(w.dtype)
+        return gx, gw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w (K, N) with an fp32 result: the products of the
     operands' dtype summed in fp32 (``preferred_element_type=float32``)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
+        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(x.shape[:-1] + (w.shape[-1],))
     return x.float() @ w.float()
 

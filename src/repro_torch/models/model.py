@@ -1,10 +1,10 @@
-"""Public model API: init / forward / prefill / decode_step.
+"""Public model API: init / loss / prefill / decode_step.
 
 Everything is functional over a flat params dict; `Model` binds a
 ModelConfig and the kernel route: ``impl="pallas"`` (default) sends the
 sequence kernels of a tensor on the card to the hand-written CUDA
-kernels, ``impl="xla"`` to their plain PyTorch versions. The training
-loss waits for a later slice.
+kernels (with their backward kernels), ``impl="xla"`` to their plain
+PyTorch versions.
 """
 from __future__ import annotations
 
@@ -17,6 +17,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import params as pp
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.losses import total_loss
+
+
+def mean_metrics(per):
+    """The mean of each metric over a list of metric dicts."""
+    return {k: torch.stack([m[k] for m in per]).mean() for k in per[0]}
 
 
 class Model:
@@ -49,6 +55,39 @@ class Model:
         x, _ = tfm.forward(params, self.cfg, mode="train",
                            tokens=batch["tokens"], impl=self.impl)
         return tfm.logits_from_hidden(params, x, self.cfg), {}
+
+    def loss_fn(self, params, batch):
+        """(loss, metrics) of a batch {tokens, labels}, differentiable in
+        the params. A batch larger than ``cfg.microbatch`` is the mean
+        over its microbatches (``_loss_accum``)."""
+        cfg = self.cfg
+        if cfg.microbatch and batch["labels"].shape[0] > cfg.microbatch:
+            return self._loss_accum(params, batch)
+        logits, aux = self.forward_train(params, batch)
+        return total_loss(logits, batch["labels"], aux, cfg)
+
+    def microbatches(self, batch):
+        """The batch as ``cfg.microbatch``-row pieces (the whole batch
+        when it is not larger)."""
+        b = batch["labels"].shape[0]
+        mb = self.cfg.microbatch
+        if not mb or b <= mb:
+            return [batch]
+        if b % mb:
+            raise ValueError(f"batch {b} is not a multiple of the "
+                             f"microbatch {mb}")
+        return [{k: v[i:i + mb] for k, v in batch.items()}
+                for i in range(0, b, mb)]
+
+    def _loss_accum(self, params, batch):
+        """The reference's microbatch loss: the mean of the microbatches'
+        losses, metrics averaged over them. As one expression it keeps
+        every microbatch's graph alive until its backward; the train step
+        (``launch.steps.loss_and_grads``) backpropagates a microbatch at
+        a time instead."""
+        per = [self.loss_fn(params, mb) for mb in self.microbatches(batch)]
+        return (sum(loss for loss, _ in per) / len(per),
+                mean_metrics([m for _, m in per]))
 
     # ---- serving ----
     def prefill(self, params, batch):

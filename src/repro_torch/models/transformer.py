@@ -8,7 +8,9 @@ port has the block kinds "attn", "local", "rec" and "rwkv"; "moe"
 raises.
 
 Modes:
-  train   — full sequence, no caches
+  train   — full sequence, no caches; with ``cfg.remat`` each cycle is
+            recomputed in the backward (only cycle boundaries stay
+            live, the reference's ``nothing_saveable`` policy)
   prefill — full sequence, emits decode caches
   decode  — single token against caches (serve_step); the caches are
             updated in place
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import params as pp
 from repro_torch.models.layers import attention as attn
@@ -243,7 +246,8 @@ def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
 
     # ---- stacked cycles ----
     per_cycle: Dict[str, List[torch.Tensor]] = {}
-    for c in range(cfg.n_cycles):
+
+    def cycle(x, c: int):
         for pos, kind in enumerate(cfg.block_pattern):
             pfx = f"stack/{pos}/{kind}/"
             p = {k[len(pfx):]: v[c] for k, v in params.items()
@@ -258,6 +262,12 @@ def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
             if mode == "prefill":
                 for kk, vv in nc.items():
                     per_cycle.setdefault(f"stack/{pos}/{kk}", []).append(vv)
+        return x
+
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    for c in range(cfg.n_cycles):
+        x = (checkpoint(cycle, x, c, use_reentrant=False) if remat
+             else cycle(x, c))
     if mode == "prefill":
         new_cache.update({k: torch.stack(v) for k, v in per_cycle.items()})
     elif mode == "decode":

@@ -909,3 +909,201 @@ def test_served_tick_launches_k_stacked_rounds(cuda_device, tmp_path):
         dev = max(float((a - b).abs().max())
                   for a, b in zip(got.state, want.state))
         assert got.round == k and dev <= RTOL, (i, dev)
+
+
+# ---------------------------------------------------------------- training
+BWD_RTOL = 1e-4   # fp32 gradients, relative to each gradient's scale
+# (dK sums the P dS products of up to G x window query rows in another
+# order than the plain version)
+
+ATTN_BWD_CASES = [  # bh, bk, sq, sk, dh, causal, window
+    (10, 1, 100, 100, 256, True, 16),   # GQA 10:1, ragged S, short window
+    (3, 3, 77, 77, 64, True, 0),        # G = 1, window 0
+    (2, 2, 65, 65, 128, False, 0),      # a short last key tile, no mask
+    (4, 2, 130, 130, 64, False, 20),    # window without causality
+    (2, 1, 100, 37, 64, True, 16),      # Sq > Sk: rows with no allowed key
+]
+
+
+def _attn_bwd_args(gen, bh, bk, sq, sk, dh, dtype, device):
+    def r(*shape):
+        return torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+    return r(bh, sq, dh), r(bk, sk, dh), r(bk, sk, dh), r(bh, sq, dh), \
+        r(bh, sq, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_BWD_CASES)
+def test_attention_backward_kernel_agrees_on_ragged_cases(cuda_device, dtype,
+                                                          case):
+    """The backward kernel against ``ref.attention_bwd_ref`` on the same
+    (q, k, v, o, dO): fp32 within BWD_RTOL of each gradient's scale, bf16
+    within one bf16 ulp of it (both are one rounding of nearly the same
+    fp32 value); the same bits on repeat; one launch a call."""
+    from repro_torch.kernels import flash_attention as kfa
+    bh, bk, sq, sk, dh, causal, window = case
+    args = _attn_bwd_args(torch.Generator().manual_seed(sum(case)), bh, bk,
+                          sq, sk, dh, dtype, cuda_device)
+    kw = dict(causal=causal, window=window)
+    build.reset_launches()
+    got = kfa.flash_attention_bwd(*args, **kw)
+    again = kfa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"flash_attention_bwd": 2}
+    want = ref.attention_bwd_ref(*args, **kw)
+    tol = BWD_RTOL if dtype == torch.float32 else 2.0 ** -7
+    for name, g, w, a in zip("qkv", got, want, again):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a), name
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale, name
+    if window > 0 and sq > sk + window - 1:  # rows with no allowed key
+        assert not got[0][:, sk + window - 1:].float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_through_ops_backpropagates_like_the_plain_route(
+        cuda_device, dtype):
+    """``ops.attention`` on the card is an autograd Function: its
+    gradients (forward kernel, backward kernel) match autograd of the
+    plain route, and come back in q's dtype."""
+    g = torch.Generator().manual_seed(5)
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=g).to(cuda_device, dtype
+                                                   ).requires_grad_()
+    q, k, v = leaf(2, 70, 4, 64), leaf(2, 70, 2, 64), leaf(2, 70, 2, 64)
+    dout = torch.randn((2, 70, 4, 64), generator=g).to(cuda_device, dtype)
+    kw = dict(causal=True, window=24)
+    build.reset_launches()
+    out = ops.attention(q, k, v, **kw)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"flash_attention": 1,
+                                    "flash_attention_bwd": 1}
+    want = torch.autograd.grad(ops.attention(q, k, v, impl="xla", **kw),
+                               (q, k, v), dout)
+    tol = BWD_RTOL if dtype == torch.float32 else 2.0 ** -6
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4096, 2560), (3, 77, 300)])
+def test_scan_backward_runs_the_kernel_reversed(cuda_device, shape):
+    """``ops.lru_scan`` on the card: the backward is the scan kernel on
+    the reversed sequence (one more launch), and its da, db match
+    autograd of the plain sequential scan within 1e-5 of their scale."""
+    g = torch.Generator().manual_seed(6)
+    a = torch.rand(shape, generator=g).to(cuda_device).requires_grad_()
+    b = torch.randn(shape, generator=g).to(cuda_device).requires_grad_()
+    gy = torch.randn(shape, generator=g).to(cuda_device)
+    build.reset_launches()
+    h = ops.lru_scan(a, b)
+    got = torch.autograd.grad(h, (a, b), gy)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"rglru_scan": 2}
+    want = torch.autograd.grad(ref.rglru_scan_ref(a, b), (a, b), gy)
+    for name, x, y in zip("ab", got, want):
+        scale = float(y.abs().max())
+        assert float((x - y).abs().max()) <= 1e-5 * scale, name
+
+
+@pytest.mark.cuda
+def test_forward_train_backprop_through_kernels_matches_plain(cuda_device):
+    """The fault's gate at reduced widths (fp32, remat on): every
+    parameter's gradient of the training loss through the kernels
+    (attention and its backward kernel, the scan and its reverse) matches
+    the plain route's, at the whole-model tolerance of
+    tests/test_torch_model.py (1e-3 of each gradient's scale: the
+    reference init's stacked fan-in puts the RG-LRU gates in the
+    sigmoid's tail). The remat cycle runs the forward kernels twice."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(),
+                              remat=True)
+    params = Model(cfg).init(seed=0, device=cuda_device)
+    g = torch.Generator().manual_seed(7)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 96), generator=g,
+                              dtype=torch.int32).to(cuda_device)
+             for k in ("tokens", "labels")}
+    build.reset_launches()
+    loss, _, got = loss_and_grads(Model(cfg), params, batch)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"flash_attention": 2,
+                                    "flash_attention_bwd": 1,
+                                    "rglru_scan": 6}
+    want_loss, _, want = loss_and_grads(Model(cfg, impl="xla"), params,
+                                        batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for key, w in want.items():
+        scale = float(w.abs().max())
+        assert float((got[key] - w).abs().max()) <= 1e-3 * scale, key
+
+
+@pytest.mark.cuda
+def test_rwkv_training_through_the_gla_kernel_raises(cuda_device):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    cfg = get_config("rwkv6-7b").reduced()
+    params = Model(cfg).init(seed=0, device=cuda_device)
+    batch = {k: torch.zeros((1, 16), dtype=torch.int32, device=cuda_device)
+             for k in ("tokens", "labels")}
+    with pytest.raises(NotImplementedError, match="GLA"):
+        loss_and_grads(Model(cfg), params, batch)
+    # without autograd recording, the same forward runs the kernel
+    with torch.no_grad():
+        Model(cfg).forward_train(params, batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["zgemm", "ensemble_commutator_trace",
+                                    "fidelity", "mse"])
+def test_quantum_wrappers_refuse_inputs_that_require_grad(cuda_device,
+                                                          kernel):
+    """The quantum kernels have no gradient: through ``ops`` an input
+    that requires grad is refused before any launch, rather than give an
+    output that silently drops the gradient."""
+    fn = {"zgemm": ops.complex_matmul, "fidelity": ops.fidelity,
+          "mse": ops.mse,
+          "ensemble_commutator_trace": ops.ensemble_commutator_trace}[kernel]
+    _, args, _ = _wrapper_operands(cuda_device)[kernel]
+    build.reset_launches()
+    with pytest.raises(ValueError, match="no gradient"):
+        fn(args[0].clone().requires_grad_(), *args[1:])
+    assert not build.LAUNCHES
+    with torch.no_grad():
+        fn(args[0].clone().requires_grad_(), *args[1:])
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {kernel: 1}
+
+
+@pytest.mark.cuda
+def test_bf16_unembedding_backward_on_the_card(cuda_device):
+    """``matmul_f32`` of bf16 operands (the tied unembedding) is
+    differentiable on the card: its gradients match fp32 autograd of the
+    same bf16 values within one bf16 rounding."""
+    from repro_torch.models.layers.embeddings import matmul_f32
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((3, 50, 64), generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn((300, 64), generator=g) * 0.1).to(cuda_device,
+                                                        torch.bfloat16)
+    gy = torch.randn((3, 50, 300), generator=g).to(cuda_device)
+    xl, wl = x.requires_grad_(), w.requires_grad_()
+    y = matmul_f32(xl, wl.T)
+    assert y.dtype == torch.float32
+    got = torch.autograd.grad(y, (xl, wl), gy)
+    x32, w32 = (t.detach().float().requires_grad_() for t in (x, w))
+    want = torch.autograd.grad(x32 @ w32.T, (x32, w32), gy)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        scale = float(b.abs().max())
+        assert float((a.float() - b).abs().max()) <= 2.0 ** -8 * scale

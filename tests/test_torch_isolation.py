@@ -74,6 +74,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core.quantum import data, linalg, qnn
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.data import token_batches
     from repro_torch.models import Model
     cfg = get_config("recurrentgemma-2b").reduced(n_layers=3, vocab_size=64)
     model = Model(cfg)
@@ -85,6 +86,7 @@ def test_entry_points_default_to_the_card():
              lambda: model.init(),
              lambda: model.init_cache(1, 4),
              lambda: concrete_batch(cfg, 1, 4, torch.Generator()),
+             lambda: next(token_batches(cfg, 1, 4)),
              lambda: convert.model_params_to_torch(small, cfg)]
     for call in calls:
         if torch.cuda.is_available():
