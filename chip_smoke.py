@@ -143,12 +143,16 @@ repository, it exits non-zero before printing any result. Phases:
    ones), in fp32 storage with the stacked matrices at std
    1/sqrt(d_in) within 1e-3 of each gradient's scale (each leaf
    printed); a planted fault in the attention backward (dK = 0) and in
-   the scan's adjoint (da = 0) must each fail the fp32 gate. After it, the attention backward kernel at the
+   the scan's adjoint (da = 0) must each fail the fp32 gate. After it,
+   the bf16 backward's design read from its machine code (wgmma, a
+   gate), the forward's log-sum-exp at the path's inputs against the
+   plain one (both storage types), the attention backward kernel at the
    path's recorded inputs (bf16: within the bf16 budget of the plain
    fp32 version; fp32 storage: 1e-4 of each gradient's scale) and on
    ragged shapes, the same bits on repeat, timed beside its plain
-   version and SDPA's backward; the scan's reverse use against autograd
-   of the plain scan (1e-5), timed.
+   version and SDPA's backward (each pass's device time, TFLOP/s on the
+   five products), the fp32-storage backward beside fp32 SDPA's; the
+   scan's reverse use against autograd of the plain scan (1e-5), timed.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape: each kernel at the main path's most frequent shape (launches of
@@ -160,8 +164,9 @@ fidelity at each shape of phase 8's screened and stacked rounds (``"cell"``
 set), the fp32-storage attention at the prefill's shape (``"cell"``
 set; launches of phase 5's fp32 kernel prefill), and zgemm at the
 two-level tree's pod-tier and merge shapes (``"cell"`` set), and
-the attention backward and the scan's reverse use at the train step's
-shapes (launches a step, ``"cell"`` set); every row carries
+the attention backward (bf16, and fp32 storage: launches of the
+one-cycle gate's fp32 kernel pass) and the scan's reverse use at the
+train step's shapes (launches a step, ``"cell"`` set); every row carries
 ``device_us``, and fidelity's and mse's the launch floor.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and never prints that line.
@@ -175,7 +180,10 @@ prefills' shapes (see ``time_seq``). ``--time-serve`` builds the kernels
 and runs bench_serve.py's 10,000-tenant cell alone (see ``time_serve``).
 ``--train-probe`` builds the kernels and runs phase 11's model and
 batch at other learning rates and clips, without gates (see
-``train_probe``).
+``train_probe``). ``--time-attn-bwd`` builds the kernels and times the
+bf16 attention backward alone at phase 11's shape under several splits
+of the query heads, with its host and per-pass device time (see
+``time_attn_bwd``).
 """
 import json
 import os
@@ -2957,7 +2965,10 @@ SCAN_BWD_RTOL = 1e-5
 # plain route's, of each gradient's scale: the whole-model tolerance of
 # the card test test_forward_train_backprop_through_kernels_matches_plain
 GRAD_RTOL_FP32 = 1e-3
+# the forward kernels' log-sum-exp against the plain one, of its scale
+LSE_RTOL = 1e-6
 ATTN_BWD = "flash_attention_bwd"
+ATTN_BWD32 = "flash_attention_bwd fp32"
 SCAN_REV = "rglru_scan reverse"
 
 
@@ -3041,15 +3052,19 @@ def attn_bwd_ragged(device):
     """Edge shapes, seeded, both storage types: S not a multiple of the
     tiles (100: a short last key tile of 4 and query tile of 36), window
     0 causal and non-causal, G = 1 and G = 10, a window below the tile,
-    Sq > Sk (rows with no allowed key), dh 64, 128, 256."""
+    Sq > Sk (rows with no allowed key), dh 64, 128, 256; each with the
+    plain LSE of its (q, k, v) (o and dO are drawn apart)."""
     import torch
+    from repro_torch.kernels import ref
     g = torch.Generator(device="cpu").manual_seed(12)
 
     def case(dtype, bh, bk, sq, sk, dh, causal, window):
         r = [torch.randn(shape, generator=g).to(device, dtype)
              for shape in ((bh, sq, dh), (bk, sk, dh), (bk, sk, dh),
                            (bh, sq, dh), (bh, sq, dh))]
-        return r, dict(causal=causal, window=window)
+        lse = ref.attention_ref(*r[:3], causal=causal, window=window,
+                                return_lse=True)[1]
+        return r, dict(causal=causal, window=window, lse=lse)
     out = []
     for dt in (torch.float32, torch.bfloat16):
         out += [case(dt, 10, 1, 100, 100, 256, True, 16),
@@ -3112,6 +3127,31 @@ def sdpa_backward_ms(q, k, v, kw):
     return fb_ms - f_ms, backend
 
 
+def lse_check(q, k, v, kw, label, lse=None):
+    """The forward kernel's log-sum-exp of (q, k, v) (``lse``: one already
+    taken) against the plain one: within LSE_RTOL of its scale on the
+    rows with an allowed key, -inf on the rows with none."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    mask = dict(causal=kw["causal"], window=kw["window"])
+    if lse is None:
+        lse = kfa.flash_attention(q, k, v, return_lse=True, **mask)[1]
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v, return_lse=True, **mask)[1]
+    fin = torch.isfinite(want)
+    scale = max(float(want[fin].abs().max()), 1e-30) if fin.any() else 1.0
+    dev = (float((lse[fin] - want[fin]).abs().max()) / scale
+           if fin.any() else 0.0)
+    ok = dev <= LSE_RTOL and torch.equal(torch.isfinite(lse), fin)
+    say(f"  LSE {label}: {dev:.3e} of its scale {scale:.4g} (tol "
+        f"{LSE_RTOL:.0e}), {int((~fin).sum())} rows with no key "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the forward kernel's LSE disagrees with the "
+                           "plain one")
+
+
 def one_cycle_params(cfg, params, well_conditioned=False):
     """The full model's first cycle and its embedding. With
     ``well_conditioned`` the stacked matrices are rescaled from the
@@ -3153,7 +3193,7 @@ def one_cycle_gate(cfg, params, batch):
     can. Two planted faults, the attention backward's dK set to 0 and the
     scan adjoint's da set to 0, must each fail the fp32 gate (the leaves
     where the bf16 gate would catch them are printed too). Returns the
-    bf16 kernel pass's launches."""
+    bf16 and the fp32 kernel passes' launches."""
     import dataclasses
     import torch
     from repro_torch.kernels import build, ops
@@ -3197,7 +3237,10 @@ def one_cycle_gate(cfg, params, batch):
         return (loss_and_grads(Model(cfg1), p1, batch),
                 loss_and_grads(Model(cfg32), w32, batch))
     dev, fails = bf16_dev(g_k)
+    build.reset_launches()
     loss_wk, _, h_k = loss_and_grads(Model(cfg32), w32, batch)
+    torch.cuda.synchronize()
+    launches32 = dict(build.LAUNCHES)
     dev32, fails32 = fp32_dev(h_k)
     del g_k, h_k
     say(f"  one cycle ({cfg1.block_pattern}, {len(budget)} params): bf16 at "
@@ -3243,7 +3286,7 @@ def one_cycle_gate(cfg, params, batch):
                                f"({label})")
     del g_x, h_x
     torch.cuda.empty_cache()
-    return launches
+    return launches, launches32
 
 
 def rwkv_training_refused(device):
@@ -3297,7 +3340,7 @@ def phase_train(device="cuda"):
     torch.cuda.synchronize()
     say(f"  init {model.num_params():,} params in {time.time() - t0:.1f} s")
     rwkv_training_refused(device)
-    one_cycle_gate(cfg, params, batch)
+    _, launches32 = one_cycle_gate(cfg, params, batch)
 
     opt = train.optimizer(cfg)
     schedule = linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
@@ -3374,34 +3417,62 @@ def phase_train(device="cuda"):
     say("  the attention backward at the path's inputs and ragged shapes, "
         "against its plain version:")
     (q, k, v, o, do), kw = rec[ATTN_BWD]
-    worst = attn_bwd_case((q, k, v, o, do), kw, "path bf16")
+    mask = dict(causal=kw["causal"], window=kw["window"])
+    design = kfa.bf16_design()
+    splits = kfa.bwd_splits(q.shape[0], k.shape[0], k.shape[1],
+                            torch.cuda.get_device_properties(
+                                q.device).multi_processor_count)
+    say(f"  {ATTN_BWD} bf16 design: {design} (the machine code of the "
+        f"forward and of the dQ and dK/dV passes; HGMMA = wgmma), the "
+        f"group's {q.shape[0] // k.shape[0]} query heads in {splits} splits")
+    if design != "wgmma":
+        raise RuntimeError(f"the bf16 attention backward runs on {design}, "
+                           "not on wgmma")
+    lse_check(q, k, v, kw, "path bf16 (the recompute's, saved for the "
+              "backward)", lse=kw["lse"])
     p32 = tuple(x.float() for x in (q, k, v, o, do))
-    attn_bwd_case(p32, kw, "path fp32 storage")
+    lse_check(*p32[:3], kw, "path fp32 storage")
+    worst = attn_bwd_case((q, k, v, o, do), kw, "path bf16")
+    worst32 = attn_bwd_case(p32, kw, "path fp32 storage")
     for args, kw_r in attn_bwd_ragged(device):
+        mask_r = {x: kw_r[x] for x in ("causal", "window")}
         attn_bwd_case(args, kw_r, f"ragged {[list(x.shape) for x in args[:2]]}"
-                      f" {str(args[0].dtype)[6:]} {kw_r}")
+                      f" {str(args[0].dtype)[6:]} {mask_r}")
     k_ms = cuda_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw),
-                   reps=5, warmup=1)
+                   reps=10, warmup=2)
     p_ms = cuda_ms(lambda: ref.attention_bwd_ref(q, k, v, o, do, **kw),
                    reps=3, warmup=1)
     k32_ms = cuda_ms(lambda: kfa.flash_attention_bwd(*p32, **kw), reps=3,
                      warmup=1)
+    p32_ms = cuda_ms(lambda: ref.attention_bwd_ref(*p32, **kw), reps=2,
+                     warmup=1)
+    dev32_us = device_us(lambda *x: kfa.flash_attention_bwd(*x, **kw),
+                         list(p32), n=2)
+    lib32_ms, backend32 = sdpa_backward_ms(*p32[:3], mask)
     del p32
-    lib_ms, backend = sdpa_backward_ms(q, k, v, kw)
+    lib_ms, backend = sdpa_backward_ms(q, k, v, mask)
     dev_us = device_us(lambda *x: kfa.flash_attention_bwd(*x, **kw),
                        [q, k, v, o, do], n=3)
-    b_ms, b_by = attn_bwd_bound_ms(q, k, kw)
-    b32_ms, b32_by = attn_bwd_bound_ms(q.float(), k.float(), kw)
+    b_ms, b_by = attn_bwd_bound_ms(q, k, mask)
+    b32_ms, b32_by = attn_bwd_bound_ms(q.float(), k.float(), mask)
     flops = 10 * q.shape[2] * q.shape[0] * allowed_pairs(
         q.shape[1], k.shape[1], kw["causal"], kw["window"])
-    say(f"  {ATTN_BWD} timed at {[list(x.shape) for x in (q, k)]} bf16 {kw}: "
-        f"kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch; "
+    say(f"  {ATTN_BWD} timed at {[list(x.shape) for x in (q, k)]} bf16 "
+        f"{mask}: kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch; "
         f"{flops / k_ms / 1e9:.1f} TFLOP/s on the five products), plain "
         f"{p_ms:.4f} ms, SDPA backward ({backend}) "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-        f"{b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.2f}x; fp32 "
-        f"storage {k32_ms:.4f} ms, bound {b32_ms:.6f} ms ({b32_by}), "
-        f"{k32_ms / b32_ms:.2f}x")
+        f"{b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.2f}x"
+        + ("" if lib_ms is None else f", kernel/SDPA {k_ms / lib_ms:.3f}x"))
+    profile_device(f"one {ATTN_BWD} call (its passes)",
+                   lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw))
+    say(f"  {ATTN_BWD32} at the same inputs in fp32: kernel {k32_ms:.4f} ms, "
+        f"plain {p32_ms:.4f} ms, fp32 SDPA backward ({backend32}, boolean "
+        f"window mask) "
+        f"{'n/a' if lib32_ms is None else f'{lib32_ms:.4f} ms'}, bound "
+        f"{b32_ms:.6f} ms ({b32_by}), {k32_ms / b32_ms:.2f}x (device "
+        f"{dev32_us:.2f} us a launch); card "
+        f"{smi('name,power.limit')}")
 
     say("  the scan's reverse use at the path's inputs, against autograd "
         "of the plain scan:")
@@ -3442,14 +3513,22 @@ def phase_train(device="cuda"):
     del rec
     torch.cuda.empty_cache()
     cell = f"{cfg.name} train step B={b} S={s}"
+    replaces = SEQ_KERNELS["flash_attention"]["replaces"]
+    shape = [list(x.shape) for x in (q, k)]
     return [dict(name=ATTN_BWD, route="cuda",
-                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                 replaces=SEQ_KERNELS["flash_attention"]["replaces"],
-                 launches=first[ATTN_BWD],
-                 shape=[list(x.shape) for x in (q, k)],
+                 source="src/repro_torch/kernels/csrc/"
+                        "flash_attention_bwd_wgmma.cu",
+                 replaces=replaces, launches=first[ATTN_BWD], shape=shape,
                  max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=lib_ms, device_us=dev_us,
                  cell=cell),
+            dict(name=ATTN_BWD32, route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 replaces=replaces, launches=launches32[ATTN_BWD],
+                 shape=shape, max_abs_err=worst32, ms=k32_ms,
+                 plain_ms=p32_ms, bound_ms=b32_ms, bound_by=b32_by,
+                 library_ms=lib32_ms, device_us=dev32_us,
+                 cell=f"{cfg.name} one cycle, fp32 storage"),
             dict(name=SCAN_REV, route="cuda", **SEQ_KERNELS["rglru_scan"],
                  launches=sum(rev), shape=[list(a.shape)] * 2,
                  max_abs_err=rdev, ms=r_ms, plain_ms=rp_ms, bound_ms=rb_ms,
@@ -3627,6 +3706,51 @@ def seq_timing_inputs(device="cuda"):
             "rglru_scan (4,4096,2560) fp32": ("scan", (a, b), None)}
 
 
+def time_attn_bwd(splits=(1, 2, 3, 5, 10), reps=20):
+    """The bf16 attention backward alone at phase 11's shape (q (10, 4096,
+    256), kv (1, 4096, 256), causal, window 2048; inputs drawn from seed
+    0): ms a call by CUDA events for each of ``splits`` groups of the
+    query heads in the dK/dV pass and for the wrapper's own choice, the
+    host's enqueue time a call, and one call's device time by kernel;
+    one JSON line."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+    q, k, v, do = r(10, TRAIN_S, 256), r(1, TRAIN_S, 256), \
+        r(1, TRAIN_S, 256), r(10, TRAIN_S, 256)
+    kw = dict(causal=True, window=2048)
+    out, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
+
+    def call():
+        kfa.flash_attention_bwd(q, k, v, out, do, lse=lse, **kw)
+    by_splits, choose = {}, kfa.bwd_splits
+    try:
+        for n in splits:
+            kfa.bwd_splits = lambda *a, n=n: n
+            by_splits[n] = cuda_ms(call, reps=reps, warmup=2)
+    finally:
+        kfa.bwd_splits = choose
+    ms = cuda_ms(call, reps=reps, warmup=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    passes = profile_device(f"one {ATTN_BWD} call", call)
+    print(json.dumps({
+        "splits_ms": by_splits, "ms": ms,
+        "splits": choose(10, 1, TRAIN_S, torch.cuda.get_device_properties(
+            0).multi_processor_count),
+        "host_enqueue_ms": host_ms,
+        "device_ms": {n[:60]: t / 1e3 for n, (t, _) in passes.items()},
+        "card": smi("name,power.limit")}), flush=True)
+    return 0
+
+
 def time_seq(trials=5):
     """ms per call (``cuda_ms``, ``trials`` times) of gla_chunked and
     rglru_scan through their wrappers at ``seq_timing_inputs``, for the
@@ -3668,6 +3792,9 @@ def main() -> int:
     if "--train-probe" in sys.argv:
         phase_build()
         return train_probe()
+    if "--time-attn-bwd" in sys.argv:
+        phase_build()
+        return time_attn_bwd()
     t0 = time.time()
     phase_build()
     results = phase_kernels()

@@ -39,12 +39,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+__device__ __forceinline__ float neg_inf() { return __uint_as_float(0xff800000u); }
+
 // dtype codes of the sequence kernels' C entry points
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
-// bf16 attention on the tensor cores (flash_attention_wgmma.cu)
+// bf16 attention on the tensor cores (flash_attention_wgmma.cu) and its
+// backward (flash_attention_bwd_wgmma.cu)
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* out, int bh, int bk, int sq, int sk, int dh,
-                         int causal, int window, void* stream);
+                         void* out, void* lse, int bh, int bk, int sq, int sk,
+                         int dh, int causal, int window, void* stream);
+int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const void* lse,
+                             void* dq, void* dk, void* dv, void* dd,
+                             void* part, int bh, int bk, int sq, int sk,
+                             int dh, int causal, int window, int splits,
+                             void* stream);
 
 }  // namespace qf

@@ -15,6 +15,9 @@
 // j < Sk, j <= i (causal) and j > i - window (window > 0); scores scaled
 // by 1/sqrt(D). A row with no allowed key writes 0 (the TPU kernel's
 // max(l, 1e-30) guard); such rows only arise when Sq > Sk + window - 1.
+// On request each row's log-sum-exp m + log l of its scaled allowed
+// scores goes to an fp32 (BH, Sq) output for the backward, in natural-log
+// units (-inf for a row with no allowed key), as the bf16 kernel writes it.
 //
 // What bounds it on an H100: operations, on the fp32 CUDA cores (67
 // TFLOP/s): fp32 inputs have no tensor-core path that keeps the fp32
@@ -73,8 +76,9 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int group,
-             int sq, int sk, int causal, int window) {
+             const float* __restrict__ v, float* __restrict__ out,
+             float* __restrict__ lse, int group, int sq, int sk, int causal,
+             int window) {
   constexpr int kNJ = D / 64;    // float4 column groups per thread
   constexpr int kVP = D + 4;     // pitch of V rows (floats)
   extern __shared__ __align__(16) float smem[];
@@ -204,6 +208,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= sq) continue;
+    // the row's log-sum-exp (-inf: no allowed key)
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(bh) * sq + row] =
+          l_i[i] > 0.f ? m_i[i] + logf(l_i[i]) : qf::neg_inf();
     const float denom = fmaxf(l_i[i], 1e-30f);
 #pragma unroll
     for (int n = 0; n < kNJ; ++n)
@@ -215,8 +223,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int group, int sq, int sk, int causal, int window, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int bh, int group, int sq, int sk, int causal, int window,
+           void* stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -226,21 +235,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
   flash_kernel<D><<<grid, kThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), group, sq, sk,
-      causal, window);
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), group, sq, sk, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_dh(const void* q, const void* k, const void* v, void* out,
-              int bh, int group, int sq, int sk, int dh, int causal,
-              int window, void* stream) {
+              void* lse, int bh, int group, int sq, int sk, int dh,
+              int causal, int window, void* stream) {
   switch (dh) {
     case 64:
-      return launch<64>(q, k, v, out, bh, group, sq, sk, causal, window, stream);
+      return launch<64>(q, k, v, out, lse, bh, group, sq, sk, causal, window,
+                        stream);
     case 128:
-      return launch<128>(q, k, v, out, bh, group, sq, sk, causal, window, stream);
+      return launch<128>(q, k, v, out, lse, bh, group, sq, sk, causal, window,
+                         stream);
     case 256:
-      return launch<256>(q, k, v, out, bh, group, sq, sk, causal, window, stream);
+      return launch<256>(q, k, v, out, lse, bh, group, sq, sk, causal, window,
+                         stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -249,20 +261,24 @@ int launch_dh(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q (bh, sq, dh); k, v (bk, sk, dh) with bh a multiple of bk; dh 64, 128
-// or 256; dtype a qf::DType.
+// or 256; dtype a qf::DType. lse, fp32 (bh, sq) or null, receives each
+// row's log-sum-exp of its scaled allowed scores, in natural-log units
+// for both dtypes (-inf for a row with no allowed key): the backward
+// (qf_flash_attention_bwd) reads it.
 extern "C" int qf_flash_attention(const void* q, const void* k,
-                                  const void* v, void* out, int bh, int bk,
-                                  int sq, int sk, int dh, int causal,
-                                  int window, int dtype, void* stream) {
+                                  const void* v, void* out, void* lse,
+                                  int bh, int bk, int sq, int sk, int dh,
+                                  int causal, int window, int dtype,
+                                  void* stream) {
   if (bh <= 0 || bk <= 0 || bh % bk || bh > 65535 || sq <= 0 || sk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = bh / bk;
   switch (dtype) {
     case qf::kFloat32:
-      return launch_dh(q, k, v, out, bh, group, sq, sk, dh, causal, window,
-                       stream);
+      return launch_dh(q, k, v, out, lse, bh, group, sq, sk, dh, causal,
+                       window, stream);
     case qf::kBFloat16:
-      return qf::flash_attention_bf16(q, k, v, out, bh, bk, sq, sk, dh,
+      return qf::flash_attention_bf16(q, k, v, out, lse, bh, bk, sq, sk, dh,
                                       causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,9 @@
 // Backward of the causal / sliding-window flash attention with
-// grouped-query heads: dQ, dK and dV of the function the forward kernels
-// compute (flash_attention.cu, flash_attention_wgmma.cu), every product
-// and sum in fp32, stored in the inputs' dtype (fp32 or bf16).
+// grouped-query heads, fp32 storage: dQ, dK and dV of the function the
+// fp32 forward kernel computes (flash_attention.cu), every product and
+// sum in fp32 on the CUDA cores. bf16 storage runs on the tensor cores
+// instead (flash_attention_bwd_wgmma.cu); the C entry point below picks
+// the kernels by dtype.
 //
 // Replaces: the gradient of src/repro/kernels/flash_attention.py::
 // flash_attention. The TPU kernel has no backward of its own: the
@@ -14,7 +16,8 @@
 // q, o, dO (BH, Sq, D); k, v (BH / G, Sk, D); query row bh reads kv row
 // bh / G; query i and key j (positions from 0) pair when j < Sk,
 // j <= i (causal) and j > i - window (window > 0); scores scaled by
-// 1/sqrt(D). With P = softmax of the allowed scores of a row,
+// 1/sqrt(D). With LSE_i the forward's log-sum-exp of row i (natural-log
+// units) and P_ij = exp(s_ij - LSE_i) for the allowed pairs (0 else),
 //   D_i  = sum_c dO_ic O_ic
 //   dS_ij = P_ij (dO_i . v_j - D_i)
 //   dQ_i = scale sum_j dS_ij k_j,  dK_j = scale sum_i dS_ij q_i,
@@ -24,20 +27,18 @@
 // gradient.
 //
 // What bounds it on an H100: operations. The five products (QK^T, dO V^T,
-// dS K, dS^T Q, P^T dO) are 10 D FLOP per allowed pair; in bf16 the
-// tensor cores could do them at 989 TFLOP/s. This first design runs on
-// the fp32 CUDA cores (67 TFLOP/s) and recomputes QK^T and dO V^T in
-// both kernels (8 products a pair instead of 5): right and simple first,
-// the move to wgmma is later work.
+// dS K, dS^T Q, P^T dO) are 10 D FLOP per allowed pair on the fp32 CUDA
+// cores (67 TFLOP/s): fp32 inputs have no tensor-core path that keeps
+// the fp32 products. Both kernels recompute QK^T and dO V^T (8 products
+// a pair instead of 5).
 //
 // Design: two kernels, launched one after the other by the C entry point.
-// The forward emits no log-sum-exp, so
 //  A. one 256-thread block per (64 query rows, query head) walks the key
-//     tiles of 32 that its rows' masks allow twice: first for each row's
-//     running max and sum (the LSE), then, with D_i from O and dO, to
-//     recompute P and dS and accumulate dQ in registers (4 rows x D/16
-//     columns a thread). It writes dQ and each row's LSE and D_i to a
-//     workspace. Q^T and dO^T stay in shared memory; each key tile is
+//     tiles of 32 that its rows' masks allow once: with the forward's LSE
+//     and D_i from O and dO, it recomputes P and dS and accumulates dQ in
+//     registers (4 rows x D/16 columns a thread). It writes dQ, and each
+//     row's D_i to a workspace. Q^T and dO^T stay in shared memory; each
+//     key tile is
 //     staged in row layout with an odd pitch (D + 1 floats), so the 16
 //     lanes of a half-warp reading 16 keys at one column hit 16 banks.
 //  B. one 256-thread block per (32 keys, kv head) owns dK and dV of its
@@ -45,7 +46,7 @@
 //     over the G query heads of the group and over the query tiles of 32
 //     that its keys' masks allow, recomputes S^T and dP^T from K^T and
 //     V^T (resident) and the staged Q and dO tile, forms P and dS from
-//     the workspace's LSE and D_i, and accumulates P^T dO and dS^T Q.
+//     the LSE and the workspace's D_i, and accumulates P^T dO and dS^T Q.
 //     GQA's sum over the group happens inside the block.
 // No atomics and no order between blocks: the same inputs give the same
 // bits. Shared memory at D = 256, fp32 tiles: A 213,760 bytes
@@ -66,7 +67,6 @@ constexpr int kBK = 32;          // B: keys a block
 constexpr int kBQ = 32;          // B: query rows a tile
 constexpr int kAQP = kAQ + 4;    // pitch of Q^T, dO^T and dS^T rows (floats)
 constexpr int kBKP = kBK + 4;    // pitch of K^T, V^T, P and dS rows (floats)
-constexpr float kNegInf = -1.0e30f;
 
 template <int D>
 constexpr size_t smem_a() {
@@ -80,13 +80,6 @@ constexpr size_t smem_b() {
   return sizeof(float) * (2 * static_cast<size_t>(D) * kBKP +
                           2 * static_cast<size_t>(kBQ) * (D + 1) +
                           2 * static_cast<size_t>(kBQ) * kBKP + 2 * kBQ);
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
 }
 
 __device__ __forceinline__ float half_warp_sum(float v) {
@@ -108,39 +101,39 @@ __device__ __forceinline__ bool allowed(int row, int col, int sk, int causal,
 
 // rows [r0, r0 + n) of a (rows, D) tensor into shared memory, row layout
 // with pitch D + 1; rows at or past `rows` are zero
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0,
-                                           int n, int rows) {
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int r0, int n, int rows) {
   for (int idx = threadIdx.x; idx < n * D; idx += kThreads) {
     const int r = idx / D, d = idx - r * D;
     dst[r * (D + 1) + d] =
-        r0 + r < rows ? qf::to_f32(src[static_cast<size_t>(r0 + r) * D + d])
-                      : 0.f;
+        r0 + r < rows ? src[static_cast<size_t>(r0 + r) * D + d] : 0.f;
   }
 }
 
 // the same rows transposed: dst[d * pitch + r]
-template <typename T, int D>
-__device__ __forceinline__ void stage_cols(float* dst, const T* src, int r0,
-                                           int n, int rows, int pitch) {
+template <int D>
+__device__ __forceinline__ void stage_cols(float* dst, const float* src,
+                                           int r0, int n, int rows,
+                                           int pitch) {
   for (int idx = threadIdx.x; idx < n * D; idx += kThreads) {
     const int r = idx / D, d = idx - r * D;
     dst[d * pitch + r] =
-        r0 + r < rows ? qf::to_f32(src[static_cast<size_t>(r0 + r) * D + d])
-                      : 0.f;
+        r0 + r < rows ? src[static_cast<size_t>(r0 + r) * D + d] : 0.f;
   }
 }
 
 // ---------------------------------------------------------------- kernel A
 // Thread (ty, tx) owns query rows 4ty + i (i < 4); in a score tile, keys
 // tx + 16j (j < 2); in dQ, columns tx + 16m (m < D/16).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ o,
-                   const T* __restrict__ dout, T* __restrict__ dq,
-                   float* __restrict__ lse_ws, float* __restrict__ dd_ws,
-                   int group, int sq, int sk, int causal, int window) {
+attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ o,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ dq,
+                   float* __restrict__ dd_ws, int group, int sq, int sk,
+                   int causal, int window) {
   constexpr int kNM = D / 16;
   constexpr int kKP = D + 1;
   extern __shared__ __align__(16) float smem[];
@@ -154,12 +147,12 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kAQ;
   const size_t qoff = static_cast<size_t>(bh) * sq * D;
-  const T* kb = k + static_cast<size_t>(bh / group) * sk * D;
-  const T* vb = v + static_cast<size_t>(bh / group) * sk * D;
+  const float* kb = k + static_cast<size_t>(bh / group) * sk * D;
+  const float* vb = v + static_cast<size_t>(bh / group) * sk * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
 
-  stage_cols<T, D>(qt, q + qoff, q0, kAQ, sq, kAQP);
-  stage_cols<T, D>(dot, dout + qoff, q0, kAQ, sq, kAQP);
+  stage_cols<D>(qt, q + qoff, q0, kAQ, sq, kAQP);
+  stage_cols<D>(dot, dout + qoff, q0, kAQ, sq, kAQP);
   __syncthreads();  // dO^T is read below even where no key tile is allowed
 
   const int q_hi = min(q0 + kAQ, sq) - 1;
@@ -195,57 +188,24 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
   };
 
-  // pass 1: each row's max and sum over its allowed keys -> LSE
-  float m_i[4], l_i[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = kNegInf;
-    l_i[i] = 0.f;
-  }
-  for (int tile = t_lo; tile <= t_hi; ++tile) {
-    const int k0 = tile * kAK;
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows<T, D>(ks, kb, k0, kAK, sk);
-    __syncthreads();
-    float s[4][2];
-    bool ok[4][2];
-    scores(k0, s, ok);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        if (ok[i][j]) mx = fmaxf(mx, s[i][j]);
-      const float m_new = fmaxf(m_i[i], half_warp_max(mx));
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        if (ok[i][j]) rs += expf(s[i][j] - m_new);
-      l_i[i] = l_i[i] * expf(m_i[i] - m_new) + half_warp_sum(rs);
-      m_i[i] = m_new;
-    }
-  }
-
-  // LSE and D_i = sum_c dO_ic O_ic of each row, to the workspace
-  float lse[4], dd[4];
+  // the forward's LSE and D_i = sum_c dO_ic O_ic of each row; D_i to the
+  // workspace
+  float lse_i[4], dd[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
-    lse[i] = l_i[i] > 0.f ? m_i[i] + logf(l_i[i]) : 0.f;
+    lse_i[i] = row < sq ? lse[static_cast<size_t>(bh) * sq + row] : 0.f;
     float part = 0.f;
     if (row < sq) {
-      const T* orow = o + qoff + static_cast<size_t>(row) * D;
+      const float* orow = o + qoff + static_cast<size_t>(row) * D;
       for (int c = tx; c < D; c += 16)
-        part = fmaf(dot[c * kAQP + 4 * ty + i], qf::to_f32(orow[c]), part);
+        part = fmaf(dot[c * kAQP + 4 * ty + i], orow[c], part);
     }
     dd[i] = half_warp_sum(part);
-    if (tx == 0 && row < sq) {
-      lse_ws[static_cast<size_t>(bh) * sq + row] = lse[i];
-      dd_ws[static_cast<size_t>(bh) * sq + row] = dd[i];
-    }
+    if (tx == 0 && row < sq) dd_ws[static_cast<size_t>(bh) * sq + row] = dd[i];
   }
 
-  // pass 2: P, dS, and dQ += dS K
+  // P, dS, and dQ += dS K
   float acc[4][kNM];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -255,8 +215,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int tile = t_lo; tile <= t_hi; ++tile) {
     const int k0 = tile * kAK;
     __syncthreads();
-    stage_rows<T, D>(ks, kb, k0, kAK, sk);
-    stage_rows<T, D>(vs, vb, k0, kAK, sk);
+    stage_rows<D>(ks, kb, k0, kAK, sk);
+    stage_rows<D>(vs, vb, k0, kAK, sk);
     __syncthreads();
     float s[4][2];
     bool ok[4][2];
@@ -280,7 +240,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float p = ok[i][j] ? expf(s[i][j] - lse[i]) : 0.f;
+        const float p = ok[i][j] ? expf(s[i][j] - lse_i[i]) : 0.f;
         ds[i] = p * (dp[i][j] - dd[i]);
       }
       *reinterpret_cast<float4*>(dst + (tx + 16 * j) * kAQP + 4 * ty) =
@@ -300,28 +260,28 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqb = dq + qoff;
+  float* dqb = dq + qoff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= sq) continue;
 #pragma unroll
     for (int m = 0; m < kNM; ++m)
-      dqb[static_cast<size_t>(row) * D + tx + 16 * m] =
-          qf::from_f32<T>(scale * acc[i][m]);
+      dqb[static_cast<size_t>(row) * D + tx + 16 * m] = scale * acc[i][m];
   }
 }
 
 // ---------------------------------------------------------------- kernel B
 // Thread (ty, tx) owns keys 2ty + a (a < 2); in a score tile, query rows
 // tx + 16j (j < 2); in dK and dV, columns tx + 16m (m < D/16).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse_ws,
-                     const float* __restrict__ dd_ws, T* __restrict__ dk,
-                     T* __restrict__ dv, int group, int sq, int sk,
+attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dd_ws, float* __restrict__ dk,
+                     float* __restrict__ dv, int group, int sq, int sk,
                      int causal, int window) {
   constexpr int kNM = D / 16;
   constexpr int kQP = D + 1;
@@ -341,8 +301,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kvoff = static_cast<size_t>(bk) * sk * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
 
-  stage_cols<T, D>(kt, k + kvoff, k0, kBK, sk, kBKP);
-  stage_cols<T, D>(vt, v + kvoff, k0, kBK, sk, kBKP);
+  stage_cols<D>(kt, k + kvoff, k0, kBK, sk, kBKP);
+  stage_cols<D>(vt, v + kvoff, k0, kBK, sk, kBKP);
 
   // query rows that some key of this block may pair with
   const int key_hi = min(k0 + kBK, sk) - 1;
@@ -363,12 +323,12 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int tile = t_lo; tile <= t_hi; ++tile) {
       const int i0 = tile * kBQ;
       __syncthreads();  // the previous tile's readers are done (K, V in)
-      stage_rows<T, D>(qs, q + qoff, i0, kBQ, sq);
-      stage_rows<T, D>(dos, dout + qoff, i0, kBQ, sq);
+      stage_rows<D>(qs, q + qoff, i0, kBQ, sq);
+      stage_rows<D>(dos, dout + qoff, i0, kBQ, sq);
       if (tid < kBQ) {
         const bool in = i0 + tid < sq;
         const size_t r = static_cast<size_t>(bh) * sq + i0 + tid;
-        lse_s[tid] = in ? lse_ws[r] : 0.f;
+        lse_s[tid] = in ? lse[r] : 0.f;
         dd_s[tid] = in ? dd_ws[r] : 0.f;
       }
       __syncthreads();
@@ -438,62 +398,51 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t r = kvoff + static_cast<size_t>(key) * D;
 #pragma unroll
     for (int m = 0; m < kNM; ++m) {
-      dk[r + tx + 16 * m] = qf::from_f32<T>(scale * acc_k[a][m]);
-      dv[r + tx + 16 * m] = qf::from_f32<T>(acc_v[a][m]);
+      dk[r + tx + 16 * m] = scale * acc_k[a][m];
+      dv[r + tx + 16 * m] = acc_v[a][m];
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, void* lse,
-           void* dd, int bh, int bk, int sq, int sk, int causal, int window,
-           void* stream) {
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* dout, const float* lse, float* dq, float* dk,
+           float* dv, float* dd, int bh, int bk, int sq, int sk, int causal,
+           int window, cudaStream_t st) {
   const int group = bh / bk;
-  const auto st = static_cast<cudaStream_t>(stream);
   const size_t sa = smem_a<D>(), sb = smem_b<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(sa));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, D>,
+  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(sb));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq_kernel<T, D><<<dim3((sq + kAQ - 1) / kAQ, bh), kThreads, sa,
-                             st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<T*>(dq),
-      static_cast<float*>(lse), static_cast<float*>(dd), group, sq, sk,
-      causal, window);
+  attn_bwd_dq_kernel<D><<<dim3((sq + kAQ - 1) / kAQ, bh), kThreads, sa, st>>>(
+      q, k, v, o, dout, lse, dq, dd, group, sq, sk, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_kernel<T, D><<<dim3((sk + kBK - 1) / kBK, bk), kThreads, sb,
-                               st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<T*>(dk), static_cast<T*>(dv), group, sq, sk, causal,
-      window);
+  attn_bwd_dkdv_kernel<D><<<dim3((sk + kBK - 1) / kBK, bk), kThreads, sb,
+                            st>>>(q, k, v, dout, lse, dd, dk, dv, group, sq,
+                                  sk, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, void* dq, void* dk, void* dv, void* lse,
-              void* dd, int bh, int bk, int sq, int sk, int dh, int causal,
-              int window, void* stream) {
+int launch_dh(const float* q, const float* k, const float* v, const float* o,
+              const float* dout, const float* lse, float* dq, float* dk,
+              float* dv, float* dd, int bh, int bk, int sq, int sk, int dh,
+              int causal, int window, cudaStream_t st) {
   switch (dh) {
     case 64:
-      return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, dd, bh, bk, sq,
-                           sk, causal, window, stream);
+      return launch<64>(q, k, v, o, dout, lse, dq, dk, dv, dd, bh, bk, sq, sk,
+                        causal, window, st);
     case 128:
-      return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, dd, bh, bk, sq,
-                            sk, causal, window, stream);
+      return launch<128>(q, k, v, o, dout, lse, dq, dk, dv, dd, bh, bk, sq,
+                         sk, causal, window, st);
     case 256:
-      return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, lse, dd, bh, bk, sq,
-                            sk, causal, window, stream);
+      return launch<256>(q, k, v, o, dout, lse, dq, dk, dv, dd, bh, bk, sq,
+                         sk, causal, window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -502,25 +451,34 @@ int launch_dh(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // q, o, dout, dq (bh, sq, dh); k, v, dk, dv (bk, sk, dh) with bh a
-// multiple of bk; lse, dd fp32 workspaces of (bh, sq); dh 64, 128 or 256;
-// dtype a qf::DType (the same for every tensor but the workspaces).
+// multiple of bk; lse fp32 (bh, sq), the forward's (qf_flash_attention);
+// dd an fp32 workspace of (bh, sq); dh 64, 128 or 256; dtype a qf::DType
+// (the same for every tensor but lse and the workspaces). bf16 also
+// takes part, an fp32 workspace of (splits, 2, bk, sk, dh), splits
+// dividing the G = bh / bk query heads of a kv head among blocks
+// (flash_attention_bwd_wgmma.cu); fp32 ignores both.
 extern "C" int qf_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
-                                      const void* dout, void* dq, void* dk,
-                                      void* dv, void* lse, void* dd, int bh,
-                                      int bk, int sq, int sk, int dh,
-                                      int causal, int window, int dtype,
-                                      void* stream) {
+                                      const void* dout, const void* lse,
+                                      void* dq, void* dk, void* dv, void* dd,
+                                      void* part, int bh, int bk, int sq,
+                                      int sk, int dh, int causal, int window,
+                                      int splits, int dtype, void* stream) {
   if (bh <= 0 || bk <= 0 || bh % bk || bh > 65535 || sq <= 0 || sk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case qf::kFloat32:
-      return launch_dh<float>(q, k, v, o, dout, dq, dk, dv, lse, dd, bh, bk,
-                              sq, sk, dh, causal, window, stream);
+      return launch_dh(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(o),
+          static_cast<const float*>(dout), static_cast<const float*>(lse),
+          static_cast<float*>(dq), static_cast<float*>(dk),
+          static_cast<float*>(dv), static_cast<float*>(dd), bh, bk, sq, sk,
+          dh, causal, window, static_cast<cudaStream_t>(stream));
     case qf::kBFloat16:
-      return launch_dh<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, dd,
-                                      bh, bk, sq, sk, dh, causal, window,
-                                      stream);
+      return qf::flash_attention_bwd_bf16(q, k, v, o, dout, lse, dq, dk, dv,
+                                          dd, part, bh, bk, sq, sk, dh,
+                                          causal, window, splits, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

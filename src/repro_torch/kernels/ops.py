@@ -97,22 +97,24 @@ def plain_route(x: torch.Tensor, impl: str) -> bool:
 
 class _FlashAttentionFn(torch.autograd.Function):
     """The flash-attention kernel with its backward kernel. Saves q, k,
-    v and the output (the backward works out each row's log-sum-exp
-    itself); dq, dk, dv come back in q's dtype."""
+    v, the output and each row's log-sum-exp, which the forward kernel
+    emits (under remat both come from the recompute); dq, dk, dv come
+    back in q's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        out = _fa.flash_attention(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _fa.flash_attention_bwd(
-            q, k, v, out, _dense(dout.to(q.dtype)), causal=ctx.causal,
-            window=ctx.window)
+            q, k, v, out, _dense(dout.to(q.dtype)), lse=lse,
+            causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
 
 

@@ -61,16 +61,19 @@ def ensemble_commutator_trace_ref(a: torch.Tensor, b: torch.Tensor
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
+                  causal: bool = True, window: int = 0,
+                  return_lse: bool = False):
     """q (BH, Sq, dh); k/v (BK, Sk, dh) with BH = BK * G: query row i
     reads kv row i // G (G = 1 is the reference's same-head layout).
     Query position i and key position j (both from 0) pair when
     j <= i (causal) and j > i - window (window > 0). fp32 softmax; out
-    in q's dtype.
+    in q's dtype. With ``return_lse``, (out, lse): each row's
+    log-sum-exp of its scaled allowed scores, fp32 (BH, Sq), natural-log
+    units, the unit of the CUDA kernels' LSE.
 
     A query row with no allowed key gives 0, as the TPU kernel and the
     CUDA kernel do (the JAX oracle's -1e30 fill gives the mean of v
-    there instead; no model path has such a row).
+    there instead; no model path has such a row), and an LSE of -inf.
     """
     g = q.shape[0] // k.shape[0]
     kf = k.float().repeat_interleave(g, dim=0)
@@ -79,13 +82,18 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = attention_mask(q.shape[1], k.shape[1], causal, window, q.device)
     if s.requires_grad:                    # autograd keeps every step
         s = s.masked_fill(~mask, float("-inf"))
-        p = (s - s.detach().amax(dim=-1, keepdim=True).clamp_min(-1e30)
-             ).exp()
+        m = s.detach().amax(dim=-1, keepdim=True).clamp_min(-1e30)
+        p = (s - m).exp()
     else:                                  # in place: s is (BH, Sq, Sk)
         s.masked_fill_(~mask, float("-inf"))
-        p = s.sub_(s.amax(dim=-1, keepdim=True).clamp_min(-1e30)).exp_()
-    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return ((p @ vf) / denom).to(q.dtype)
+        m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+        p = s.sub_(m).exp_()
+    lsum = p.sum(dim=-1, keepdim=True)
+    out = ((p @ vf) / lsum.clamp_min(1e-30)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(lsum > 0, m + torch.log(lsum), float("-inf"))
+    return out, lse.squeeze(-1)
 
 
 def attention_mask(sq: int, sk: int, causal: bool, window: int, device
@@ -104,15 +112,19 @@ def attention_mask(sq: int, sk: int, causal: bool, window: int, device
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *,
-                      causal: bool = True, window: int = 0):
+                      causal: bool = True, window: int = 0,
+                      lse: torch.Tensor | None = None):
     """dq, dk, dv of ``attention_ref`` at (q, k, v) for the cotangent
-    ``do`` of its output ``o`` (the plain version of the CUDA kernel
-    ``csrc/flash_attention_bwd.cu``, by the same algorithm): fp32 math,
-    each row's log-sum-exp over its allowed keys, D_i = sum_c do_ic o_ic,
-    P recomputed, dS = P (do v^T - D); dq = scale dS k, dk = scale dS^T q
-    and dv = P^T do, dk and dv summed over the G query heads of each kv
-    head. A row with no allowed key has no gradient. Out in q's dtype
-    (the reference's ``_grad_dtype_fence``)."""
+    ``do`` of its output ``o`` (the plain version of the CUDA kernels
+    ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_wgmma
+    .cu``, by the same algorithm): fp32 math, each row's log-sum-exp
+    ``lse`` (fp32 (BH, Sq), natural-log units, as ``attention_ref(...,
+    return_lse=True)`` and the forward kernels give it; ``None``: worked
+    out here over the row's allowed keys), D_i = sum_c do_ic o_ic, P =
+    exp(s - lse) on the allowed pairs, dS = P (do v^T - D); dq = scale
+    dS k, dk = scale dS^T q and dv = P^T do, dk and dv summed over the G
+    query heads of each kv head. A row with no allowed key has no
+    gradient. Out in q's dtype (the reference's ``_grad_dtype_fence``)."""
     g = q.shape[0] // k.shape[0]
     bk, sk, dh = k.shape
     scale = 1.0 / math.sqrt(float(dh))
@@ -122,9 +134,12 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = attention_mask(q.shape[1], sk, causal, window, q.device)
     s = (qf @ kf.transpose(1, 2)).mul_(scale).masked_fill_(~mask,
                                                             float("-inf"))
-    m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
-    lsum = (s - m).exp_().sum(dim=-1, keepdim=True)
-    lse = torch.where(lsum > 0, m + torch.log(lsum), 0.0)
+    if lse is None:
+        m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+        lsum = (s - m).exp_().sum(dim=-1, keepdim=True)
+        lse = torch.where(lsum > 0, m + torch.log(lsum), 0.0)
+    else:                                  # -inf rows: no allowed key
+        lse = lse.float()[..., None].clamp_min(-1e30)
     p = s.sub_(lse).exp_()                 # in place: s is (BH, Sq, Sk)
     dd = (dof * of).sum(dim=-1, keepdim=True)
     ds = (dof @ vf.transpose(1, 2)).sub_(dd).mul_(p)

@@ -937,15 +937,18 @@ def _attn_bwd_args(gen, bh, bk, sq, sk, dh, dtype, device):
 @pytest.mark.parametrize("case", ATTN_BWD_CASES)
 def test_attention_backward_kernel_agrees_on_ragged_cases(cuda_device, dtype,
                                                           case):
-    """The backward kernel against ``ref.attention_bwd_ref`` on the same
-    (q, k, v, o, dO): fp32 within BWD_RTOL of each gradient's scale, bf16
-    within one bf16 ulp of it (both are one rounding of nearly the same
-    fp32 value); the same bits on repeat; one launch a call."""
+    """The backward kernel (bf16: the wgmma kernels, fp32: the CUDA-core
+    ones) against ``ref.attention_bwd_ref`` on the same (q, k, v, o, dO)
+    and the plain LSE of (q, k, v): fp32 within BWD_RTOL of each
+    gradient's scale, bf16 within one bf16 ulp of it (both are one
+    rounding of nearly the same fp32 value); the same bits on repeat;
+    one launch a call."""
     from repro_torch.kernels import flash_attention as kfa
     bh, bk, sq, sk, dh, causal, window = case
     args = _attn_bwd_args(torch.Generator().manual_seed(sum(case)), bh, bk,
                           sq, sk, dh, dtype, cuda_device)
     kw = dict(causal=causal, window=window)
+    kw["lse"] = ref.attention_ref(*args[:3], return_lse=True, **kw)[1]
     build.reset_launches()
     got = kfa.flash_attention_bwd(*args, **kw)
     again = kfa.flash_attention_bwd(*args, **kw)
@@ -960,6 +963,56 @@ def test_attention_backward_kernel_agrees_on_ragged_cases(cuda_device, dtype,
         assert float((g.float() - w.float()).abs().max()) <= tol * scale, name
     if window > 0 and sq > sk + window - 1:  # rows with no allowed key
         assert not got[0][:, sk + window - 1:].float().abs().max()
+
+
+LSE_RTOL = 1e-6   # the forward kernels' LSE, of its scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_BWD_CASES)
+def test_forward_lse_matches_the_plain_lse(cuda_device, dtype, case):
+    """The forward kernel's log-sum-exp (``return_lse``; fp32 CUDA-core
+    and bf16 wgmma kernels) against ``ref.attention_ref``'s on the same
+    inputs: within LSE_RTOL of its scale, -inf on exactly the rows with
+    no allowed key; the output is the one without ``return_lse``, bit
+    for bit; one launch a call."""
+    from repro_torch.kernels import flash_attention as kfa
+    bh, bk, sq, sk, dh, causal, window = case
+    q, k, v = _attn_bwd_args(torch.Generator().manual_seed(sum(case)), bh,
+                             bk, sq, sk, dh, dtype, cuda_device)[:3]
+    kw = dict(causal=causal, window=window)
+    build.reset_launches()
+    out, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
+    plain_out = kfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"flash_attention": 2}
+    assert torch.equal(out, plain_out)
+    assert lse.dtype == torch.float32 and lse.shape == (bh, sq)
+    want = ref.attention_ref(q, k, v, return_lse=True, **kw)[1]
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert bool((lse[~fin] == float("-inf")).all())
+    scale = float(want[fin].abs().max())
+    assert float((lse[fin] - want[fin]).abs().max()) <= LSE_RTOL * scale
+
+
+@pytest.mark.cuda
+def test_bf16_attention_backward_runs_on_the_tensor_cores(cuda_device):
+    """The built bf16 backward kernels (the dQ and dK/dV passes at dh 64,
+    128, 256) issue wgmma: HGMMA in their machine code; the CUDA-core
+    backward kernels are built for fp32 only, so no bf16 backward can
+    take them."""
+    from repro_torch.kernels import flash_attention as kfa
+    sass = build.sass()
+    for name in kfa.BF16_KERNELS[1:]:
+        code = [text for n, text in sass.items() if name in n]
+        assert len(code) == 3 and all("HGMMA" in t for t in code), name
+    assert kfa.bf16_design() == "wgmma"
+    cuda_core = [n for n in sass if "attn_bwd_dq_kernel" in n
+                 or "attn_bwd_dkdv_kernel" in n]
+    assert len(cuda_core) == 6
+    assert not any("bfloat16" in n for n in cuda_core)
 
 
 @pytest.mark.cuda

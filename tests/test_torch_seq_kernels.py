@@ -127,6 +127,41 @@ def test_attention_rows_with_no_allowed_key_are_zero():
     assert bool((got[:, :11].abs().amax(dim=-1) > 0).all())
 
 
+@pytest.mark.parametrize("bh,bk,sq,sk,window", [
+    (4, 4, 48, 48, 0), (4, 4, 64, 64, 16), (6, 2, 40, 40, 7),
+    (2, 1, 50, 20, 0), (2, 1, 50, 20, 8)])
+def test_attention_plain_lse_matches_jax_logsumexp(bh, bk, sq, sk, window):
+    """``ref.attention_ref(..., return_lse=True)``'s LSE (natural-log
+    units, the unit of the forward kernels' LSE) against
+    ``jax.nn.logsumexp`` of the masked, scaled scores that the reference's
+    ``repro.kernels.ref.attention_ref`` forms (k repeated to every query
+    head), within 1e-6 of its scale, on causal, windowed, GQA and Sq > Sk
+    cases. The last case's rows past Sk + window - 1 have no allowed key:
+    -inf in the port (the oracle's -1e30 fill gives -1e30 + log Sk)."""
+    rng = np.random.default_rng(bh + sq + sk + window)
+    q = rng.standard_normal((bh, sq, 32)).astype(np.float32)
+    k = rng.standard_normal((bk, sk, 32)).astype(np.float32)
+    v = rng.standard_normal((bk, sk, 32)).astype(np.float32)
+    out, lse = ref.attention_ref(*(torch.as_tensor(x) for x in (q, k, v)),
+                                 causal=True, window=window, return_lse=True)
+    assert out.shape == (bh, sq, 32) and lse.shape == (bh, sq)
+    assert lse.dtype == torch.float32
+    kr = jnp.repeat(jnp.asarray(k), bh // bk, axis=0)
+    s = jnp.einsum("bqd,bkd->bqk", jnp.asarray(q), kr) / jnp.sqrt(32.0)
+    qp = jnp.arange(sq)[:, None]
+    kp = jnp.arange(sk)[None, :]
+    mask = kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    want = np.asarray(jax.nn.logsumexp(jnp.where(mask, s, -1e30), axis=-1))
+    has = np.asarray(mask.any(-1))
+    got = lse.numpy()
+    scale = float(np.abs(want[:, has]).max())
+    assert float(np.abs(got[:, has] - want[:, has]).max()) <= 1e-6 * scale
+    assert np.all(got[:, ~has] == -np.inf)
+    assert has.all() == (window == 0 or sq <= sk + window - 1)
+
+
 def split_p_attention(q, k, v, *, causal, window, split=True, tile=64,
                       tensor_core=False):
     """The bf16 CUDA kernel's arithmetic (csrc/flash_attention_wgmma.cu)
@@ -205,6 +240,196 @@ def test_attention_split_p_emulation(bh, bk, sq, sk, dh, window):
                                     window=window).float()):
         excess = ((got16 - other).abs() - bf16_ulp(other)).clamp_min(0)
         assert float((excess - 2.0 ** -15 * terms).max()) <= 0.0
+
+
+def hi_lo(x, split=True):
+    """x as bf16 hi + lo (fp32 values); ``split=False``: hi alone."""
+    hi = x.bfloat16().float()
+    return hi, ((x - hi).bfloat16().float() if split
+                else torch.zeros_like(x))
+
+
+def split_bwd_attention(q, k, v, o, do, lse, *, causal, window, splits=1,
+                        split_p=True, split_ds=True, tensor_core=False):
+    """The bf16 backward kernel's arithmetic
+    (csrc/flash_attention_bwd_wgmma.cu) in plain PyTorch, in its tile
+    order: P = exp2(fma(s, 1/sqrt(dh), -LSE) log2(e)) of the bf16
+    inputs' fp32 scores on the allowed pairs (the fma exact, then one
+    rounding, through fp64), D_i = sum_c dO_ic O_ic,
+    dS = P (dP - D). Pass A: for each key tile of 64, dQ += dS_hi K +
+    dS_lo K. Pass B: for each of ``splits`` groups of a kv head's query
+    heads, for each head and query tile of 64, dV += P^T_hi dO + P^T_lo dO
+    and dK += dS^T_hi Q + dS^T_lo Q; then the groups' partials summed in
+    order. Every sum fp32; hi = bf16(x), lo = bf16(x - hi) (``split_p`` /
+    ``split_ds`` False: P or dS rounded to bf16 alone; ``tensor_core``:
+    the scores and dP summed as ``tensor_core_scores`` models the tensor
+    cores, else by one fp32 matmul each). q, o, dO (BH, Sq, dh), k, v
+    (BK, Sk, dh) -> fp32 dq, dk, dv."""
+    bh, sq, dh = q.shape
+    bk, sk = k.shape[:2]
+    g = bh // bk
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    kr, vr = (x.repeat_interleave(g, 0) for x in (kf, vf))
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32)
+    mask = ref.attention_mask(sq, sk, causal, window, q.device)
+    if tensor_core:
+        s = tensor_core_scores(q, kr.bfloat16())
+        dp = tensor_core_scores(do, vr.bfloat16())
+    else:
+        s, dp = qf @ kr.transpose(1, 2), dof @ vr.transpose(1, 2)
+    arg = (s.double() * scale.double() - lse[..., None].double()).float()
+    p = torch.where(mask, torch.exp2(arg * math.log2(math.e)), 0.0)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    p_hi, p_lo = hi_lo(p, split_p)
+    ds_hi, ds_lo = hi_lo(ds, split_ds)
+    dq = torch.zeros(qf.shape)
+    for k0 in range(0, sk, 64):
+        t = slice(k0, k0 + 64)
+        dq += ds_hi[:, :, t] @ kr[:, t]
+        dq += ds_lo[:, :, t] @ kr[:, t]
+    dk_parts, dv_parts = [], []
+    for sp in range(splits):
+        heads = range(sp * g // splits, (sp + 1) * g // splits)
+        dk = torch.zeros(kf.shape)
+        dv = torch.zeros(vf.shape)
+        for h in heads:
+            rows = h + g * torch.arange(bk)      # head h of each kv head
+            for i0 in range(0, sq, 64):
+                t = slice(i0, i0 + 64)
+                for lo_, hi_, x, acc in ((p_lo, p_hi, dof, dv),
+                                         (ds_lo, ds_hi, qf, dk)):
+                    acc += hi_[rows, t].transpose(1, 2) @ x[rows, t]
+                    acc += lo_[rows, t].transpose(1, 2) @ x[rows, t]
+        dk_parts.append(dk)
+        dv_parts.append(dv)
+    dk, dv = dk_parts[0], dv_parts[0]
+    for a, b in zip(dk_parts[1:], dv_parts[1:]):
+        dk, dv = dk + a, dv + b
+    return dq * scale, dk * scale, dv
+
+
+def bwd_terms(q, k, v, o, do, lse, *, causal, window):
+    """The size of the terms summed into each gradient element of the
+    fp32 function: scale |dS| |K|, scale |dS|^T |Q| and |P|^T |dO| (the
+    sums over each kv head's query heads included)."""
+    bh, sq, dh = q.shape
+    bk, sk = k.shape[:2]
+    g = bh // bk
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    kr, vr = (x.repeat_interleave(g, 0) for x in (kf, vf))
+    mask = ref.attention_mask(sq, sk, causal, window, q.device)
+    p = torch.where(mask, torch.exp((qf @ kr.transpose(1, 2))
+                                    / math.sqrt(dh) - lse[..., None]), 0.0)
+    ds = (p * (dof @ vr.transpose(1, 2)
+               - (dof * of).sum(-1, keepdim=True))).abs()
+    scale = 1.0 / math.sqrt(dh)
+    dq = scale * ds @ kr.abs()
+    dk = scale * (ds.transpose(1, 2) @ qf.abs()).view(bk, g, sk, dh).sum(1)
+    dv = (p.transpose(1, 2) @ dof.abs()).view(bk, g, sk, dh).sum(1)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("bh,bk,sq,sk,dh,window",
+                         [(6, 3, 70, 70, 64, 20), (4, 4, 33, 100, 128, 0),
+                          (4, 2, 100, 33, 64, 7), (20, 2, 130, 130, 256, 50)])
+def test_attention_backward_split_emulation(bh, bk, sq, sk, dh, window):
+    """The precision argument of the bf16 backward kernel, runnable
+    without a card. Against the fp32 function of the bf16 inputs
+    (``ref.attention_bwd_ref`` on the upcast inputs, with the plain LSE),
+    the kernel's arithmetic with P and dS split hi + lo, in its tile order
+    and with the wrapper's splits of the group, misses each gradient
+    element by at most 2^-16 of the size of the terms summed into it; dS
+    rounded to bf16 alone, or P alone, misses by more than 2^-10 of it
+    somewhere. Rounded to bf16, the emulation is within one bf16 ulp (+
+    2^-15 of the terms) of the plain bf16 gradients. (4, 2, 100, 33, 64,
+    7) has rows with no allowed key."""
+    from repro_torch.kernels import flash_attention as kfa
+    (_, tq), (_, tk), (_, tv) = qkv(dh + window + 1, bh, sq, sk, dh,
+                                    "bfloat16", bk=bk)
+    rng = np.random.default_rng(sq)
+    tdo = torch.as_tensor(rng.standard_normal((bh, sq, dh))).bfloat16()
+    kw = dict(causal=True, window=window)
+    to, lse = ref.attention_ref(tq, tk, tv, return_lse=True, **kw)
+    args = (tq, tk, tv, to, tdo)
+    want = ref.attention_bwd_ref(*(x.float() for x in args), lse=lse, **kw)
+    terms = bwd_terms(*args, lse, **kw)
+    splits = kfa.bwd_splits(bh, bk, sk, 132)
+    got = split_bwd_attention(*args, lse, splits=splits, **kw)
+    for name, x, w, t in zip("qkv", got, want, terms):
+        assert float(((x - w).abs() - 2.0 ** -16 * t).max()) <= 0.0, name
+    for flags in (dict(split_ds=False), dict(split_p=False)):
+        rounded = split_bwd_attention(*args, lse, splits=splits, **kw,
+                                      **flags)
+        worst = max(float(((x - w).abs() - 2.0 ** -10 * t).max())
+                    for x, w, t in zip(rounded, want, terms))
+        assert worst > 0.0, flags
+    plain = ref.attention_bwd_ref(*args, lse=lse, **kw)
+    for name, x, pl, t in zip("qkv", got, plain, terms):
+        excess = ((x.bfloat16().float() - pl.float()).abs()
+                  - bf16_ulp(pl)).clamp_min(0)
+        assert float((excess - 2.0 ** -15 * t).max()) <= 0.0, name
+
+
+def attention_bwd_fp64(q, k, v, o, do, *, causal, window):
+    """dq, dk, dv of the attention function in fp64 at the given (bf16)
+    inputs and output o; the size of the terms summed into each gradient
+    element, with |dS| counted as P (|dP| + |D|), the size of what dS
+    is formed from (dP and D cancel on a row's dominant key); and the
+    largest |score| / sqrt(dh)."""
+    bh, sq, dh = q.shape
+    bk, sk = k.shape[:2]
+    g = bh // bk
+    qd, kd, vd, od, dod = (x.double() for x in (q, k, v, o, do))
+    kr, vr = (x.repeat_interleave(g, 0) for x in (kd, vd))
+    mask = ref.attention_mask(sq, sk, causal, window, q.device)
+    s = qd @ kr.transpose(1, 2) / math.sqrt(dh)
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+    dp = dod @ vr.transpose(1, 2)
+    dd = (dod * od).sum(-1, keepdim=True)
+    ds = p * (dp - dd)
+    scale = 1.0 / math.sqrt(dh)
+
+    def grads(ds, p, qx, kx, dox):
+        return (scale * ds @ kx,
+                (scale * ds.transpose(1, 2) @ qx).view(bk, g, sk, dh).sum(1),
+                (p.transpose(1, 2) @ dox).view(bk, g, sk, dh).sum(1))
+    return (grads(ds, p, qd, kr, dod),
+            grads(p * (dp.abs() + dd.abs()), p, qd.abs(), kr.abs(),
+                  dod.abs()),
+            float(s[:, mask].abs().max()))
+
+
+def test_attention_backward_error_scales_with_the_logit_range():
+    """The bf16 backward's arithmetic against the fp64 gradients at
+    growing logits (the reference init's reach an LSE near 2000), with
+    the tensor cores' score and dP sums (``split_bwd_attention(
+    tensor_core=True)``) and with fp32-rounded ones: every fp32 score
+    carries an error of about |x| 2^-24 (x the largest score in log2
+    units), so each weight P carries that relative error, and each
+    gradient element stays within 2 |x| 2^-24 + 2^-15 of the size of its
+    terms, the bound the forward's arithmetic meets
+    (``test_attention_kernel_order_error_scales_with_the_logit_range``);
+    an element whose weights underflow fp32 is off by no more than 1e-30.
+    The error grows with the logits: at |x| in the thousands it is more
+    than 4x that at unit logits and above 2e-5 of the terms."""
+    errs = []
+    for scale in (1.0, 64.0, 256.0):
+        (_, tq), (_, tk), (_, tv) = qkv(5, 4, 130, 130, 64, "bfloat16", bk=2)
+        tq = (tq.float() * scale).bfloat16()
+        tdo = qkv(6, 4, 130, 130, 64, "bfloat16")[0][1]
+        kw = dict(causal=True, window=50)
+        to, lse = ref.attention_ref(tq, tk, tv, return_lse=True, **kw)
+        exact, terms, smax = attention_bwd_fp64(tq, tk, tv, to, tdo, **kw)
+        bound = 2 * smax * math.log2(math.e) * 2.0 ** -24 + 2.0 ** -15
+        for tc in (False, True):    # the errors below: the tensor cores'
+            got = split_bwd_attention(tq, tk, tv, to, tdo, lse, splits=2,
+                                      tensor_core=tc, **kw)
+            for g, e, t in zip(got, exact, terms):
+                excess = (g.double() - e).abs() - bound * t
+                assert float(excess.max()) <= 1e-30, (scale, tc)
+        errs.append(max(float(((g.double() - e).abs() / t)[t > 1e-30].max())
+                        for g, e, t in zip(got, exact, terms)))
+    assert errs[2] > 4 * errs[0] and errs[2] > 2e-5, errs
 
 
 def attention_fp64(q, k, v, *, causal, window):

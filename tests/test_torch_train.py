@@ -39,6 +39,7 @@ from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import qnn_232 as jqnn_232  # noqa: E402
 from repro.core.fed import server_opt as jserver_opt  # noqa: E402
 from repro.data import token_batches as jtoken_batches  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
 from repro.models import losses as jlosses  # noqa: E402
@@ -230,11 +231,12 @@ def _count(name, fn):
 def test_kernel_route_functions_backpropagate_like_the_plain_route(
         monkeypatch):
     """The card's route on the CPU, with each kernel replaced by its plain
-    version (counted): ``_FlashAttentionFn`` (forward, then the backward
-    from the forward's output), ``_LruScanFn`` (the reverse scan) and the
-    remat cycle give the plain route's loss and gradients, with the
-    card's launch counts: the forward kernels twice (remat), the
-    backward and the reverse scan once each."""
+    version (counted): ``_FlashAttentionFn`` (forward with its LSE, then
+    the backward from the forward's output and LSE), ``_LruScanFn`` (the
+    reverse scan) and the remat cycle give the plain route's loss and
+    gradients, with the card's launch counts: the forward kernels twice
+    (remat), the backward and the reverse scan once each. The backward
+    gets the recompute's LSE."""
     arch = "recurrentgemma-2b"
     cfg, jcfg = cfg_pair(arch, remat=True)
     params, batch = model_inputs(arch, jcfg, seed=5)
@@ -243,10 +245,20 @@ def test_kernel_route_functions_backpropagate_like_the_plain_route(
     want_loss, _, want = loss_and_grads(Model(cfg, impl="xla"), tp,
                                         port_batch(batch))
     monkeypatch.setattr(ops, "_on_cpu", lambda x: False)
+    lses = []
+
+    def forward(q, k, v, **kw):
+        out, lse = ref.attention_ref(q, k, v, **kw)
+        lses.append(lse)
+        return out, lse
+
+    def backward(q, k, v, out, dout, *, lse, **kw):
+        assert lse is lses[-1] and lse.shape == q.shape[:2]
+        return ref.attention_bwd_ref(q, k, v, out, dout, lse=lse, **kw)
     monkeypatch.setattr(kfa, "flash_attention",
-                        _count("flash_attention", ref.attention_ref))
+                        _count("flash_attention", forward))
     monkeypatch.setattr(kfa, "flash_attention_bwd",
-                        _count("flash_attention_bwd", ref.attention_bwd_ref))
+                        _count("flash_attention_bwd", backward))
     monkeypatch.setattr(krg, "rglru_scan",
                         _count("rglru_scan", ref.rglru_scan_ref))
     build.reset_launches()
@@ -511,6 +523,39 @@ def test_attention_backward_reference_matches_autograd(bh, bk, sq, sk, causal,
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
     if window and sq > sk + window - 1:
         assert not got[0][:, sk + window - 1:].abs().max()
+
+
+@pytest.mark.parametrize("bh,bk,sq,sk,causal,window", [
+    (4, 2, 33, 33, True, 0), (6, 2, 40, 40, True, 7),
+    (3, 3, 19, 19, False, 5), (2, 1, 30, 9, True, 0),
+    (4, 1, 70, 70, False, 0)])
+def test_attention_backward_with_the_lse_matches_jax_vjp(bh, bk, sq, sk,
+                                                         causal, window):
+    """``ref.attention_bwd_ref`` given the LSE of ``ref.attention_ref(...,
+    return_lse=True)`` (what the CUDA backward takes from the forward)
+    against ``jax.vjp`` of the reference's ``repro.kernels.ref
+    .attention_ref`` on the same fp32 arrays (k, v repeated to every query
+    head; dk, dv summed back over the group), within 1e-5 of each
+    gradient's scale: causal, windowed, GQA, Sq > Sk."""
+    rng = np.random.default_rng(bh + sq + sk + window)
+    q, do = (rng.standard_normal((bh, sq, 16)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((bk, sk, 16)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    tq, tk, tv, tdo = (torch.as_tensor(x) for x in (q, k, v, do))
+    out, lse = ref.attention_ref(tq, tk, tv, return_lse=True, **kw)
+    got = ref.attention_bwd_ref(tq, tk, tv, out, tdo, lse=lse, **kw)
+    g = bh // bk
+    _, vjp = jax.vjp(lambda a, b, c: jref.attention_ref(a, b, c, **kw),
+                     jnp.asarray(q), jnp.repeat(k, g, axis=0),
+                     jnp.repeat(v, g, axis=0))
+    jdq, jdk, jdv = (np.asarray(x) for x in vjp(jnp.asarray(do)))
+    want = (jdq, jdk.reshape(bk, g, sk, 16).sum(1),
+            jdv.reshape(bk, g, sk, 16).sum(1))
+    for name, a, b in zip("qkv", got, want):
+        assert float(np.abs(a.numpy() - b).max()) <= 1e-5 * float(
+            np.abs(b).max()), name
 
 
 @pytest.mark.parametrize("shape", [(2, 37, 5), (1, 64, 3)])
