@@ -152,7 +152,30 @@ repository, it exits non-zero before printing any result. Phases:
    ragged shapes, the same bits on repeat, timed beside its plain
    version and SDPA's backward (each pass's device time, TFLOP/s on the
    five products), the fp32-storage backward beside fp32 SDPA's; the
-   scan's reverse use against autograd of the plain scan (1e-5), timed.
+   scan's reverse use against autograd of the plain scan (1e-5), timed;
+12. the classical federation: (a) Qwen1.5-4B at its published width
+   (d_model 2560, 20 heads of 128, MHA, d_ff 6912, vocab 151936, qkv
+   biases, bf16 params, fp32 AdamW moments, remat) with its depth cut
+   from 40 to 8 layers (the selected nodes' fp32 moments and deltas
+   must fit), random init from seed 0, through ``ClassicalSubstrate``
+   and a ``FederationSession``: N=4, N_p=2, I_l=2, local steps of B=2 x
+   S=4096, lr 3e-3, 3 rounds; each round's launches counted (zeroed
+   before, read after) and gated exactly (64 flash_attention, 32
+   flash_attention_bwd), the eval loss finite and lower after round 3
+   than at round 0, ms/round (CUDA events, rounds 2-3), tokens/s, peak
+   memory beside the counted one, a profile of a fourth round; then
+   the attention kernels at the path's recorded inputs (MHA, dh 128,
+   causal): the forward's LSE, the backward within the bf16 budget,
+   the forward as in phase 5 (with its fp32-storage row), each timed
+   beside its plain version, SDPA and its bound. (b) at the
+   reference's test sizes (fp32): one round of reduced Qwen1.5-4B (1
+   layer) and of reduced RecurrentGemma-2B through the kernels against
+   the plain route under SGD (the aggregated delta within 1e-3 of its
+   scale, launches exact, every recorded kernel call against its plain
+   version), kill-and-resume 2 + 2 rounds against 4 bit for bit, ``python
+   -m repro_torch.launch.fed_train --arch qwen1.5-4b --rounds 2`` and
+   its round lines, and RWKV6 through the substrate refused
+   (NotImplementedError).
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape: each kernel at the main path's most frequent shape (launches of
@@ -166,8 +189,11 @@ set; launches of phase 5's fp32 kernel prefill), and zgemm at the
 two-level tree's pod-tier and merge shapes (``"cell"`` set), and
 the attention backward (bf16, and fp32 storage: launches of the
 one-cycle gate's fp32 kernel pass) and the scan's reverse use at the
-train step's shapes (launches a step, ``"cell"`` set); every row carries
-``device_us``, and fidelity's and mse's the launch floor.
+train step's shapes (launches a step, ``"cell"`` set), and the attention
+forward (bf16, and fp32 storage: not launched there) and backward at
+phase 12a's Qwen1.5-4B shape (launches a federated round, ``"cell"``
+set); every row carries ``device_us``, and fidelity's and mse's the
+launch floor.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and never prints that line.
 
@@ -989,7 +1015,8 @@ def no_impl(kw):
     return {k: v for k, v in kw.items() if k != "impl"}
 
 
-def check_and_time_seq(rec, ragged):
+def check_and_time_seq(rec, ragged, cell="RecurrentGemma-2B fp32 prefill",
+                       fp32=True):
     """Hold each sequence kernel the phase recorded against its plain
     version on the path's recorded inputs and on ragged shapes, every
     output (GLA: out and the final state) to its own tolerance: fp32 to
@@ -998,7 +1025,8 @@ def check_and_time_seq(rec, ragged):
     both; each chunk's add rounds at 6e-8 of the state's scale, and 256
     such roundings of either sign add to ~1e-6), bf16 to one bf16 ulp of
     it. Then time kernel, plain version and (attention only) SDPA at the
-    path's shape. Raises on a disagreement."""
+    path's shape; with ``fp32`` also the fp32-storage attention (its row
+    named ``cell``). Raises on a disagreement."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
@@ -1090,7 +1118,9 @@ def check_and_time_seq(rec, ragged):
                 f"{flops / k_ms / 1e9:.1f} TFLOP/s on allowed pairs, "
                 f"{100 * b_ms / k_ms:.1f}% of the bound, {k_ms / lib_ms:.3f}x "
                 f"SDPA's time")
-            results[FA32] = fp32_attention_row(q, k, v, kw, mask, flops)
+            if fp32:
+                results[FA32] = fp32_attention_row(q, k, v, kw, mask, flops,
+                                                   cell)
         elif name == "gla_chunked":
             r, k, v, w, u = args
             dense = [ops._dense(x) for x in (r, k, v, w)] + [
@@ -1126,9 +1156,9 @@ def check_and_time_seq(rec, ragged):
 FA32 = "flash_attention fp32"
 
 
-def fp32_attention_row(q, k, v, kw, mask, flops):
+def fp32_attention_row(q, k, v, kw, mask, flops, cell):
     """The fp32-storage attention (``csrc/flash_attention.cu``, CUDA
-    cores) at the prefill's shape: the inputs cast to fp32, the kernel
+    cores) at the path's shape: the inputs cast to fp32, the kernel
     against the plain fp32 version (KERNEL_RTOL of its scale), timed
     beside it and beside SDPA in fp32 with the same boolean mask (checked
     against the plain version first, at YARDSTICK_RTOL), its device time
@@ -1150,7 +1180,7 @@ def fp32_attention_row(q, k, v, kw, mask, flops):
     err = float((got - want).abs().max())
     scale = max(1.0, float(want.abs().max()))
     ok = err <= KERNEL_RTOL * scale
-    say(f"  {name:16s} fp32 storage (CUDA cores) at the prefill's shape: "
+    say(f"  {name:16s} fp32 storage (CUDA cores) at the path's shape: "
         f"max_abs_err {err:.3e} (tol {KERNEL_RTOL:.0e} x scale {scale:.3g}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1188,8 +1218,7 @@ def fp32_attention_row(q, k, v, kw, mask, flops):
                 replaces=SEQ_KERNELS[name]["replaces"],
                 shape=[list(x.shape) for x in (q, k, v)], max_abs_err=err,
                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, device_us=dev_us,
-                cell="RecurrentGemma-2B fp32 prefill")
+                library_ms=lib_ms, device_us=dev_us, cell=cell)
 
 
 def tensor_core_scores(q, k):
@@ -2968,6 +2997,7 @@ GRAD_RTOL_FP32 = 1e-3
 # the forward kernels' log-sum-exp against the plain one, of its scale
 LSE_RTOL = 1e-6
 ATTN_BWD = "flash_attention_bwd"
+ATTN_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu"
 ATTN_BWD32 = "flash_attention_bwd fp32"
 SCAN_REV = "rglru_scan reverse"
 
@@ -3007,6 +3037,35 @@ def attn_bwd_bound_ms(q, k, kw):
     peak = BF16_FLOPS if q.element_size() == 2 else FP32_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_bwd_timing(q, k, v, o, do, kw):
+    """The bf16 attention backward kernel at (q, k, v, o, dO) (heads-major)
+    timed by CUDA events beside its plain version and SDPA's backward,
+    with its device time a launch and its bound; printed. Returns the
+    numbers of its row in the result."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    mask = dict(causal=kw["causal"], window=kw["window"])
+    k_ms = cuda_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw),
+                   reps=10, warmup=2)
+    p_ms = cuda_ms(lambda: ref.attention_bwd_ref(q, k, v, o, do, **kw),
+                   reps=3, warmup=1)
+    lib_ms, backend = sdpa_backward_ms(q, k, v, mask)
+    dev_us = device_us(lambda *x: kfa.flash_attention_bwd(*x, **kw),
+                       [q, k, v, o, do], n=3)
+    b_ms, b_by = attn_bwd_bound_ms(q, k, mask)
+    flops = 10 * q.shape[2] * q.shape[0] * allowed_pairs(
+        q.shape[1], k.shape[1], kw["causal"], kw["window"])
+    say(f"  {ATTN_BWD} timed at {[list(x.shape) for x in (q, k)]} bf16 "
+        f"{mask}: kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch; "
+        f"{flops / k_ms / 1e9:.1f} TFLOP/s on the five products), plain "
+        f"{p_ms:.4f} ms, SDPA backward ({backend}) "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.2f}x"
+        + ("" if lib_ms is None else f", kernel/SDPA {k_ms / lib_ms:.3f}x"))
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, device_us=dev_us,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def grad_dev(got, want, scale):
@@ -3438,10 +3497,6 @@ def phase_train(device="cuda"):
         mask_r = {x: kw_r[x] for x in ("causal", "window")}
         attn_bwd_case(args, kw_r, f"ragged {[list(x.shape) for x in args[:2]]}"
                       f" {str(args[0].dtype)[6:]} {mask_r}")
-    k_ms = cuda_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw),
-                   reps=10, warmup=2)
-    p_ms = cuda_ms(lambda: ref.attention_bwd_ref(q, k, v, o, do, **kw),
-                   reps=3, warmup=1)
     k32_ms = cuda_ms(lambda: kfa.flash_attention_bwd(*p32, **kw), reps=3,
                      warmup=1)
     p32_ms = cuda_ms(lambda: ref.attention_bwd_ref(*p32, **kw), reps=2,
@@ -3450,20 +3505,8 @@ def phase_train(device="cuda"):
                          list(p32), n=2)
     lib32_ms, backend32 = sdpa_backward_ms(*p32[:3], mask)
     del p32
-    lib_ms, backend = sdpa_backward_ms(q, k, v, mask)
-    dev_us = device_us(lambda *x: kfa.flash_attention_bwd(*x, **kw),
-                       [q, k, v, o, do], n=3)
-    b_ms, b_by = attn_bwd_bound_ms(q, k, mask)
     b32_ms, b32_by = attn_bwd_bound_ms(q.float(), k.float(), mask)
-    flops = 10 * q.shape[2] * q.shape[0] * allowed_pairs(
-        q.shape[1], k.shape[1], kw["causal"], kw["window"])
-    say(f"  {ATTN_BWD} timed at {[list(x.shape) for x in (q, k)]} bf16 "
-        f"{mask}: kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch; "
-        f"{flops / k_ms / 1e9:.1f} TFLOP/s on the five products), plain "
-        f"{p_ms:.4f} ms, SDPA backward ({backend}) "
-        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-        f"{b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.2f}x"
-        + ("" if lib_ms is None else f", kernel/SDPA {k_ms / lib_ms:.3f}x"))
+    bwd = attn_bwd_timing(q, k, v, o, do, kw)
     profile_device(f"one {ATTN_BWD} call (its passes)",
                    lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw))
     say(f"  {ATTN_BWD32} at the same inputs in fp32: kernel {k32_ms:.4f} ms, "
@@ -3515,13 +3558,9 @@ def phase_train(device="cuda"):
     cell = f"{cfg.name} train step B={b} S={s}"
     replaces = SEQ_KERNELS["flash_attention"]["replaces"]
     shape = [list(x.shape) for x in (q, k)]
-    return [dict(name=ATTN_BWD, route="cuda",
-                 source="src/repro_torch/kernels/csrc/"
-                        "flash_attention_bwd_wgmma.cu",
+    return [dict(name=ATTN_BWD, route="cuda", source=ATTN_BWD_SOURCE,
                  replaces=replaces, launches=first[ATTN_BWD], shape=shape,
-                 max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                 bound_by=b_by, library_ms=lib_ms, device_us=dev_us,
-                 cell=cell),
+                 max_abs_err=worst, cell=cell, **bwd),
             dict(name=ATTN_BWD32, route="cuda",
                  source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                  replaces=replaces, launches=launches32[ATTN_BWD],
@@ -3534,6 +3573,328 @@ def phase_train(device="cuda"):
                  max_abs_err=rdev, ms=r_ms, plain_ms=rp_ms, bound_ms=rb_ms,
                  bound_by=rb_by, library_ms=None, device_us=r_us,
                  cell=cell)]
+
+
+# --------------------------------- phase 12: the classical federation
+# 12a: Qwen1.5-4B at its published width, depth cut from 40 to 8 layers
+# (at 40, two nodes' fp32 AdamW moments alone are 63.2 GB); the spec of
+# ROADMAP.md Queue 1 item 5(b)'s slice: a local step is B=2 x S=4096
+FED_ARCH, FED_LAYERS, FED_ROUNDS = "qwen1.5-4b", 8, 3
+FED_SPEC = dict(num_nodes=4, nodes_per_round=2, interval_length=2,
+                node_batch=2, seq_len=4096, lr=3e-3, eval_batch=2,
+                data_seed=0)
+# 12b: the reference's classical test sizes (tests/test_fed_api.py:207);
+# SGD at 0.1 for the kernel-vs-plain round, so the deltas stand well
+# above the fp32 rounding of the params they are differences of
+FED_SMALL = dict(num_nodes=3, nodes_per_round=2, interval_length=2,
+                 node_batch=2, seq_len=16, data_seed=0)
+FED_SMALL_LR = 0.1
+
+
+def fed_memory_gb(n_par, n_p, tokens_step, vocab):
+    """Device memory the federated round must hold at its peak, counted
+    (decimal GB): every selected node's fp32 AdamW moments and fp32
+    delta, the bf16 global params and one node's working copy, the bf16
+    grads, and the fp32 logits of a local step with their gradient."""
+    return {"moments": 2 * n_p * 4 * n_par / 1e9,
+            "deltas": n_p * 4 * n_par / 1e9,
+            "params + a node's copy": 2 * 2 * n_par / 1e9,
+            "grads": 2 * n_par / 1e9,
+            "logits + gradient": 2 * 4 * tokens_step * vocab / 1e9}
+
+
+def fed_full_width(device="cuda"):
+    """12a: Qwen1.5-4B at full width through ``ClassicalSubstrate`` and a
+    ``FederationSession`` for FED_ROUNDS rounds; returns the attention
+    kernels' rows at the path's shape."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.fed import api
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import Model
+    torch.cuda.empty_cache()
+    full = get_config(FED_ARCH)
+    cfg = dataclasses.replace(full, n_layers=FED_LAYERS)
+    spec = api.FedSpec.classical(arch=FED_ARCH, **FED_SPEC)
+    model = Model(cfg)
+    n_par = model.num_params()
+    n_p, il, s = spec.nodes_per_round, spec.interval_length, spec.seq_len
+    per = (spec.node_pool_seqs or 2 * spec.node_batch) // il
+    tokens = n_p * il * per * s
+    say(f"== phase 12a: {FED_ARCH} classical federation at full width "
+        f"(d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, qkv bias "
+        f"{cfg.qkv_bias}, {cfg.param_dtype} params, {cfg.opt_state_dtype} "
+        f"AdamW moments, remat {cfg.remat}, q_chunk {cfg.q_chunk}); depth "
+        f"cut from {full.n_layers} to {cfg.n_layers} layers "
+        f"({n_par:,} params): N={spec.num_nodes}, N_p={n_p}, I_l={il}, "
+        f"local steps B={per} x S={s}, lr {spec.lr}, {FED_ROUNDS} rounds of "
+        f"{tokens:,} tokens; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"held on entry")
+    mem = fed_memory_gb(n_par, n_p, per * s, cfg.vocab_size)
+    say("  counted: " + ", ".join(f"{k} {v:.2f} GB" for k, v in mem.items())
+        + f"; {sum(mem.values()):.1f} GB")
+    t0 = time.time()
+    sub = api.ClassicalSubstrate(spec, model=model, device=device)
+    sess = api.FederationSession.create(spec, 0, substrate=sub)
+    torch.cuda.synchronize()
+    say(f"  substrate and session in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    per_step = train_launches(cfg)
+    want = {k: per_step[k] * n_p * il for k in ("flash_attention", ATTN_BWD)}
+    losses = [sess.record_eval()["eval_loss"]]
+    say(f"  round 0: eval loss {losses[0]:.6f}")
+    bwd_orig, bwd_first = kfa.flash_attention_bwd, []
+
+    def bwd_rec(*args, **kw):
+        if not bwd_first:
+            bwd_first.append((tuple(x.detach() for x in args), kw))
+        return bwd_orig(*args, **kw)
+    ms, counted = [], []
+
+    def one_round(r):
+        build.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = sess.step()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        launches = {k: n for k, n in build.LAUNCHES.items() if n}
+        counted.append(launches)
+        losses.append(sess.record_eval()["eval_loss"])
+        say(f"  round {r}: eval loss {losses[-1]:.6f}, train loss "
+            f"{float(metrics['loss']):.6f}, {ms[-1]:.1f} ms, launches "
+            f"{launches}")
+        if launches != want:
+            raise RuntimeError(f"round {r} launched {launches}, expected "
+                               f"{want}")
+        if not math.isfinite(losses[-1]):
+            raise RuntimeError("non-finite eval loss")
+    torch.cuda.reset_peak_memory_stats()
+    kfa.flash_attention_bwd = bwd_rec
+    try:
+        with Recorder({"attention": "flash_attention"}) as rec:
+            one_round(1)
+    finally:
+        kfa.flash_attention_bwd = bwd_orig
+    for r in range(2, FED_ROUNDS + 1):
+        one_round(r)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the eval loss did not fall: {losses}")
+    ms_round = sum(ms[1:]) / len(ms[1:])
+    say(f"  eval loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"{ms_round:.1f} ms/round over rounds 2-{FED_ROUNDS} (CUDA events; "
+        f"round 1 {ms[0]:.1f}), {tokens / ms_round * 1e3:,.0f} tokens/s, "
+        f"peak {peak:.2f} GiB; launches a round {want}; card "
+        f"{smi('name,power.limit')}")
+    profile_device(f"one federated round (round {FED_ROUNDS + 1})",
+                   sess.step)
+    del sess, sub, model
+    torch.cuda.empty_cache()
+    say(f"  the session's {FED_ROUNDS + 1} rounds with their evaluations "
+        f"in {time.time() - t0:.1f} s")
+    t0 = time.time()
+
+    (q, k, v, o, do), kw = bwd_first[0]
+    say(f"  the attention kernels at the path's inputs (MHA: G = "
+        f"{q.shape[0] // k.shape[0]}, dh {q.shape[2]}, causal, no window), "
+        f"against their plain versions:")
+    lse_check(q, k, v, kw, "path bf16 (the recompute's, saved for the "
+              "backward)", lse=kw["lse"])
+    worst = attn_bwd_case((q, k, v, o, do), kw, "path bf16")
+    cell = f"{FED_ARCH} {FED_LAYERS} layers, fed round B={per} S={s}"
+    fwd = check_and_time_seq(rec, {"flash_attention": []}, fp32=False)
+    del rec
+    bwd = attn_bwd_timing(q, k, v, o, do, kw)
+    # the launches counted in round 1 (every round's equal ``want``)
+    fwd["flash_attention"].update(launches=counted[0]["flash_attention"],
+                                  cell=cell)
+    rows = [fwd["flash_attention"], dict(
+        name=ATTN_BWD, route="cuda", source=ATTN_BWD_SOURCE,
+        replaces=SEQ_KERNELS["flash_attention"]["replaces"],
+        launches=counted[0][ATTN_BWD], shape=[list(x.shape) for x in (q, k)],
+        max_abs_err=worst, cell=cell, **bwd)]
+    del q, k, v, o, do, kw, bwd_first
+    torch.cuda.empty_cache()
+    say(f"  the kernels' checks and times at the path's shape in "
+        f"{time.time() - t0:.1f} s")
+    return rows
+
+
+def fed_kernel_round(arch, overrides, device="cuda"):
+    """One round of ``ClassicalSubstrate`` through the kernels against the
+    same round through the plain versions (``Model(impl="xla")``): the
+    same params, key, cohort and data, SGD as the inner optimizer. The
+    params are the init's with the stacked matrices at std 1/sqrt(d_in)
+    (``one_cycle_params``: at the init's stacked fan-in the gates and the
+    softmax saturate, and the second local step amplifies the first
+    one's rounding). The aggregated delta within GRAD_RTOL_FP32 of each
+    leaf's scale; the launches exact; every kernel call of the round,
+    forward and backward, against its plain version at its recorded
+    inputs."""
+    import torch
+    from repro_torch.core.fed import api, fed_step
+    from repro_torch.core.fed.api import phases
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import Model
+    from repro_torch.optim import SGD
+    spec = api.FedSpec.classical(arch=arch, lr=FED_SMALL_LR, **overrides,
+                                 **FED_SMALL)
+    sub = api.ClassicalSubstrate(spec, opt=SGD(), device=device)
+    plain = api.ClassicalSubstrate(spec, model=Model(sub.cfg, impl="xla"),
+                                   opt=SGD(), device=device)
+    state = sub.init_state(0, params=one_cycle_params(
+        sub.cfg, sub.model.init(seed=0, device=device),
+        well_conditioned=True))
+    steps = spec.nodes_per_round * spec.interval_length
+    want = {k: n * steps for k, n in train_launches(sub.cfg).items()
+            if n and k != SCAN_REV}
+    bwd_orig, bwd_calls = kfa.flash_attention_bwd, []
+
+    def bwd_rec(*args, **kw):
+        bwd_calls.append((tuple(x.detach() for x in args), kw))
+        return bwd_orig(*args, **kw)
+    build.reset_launches()
+    kfa.flash_attention_bwd = bwd_rec
+    try:
+        with Recorder({"attention": "flash_attention",
+                       "lru_scan": "rglru_scan"}) as rec:
+            _, cohort, got, _ = phases.dispatch_round(
+                sub, sub.snapshot(state), 5, 0)
+            torch.cuda.synchronize()
+    finally:
+        kfa.flash_attention_bwd = bwd_orig
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    _, _, ref_up, _ = phases.dispatch_round(
+        plain, plain.snapshot(state), 5, 0)
+    zero = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+            for k, v in state["params"].items()}
+    agg = fed_step.aggregate_deltas(zero, got, cohort.weights, 1.0)[0]
+    agg_x = fed_step.aggregate_deltas(zero, ref_up, cohort.weights, 1.0)[0]
+    dev = {k: float((agg[k] - x).abs().max())
+           / max(float(x.abs().max()), 1e-30) for k, x in agg_x.items()}
+    worst = max(dev, key=dev.get)
+    say(f"  {sub.cfg.name} ({sub.cfg.n_layers} layers "
+        f"{sub.cfg.block_pattern}, {sub.cfg.dtype}): one round through the "
+        f"kernels against the plain route, SGD lr {spec.lr}: the aggregated "
+        f"delta within {dev[worst]:.3e} of its scale at worst ({worst}; tol "
+        f"{GRAD_RTOL_FP32:.0e}); launches {launches} (expected {want})")
+    if dev[worst] > GRAD_RTOL_FP32:
+        raise RuntimeError(f"the kernel round's delta deviates: {dev}")
+    if launches != want:
+        raise RuntimeError(f"the kernel round launched {launches}")
+    op = {"flash_attention": ops.attention, "rglru_scan": ops.lru_scan}
+    for name, calls in rec.calls.items():
+        for key, (cnt, args, kw) in calls.items():
+            out = op[name](*args, **no_impl(kw))
+            ref_out = op[name](*args, **dict(no_impl(kw), impl="xla"))
+            err = float((out - ref_out).abs().max())
+            scale = max(1.0, float(ref_out.abs().max()))
+            say(f"    {name} {[list(a.shape) for a in args]} x{cnt}: "
+                f"max_abs_err {err:.3e} (tol {KERNEL_RTOL:.0e} x scale "
+                f"{scale:.3g})")
+            if err > KERNEL_RTOL * scale:
+                raise RuntimeError(f"{name} disagrees with its plain version")
+    attn_bwd_case(*bwd_calls[0], f"{sub.cfg.name} round fp32")
+    return launches
+
+
+def fed_resume_bit_exact(device="cuda"):
+    """tests/test_fed_api.py:322's kill-and-resume on the card, with the
+    driver's conventions (params from seed 0, the sequential key plan of
+    seed 7): 2 rounds, save, resume from the file, 2 more, against 4
+    straight rounds: params, every opt/ leaf and the history bit for
+    bit."""
+    import tempfile
+    import torch
+    from repro_torch.core.fed import api
+    from repro_torch.optim.tree import tree_leaves
+    spec = api.FedSpec.classical(arch=FED_ARCH, n_layers=1, **FED_SMALL)
+
+    def session():
+        sub = api.ClassicalSubstrate(spec, device=device)
+        params = sub.model.init(seed=spec.data_seed, device=sub.device)
+        return api.FederationSession.create(
+            spec, spec.data_seed, substrate=sub, params=params,
+            round_keys=api.sequential_split_plan(spec.data_seed + 7, 4))
+    straight = session()
+    straight.run(4, callbacks=[api.EvalEvery(1)])
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        killed = session()
+        killed.run(2, callbacks=[api.EvalEvery(1)])
+        path = str(Path(tmp) / "fed.npz")
+        killed.save(path)
+        del killed
+        resumed = api.FederationSession.resume(path)
+        resumed.run(2, callbacks=[api.EvalEvery(1)])
+    a, b = tree_leaves(straight.state), tree_leaves(resumed.state)
+    same = (len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+            and resumed.history == straight.history)
+    say(f"  kill-and-resume ({spec.arch} 1 layer, 2 + 2 rounds against 4): "
+        f"{len(a)} state leaves (params and opt/), history "
+        f"{straight.history['eval_loss']}, bit for bit {same}")
+    if not same:
+        raise RuntimeError("the resumed classical session diverged")
+
+
+def fed_train_cli(device="cuda"):
+    say(f"  python -m repro_torch.launch.fed_train --arch qwen1.5-4b "
+        f"--rounds 2 --device {device}:")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.fed_train",
+                          "--arch", FED_ARCH, "--rounds", "2", "--device",
+                          device], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    lines = out.stdout.strip().splitlines()
+    for line in lines + out.stderr.strip().splitlines()[-4:]:
+        say("    " + line)
+    heads = (f"fed arch={FED_ARCH}-smoke ", "round  0  eval loss ",
+             "round  1  eval loss ", "round  2  eval loss ")
+    if out.returncode != 0 or len(lines) != 4 or not all(
+            line.startswith(h) for line, h in zip(lines, heads)):
+        raise RuntimeError("the fed_train CLI failed")
+
+
+def fed_rwkv_refused(device="cuda"):
+    """RWKV6 through ``ClassicalSubstrate`` on the card must raise
+    NotImplementedError in its first local step (the GLA kernel has no
+    backward)."""
+    from repro_torch.core.fed import api
+    spec = api.FedSpec.classical(arch="rwkv6-7b", **FED_SMALL)
+    sess = api.FederationSession.create(spec, 0, device=device)
+    try:
+        sess.step()
+    except NotImplementedError as e:
+        say(f"  RWKV6 through ClassicalSubstrate refused: {e}")
+        return
+    raise RuntimeError("an RWKV6 federated round ran through the GLA "
+                       "kernel's missing backward")
+
+
+def phase_fed(device="cuda"):
+    t0 = time.time()
+    rows = fed_full_width(device)
+    t12a = time.time() - t0
+    say("== phase 12b: the classical federation at reduced width (fp32, "
+        "the reference's test sizes: N=3, N_p=2, I_l=2, B=2, S=16)")
+    for arch, overrides in (("qwen1.5-4b", dict(n_layers=1)),
+                            ("recurrentgemma-2b", {})):
+        fed_kernel_round(arch, overrides, device)
+    for part in (fed_resume_bit_exact, fed_train_cli, fed_rwkv_refused):
+        t = time.time()
+        part(device)
+        say(f"  ({part.__name__} in {time.time() - t:.1f} s)")
+    say(f"  phase 12 took {time.time() - t0:.1f} s (12a {t12a:.1f} s)")
+    return rows
 
 
 # ------------------------------------------------------ --train-probe
@@ -3809,6 +4170,7 @@ def main() -> int:
     phase_api()
     rows += phase_cohorts_serving()
     rows += phase_train()
+    rows += phase_fed()
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

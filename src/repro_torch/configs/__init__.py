@@ -11,17 +11,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+from repro_torch.configs.qwen1_5_4b import CONFIG as QWEN15
 from repro_torch.configs.recurrentgemma_2b import CONFIG as RECURRENTGEMMA
 from repro_torch.configs.rwkv6_7b import CONFIG as RWKV6
 from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 
-REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in (RECURRENTGEMMA,
+REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in (QWEN15,
+                                                         RECURRENTGEMMA,
                                                          RWKV6)}
 
 # the reference's architectures that the port has not taken over yet
 NOT_PORTED = ("arctic-480b", "command-r-35b", "gemma3-27b", "llama3-405b",
-              "llama4-scout-17b-a16e", "musicgen-large", "qwen1.5-4b",
-              "qwen2-vl-72b")
+              "llama4-scout-17b-a16e", "musicgen-large", "qwen2-vl-72b")
 
 # long_500k requires sub-quadratic attention. SSM/hybrid run natively;
 # gemma3 runs an all-local sliding-window VARIANT; pure full-attention

@@ -15,7 +15,12 @@ substrate hides:
 * ``local_update`` — the QuanFedNode fan-out / I_l local steps. It
   returns the post-local state alongside the uploads (node-side state
   commits at DISPATCH time); the quantum substrate returns its state
-  unchanged, or with the certified engine's running error bound.
+  unchanged, or with the certified engine's running error bound. It
+  may CONSUME the state it is given: the classical substrate steps its
+  per-node optimizer states in place (a full-width node's moments have
+  no room for a second copy). A caller that dispatches twice from one
+  state dispatches each time from ``snapshot(state)``, a copy of what
+  the local phase consumes.
 * ``transmit`` — the channel model (Hermitian noise, quantization) plus
   the strategy's wire cast.
 * ``aggregate`` — the strategy combine into the global model (plus
@@ -23,8 +28,9 @@ substrate hides:
   may stack ANY number of uploads — the full cohort in a sync round, K
   buffered (possibly stale) uploads in an async commit.
 
-An upload is a list of tensors, one per layer, each with the cohort's
-node axis first. ``split_round_key`` fixes each substrate's RNG
+An upload is a list of tensors, one per layer (quantum), or a dict of
+deltas keyed like the model params (classical), each tensor with the
+cohort's node axis first. ``split_round_key`` fixes each substrate's RNG
 contract: the port's quantum round draws its selection, minibatches and
 channel from ONE generator, in that order, so its split hands the
 phases that same generator three times, and ``compose_round`` is the
@@ -37,9 +43,11 @@ upload through ``repro_torch.checkpoint``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Protocol, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Protocol, Sequence, Tuple
 
 import torch
+
+from repro_torch.optim.tree import tree_map
 
 
 class Cohort(NamedTuple):
@@ -71,6 +79,9 @@ class PhasedSubstrate(Protocol):
 
     def local_update(self, state: Any, cohort: Cohort, gen: Any
                      ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
+        ...
+
+    def snapshot(self, state: Any) -> Any:
         ...
 
     def transmit(self, uploads: Any, gen: Any) -> Any:
@@ -108,14 +119,12 @@ def compose_round(substrate: PhasedSubstrate, state: Any, key: int,
     return substrate.aggregate(state, received, cohort.weights), metrics
 
 
-def upload_slice(uploads: Sequence[torch.Tensor], i: int
-                 ) -> List[torch.Tensor]:
+def upload_slice(uploads: Any, i: int) -> Any:
     """Node ``i``'s upload out of a stacked cohort upload."""
-    return [x[i] for x in uploads]
+    return tree_map(lambda x: x[i], uploads)
 
 
-def upload_stack(node_uploads: Sequence[Sequence[torch.Tensor]]
-                 ) -> List[torch.Tensor]:
+def upload_stack(node_uploads: Sequence[Any]) -> Any:
     """Stack per-node uploads back into a cohort-style upload (the
     inverse of ``upload_slice`` over a list of entries)."""
-    return [torch.stack(xs) for xs in zip(*node_uploads)]
+    return tree_map(lambda *xs: torch.stack(xs), *node_uploads)

@@ -43,6 +43,7 @@ import torch
 from repro_torch.core.fed import faults as ffaults
 from repro_torch.core.fed.api import phases, rng
 from repro_torch.core.fed.cohort import latency as flatency
+from repro_torch.optim.tree import tree_leaves, tree_map
 
 
 def host_cohort(cohort: phases.Cohort
@@ -83,20 +84,20 @@ def fault_effects(sel: Sequence[int], mask: Sequence[float], faults,
     return coeff, survive
 
 
-def apply_effects(received: List[torch.Tensor], base_w: np.ndarray,
+def apply_effects(received: Any, base_w: np.ndarray,
                   coeff: np.ndarray, survive: np.ndarray, faulty: bool
-                  ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+                  ) -> Tuple[Any, torch.Tensor]:
     """The cohort's uploads and float32 aggregation weights after
     ``fault_effects``: with a fault model on and any coefficient off 1,
     dead uploads are zeroed outright (NaN * 0 would stay NaN) and the
     survivors scaled by their coefficient; the Alg. 2 weights are
     renormalised over the survivors."""
-    dev = received[0].device
+    dev = tree_leaves(received)[0].device
     if faulty and bool(np.any(coeff != 1.0)):
         cv = np.where(survive, coeff, 0.0)
-        received = [x * torch.tensor(cv, dtype=x.real.dtype, device=dev)
-                    .reshape((-1,) + (1,) * (x.dim() - 1))
-                    for x in received]
+        received = tree_map(
+            lambda x: x * torch.tensor(cv, dtype=x.real.dtype, device=dev)
+            .reshape((-1,) + (1,) * (x.dim() - 1)), received)
     w = np.asarray(base_w, np.float64) * survive
     w = w / max(w.sum(), 1e-12)
     return received, torch.tensor(w, dtype=torch.float32, device=dev)
@@ -173,12 +174,14 @@ class SyncScheduler(Scheduler):
         attempt = 0
         while True:
             # retries re-select under a fresh-but-deterministic key; the
-            # failed attempt's work is discarded (re-dispatch semantics)
+            # failed attempt's work is discarded (re-dispatch semantics),
+            # so each attempt starts from a snapshot of the round's state
             key = session.round_key(r)
             if attempt > 0:
                 key = rng.fold_in(key, attempt)
             state, cohort, received, metrics = phases.dispatch_round(
-                self.substrate, session.state, key, r)
+                self.substrate, self.substrate.snapshot(session.state), key,
+                r)
             sel, mask, base_w = host_cohort(cohort)
             deadline = (None if self.deadline is None else
                         self.deadline * spec.retry_backoff ** attempt)
@@ -264,8 +267,8 @@ class AsyncScheduler(Scheduler):
                 # the Byzantine coefficient perturbs the upload BEFORE
                 # buffering, so checkpoints carry the poisoned payload
                 # and mid-buffer resume needs no fault replay
-                up = [x * torch.tensor(c, dtype=x.real.dtype,
-                                       device=x.device) for x in up]
+                up = tree_map(lambda x: x * torch.tensor(
+                    c, dtype=x.real.dtype, device=x.device), up)
             # the timeline is kept float32-REPRESENTABLE so arrival
             # times survive the checkpoint's array round-trip bit-exactly
             # (as the reference keeps them)
@@ -293,7 +296,8 @@ class AsyncScheduler(Scheduler):
         received = phases.upload_stack([e["up"] for e in take])
         session.state = self.substrate.aggregate(
             session.state, received,
-            torch.tensor(w, dtype=torch.float32, device=received[0].device))
+            torch.tensor(w, dtype=torch.float32,
+                         device=tree_leaves(received)[0].device))
         return stale
 
     def step(self, session) -> Dict[str, Any]:

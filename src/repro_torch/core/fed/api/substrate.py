@@ -22,8 +22,9 @@ never branches on which physics it is driving:
   its exact inverse, onto the substrate's device.
 
 Keys are the port's int round keys (``repro_torch.core.fed.api.rng``).
-``QuantumSubstrate`` wraps the ``core/quantum/federated`` phases.
-``ClassicalSubstrate`` is not ported yet.
+``QuantumSubstrate`` wraps the ``core/quantum/federated`` phases;
+``ClassicalSubstrate`` wraps ``core/fed/fed_step``'s (``node_uploads`` /
+``aggregate_deltas``) plus the per-node inner-optimizer state.
 """
 from __future__ import annotations
 
@@ -31,14 +32,14 @@ from typing import Any, Dict, Optional, Protocol, Tuple
 
 import torch
 
+from repro_torch.core.fed import channel as fchannel
+from repro_torch.core.fed import fed_step, participation
+from repro_torch.core.fed import server_opt as fserver_opt
 from repro_torch.core.fed.api import rng
-from repro_torch.core.fed.api.phases import Cohort
+from repro_torch.core.fed.api.phases import Cohort, compose_round
 from repro_torch.core.fed.api.spec import FedSpec
 from repro_torch.device import resolve_device
-
-_CLASSICAL_TODO = ("the classical substrate is not in the port yet "
-                   "(ROADMAP.md, Queue 1 item 5): only "
-                   "substrate='quantum' runs")
+from repro_torch.optim.tree import tree_map
 
 
 class Substrate(Protocol):
@@ -233,6 +234,9 @@ class QuantumSubstrate:
         return state, ks_all, {"err_bound_round": bound,
                                "err_bound_total": err}
 
+    def snapshot(self, state):
+        return state  # the local phase changes nothing it is given
+
     def transmit(self, uploads, gen: torch.Generator):
         from repro_torch.core.quantum import federated as fed
         return fed.transmit_phase(uploads, gen, self.cfg)
@@ -323,12 +327,214 @@ class QuantumSubstrate:
 
 
 class ClassicalSubstrate:
-    """QuanFedPS's classical limit (I_l local optimizer steps per node +
-    weighted delta aggregation on a model). Not in the port yet:
-    constructing one raises ``NotImplementedError``."""
+    """QuanFedPS's classical limit: I_l local optimizer steps per node +
+    weighted delta aggregation (``fed_step``) on a model.
 
-    def __init__(self, spec: FedSpec, *args, **kwargs):
-        raise NotImplementedError(_CLASSICAL_TODO)
+    State is ``{"params": model params, "opt": per-node inner optimizer
+    states}`` (+ ``"sopt"``, the server-side outer-optimizer state, when
+    ``spec.server_opt != "none"``), in the reference's keys and shapes:
+    the ``opt`` leaves carry a leading N_p axis. Data is a deterministic
+    per-round pool stream rebuilt from the spec (seeded
+    ``token_batches``, the reference's tokens bit for bit), so a resumed
+    substrate fast-forwards the stream to the checkpointed round and
+    continues bit-exactly. The model is ``Model(get_config(spec.arch)
+    .reduced(...))`` unless one is passed; the data follows that reduced
+    config, as in the reference.
+
+    The local phase updates the ``opt`` state it is given IN PLACE (a
+    full-width node's moments have no room for a second copy): see
+    ``phases`` for the contract and ``snapshot``.
+    """
+
+    def __init__(self, spec: FedSpec, model=None, opt=None, device="cuda"):
+        from repro_torch.configs import get_config
+        from repro_torch.core.fed.config import FederatedConfig
+        from repro_torch.data import token_batches
+        from repro_torch.models import Model
+        from repro_torch.optim import AdamW
+
+        if spec.substrate != "classical":
+            raise ValueError(f"ClassicalSubstrate needs a classical spec, "
+                             f"got {spec.substrate!r}")
+        if spec.arch is None:
+            raise ValueError("classical spec needs arch")
+        self.spec = spec
+        self.device = resolve_device(device)
+        reduced_kw = {} if spec.n_layers is None else {
+            "n_layers": spec.n_layers}
+        self.cfg = get_config(spec.arch).reduced(**reduced_kw)
+        self.model = model if model is not None else Model(self.cfg)
+        self.opt = opt if opt is not None else AdamW(weight_decay=0.0)
+        self.loss_fn = lambda p, b: self.model.loss_fn(p, b)
+        # fed_train_round sees only the SELECTED nodes: its num_nodes is
+        # the per-round count N_p, not the global N
+        self.fed_cfg = FederatedConfig(
+            num_nodes=spec.nodes_per_round,
+            nodes_per_round=spec.nodes_per_round,
+            interval_length=spec.interval_length,
+            aggregation=spec.aggregation,
+            participation=spec.participation,
+            dropout_rate=spec.dropout_rate, outer_lr=spec.outer_lr,
+            delta_dtype=spec.delta_dtype)
+        self._delta_dt = fed_step.resolve_delta_dtype(self.fed_cfg)
+        self._server_sgd = fserver_opt.make_sgd(spec.server_opt,
+                                                spec.server_momentum)
+        # classical wire: quantization if the spec asks (Hermitian noise
+        # is quantum-only — real deltas have no GUE perturbation)
+        self._channel = fchannel.resolve_channel(0.0, spec.quantize_bits)
+        self._pool_seqs = spec.node_pool_seqs or spec.node_batch * 2
+        # unequal nodes: the pool must cover the requested true volumes
+        self._pool_total = (sum(spec.node_sizes) if spec.node_sizes
+                            else spec.num_nodes * self._pool_seqs)
+        self._data = None
+        self._pos = 0
+        self.eval_batch = next(token_batches(
+            self.cfg, spec.eval_batch, spec.seq_len,
+            seed=spec.data_seed + 99, device=self.device))
+
+    def _opt_nodes(self, params):
+        return fed_step.replicate_for_pods(self.opt.init(params),
+                                           self.spec.nodes_per_round)
+
+    def init_state(self, key: int, params: Any = None):
+        if params is None:
+            params = self.model.init(seed=key, device=self.device)
+        else:
+            params = {k: v.to(self.device) for k, v in params.items()}
+        state = {"params": params, "opt": self._opt_nodes(params)}
+        if self._server_sgd is not None:
+            state["sopt"] = self._server_sgd.init(params)
+        return state
+
+    def _pool(self, round: int):
+        """The round's global data pool — the ``round``-th item of the
+        seeded stream, regardless of what was consumed before (rewinds
+        by recreating the iterator, fast-forwards by draining it)."""
+        from repro_torch.data import token_batches
+        if self._data is None or self._pos > round:
+            self._data = token_batches(
+                self.cfg, self._pool_total, self.spec.seq_len,
+                seed=self.spec.data_seed, device=self.device)
+            self._pos = 0
+        while self._pos < round:
+            next(self._data)
+            self._pos += 1
+        pool = next(self._data)
+        self._pos += 1
+        return pool
+
+    def run_round(self, state, key: int, round: int):
+        # the canonical phase composition, executed as it stands
+        return compose_round(self, state, key, round)
+
+    # -- the four phases (see repro_torch.core.fed.api.phases) ----------
+    def split_round_key(self, key: int):
+        # selection draws from the round key's own generator; the local
+        # phase draws nothing; the channel's generator is a fresh
+        # derivation (only the quantize channel draws from it)
+        return (rng.generator(key), rng.fold_in(key, 1),
+                rng.generator(rng.fold_in(key, 2)))
+
+    def select(self, gen: torch.Generator, round: int) -> Cohort:
+        from repro_torch.data import (node_token_counts, partition_iid,
+                                      partition_non_iid)
+
+        spec = self.spec
+        pool = self._pool(round)
+        nodes = (partition_iid(pool, spec.num_nodes,
+                               seed=spec.data_seed + round,
+                               node_seqs=spec.node_sizes)
+                 if spec.data_iid else
+                 partition_non_iid(pool, spec.num_nodes,
+                                   node_seqs=spec.node_sizes))
+        # TRUE per-node token counts from the partition (Alg. 2's N_n) —
+        # weighted participation / data-volume rounds see real volumes
+        node_tokens = node_token_counts(nodes)
+        nodes.pop("n_seqs", None)  # counts consumed; not a batch entry
+        sel, pmask = participation.sample_nodes(
+            gen, spec.num_nodes, spec.nodes_per_round, device=self.device,
+            schedule=spec.participation, node_sizes=node_tokens,
+            dropout_rate=spec.dropout_rate,
+            method=spec.participation_method)
+        il = spec.interval_length
+
+        def to_steps(x):  # the selected nodes' pools as I_l local steps
+            x = x[sel]
+            per = x.shape[1] // il
+            return x[:, : per * il].reshape(
+                (x.shape[0], il, per) + tuple(x.shape[2:]))
+
+        weights = participation.round_weights(
+            self.fed_cfg.participation, node_tokens[sel].to(torch.float32),
+            pmask.to(torch.float32))
+        return Cohort(sel=sel, mask=pmask, weights=weights, round=round,
+                      data={k: to_steps(v) for k, v in nodes.items()})
+
+    def local_update(self, state, cohort: Cohort, key):
+        del key  # the classical local pass draws no randomness
+        deltas, opt_nodes, metrics = fed_step.node_uploads(
+            self.loss_fn, self.opt, state["params"], state["opt"],
+            cohort.data, self.spec.lr, self._delta_dt)
+        state = dict(state, opt=opt_nodes)
+        return state, deltas, {k: v.mean() for k, v in metrics.items()}
+
+    def snapshot(self, state):
+        # the local phase consumes only the inner optimizer states
+        return dict(state, opt=tree_map(torch.clone, state["opt"]))
+
+    def transmit(self, uploads, gen: torch.Generator):
+        return self._channel(gen, uploads)
+
+    def aggregate(self, state, received, weights: torch.Tensor):
+        params, sopt = fed_step.aggregate_deltas(
+            state["params"], received, weights, self.spec.outer_lr,
+            server_sgd=self._server_sgd, server_state=state.get("sopt"),
+            defense=self.spec.defense, trim_frac=self.spec.trim_frac,
+            clip_norm=self.spec.clip_norm)
+        state = dict(state, params=params)
+        if self._server_sgd is not None:
+            state["sopt"] = sopt
+        return state
+
+    def upload_restore(self, flat: Dict[str, Any]):
+        # a delta tree mirrors the params tree: a FLAT dict of tensors
+        return {k: v.to(self.device) for k, v in flat.items()}
+
+    # -- evaluation / checkpoint ----------------------------------------
+    def evaluate(self, state) -> Dict[str, float]:
+        with torch.no_grad():
+            loss = self.loss_fn(state["params"], self.eval_batch)[0]
+        return host_floats({"eval_loss": loss})
+
+    def state_flat(self, state) -> Dict[str, Any]:
+        flat = {"params": state["params"], "opt": state["opt"]}
+        if "sopt" in state:
+            flat["sopt"] = state["sopt"]
+        return flat
+
+    def state_restore(self, flat: Dict[str, Any]):
+        from repro_torch import checkpoint as ckpt
+        dev = self.device
+        # model params are a FLAT dict with '/' in its keys — stripping
+        # the "params/" prefix recovers exactly the original keys
+        params = {k[len("params/"):]: v.to(dev)
+                  for k, v in flat.items() if k.startswith("params/")}
+        meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in params.items()}
+
+        def restore(tpl, prefix):
+            # each leaf where the optimizer's own init puts it: the step
+            # counter on the host, the rest on the substrate's device
+            tree = ckpt.unflatten_like(
+                tpl, {k[len(prefix):]: v for k, v in flat.items()
+                      if k.startswith(prefix)}, device="cpu")
+            return tree_map(lambda t, x: x.to(dev if t.is_meta
+                                              else t.device), tpl, tree)
+        state = {"params": params,
+                 "opt": restore(self._opt_nodes(meta), "opt/")}
+        if self._server_sgd is not None:
+            state["sopt"] = restore(self._server_sgd.init(meta), "sopt/")
+        return state
 
 
 def make_substrate(spec: FedSpec, device="cuda") -> Substrate:
@@ -336,4 +542,4 @@ def make_substrate(spec: FedSpec, device="cuda") -> Substrate:
     carry a data recipe — see ``FedSpec``) on ``device``."""
     if spec.substrate == "quantum":
         return QuantumSubstrate(spec, device=device)
-    return ClassicalSubstrate(spec)
+    return ClassicalSubstrate(spec, device=device)

@@ -2,7 +2,8 @@
 ``repro.core.fed.channel``).
 
 A channel is a callable ``(gen, uploads) -> uploads`` over a list of
-stacked update tensors. The Hermitian model perturbs each uploaded
+stacked update tensors (quantum) or a dict of stacked deltas
+(classical). The Hermitian model perturbs each uploaded
 update matrix K with GUE noise scaled relative to ||K||_F:
 
     K_noisy = K + sigma * ||K||_F * H,   H ~ GUE, ||H||_F = 1
@@ -24,6 +25,8 @@ import dataclasses
 from typing import List, Optional, Protocol
 
 import torch
+
+from repro_torch.optim.tree import tree_map
 
 
 def _dagger(a: torch.Tensor) -> torch.Tensor:
@@ -75,8 +78,10 @@ class QuantizationChannel:
                              f"{self.bits}")
 
     def __call__(self, gen, uploads):
-        return [quantize_with(x, self.bits, quantize_draws(gen, x))
-                for x in uploads]
+        # leaf by leaf in order: a list of layers or a dict of deltas
+        return tree_map(lambda x: quantize_with(x, self.bits,
+                                                quantize_draws(gen, x)),
+                        uploads)
 
 
 def quantize_draws(gen: torch.Generator, x: torch.Tensor):

@@ -1,7 +1,6 @@
 """Configuration for classical federated / local-SGD training (the
-port's own copy of ``repro.core.fed.config``, which ``FedSpec`` builds).
-The classical substrate is not in the port yet: this is the config
-only."""
+port's own copy of ``repro.core.fed.config``, which ``FedSpec`` builds and
+``fed_step.fed_train_round`` runs)."""
 from __future__ import annotations
 
 import dataclasses

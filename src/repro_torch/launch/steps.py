@@ -4,13 +4,29 @@ function; the mesh and sharding artifacts of the reference wait for the
 mesh tooling (ROADMAP.md)."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.models import Model
 from repro_torch.models.model import mean_metrics
 from repro_torch.optim import AdamW
+
+
+def value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
+                   batch) -> Tuple[torch.Tensor, Dict, Dict]:
+    """``(loss, metrics, grads)`` of ``loss_fn(params, batch) -> (loss,
+    metrics)`` at ``params`` (a flat dict), the reference's
+    ``jax.value_and_grad(loss_fn, has_aux=True)``: the gradient is taken
+    through detached aliases of the params, in their dtypes; a param the
+    loss does not reach gets a zero gradient."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, metrics = loss_fn(leaves, batch)
+    gs = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(leaves.items(), gs)}
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
 
 
 def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch
@@ -24,13 +40,10 @@ def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch
     so one microbatch's activations are live at a time; the loss and
     metrics are then the means over the microbatches, as the
     reference's ``_loss_accum`` gives them."""
-    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
     mbs = model.microbatches(batch)
     if len(mbs) == 1:
-        loss, metrics = model.loss_fn(leaves, batch)
-        gs = torch.autograd.grad(loss, list(leaves.values()))
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                dict(zip(leaves, gs)))
+        return value_and_grad(model.loss_fn, params, batch)
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
     dt = getattr(torch, model.cfg.accum_dtype)
     grads = {k: torch.zeros(v.shape, dtype=dt, device=v.device)
              for k, v in params.items()}

@@ -8,8 +8,10 @@ through ``kernels.ops.attention``: the hand-written flash-attention
 kernel for a tensor on the card (``impl="pallas"``), its plain version
 on the CPU or with ``impl="xla"``. Decode (one query against a
 ``max_len`` cache with a valid length) stays plain torch, as in the
-reference. Cross-attention, M-RoPE, qkv biases, a logit softcap and
-query chunking wait for later slices and raise.
+reference. Query chunking (``cfg.q_chunk``) loops over query chunks on
+the plain route, as the reference does; the kernel tiles the queries
+itself. Cross-attention, M-RoPE and a logit softcap wait for later
+slices and raise.
 """
 from __future__ import annotations
 
@@ -56,6 +58,10 @@ def init_attention(ini, pfx: str, cfg, stack: int = 0) -> None:
     mk("wk", (d, k, dh), ("embed", "kv_heads", "head_dim"))
     mk("wv", (d, k, dh), ("embed", "kv_heads", "head_dim"))
     mk("wo", (h, dh, d), ("heads", "head_dim", "embed"))
+    if cfg.qkv_bias:
+        mk("bq", (h, dh), ("heads", "head_dim"), init="zeros")
+        mk("bk", (k, dh), ("kv_heads", "head_dim"), init="zeros")
+        mk("bv", (k, dh), ("kv_heads", "head_dim"), init="zeros")
 
 
 def _mask(q_pos, k_pos, window: int, causal: bool, valid_len=None):
@@ -89,10 +95,24 @@ def dot_attention(q, k, v, mask):
 
 
 def gqa_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
-                  causal: bool = True, valid_len=None):
-    """Full masked attention (the reference's path without q_chunk)."""
-    mask = _mask(q_pos, k_pos, window, causal, valid_len)
-    return dot_attention(q, k, v, mask)
+                  causal: bool = True, valid_len=None, q_chunk: int = 0):
+    """Full masked attention, or with ``q_chunk`` a loop over query
+    chunks (when it divides Sq and is shorter), each through
+    ``dot_attention`` with its own mask and its q, k and v fenced, as the
+    reference's scan over chunks: the (Sq, T) scores never exist
+    whole."""
+    sq = q.shape[1]
+    if q_chunk <= 0 or sq <= q_chunk or sq % q_chunk:
+        mask = _mask(q_pos, k_pos, window, causal, valid_len)
+        return dot_attention(q, k, v, mask)
+    outs = []
+    for c in range(0, sq, q_chunk):
+        qpb = q_pos[..., c:c + q_chunk]
+        mask = _mask(qpb, k_pos, window, causal, valid_len)
+        outs.append(dot_attention(
+            *(_grad_dtype_fence(t) for t in (q[:, c:c + q_chunk], k, v)),
+            mask))
+    return torch.cat(outs, dim=1)
 
 
 def _project(p, x, cfg):
@@ -102,6 +122,10 @@ def _project(p, x, cfg):
     q = (x @ p["wq"].to(dt).reshape(-1, h * dh)).view(b, s, h, dh)
     k = (x @ p["wk"].to(dt).reshape(-1, kh * dh)).view(b, s, kh, dh)
     v = (x @ p["wv"].to(dt).reshape(-1, kh * dh)).view(b, s, kh, dh)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
     return q, k, v
 
 
@@ -117,13 +141,13 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     Decode: cache holds (B, S_max, K, dh) k/v; x is (B, 1, d); cur_len
     is the int position of the new token. The new k/v are written into
     ``cache`` IN PLACE (the reference's dynamic_update_slice, without the
-    copy), and ``cache`` is returned.
+    copy), and ``cache`` is returned. The qkv biases (``cfg.qkv_bias``)
+    enter q, k and v before RoPE, so the prefill cache carries them.
     """
-    if (cfg.pos_kind != "rope" or cfg.qkv_bias or cfg.logit_softcap > 0.0
-            or cfg.q_chunk > 0):
+    if cfg.pos_kind != "rope" or cfg.logit_softcap > 0.0:
         raise NotImplementedError(
-            "M-RoPE, qkv biases, the attention logit softcap and q_chunk "
-            "wait for a later slice (ROADMAP.md)")
+            "M-RoPE and the attention logit softcap wait for a later slice "
+            "(ROADMAP.md)")
     b, s, _ = x.shape
     k_heads, g, dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
     dt = x.dtype
@@ -133,10 +157,17 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        if ops.plain_route(q, impl):
-            q, k, v = (_grad_dtype_fence(t) for t in (q, k, v))
-        out = ops.attention(q, k, v, causal=True, window=window, impl=impl)
         new_cache = {"k": k, "v": v}
+        qc = cfg.q_chunk
+        if ops.plain_route(q, impl) and 0 < qc < s and s % qc == 0:
+            out = gqa_attention(q.reshape(b, s, k_heads, g, dh), k, v,
+                                positions, positions[0], window=window,
+                                causal=True, q_chunk=cfg.q_chunk)
+        else:
+            if ops.plain_route(q, impl):
+                q, k, v = (_grad_dtype_fence(t) for t in (q, k, v))
+            out = ops.attention(q, k, v, causal=True, window=window,
+                                impl=impl)
     else:
         if not isinstance(cur_len, int):
             raise NotImplementedError(

@@ -39,10 +39,10 @@ def _check(cfg) -> None:
     if missing:
         raise NotImplementedError(
             f"block kinds {missing} wait for a later slice (ROADMAP.md)")
-    if cfg.cross_attn or cfg.input_kind != "tokens" or cfg.qkv_bias:
+    if cfg.cross_attn or cfg.input_kind != "tokens":
         raise NotImplementedError(
-            "cross-attention, embedding inputs and qkv biases wait for a "
-            "later slice (ROADMAP.md)")
+            "cross-attention and embedding inputs wait for a later slice "
+            "(ROADMAP.md)")
 
 
 # --------------------------------------------------------------------------

@@ -243,12 +243,19 @@ def test_classical_config_is_the_reference_config():
 
 
 def test_classical_spec_constructs_and_its_substrate_is_refused():
+    """A classical spec builds its substrate: ``make_substrate`` returns a
+    ``ClassicalSubstrate`` on the device asked for, as the constructor
+    does; a quantum spec is refused by it (the sessions themselves are
+    held in ``test_torch_fed_classical.py``)."""
     spec = api.FedSpec.classical(arch="qwen1.5-4b", n_layers=1)
     assert spec.substrate == "classical"
     for make in (lambda: api.make_substrate(spec, device="cpu"),
-                 lambda: api.ClassicalSubstrate(spec)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            make()
+                 lambda: api.ClassicalSubstrate(spec, device="cpu")):
+        sub = make()
+        assert isinstance(sub, api.ClassicalSubstrate)
+        assert sub.device.type == "cpu" and sub.cfg.n_layers == 1
+    with pytest.raises(ValueError, match="classical spec"):
+        api.ClassicalSubstrate(api.FedSpec.quantum(**QBASE), device="cpu")
 
 
 def test_two_level_spec_is_refused_by_the_port_round():

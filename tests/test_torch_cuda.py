@@ -1160,3 +1160,85 @@ def test_bf16_unembedding_backward_on_the_card(cuda_device):
         assert a.dtype == torch.bfloat16
         scale = float(b.abs().max())
         assert float((a.float() - b).abs().max()) <= 2.0 ** -8 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_dh128_attention_forward_and_backward(cuda_device, dtype):
+    """Qwen1.5-4B's attention shape, multi-head (G = 1), dh 128, fully
+    causal, no window, at S = 2048: the forward kernel's output (one bf16
+    ulp of the plain result's scale in bf16, RTOL in fp32) and its LSE
+    (LSE_RTOL) against the plain version's, and the backward kernel on
+    that LSE against ``ref.attention_bwd_ref`` (BWD_RTOL in fp32, one
+    bf16 ulp of each gradient's scale in bf16); one launch each."""
+    from repro_torch.kernels import flash_attention as kfa
+    q, k, v, o_unused, do = _attn_bwd_args(torch.Generator().manual_seed(9),
+                                           8, 8, 2048, 2048, 128, dtype,
+                                           cuda_device)
+    del o_unused
+    kw = dict(causal=True, window=0)
+    build.reset_launches()
+    out, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
+    grads = kfa.flash_attention_bwd(q, k, v, out, do, lse=lse, **kw)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"flash_attention": 1,
+                                    "flash_attention_bwd": 1}
+    want, want_lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    tol = RTOL if dtype == torch.float32 else 2.0 ** -7
+    assert float((out.float() - want.float()).abs().max()) <= \
+        tol * float(want.float().abs().max())
+    assert float((lse - want_lse).abs().max()) <= \
+        LSE_RTOL * float(want_lse.abs().max())
+    want_g = ref.attention_bwd_ref(q, k, v, out, do, lse=want_lse, **kw)
+    tol = BWD_RTOL if dtype == torch.float32 else 2.0 ** -7
+    for name, g, w in zip("qkv", grads, want_g):
+        assert g.dtype == dtype
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,overrides", [
+    ("qwen1.5-4b", {"n_layers": 1}), ("recurrentgemma-2b", {})])
+def test_classical_round_on_the_card_matches_the_plain_route(cuda_device,
+                                                             arch, overrides):
+    """One ``ClassicalSubstrate`` round on the card through the kernels
+    against the same round through the plain versions (fp32, reduced,
+    SGD at 0.1, the same params and cohort; the stacked matrices at std
+    1/sqrt(d_in), where fp32 gradients are not rounding noise): the
+    aggregated delta within 1e-3 of each leaf's scale (the whole-model
+    gradient tolerance above), each local step's launches counted (no
+    remat at reduced width: one forward and one backward a layer)."""
+    import math
+    from repro_torch.core.fed import api, fed_step
+    from repro_torch.core.fed.api import phases
+    from repro_torch.models import Model
+    from repro_torch.optim import SGD
+    spec = api.FedSpec.classical(arch=arch, num_nodes=3, nodes_per_round=2,
+                                 interval_length=2, node_batch=2, seq_len=48,
+                                 lr=0.1, data_seed=0, **overrides)
+    sub = api.ClassicalSubstrate(spec, opt=SGD(), device=cuda_device)
+    plain = api.ClassicalSubstrate(spec, model=Model(sub.cfg, impl="xla"),
+                                   opt=SGD(), device=cuda_device)
+    params = {k: (v * math.sqrt(v.shape[0] / v.shape[1])
+                  if k.startswith("stack/") and v.dim() >= 3 else v)
+              for k, v in sub.model.init(seed=0, device=cuda_device).items()}
+    state = sub.init_state(0, params=params)
+    build.reset_launches()
+    _, cohort, got, _ = phases.dispatch_round(
+        sub, sub.snapshot(state), 3, 0)
+    torch.cuda.synchronize()
+    n_rec = sub.cfg.block_pattern.count("rec")
+    want = {"flash_attention": 4, "flash_attention_bwd": 4}
+    if n_rec:
+        want["rglru_scan"] = 4 * 2 * n_rec
+    assert {k: n for k, n in build.LAUNCHES.items() if n} == want
+    _, _, ref_up, _ = phases.dispatch_round(
+        plain, plain.snapshot(state), 3, 0)
+    zero = {k: torch.zeros(v.shape, device=cuda_device)
+            for k, v in params.items()}
+    agg = fed_step.aggregate_deltas(zero, got, cohort.weights, 1.0)[0]
+    agg_x = fed_step.aggregate_deltas(zero, ref_up, cohort.weights, 1.0)[0]
+    for key, x in agg_x.items():
+        scale = float(x.abs().max())
+        assert float((agg[key] - x).abs().max()) <= 1e-3 * scale, key
