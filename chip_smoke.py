@@ -52,9 +52,13 @@ repository, it exits non-zero before printing any result. Phases:
    held against its plain version on the path's inputs and on ragged
    shapes, then timed, with the device time per launch from the
    profiler (attention also element by element, with the design its
-   machine code shows and the fp32-storage kernel's time, and the rows
-   more than one bf16 ulp off the plain version recomputed in fp64 and in
-   the kernel's order of arithmetic); then profiler breakdowns of one
+   machine code shows, the rows more than one bf16 ulp off the plain
+   version recomputed in fp64 and in the kernel's order of arithmetic,
+   and the fp32-storage kernel: its design (3xTF32 on the tensor cores)
+   a gate, within KERNEL_RTOL of the plain fp32 version on unit-scale
+   inputs of the path's shape, within ``fp32_fn_bound`` of the fp64
+   function element by element on the path's inputs, timed); then
+   profiler breakdowns of one
    prefill and one decode step, and ``python -m repro_torch.launch.serve``
    as a smoke;
 6. RWKV6 serving: RWKV6-7B at full width (32 layers, d_model 4096, 64
@@ -148,10 +152,14 @@ repository, it exits non-zero before printing any result. Phases:
    gate), the forward's log-sum-exp at the path's inputs against the
    plain one (both storage types), the attention backward kernel at the
    path's recorded inputs (bf16: within the bf16 budget of the plain
-   fp32 version; fp32 storage: 1e-4 of each gradient's scale) and on
-   ragged shapes, the same bits on repeat, timed beside its plain
+   fp32 version; fp32 storage: within ``fp32_fn_bound`` of the same
+   gradients in fp64 element by element, and on unit-scale inputs of the
+   path's shape within 1e-4 of each gradient's scale of the plain
+   version) and on ragged shapes, the same bits on repeat, timed beside
+   its plain
    version and SDPA's backward (each pass's device time, TFLOP/s on the
-   five products), the fp32-storage backward beside fp32 SDPA's; the
+   five products), the fp32-storage backward (its design a gate, its
+   splits of the group printed) beside fp32 SDPA's; the
    scan's reverse use against autograd of the plain scan (1e-5), timed;
 12. the classical federation: (a) Qwen1.5-4B at its published width
    (d_model 2560, 20 heads of 128, MHA, d_ff 6912, vocab 151936, qkv
@@ -202,7 +210,9 @@ checkout whose ``src`` is DIR (this one by default) and prints one JSON
 line (see ``time_quantum``), so that two checkouts can be compared on
 one card, in turns, each in its own process. ``--time-seq`` does the
 same for gla_chunked (chunk 16 and chunk 1) and rglru_scan at the
-prefills' shapes (see ``time_seq``). ``--time-serve`` builds the kernels
+prefills' shapes and for the fp32-storage attention forward (the
+RecurrentGemma-2B prefill's shape) and backward (phase 11's) (see
+``time_seq``). ``--time-serve`` builds the kernels
 and runs bench_serve.py's 10,000-tenant cell alone (see ``time_serve``).
 ``--train-probe`` builds the kernels and runs phase 11's model and
 batch at other learning rates and clips, without gates (see
@@ -225,7 +235,9 @@ SRC = (Path(sys.argv[sys.argv.index("--src") + 1]).resolve()
 sys.path.insert(0, str(SRC))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and fp32 FLOP/s
-# outside the tensor cores, which is what these fp32 CUDA-core kernels use.
+# outside the tensor cores, which is what the quantum kernels and the scan
+# use (the fp32 attention kernels and GLA's tensor-core path run their
+# products in 3xTF32 at TF32_FLOPS / 3 instead).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 # Kernels compute in fp32 on complex128 storage. Their sums run in
@@ -932,7 +944,8 @@ def gla_least_ms(b, s, h, dh):
 def seq_bound_ms(name, args, kw):
     """Least time on an H100 for the function at these inputs: bytes
     (inputs once, outputs once) at HBM rate against the operations at the
-    peak for their type (bf16 tensor cores for bf16 attention, fp32 CUDA
+    peak for their type (bf16 tensor cores for bf16 attention, the
+    3xTF32 rate TF32_FLOPS / 3 for fp32 attention's products, fp32 CUDA
     cores for the scan, ``gla_least_ms`` for GLA), the larger of the
     two."""
     if name == "flash_attention":
@@ -942,7 +955,7 @@ def seq_bound_ms(name, args, kw):
         pairs = allowed_pairs(sq, k.shape[1], kw.get("causal", True),
                               kw.get("window", 0))
         flops = 4 * dh * pairs * b * h          # QK^T and PV, 2 each per MAC
-        peak = BF16_FLOPS if q.element_size() == 2 else FP32_FLOPS
+        peak = BF16_FLOPS if q.element_size() == 2 else TF32_FLOPS / 3
     elif name == "gla_chunked":
         r, k, v, w, u = args                    # (B, S, H, dh); u (H, dh)
         b, s, h, dh = r.shape
@@ -1156,36 +1169,165 @@ def check_and_time_seq(rec, ragged, cell="RecurrentGemma-2B fp32 prefill",
 FA32 = "flash_attention fp32"
 
 
+def fp32_fn_bound(smax):
+    """How far fp32 attention may be from the fp64 function at scores up
+    to ``smax`` (|s| / sqrt(dh)), relative to the size of the terms summed
+    into an element: every fp32 rounding of a score at its own size (the
+    plain version's matmul and scale; the kernels' accumulators) and of
+    the LSE puts up to |x| 2^-24 on the exponent of a weight P, x the
+    largest score in log2 units. The bound, 4 |x| 2^-24 + 2^-15, is twice
+    what two such roundings give; the CPU tests hold the kernels' emulated
+    arithmetic to it (``test_3xtf32_attention_at_the_reference_init_logit_
+    range``)."""
+    import math
+    return 4 * smax * math.log2(math.e) * 2.0 ** -24 + 2.0 ** -15
+
+
+def attention_fp64(q, k, v, *, causal, window):
+    """The attention function in fp64 of the given inputs (heads-major:
+    q (BH, Sq, dh), k and v (BH / G, Sk, dh)); a = (P |V|) / l, the size
+    of the terms summed into each element; and the largest |s| / sqrt(dh)
+    over the allowed pairs. A row with no allowed key gives 0. One query
+    head at a time."""
+    import math
+    import torch
+    from repro_torch.kernels import ref
+    bh, sq, dh = q.shape
+    g = bh // k.shape[0]
+    mask = ref.attention_mask(sq, k.shape[1], causal, window, q.device)
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    a = torch.empty_like(out)
+    smax = 0.0
+    for h in range(bh):
+        s = q[h].double() @ k[h // g].double().T / math.sqrt(dh)
+        smax = max(smax, float(s.masked_fill(~mask, 0.0).abs().max()))
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")),
+                          -1).nan_to_num(0.0)
+        vh = v[h // g].double()
+        out[h], a[h] = p @ vh, p @ vh.abs()
+    return out, a, smax
+
+
+def attention_bwd_fp64(q, k, v, o, do, *, causal, window, lse=None):
+    """dq, dk, dv of the attention function in fp64 at the given inputs
+    (heads-major) and output o, with D_i = sum_c dO_ic o_ic and P the fp64
+    softmax of the scores, or, where ``lse`` is given, P = exp(s / sqrt(dh)
+    - LSE) with that LSE (what ``ref.attention_bwd_ref`` computes from the
+    backward kernel's inputs); the size of the terms summed into each
+    gradient element, with |dS| counted as P (|dP| + |D|), the size of what
+    dS is formed from (dP and D cancel on a row's dominant key); and the
+    largest |s| / sqrt(dh) over the allowed pairs. One query head at a
+    time."""
+    import math
+    import torch
+    from repro_torch.kernels import ref
+    bh, sq, dh = q.shape
+    bk, sk = k.shape[:2]
+    g, c = bh // bk, 1.0 / math.sqrt(dh)
+    mask = ref.attention_mask(sq, sk, causal, window, q.device)
+    f64 = dict(dtype=torch.float64, device=q.device)
+    dq, tq = torch.empty(q.shape, **f64), torch.empty(q.shape, **f64)
+    dk, dv, tk, tv = (torch.zeros(k.shape, **f64) for _ in range(4))
+    smax = 0.0
+    for h in range(bh):
+        kh, vh = k[h // g].double(), v[h // g].double()
+        qh, oh, doh = q[h].double(), o[h].double(), do[h].double()
+        s = qh @ kh.T * c
+        smax = max(smax, float(s.masked_fill(~mask, 0.0).abs().max()))
+        if lse is None:
+            p = torch.softmax(s.masked_fill(~mask, float("-inf")),
+                              -1).nan_to_num(0.0)
+        else:                                   # -inf: a row with no key
+            p = torch.where(mask, (s - lse[h].double().clamp_min(-1e30)[
+                :, None]).exp(), 0.0)
+        dp, dd = doh @ vh.T, (doh * oh).sum(-1, keepdim=True)
+        ds, size = p * (dp - dd), p * (dp.abs() + dd.abs())
+        dq[h], tq[h] = c * ds @ kh, c * size @ kh.abs()
+        dk[h // g] += c * ds.T @ qh
+        tk[h // g] += c * size.T @ qh.abs()
+        dv[h // g] += p.T @ doh
+        tv[h // g] += p.T @ doh.abs()
+    return (dq, dk, dv), (tq, tk, tv), smax
+
+
+def fp64_excess(got, exact, terms, smax):
+    """``got`` element by element against the fp64 function ``exact``:
+    the largest excess of |got - exact| over fp32_fn_bound(smax) x terms
+    (<= 1e-30 passes: an element whose weights underflow fp32 may be off
+    by that), and the largest |got - exact| / terms where terms > 1e-20,
+    as a share of that bound."""
+    bound = fp32_fn_bound(smax)
+    err = (got.double() - exact).abs()
+    big = terms > 1e-20
+    share = float((err[big] / terms[big]).max()) / bound if big.any() else 0.0
+    return float((err - bound * terms).max()), share
+
+
 def fp32_attention_row(q, k, v, kw, mask, flops, cell):
-    """The fp32-storage attention (``csrc/flash_attention.cu``, CUDA
-    cores) at the path's shape: the inputs cast to fp32, the kernel
-    against the plain fp32 version (KERNEL_RTOL of its scale), timed
-    beside it and beside SDPA in fp32 with the same boolean mask (checked
-    against the plain version first, at YARDSTICK_RTOL), its device time
-    a launch, and its bound at the fp32 rate."""
+    """The fp32-storage attention (``csrc/flash_attention.cu``, 3xTF32
+    on the tensor cores: its design read from the machine code, a gate)
+    at the path's shape, held two ways: on seeded unit-scale inputs of
+    that shape, within KERNEL_RTOL of the output's scale of the plain fp32
+    version; on the path's inputs cast to fp32 (the reference init's
+    scores reach the thousands, where the plain fp32 version is itself
+    more than KERNEL_RTOL off the function), element by element within
+    ``fp32_fn_bound`` of the terms of the fp64 function, the plain
+    version's share of that bound and its distance from the kernel
+    printed beside. Then timed beside the plain version and beside SDPA in
+    fp32 with the same boolean mask (checked against the plain version
+    first, at YARDSTICK_RTOL), its device time a launch, and its bound at
+    the 3xTF32 rate (the fp32 CUDA-core rate's beside it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops, ref
     name = "flash_attention"
+    design = kfa.fp32_design()
+    say(f"  {name:16s} fp32 design: {design} (the machine code of the "
+        f"forward and of the backward's dQ and dK/dV passes; HMMA .TF32 = "
+        f"mma.sync)")
+    if design == "none":
+        raise RuntimeError("the fp32 attention kernels are not on the "
+                           "tensor cores")
     q32, k32, v32 = (x.float() for x in (q, k, v))
 
     def heads_major(x):
         bx, sx, hx, dx = x.shape
         return ops._dense(x.transpose(1, 2).reshape(bx * hx, sx, dx))
     qf, kf, vf = (heads_major(x) for x in (q32, k32, v32))
+    g = torch.Generator(device="cpu").manual_seed(14)
+    unit = [torch.randn(x.shape, generator=g).to(x.device)
+            for x in (qf, kf, vf)]
+    got, want = (fn(*unit, **kw) for fn in (kfa.flash_attention,
+                                            ref.attention_ref))
+    unit_scale = max(1.0, float(want.abs().max()))
+    unit_err = float((got - want).abs().max())
+    ok_unit = unit_err <= KERNEL_RTOL * unit_scale
+    say(f"  {name:16s} fp32 storage (3xTF32), unit-scale inputs at the "
+        f"path's shape: max_abs_err {unit_err:.3e} (tol {KERNEL_RTOL:.0e} "
+        f"x scale {unit_scale:.3g}) {'ok' if ok_unit else 'FAIL'}")
+    del unit, got, want
     got = kfa.flash_attention(qf, kf, vf, **kw)
     want = ref.attention_ref(qf, kf, vf, **kw)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale = max(1.0, float(want.abs().max()))
-    ok = err <= KERNEL_RTOL * scale
-    say(f"  {name:16s} fp32 storage (CUDA cores) at the path's shape: "
-        f"max_abs_err {err:.3e} (tol {KERNEL_RTOL:.0e} x scale {scale:.3g}) "
+    exact, terms, smax = attention_fp64(qf, kf, vf, **kw)
+    excess, share = fp64_excess(got, exact, terms, smax)
+    plain_share = fp64_excess(want, exact, terms, smax)[1]
+    ok = excess <= 1e-30
+    del exact, terms
+    say(f"  {name:16s} fp32 storage (3xTF32), the path's inputs (scores up "
+        f"to {smax:.1f}, {smax * 1.4426950408889634:.1f} in log2 units): "
+        f"against the fp64 function element by element, the kernel's "
+        f"largest error {share:.3f} of the bound "
+        f"{fp32_fn_bound(smax):.3e} x (P |V|) / l, the plain fp32 "
+        f"version's {plain_share:.3f}; the kernel {err:.3e} off the plain "
+        f"version (KERNEL_RTOL x scale {KERNEL_RTOL * scale:.3e}) "
         f"{'ok' if ok else 'FAIL'}")
-    if not ok:
+    if not (ok and ok_unit):
         raise RuntimeError("the fp32 attention disagrees with its plain "
-                           "version")
+                           "version or with the fp64 function")
     b, sq, h, dh = q.shape
 
     def lib():
@@ -1207,12 +1349,14 @@ def fp32_attention_row(q, k, v, kw, mask, flops, cell):
     dev_us = device_us(lambda *x: kfa.flash_attention(*x, **kw),
                        [qf, kf, vf], n=2)
     b_ms, b_by = seq_bound_ms(name, (q32, k32, v32), kw)
+    simt_ms = flops / FP32_FLOPS * 1e3
     say(f"  {name:16s} fp32 timed at {[list(x.shape) for x in (q, k, v)]} "
         f"{kw}: kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch), "
         f"plain {p_ms:.4f} ms, SDPA fp32 {lib_ms:.4f} ms, bound "
-        f"{b_ms:.6f} ms ({b_by}); {flops / k_ms / 1e9:.1f} TFLOP/s on "
-        f"allowed pairs, kernel/bound {k_ms / b_ms:.2f}x, kernel/SDPA "
-        f"{k_ms / lib_ms:.3f}x")
+        f"{b_ms:.6f} ms ({b_by}, 3xTF32; {simt_ms:.6f} ms at the fp32 "
+        f"CUDA-core rate); {flops / k_ms / 1e9:.1f} TFLOP/s on allowed "
+        f"pairs, kernel/bound {k_ms / b_ms:.2f}x, kernel/SDPA "
+        f"{k_ms / lib_ms:.3f}x; card {smi('name,power.limit')}")
     return dict(name=name, route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces=SEQ_KERNELS[name]["replaces"],
@@ -3029,12 +3173,12 @@ def attn_bwd_bound_ms(q, k, kw):
     """Least time for the attention backward at these inputs: q, o, dO,
     dQ and k, v, dK, dV crossing HBM once against the five products (10
     dh FLOP an allowed pair) at the peak for the storage type (bf16
-    tensor cores, or fp32 CUDA cores)."""
+    tensor cores, or fp32 in 3xTF32 at TF32_FLOPS / 3)."""
     bh, sq, dh = q.shape
     nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
     flops = 10 * dh * bh * allowed_pairs(sq, k.shape[1], kw["causal"],
                                          kw["window"])
-    peak = BF16_FLOPS if q.element_size() == 2 else FP32_FLOPS
+    peak = BF16_FLOPS if q.element_size() == 2 else TF32_FLOPS / 3
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -3073,13 +3217,20 @@ def grad_dev(got, want, scale):
             for g, w, s in zip(got, want, scale)]
 
 
-def attn_bwd_case(args, kw, label, budget_of=None):
+def attn_bwd_case(args, kw, label, exact=False):
     """The backward kernel on (q, k, v, o, dO) against the plain fp32
     version (the inputs cast to fp32), each gradient relative to its
-    scale. fp32 storage: within BWD_RTOL. bf16 storage: within the bf16
-    budget, the plain bf16 gradients' deviation from the plain fp32 ones
-    on the same inputs, plus BWD_RTOL for the kernel's order of
-    summation. Returns the worst deviation."""
+    scale, and the same bits on repeat. fp32 storage: within BWD_RTOL; with
+    ``exact`` (the path's inputs at the reference init, whose scores reach
+    the thousands, where the plain fp32 version is itself more than that
+    off the function), element by element within ``fp32_fn_bound`` of the
+    terms of the same gradients in fp64 (``attention_bwd_fp64`` with the
+    given LSE: the function ``ref.attention_bwd_ref`` computes), the plain
+    version's share of that bound and its deviation printed beside. bf16
+    storage: within the bf16 budget, the plain bf16 gradients' deviation
+    from the plain fp32 ones on the same inputs, plus BWD_RTOL for the
+    kernel's order of summation. Returns the worst deviation from the
+    plain version."""
     import torch
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
@@ -3096,14 +3247,37 @@ def attn_bwd_case(args, kw, label, budget_of=None):
         budget = [BWD_RTOL] * 3
     again = kfa.flash_attention_bwd(*args, **kw)
     same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
-    ok = all(d <= b for d, b in zip(dev, budget)) and same
-    say(f"  {ATTN_BWD} {label}: dq/dk/dv "
-        + ", ".join(f"{d:.3e} (budget {b:.3e})" for d, b in zip(dev, budget))
-        + f" of each scale; same bits on repeat {same} "
-        f"{'ok' if ok else 'FAIL'}")
+    del again
+    if exact:
+        grads, terms, smax = attention_bwd_fp64(
+            *args, causal=kw["causal"], window=kw["window"], lse=kw["lse"])
+        fits = [fp64_excess(x, e, t, smax)
+                for x, e, t in zip(got, grads, terms)]
+        plain_share = [fp64_excess(x, e, t, smax)[1]
+                       for x, e, t in zip(want, grads, terms)]
+        del grads, terms
+        ok = same and all(excess <= 1e-30 for excess, _ in fits)
+        say(f"  {ATTN_BWD} {label} (scores up to {smax:.1f}): against the "
+            "same gradients in fp64 element by element, dq/dk/dv the "
+            "kernel's largest error "
+            + ", ".join(f"{share:.3f}" for _, share in fits)
+            + ", the plain fp32 version's "
+            + ", ".join(f"{share:.3f}" for share in plain_share)
+            + f" of the bound {fp32_fn_bound(smax):.3e} x their terms; off "
+            "the plain version "
+            + ", ".join(f"{d:.3e}" for d in dev)
+            + f" of each scale (BWD_RTOL {BWD_RTOL:.0e}); same bits on "
+            f"repeat {same} {'ok' if ok else 'FAIL'}")
+    else:
+        ok = same and all(d <= b for d, b in zip(dev, budget))
+        say(f"  {ATTN_BWD} {label}: dq/dk/dv "
+            + ", ".join(f"{d:.3e} (budget {b:.3e})"
+                        for d, b in zip(dev, budget))
+            + f" of each scale; same bits on repeat {same} "
+            f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError("the attention backward kernel disagrees with "
-                           "its plain version")
+                           "its plain version or with the fp64 function")
     return max(d * s for d, s in zip(dev, scale))
 
 
@@ -3492,7 +3666,15 @@ def phase_train(device="cuda"):
     p32 = tuple(x.float() for x in (q, k, v, o, do))
     lse_check(*p32[:3], kw, "path fp32 storage")
     worst = attn_bwd_case((q, k, v, o, do), kw, "path bf16")
-    worst32 = attn_bwd_case(p32, kw, "path fp32 storage")
+    worst32 = attn_bwd_case(p32, kw, "path fp32 storage", exact=True)
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    unit = tuple(torch.randn(x.shape, generator=gen).to(device)
+                 for x in p32)
+    kw_u = dict(mask, lse=ref.attention_ref(*unit[:3], return_lse=True,
+                                            **mask)[1])
+    attn_bwd_case(unit, kw_u, "unit-scale inputs at the path's shape, fp32 "
+                  "storage")
+    del unit, kw_u
     for args, kw_r in attn_bwd_ragged(device):
         mask_r = {x: kw_r[x] for x in ("causal", "window")}
         attn_bwd_case(args, kw_r, f"ragged {[list(x.shape) for x in args[:2]]}"
@@ -3506,16 +3688,26 @@ def phase_train(device="cuda"):
     lib32_ms, backend32 = sdpa_backward_ms(*p32[:3], mask)
     del p32
     b32_ms, b32_by = attn_bwd_bound_ms(q.float(), k.float(), mask)
+    simt32_ms = 10 * q.shape[2] * q.shape[0] * allowed_pairs(
+        q.shape[1], k.shape[1], kw["causal"], kw["window"]) / FP32_FLOPS * 1e3
+    design32 = kfa.fp32_design()
     bwd = attn_bwd_timing(q, k, v, o, do, kw)
     profile_device(f"one {ATTN_BWD} call (its passes)",
                    lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw))
-    say(f"  {ATTN_BWD32} at the same inputs in fp32: kernel {k32_ms:.4f} ms, "
+    say(f"  {ATTN_BWD32} at the same inputs in fp32 ({design32} design, "
+        f"the machine code's; the group's {q.shape[0] // k.shape[0]} query "
+        f"heads in {splits} splits): kernel {k32_ms:.4f} ms, "
         f"plain {p32_ms:.4f} ms, fp32 SDPA backward ({backend32}, boolean "
         f"window mask) "
         f"{'n/a' if lib32_ms is None else f'{lib32_ms:.4f} ms'}, bound "
-        f"{b32_ms:.6f} ms ({b32_by}), {k32_ms / b32_ms:.2f}x (device "
-        f"{dev32_us:.2f} us a launch); card "
-        f"{smi('name,power.limit')}")
+        f"{b32_ms:.6f} ms ({b32_by}, 3xTF32; {simt32_ms:.6f} ms at the fp32 "
+        f"CUDA-core rate), {k32_ms / b32_ms:.2f}x (device "
+        f"{dev32_us:.2f} us a launch)"
+        + ("" if lib32_ms is None else f", kernel/SDPA {k32_ms / lib32_ms:.3f}x")
+        + f"; card {smi('name,power.limit')}")
+    if design32 == "none":
+        raise RuntimeError("the fp32 attention backward is not on the "
+                           "tensor cores")
 
     say("  the scan's reverse use at the path's inputs, against autograd "
         "of the plain scan:")
@@ -4048,8 +4240,13 @@ def seq_timing_inputs(device="cuda"):
     (4, 4096, 64, 64) bf16 with w fp32 drawn as the RWKV6 block's decay
     exp(-exp(x)), x uniform over its clip [-12, 4], u (64, 64); the same at
     4097 tokens (the S+1 prefill, chunk 1); the RG-LRU scan's a in (0, 1)
-    and b (4, 4096, 2560) fp32."""
+    and b (4, 4096, 2560) fp32; fp32-storage attention at the
+    RecurrentGemma-2B prefill's shape (q (40, 4096, 256), kv (4, 4096,
+    256) heads-major, causal, window 2048) and its backward at phase 11's
+    (q, o, dO (10, 4096, 256), kv (1, 4096, 256), the LSE from the
+    forward of the port under test)."""
     import torch
+    from repro_torch.kernels import flash_attention as kfa
     g = torch.Generator(device="cpu").manual_seed(12)
 
     def gla(s):
@@ -4060,11 +4257,24 @@ def seq_timing_inputs(device="cuda"):
                       (0.5 * torch.randn((64, 64), generator=g)).to(device)]
     a = torch.rand((SERVE_B, SERVE_S, 2560), generator=g).to(device)
     b = torch.randn((SERVE_B, SERVE_S, 2560), generator=g).to(device)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g).to(device)
+    mask = dict(causal=True, window=2048)
+    fwd = (r(SERVE_B * 10, SERVE_S, 256), r(SERVE_B, SERVE_S, 256),
+           r(SERVE_B, SERVE_S, 256))
+    q, k, v, do = (r(10, TRAIN_S, 256), r(1, TRAIN_S, 256),
+                   r(1, TRAIN_S, 256), r(10, TRAIN_S, 256))
+    o, lse = kfa.flash_attention(q, k, v, return_lse=True, **mask)
     return {"gla_chunked (4,4096,64,64) bf16 chunk 16": ("gla", gla(SERVE_S),
                                                          16),
             "gla_chunked (4,4097,64,64) bf16 chunk 1": ("gla",
                                                         gla(SERVE_S + 1), 1),
-            "rglru_scan (4,4096,2560) fp32": ("scan", (a, b), None)}
+            "rglru_scan (4,4096,2560) fp32": ("scan", (a, b), None),
+            "flash_attention fp32 (4,4096,10|1,256) window 2048": (
+                "attn", fwd, mask),
+            "flash_attention_bwd fp32 (1,4096,10|1,256) window 2048": (
+                "attn_bwd", (q, k, v, o, do), dict(mask, lse=lse))}
 
 
 def time_attn_bwd(splits=(1, 2, 3, 5, 10), reps=20):
@@ -4113,17 +4323,24 @@ def time_attn_bwd(splits=(1, 2, 3, 5, 10), reps=20):
 
 
 def time_seq(trials=5):
-    """ms per call (``cuda_ms``, ``trials`` times) of gla_chunked and
-    rglru_scan through their wrappers at ``seq_timing_inputs``, for the
-    port under ``--src``; one JSON line of medians and trials."""
+    """ms per call (``cuda_ms``, ``trials`` times) of gla_chunked,
+    rglru_scan and the fp32-storage attention forward and backward
+    through their wrappers at ``seq_timing_inputs``, for the port under
+    ``--src``; one JSON line of medians and trials."""
     import statistics
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import gla_chunked as kgla
     from repro_torch.kernels import rglru_scan as krg
     result = {"src": str(kgla.__file__).rsplit("/repro_torch/", 1)[0],
               "card": smi("name,power.limit")}
-    for label, (kind, args, chunk) in seq_timing_inputs().items():
+    for label, (kind, args, extra) in seq_timing_inputs().items():
         if kind == "gla":
-            fn = lambda: kgla.gla_chunked(*args, chunk=chunk)  # noqa: E731
+            fn = lambda: kgla.gla_chunked(*args, chunk=extra)  # noqa: E731
+        elif kind == "attn":
+            fn = lambda: kfa.flash_attention(*args, **extra)  # noqa: E731
+        elif kind == "attn_bwd":
+            fn = lambda: kfa.flash_attention_bwd(  # noqa: E731
+                *args, **extra)
         else:
             fn = lambda: krg.rglru_scan(*args)  # noqa: E731
         ms = [cuda_ms(fn, reps=20, warmup=3) for _ in range(trials)]

@@ -1,7 +1,8 @@
 // Causal / sliding-window flash attention with grouped-query heads:
-// online softmax, every product and sum in fp32, fp32 storage. bf16
-// storage runs on the tensor cores instead (flash_attention_wgmma.cu);
-// the C entry point below picks the kernel by dtype.
+// online softmax, fp32 storage, the fp32 function, with its two products
+// on Hopper's tensor cores in 3xTF32 (tf32.cuh). bf16 storage runs on
+// wgmma instead (flash_attention_wgmma.cu); the C entry point below picks
+// the kernel by dtype.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention
 // (_flash_kernel), the Pallas TPU kernel that streams 128-key blocks
@@ -19,97 +20,104 @@
 // scores goes to an fp32 (BH, Sq) output for the backward, in natural-log
 // units (-inf for a row with no allowed key), as the bf16 kernel writes it.
 //
-// What bounds it on an H100: operations, on the fp32 CUDA cores (67
-// TFLOP/s): fp32 inputs have no tensor-core path that keeps the fp32
-// products (TF32 keeps 10 bits).
+// What bounds it on an H100: operations. S = Q K^T and O += P V are
+// 4 D FLOP an allowed pair. fp32 operands keep the fp32 function on the
+// tensor cores in 3xTF32: each operand split as x = hi + lo (TF32 hi,
+// TF32 rounding of the rest, ~2^-22 of x), each product run as lo hi,
+// hi lo, then hi hi (lo lo, ~2^-22 of the product, is dropped), three
+// TF32 mma.sync a product: 495 / 3 = 165 TFLOP/s, against 67 on the
+// fp32 CUDA cores. P is split too: it is an operand, and P rounded to
+// TF32 alone misses the fp32 tolerance by far. The tensor cores truncate
+// each mma's sum toward zero, so no chain of mmas into one accumulator
+// is longer than 4 k-steps (12 mmas): S sums D in chains of 32 columns,
+// each added to S in fp32 on the CUDA cores, and a tile's P V is one
+// chain joined to O by O = fma(O, alpha, P V) (attention_tf32.cuh). One
+// chain over a 2048-key row put the output 1.2e-5 of its scale off the
+// plain version on an H100; cut, 2.9e-6. tests/test_torch_seq_kernels.py
+// replays this arithmetic (splits, chains, truncated sums) in the
+// kernel's tile order on the CPU.
 //
-// Design: one 256-thread block per (64 query rows, head). The q tile
-// stays in shared memory for the whole walk over key tiles of 64; each
-// k/v tile is staged once into shared memory, transposed for K. Shared
-// memory at D = 256 is Q^T 68 KB + K^T 68 KB + V 65 KB + P^T 17 KB =
-// 223,232 bytes of the 232,448 a block may have (one block per SM).
-// Thread (ty, tx) of a 16 x 16 grid owns query rows 4ty..4ty+3: it
-// computes their scores against keys 4tx..4tx+3 of the tile from float4
-// reads of the transposed tiles, and accumulates their output at
-// columns 4tx + 64j (j < D/64) in registers (64 floats at D = 256). Row
-// max and row sum are half-warp shuffles, since the 16 threads of a row
-// sit in one half of a warp. Key tiles wholly above the diagonal, or
-// wholly at or below i - window for every row of the block, are skipped;
-// masked entries inside a tile get probability 0. Query rows past Sq
-// and keys past Sk are masked, not padded in device memory.
-#include "common.cuh"
+// Instruction: mma.sync m16n8k8 .tf32 for both products. tf32 wgmma takes
+// its B operand K-major from shared memory only, which fits Q K^T but
+// not P V (V is N-major there, and 32-bit wgmma has no transposed mode),
+// and its operands would have to sit split in shared memory, twice the
+// tiles; mma.sync takes hand-loaded fragments, split in registers as they
+// are loaded (split_finite: four instructions a value where cvt.rna's
+// inf and NaN check makes seven). Every tile stays in its row layout
+// (attention_tf32.cuh): K^T is read in place for Q K^T, P goes from the S
+// accumulator straight into the A operand of P V with the key order of
+// each k-step permuted, and V's rows are read in the same order. Nothing
+// is transposed.
+//
+// Design: one 256-thread block per (128 query rows, query head); warp w
+// owns rows 16w..16w+15 (S 16 x 32 keys, O 16 x D in registers: D / 2
+// floats a thread). Key tiles of 32 hold K and V in one buffer each, row
+// pitch D + 4 floats; Q stays for the whole walk. Loads overlap the
+// products: K of the next tile is copied (cp.async) as soon as every
+// warp has formed S from this one, V of the next tile as soon as P V is
+// done, so each copy runs under half a tile of products (the two buffers
+// act as a double buffer whose halves are released in turn). Shared
+// memory at D = 256: Q 130 KB + K 33 KB + V 33 KB = 199,680 bytes of the
+// 232,448 a block may have (D = 128: 101,376; D = 64: 52,224). Row max
+// and sum are quad shuffles (a row's 32 keys sit in the four lanes of a
+// quad). Key tiles wholly above the diagonal, or wholly at or below
+// i - window for every row of the block, are skipped; masked entries
+// inside a tile get probability 0. Query rows past Sq and keys past Sk
+// are zero-filled in shared memory and masked, never read from device
+// memory. Query blocks run last-first (the most key tiles first).
+//
+// Against the plain version: at the reference init's logits (scaled
+// scores in the thousands) an fp32 score carries ~|s| 2^-24 from its
+// sums' rounding in any order, and each weight that relative error; the
+// plain version (cuBLAS) is then itself more than 1e-5 of the output's
+// scale off the fp64 function (1.0e-4 at the RecurrentGemma-2B prefill).
+// The CUDA-core kernel this one replaces summed each score by sequential
+// fmas over D and stayed within 1e-5 of the plain version there, so it
+// repeated the plain version's rounding; this one does not, and is nearer
+// the fp64 function than the plain version (6.5e-5; chip_smoke.py's
+// phase 5 measures both).
+#include "attention_tf32.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kQP = kBQ + 4;     // pitch of Q^T and P^T rows (floats)
-constexpr int kKP = kBK + 4;     // pitch of K^T rows (floats)
+using namespace qf::attn32;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;   // query rows a block
+constexpr int kBK = 32;            // keys a tile
 constexpr float kNegInf = -1.0e30f;
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (static_cast<size_t>(D) * kQP + static_cast<size_t>(D) * kKP +
-          static_cast<size_t>(kBK) * (D + 4) + static_cast<size_t>(kBK) * kQP);
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+__host__ __device__ constexpr int pitch() {
+  return D + 4;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+constexpr size_t smem_bytes() {
+  return sizeof(float) * static_cast<size_t>(kBQ + 2 * kBK) * pitch<D>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out,
              float* __restrict__ lse, int group, int sq, int sk, int causal,
              int window) {
-  constexpr int kNJ = D / 64;    // float4 column groups per thread
-  constexpr int kVP = D + 4;     // pitch of V rows (floats)
+  constexpr int kP = pitch<D>();
+  constexpr int kN = D / 8;        // n-tiles of O
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;              // [D][kQP]  Q^T
-  float* kt = qt + D * kQP;      // [D][kKP]  K^T
-  float* vs = kt + D * kKP;      // [kBK][kVP] V
-  float* pt = vs + kBK * kVP;    // [kBK][kQP] P^T
+  float* qs = smem;                // [kBQ][kP]
+  float* ks = qs + kBQ * kP;       // [kBK][kP]
+  float* vs = ks + kBK * kP;       // [kBK][kP]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const float* qb = q + static_cast<size_t>(bh) * sq * D;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const float* kb = k + static_cast<size_t>(bh / group) * sk * D;
   const float* vb = v + static_cast<size_t>(bh / group) * sk * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    qt[d * kQP + r] =
-        q0 + r < sq ? qb[static_cast<size_t>(q0 + r) * D + d] : 0.f;
-  }
-
-  float acc[4][4 * kNJ];
-  float m_i[4], l_i[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = kNegInf;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * kNJ; ++c) acc[i][c] = 0.f;
-  }
 
   // key tiles that hold an allowed key for some real row of this block
   const int q_hi = min(q0 + kBQ, sq) - 1;
@@ -118,107 +126,96 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t_lo = k_lo / kBK;
   const int t_hi = k_hi >= k_lo ? k_hi / kBK : t_lo - 1;
 
+  // groups in flight: {Q, K(t_lo)}, {V(t_lo)}
+  if (t_lo <= t_hi) {
+    stage_rows<D, kThreads>(qs, kP, q + static_cast<size_t>(bh) * sq * D,
+                            q0, kBQ, sq);
+    stage_rows<D, kThreads>(ks, kP, kb, t_lo * kBK, kBK, sk);
+  }
+  cp_async_commit();
+  if (t_lo <= t_hi) stage_rows<D, kThreads>(vs, kP, vb, t_lo * kBK, kBK, sk);
+  cp_async_commit();
+
+  float o[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+  const int row0 = q0 + 16 * warp + g;      // rows row0 and row0 + 8
+  const float* qw = qs + 16 * warp * kP;
+
   for (int tile = t_lo; tile <= t_hi; ++tile) {
     const int k0 = tile * kBK;
-    __syncthreads();  // the previous tile's readers are done (and Q is in)
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int c = idx / D, d = idx - c * D;
-      const bool in = k0 + c < sk;
-      const size_t off = static_cast<size_t>(k0 + c) * D + d;
-      kt[d * kKP + c] = in ? kb[off] : 0.f;
-      vs[c * kVP + d] = in ? vb[off] : 0.f;
-    }
+    cp_async_wait<1>();   // Q and K(tile) are in; V(tile) may be in flight
     __syncthreads();
 
-    // scores of rows 4ty+i against keys 4tx+j of the tile
+    // S = Q K^T: rows of the warp x the tile's 32 keys (4 n-tiles)
     float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * kQP + 4 * ty);
-      const float4 b = *reinterpret_cast<const float4*>(kt + d * kKP + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = comp(a, i);
-        s[i][0] = fmaf(ai, b.x, s[i][0]);
-        s[i][1] = fmaf(ai, b.y, s[i][1]);
-        s[i][2] = fmaf(ai, b.z, s[i][2]);
-        s[i][3] = fmaf(ai, b.w, s[i][3]);
-      }
-    }
+    dot_rows<D, 4>(s, qw, ks, kP, g, t);
+    __syncthreads();      // every warp is done with K(tile)
+    if (tile < t_hi) stage_rows<D, kThreads>(ks, kP, kb, k0 + kBK, kBK, sk);
+    cp_async_commit();
 
-    // mask, then the online-softmax update of each row
+    // mask, then the online-softmax update of rows row0 (s[j][0..1]) and
+    // row0 + 8 (s[j][2..3]); keys k0 + 8j + 2t + e
+    float alpha[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      bool ok[4];
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      bool ok[4][2];
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + 4 * tx + j;
-        ok[j] = col < sk && (!causal || col <= row) &&
-                (window <= 0 || col > row - window);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_i[i], half_warp_max(mx));
-      const float alpha = expf(m_i[i] - m_new);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          ok[j][e] = allowed(row, k0 + 8 * j + 2 * t + e, sk, causal, window);
+          float& x = s[j][2 * h + e];
+          x = ok[j][e] ? __fmul_rn(x, scale) : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m_i[h], quad_max(mx));
+      alpha[h] = expf(m_i[h] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += s[i][j];
-      }
-      l_i[i] = l_i[i] * alpha + half_warp_sum(rs);
-      m_i[i] = m_new;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int c = 0; c < 4 * kNJ; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pt + (4 * tx + j) * kQP + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-    // acc[rows 4ty+i][cols 4tx + 64n + e] += P[row][c] V[c][col]
-#pragma unroll 2
-    for (int c = 0; c < kBK; ++c) {
-      const float4 p = *reinterpret_cast<const float4*>(pt + c * kQP + 4 * ty);
-#pragma unroll
-      for (int n = 0; n < kNJ; ++n) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(vs + c * kVP + 64 * n + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pi = comp(p, i);
-          acc[i][4 * n + 0] = fmaf(pi, w.x, acc[i][4 * n + 0]);
-          acc[i][4 * n + 1] = fmaf(pi, w.y, acc[i][4 * n + 1]);
-          acc[i][4 * n + 2] = fmaf(pi, w.z, acc[i][4 * n + 2]);
-          acc[i][4 * n + 3] = fmaf(pi, w.w, acc[i][4 * n + 3]);
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[j][2 * h + e];
+          x = ok[j][e] ? expf(x - m_new) : 0.f;
+          rs += x;
         }
-      }
+      l_i[h] = l_i[h] * alpha[h] + quad_sum(rs);
+      m_i[h] = m_new;
     }
+    // P as the A operand of P V, k-steps of 8 keys
+    Frag pa[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pa[j] = a_acc(s[j]);
+
+    cp_async_wait<1>();   // V(tile) is in; K(tile + 1) may be in flight
+    __syncthreads();
+    // O = alpha O + P V
+    acc_pairs<D, 4>(o, pa, alpha, vs, kP, g, t);
+    __syncthreads();      // every warp is done with V(tile)
+    if (tile < t_hi) stage_rows<D, kThreads>(vs, kP, vb, k0 + kBK, kBK, sk);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
 
   float* ob = out + static_cast<size_t>(bh) * sq * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
     if (row >= sq) continue;
     // the row's log-sum-exp (-inf: no allowed key)
-    if (lse != nullptr && tx == 0)
+    if (lse != nullptr && t == 0)
       lse[static_cast<size_t>(bh) * sq + row] =
-          l_i[i] > 0.f ? m_i[i] + logf(l_i[i]) : qf::neg_inf();
-    const float denom = fmaxf(l_i[i], 1e-30f);
+          l_i[h] > 0.f ? m_i[h] + logf(l_i[h]) : qf::neg_inf();
+    const float denom = fmaxf(l_i[h], 1e-30f);
+    float* orow = ob + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kNJ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ob[static_cast<size_t>(row) * D + 64 * n + 4 * tx + e] =
-            acc[i][4 * n + e] / denom;
+    for (int n = 0; n < kN; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[n][2 * h] / denom, o[n][2 * h + 1] / denom);
   }
 }
 
@@ -243,6 +240,10 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 int launch_dh(const void* q, const void* k, const void* v, void* out,
               void* lse, int bh, int group, int sq, int sk, int dh,
               int causal, int window, void* stream) {
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16)    // cp.async's alignment
+      return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 64:
       return launch<64>(q, k, v, out, lse, bh, group, sq, sk, causal, window,
@@ -260,8 +261,8 @@ int launch_dh(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// q (bh, sq, dh); k, v (bk, sk, dh) with bh a multiple of bk; dh 64, 128
-// or 256; dtype a qf::DType. lse, fp32 (bh, sq) or null, receives each
+// q (bh, sq, dh); k, v (bk, sk, dh) with bh a multiple of bk, each and
+// out 16-byte aligned; dh 64, 128 or 256; dtype a qf::DType. lse, fp32 (bh, sq) or null, receives each
 // row's log-sum-exp of its scaled allowed scores, in natural-log units
 // for both dtypes (-inf for a row with no allowed key): the backward
 // (qf_flash_attention_bwd) reads it.

@@ -1,9 +1,9 @@
 // Backward of the causal / sliding-window flash attention with
 // grouped-query heads, fp32 storage: dQ, dK and dV of the function the
-// fp32 forward kernel computes (flash_attention.cu), every product and
-// sum in fp32 on the CUDA cores. bf16 storage runs on the tensor cores
-// instead (flash_attention_bwd_wgmma.cu); the C entry point below picks
-// the kernels by dtype.
+// fp32 forward kernel computes (flash_attention.cu), the fp32 function,
+// with its five products on Hopper's tensor cores in 3xTF32 (tf32.cuh).
+// bf16 storage runs on wgmma instead (flash_attention_bwd_wgmma.cu); the
+// C entry point below picks the kernels by dtype.
 //
 // Replaces: the gradient of src/repro/kernels/flash_attention.py::
 // flash_attention. The TPU kernel has no backward of its own: the
@@ -24,136 +24,130 @@
 //   dV_j = sum_i P_ij dO_i,
 // the sums over i running over the G query heads of kv head j's group as
 // well. A row with no allowed key (its forward output 0) has no
-// gradient.
+// gradient. P is formed as exp(fma(s_ij, 1/sqrt(D), -LSE_i)): one
+// rounding of the exponent.
 //
 // What bounds it on an H100: operations. The five products (QK^T, dO V^T,
-// dS K, dS^T Q, P^T dO) are 10 D FLOP per allowed pair on the fp32 CUDA
-// cores (67 TFLOP/s): fp32 inputs have no tensor-core path that keeps
-// the fp32 products. Both kernels recompute QK^T and dO V^T (8 products
-// a pair instead of 5).
+// dS K, dS^T Q, P^T dO) are 10 D FLOP an allowed pair; both passes
+// recompute QK^T and dO V^T, 14 D in all (7 products a pair). Each runs
+// on the tensor cores in 3xTF32 (mma.sync m16n8k8 .tf32): operands split
+// as x = hi + lo, the products lo hi, hi lo and hi hi, 495 / 3 = 165
+// TFLOP/s against 67 on the fp32 CUDA cores. P and dS are split too: they
+// are operands, and TF32 alone misses the fp32 tolerance. As in the
+// forward, no chain of mmas into one accumulator is longer than 4
+// k-steps (the tensor cores truncate each mma's sum): the score products
+// sum D in chains of 32 columns added in fp32, and each tile's
+// contribution to dQ, dK or dV is one chain added to its running sum in
+// fp32 (attention_tf32.cuh). tests/test_torch_seq_kernels.py replays this
+// arithmetic in the kernels' tile order on the CPU. mma.sync rather than
+// wgmma for the reasons of the forward's note: every tile stays in its
+// row layout, the score accumulators become the A operand of the next
+// product with the k-step's columns permuted, and the operands are split
+// in registers as they are loaded.
 //
-// Design: two kernels, launched one after the other by the C entry point.
-//  A. one 256-thread block per (64 query rows, query head) walks the key
-//     tiles of 32 that its rows' masks allow once: with the forward's LSE
-//     and D_i from O and dO, it recomputes P and dS and accumulates dQ in
-//     registers (4 rows x D/16 columns a thread). It writes dQ, and each
-//     row's D_i to a workspace. Q^T and dO^T stay in shared memory; each
-//     key tile is
-//     staged in row layout with an odd pitch (D + 1 floats), so the 16
-//     lanes of a half-warp reading 16 keys at one column hit 16 banks.
-//  B. one 256-thread block per (32 keys, kv head) owns dK and dV of its
-//     keys (2 keys x D/16 columns a thread, each in registers): it loops
-//     over the G query heads of the group and over the query tiles of 32
-//     that its keys' masks allow, recomputes S^T and dP^T from K^T and
-//     V^T (resident) and the staged Q and dO tile, forms P and dS from
-//     the LSE and the workspace's D_i, and accumulates P^T dO and dS^T Q.
-//     GQA's sum over the group happens inside the block.
-// No atomics and no order between blocks: the same inputs give the same
-// bits. Shared memory at D = 256, fp32 tiles: A 213,760 bytes
-// (Q^T 68 KB, dO^T 68 KB, K 32 KB, V 32 KB, dS^T 8.5 KB), B 148,992
-// (K^T 36 KB, V^T 36 KB, Q 32 KB, dO 32 KB, P and dS 9 KB); one block an
-// SM for A, one for B. Key tiles above the diagonal or below the window
-// are skipped in A, query tiles likewise in B; masked entries inside a
-// tile get probability 0. Rows past Sq and keys past Sk are masked, not
-// padded in device memory.
-#include "common.cuh"
+// Design: two passes and an ordered sum, no atomics, so the same inputs
+// give the same bits.
+//  A. dQ: one 256-thread block per (64 query rows, query head). Q and dO
+//     stay in shared memory; each key tile of 32 is copied into a K and a
+//     V buffer (cp.async). Warp w owns rows 16 (w % 4).. + 15 and the
+//     keys 16 (w / 4).. + 15 of every tile: dP = dO V^T and S = Q K^T
+//     (16 x 16), P and dS in registers, dQ += dS K (16 x D in registers:
+//     D / 2 floats a thread). The two warps of a row group add their dQ
+//     halves in a fixed order at the end, through shared memory. D_i
+//     (from O and dO) goes to a workspace for pass B. Copies overlap the
+//     products: V of the next tile is copied once every warp has formed
+//     dP, under S, dS and dQ; K of the next tile once dQ is done, under
+//     the next tile's dP. Query blocks run last-first.
+//  B. dK, dV: one 256-thread block per (64 keys, kv head, split of the
+//     group's G query heads); K and V stay in shared memory, 32-row Q and
+//     dO tiles of the split's heads are copied in turn. Warp w < 4 owns
+//     dV of keys 16w..16w+15: S^T = K Q^T, P^T from the LSE, then
+//     dV += P^T dO. Warp w + 4 owns dK of the same keys: dP^T = V dO^T,
+//     P^T from warp w through shared memory (a named barrier a pair;
+//     both hold the same accumulator layout, so lane l hands its 16
+//     values to lane l), dS^T = P^T (dP^T - D_i), dK += dS^T Q. dK and dV
+//     of 16 keys are D / 2 floats a thread each; split so, the two warps
+//     do the same tensor-core work. Each block writes fp32 partial sums
+//     over its heads (bwd_splits in kernels/flash_attention.py picks the
+//     splits: two waves of 64-key blocks over the card's SMs, at most G).
+//     Key blocks run first-first (under causal, the most query tiles
+//     first).
+//  C. an elementwise pass sums the splits' partials in split order and
+//     stores dK (scaled) and dV.
+// Shared memory at D = 256, row pitch D + 4 floats: A, Q and dO 130 KB +
+// K and V 65 KB + LSE and D_i = 200,192 bytes; B, K and V 130 KB + Q and
+// dO 65 KB + the P^T exchange 8 KB + LSE and D_i = 208,128; one block an
+// SM. Key tiles above the diagonal or below the window are skipped in A,
+// query tiles likewise in B; masked entries inside a tile get probability
+// 0. Rows past Sq and keys past Sk are zero-filled in shared memory and
+// masked, never read from device memory.
+//
+// Against the plain version: at the reference init's logits the plain
+// fp32 gradients are themselves up to 1.4e-4 of their scale off the same
+// function computed in fp64 (phase 11's inputs), and the CUDA-core
+// kernels this one replaces, summing by sequential fmas over D, stayed
+// within 1e-4 of them by repeating their rounding; this one does not,
+// and is nearer the fp64 gradients (1.0e-4 at most; the forward's note;
+// chip_smoke.py's phase 11 measures both).
+#include "attention_tf32.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;    // 16 x 16
+using namespace qf::attn32;
+
+constexpr int kThreads = 256;    // 8 warps
 constexpr int kAQ = 64;          // A: query rows a block
 constexpr int kAK = 32;          // A: keys a tile
-constexpr int kBK = 32;          // B: keys a block
+constexpr int kBK = 64;          // B: keys a block (bwd_splits counts these)
 constexpr int kBQ = 32;          // B: query rows a tile
-constexpr int kAQP = kAQ + 4;    // pitch of Q^T, dO^T and dS^T rows (floats)
-constexpr int kBKP = kBK + 4;    // pitch of K^T, V^T, P and dS rows (floats)
+
+template <int D>
+__host__ __device__ constexpr int pitch() {
+  return D + 4;
+}
 
 template <int D>
 constexpr size_t smem_a() {
-  return sizeof(float) * (2 * static_cast<size_t>(D) * kAQP +
-                          2 * static_cast<size_t>(kAK) * (D + 1) +
-                          static_cast<size_t>(kAK) * kAQP);
+  return sizeof(float) * (2 * static_cast<size_t>(kAQ + kAK) * pitch<D>() +
+                          2 * kAQ);
 }
 
 template <int D>
 constexpr size_t smem_b() {
-  return sizeof(float) * (2 * static_cast<size_t>(D) * kBKP +
-                          2 * static_cast<size_t>(kBQ) * (D + 1) +
-                          2 * static_cast<size_t>(kBQ) * kBKP + 2 * kBQ);
+  return sizeof(float) * (2 * static_cast<size_t>(kBK + kBQ) * pitch<D>() +
+                          4 * 16 * kBQ + 2 * kBQ);
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ bool allowed(int row, int col, int sk, int causal,
-                                        int window) {
-  return col < sk && (!causal || col <= row) &&
-         (window <= 0 || col > row - window);
-}
-
-// rows [r0, r0 + n) of a (rows, D) tensor into shared memory, row layout
-// with pitch D + 1; rows at or past `rows` are zero
+// ---------------------------------------------------------------- pass A
 template <int D>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int r0, int n, int rows) {
-  for (int idx = threadIdx.x; idx < n * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    dst[r * (D + 1) + d] =
-        r0 + r < rows ? src[static_cast<size_t>(r0 + r) * D + d] : 0.f;
-  }
-}
-
-// the same rows transposed: dst[d * pitch + r]
-template <int D>
-__device__ __forceinline__ void stage_cols(float* dst, const float* src,
-                                           int r0, int n, int rows,
-                                           int pitch) {
-  for (int idx = threadIdx.x; idx < n * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    dst[d * pitch + r] =
-        r0 + r < rows ? src[static_cast<size_t>(r0 + r) * D + d] : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------- kernel A
-// Thread (ty, tx) owns query rows 4ty + i (i < 4); in a score tile, keys
-// tx + 16j (j < 2); in dQ, columns tx + 16m (m < D/16).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ o,
                    const float* __restrict__ dout,
                    const float* __restrict__ lse, float* __restrict__ dq,
                    float* __restrict__ dd_ws, int group, int sq, int sk,
                    int causal, int window) {
-  constexpr int kNM = D / 16;
-  constexpr int kKP = D + 1;
+  constexpr int kP = pitch<D>();
+  constexpr int kN = D / 8;
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                 // [D][kAQP]   Q^T
-  float* dot = qt + D * kAQP;       // [D][kAQP]   dO^T
-  float* ks = dot + D * kAQP;       // [kAK][kKP]  K
-  float* vs = ks + kAK * kKP;       // [kAK][kKP]  V
-  float* dst = vs + kAK * kKP;      // [kAK][kAQP] dS^T
+  float* qs = smem;                 // [kAQ][kP]  Q
+  float* dos = qs + kAQ * kP;       // [kAQ][kP]  dO
+  float* ks = dos + kAQ * kP;       // [kAK][kP]  K tile
+  float* vs = ks + kAK * kP;        // [kAK][kP]  V tile
+  float* lse_s = vs + kAK * kP;     // [kAQ]
+  float* dd_s = lse_s + kAQ;        // [kAQ]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp & 3, kh = warp >> 2;   // row group, key half
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kAQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kAQ;
   const size_t qoff = static_cast<size_t>(bh) * sq * D;
   const float* kb = k + static_cast<size_t>(bh / group) * sk * D;
   const float* vb = v + static_cast<size_t>(bh / group) * sk * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-
-  stage_cols<D>(qt, q + qoff, q0, kAQ, sq, kAQP);
-  stage_cols<D>(dot, dout + qoff, q0, kAQ, sq, kAQP);
-  __syncthreads();  // dO^T is read below even where no key tile is allowed
+  const float one[2] = {1.f, 1.f};          // acc_pairs: acc += A B
 
   const int q_hi = min(q0 + kAQ, sq) - 1;
   const int k_hi = causal ? min(sk - 1, q_hi) : sk - 1;
@@ -161,148 +155,149 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t_lo = k_lo / kAK;
   const int t_hi = k_hi >= k_lo ? k_hi / kAK : t_lo - 1;
 
-  // scores of rows 4ty+i against keys tx+16j of the staged tile, scaled
-  // and masked (ok), from Q^T and K
-  auto scores = [&](int k0, float (&s)[4][2], bool (&ok)[4][2]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(qt + d * kAQP + 4 * ty);
-      const float b0 = ks[tx * kKP + d], b1 = ks[(tx + 16) * kKP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(comp(a, i), b0, s[i][0]);
-        s[i][1] = fmaf(comp(a, i), b1, s[i][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        ok[i][j] = q0 + 4 * ty + i < sq &&
-                   allowed(q0 + 4 * ty + i, k0 + tx + 16 * j, sk, causal,
-                           window);
-        s[i][j] *= scale;
-      }
-  };
+  // groups in flight: {Q, dO, V(t_lo)}, {K(t_lo)}
+  stage_rows<D, kThreads>(qs, kP, q + qoff, q0, kAQ, sq);
+  stage_rows<D, kThreads>(dos, kP, dout + qoff, q0, kAQ, sq);
+  if (t_lo <= t_hi) stage_rows<D, kThreads>(vs, kP, vb, t_lo * kAK, kAK, sk);
+  cp_async_commit();
+  if (t_lo <= t_hi) stage_rows<D, kThreads>(ks, kP, kb, t_lo * kAK, kAK, sk);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
 
-  // the forward's LSE and D_i = sum_c dO_ic O_ic of each row; D_i to the
-  // workspace
-  float lse_i[4], dd[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    lse_i[i] = row < sq ? lse[static_cast<size_t>(bh) * sq + row] : 0.f;
+  // the forward's LSE and D_i = sum_c dO_ic O_ic of each row (warp w:
+  // rows 8w..8w+7); D_i to the workspace
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * warp + i, row = q0 + r;
     float part = 0.f;
     if (row < sq) {
       const float* orow = o + qoff + static_cast<size_t>(row) * D;
-      for (int c = tx; c < D; c += 16)
-        part = fmaf(dot[c * kAQP + 4 * ty + i], orow[c], part);
+      for (int c = lane; c < D; c += 32)
+        part = fmaf(dos[r * kP + c], orow[c], part);
     }
-    dd[i] = half_warp_sum(part);
-    if (tx == 0 && row < sq) dd_ws[static_cast<size_t>(bh) * sq + row] = dd[i];
+    part = qf::warp_sum(part);   // lane 0's
+    if (lane == 0) {
+      dd_s[r] = part;
+      lse_s[r] = row < sq ? lse[static_cast<size_t>(bh) * sq + row] : 0.f;
+      if (row < sq) dd_ws[static_cast<size_t>(bh) * sq + row] = part;
+    }
   }
+  __syncthreads();
+  const int ra = 16 * rw;              // the warp's rows in the block
+  const float lse_r[2] = {lse_s[ra + g], lse_s[ra + g + 8]};
+  const float dd_r[2] = {dd_s[ra + g], dd_s[ra + g + 8]};
+  const int row0 = q0 + ra + g;        // rows row0 and row0 + 8
+  const float* qw = qs + ra * kP;
+  const float* dow = dos + ra * kP;
 
-  // P, dS, and dQ += dS K
-  float acc[4][kNM];
+  float acc[kN][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int m = 0; m < kNM; ++m) acc[i][m] = 0.f;
+  for (int n = 0; n < kN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int tile = t_lo; tile <= t_hi; ++tile) {
     const int k0 = tile * kAK;
+    const int kw = 16 * kh;            // the warp's keys in the tile
+    cp_async_wait<1>();   // V(tile) is in; K(tile) may be in flight
     __syncthreads();
-    stage_rows<D>(ks, kb, k0, kAK, sk);
-    stage_rows<D>(vs, vb, k0, kAK, sk);
+    // dP = dO V^T: the warp's rows x its 16 keys (2 n-tiles)
+    float dp[2][4], s[2][4];
+    dot_rows<D, 2>(dp, dow, vs + kw * kP, kP, g, t);
+    __syncthreads();      // every warp is done with V(tile)
+    if (tile < t_hi) stage_rows<D, kThreads>(vs, kP, vb, k0 + kAK, kAK, sk);
+    cp_async_commit();
+    cp_async_wait<1>();   // K(tile) is in; V(tile + 1) may be in flight
     __syncthreads();
-    float s[4][2];
-    bool ok[4][2];
-    scores(k0, s, ok);
-    float dp[4][2];
+    // S = Q K^T
+    dot_rows<D, 2>(s, qw, ks + kw * kP, kP, g, t);
+    // P and dS (in s) of rows row0 + 8h, keys k0 + kw + 8j + 2t + e
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dp[i][0] = dp[i][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(dot + d * kAQP + 4 * ty);
-      const float b0 = vs[tx * kKP + d], b1 = vs[(tx + 16) * kKP + d];
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        dp[i][0] = fmaf(comp(a, i), b0, dp[i][0]);
-        dp[i][1] = fmaf(comp(a, i), b1, dp[i][1]);
-      }
-    }
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float ds[4];
+        for (int e = 0; e < 2; ++e) {
+          const int row = row0 + 8 * h;
+          const bool ok = row < sq && allowed(row, k0 + kw + 8 * j + 2 * t + e,
+                                              sk, causal, window);
+          const float p = ok ? expf(fmaf(s[j][2 * h + e], scale, -lse_r[h]))
+                             : 0.f;
+          s[j][2 * h + e] = p * (dp[j][2 * h + e] - dd_r[h]);
+        }
+    // dQ += dS K over the warp's 16 keys (2 k-steps)
+    const Frag fa[2] = {a_acc(s[0]), a_acc(s[1])};
+    acc_pairs<D, 2>(acc, fa, one, ks + kw * kP, kP, g, t);
+    __syncthreads();      // every warp is done with K(tile)
+    if (tile < t_hi) stage_rows<D, kThreads>(ks, kP, kb, k0 + kAK, kAK, sk);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();        // Q's buffer takes the second key half's dQ
+
+  float* xs = qs;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ok[i][j] ? expf(s[i][j] - lse_i[i]) : 0.f;
-        ds[i] = p * (dp[i][j] - dd[i]);
-      }
-      *reinterpret_cast<float4*>(dst + (tx + 16 * j) * kAQP + 4 * ty) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int c = 0; c < kAK; ++c) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(dst + c * kAQP + 4 * ty);
+  for (int h = 0; h < 2; ++h) {
+    float* xr = xs + (ra + g + 8 * h) * kP + 2 * t;
+    if (kh == 1) {
 #pragma unroll
-      for (int m = 0; m < kNM; ++m) {
-        const float b = ks[c * kKP + tx + 16 * m];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][m] = fmaf(comp(a, i), b, acc[i][m]);
-      }
+      for (int n = 0; n < kN; ++n)
+        *reinterpret_cast<float2*>(xr + 8 * n) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
     }
   }
-
-  float* dqb = dq + qoff;
+  __syncthreads();
+  if (kh == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= sq) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= sq) continue;
+      const float* xr = xs + (ra + g + 8 * h) * kP + 2 * t;
+      float* out = dq + qoff + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
-    for (int m = 0; m < kNM; ++m)
-      dqb[static_cast<size_t>(row) * D + tx + 16 * m] = scale * acc[i][m];
+      for (int n = 0; n < kN; ++n) {
+        const float2 b = *reinterpret_cast<const float2*>(xr + 8 * n);
+        *reinterpret_cast<float2*>(out + 8 * n) =
+            make_float2((acc[n][2 * h] + b.x) * scale,
+                        (acc[n][2 * h + 1] + b.y) * scale);
+      }
+    }
   }
 }
 
-// ---------------------------------------------------------------- kernel B
-// Thread (ty, tx) owns keys 2ty + a (a < 2); in a score tile, query rows
-// tx + 16j (j < 2); in dK and dV, columns tx + 16m (m < D/16).
+// ---------------------------------------------------------------- pass B
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ dd_ws, float* __restrict__ dk,
-                     float* __restrict__ dv, int group, int sq, int sk,
-                     int causal, int window) {
-  constexpr int kNM = D / 16;
-  constexpr int kQP = D + 1;
+                     const float* __restrict__ dd_ws,
+                     float* __restrict__ part, int group, int splits, int sq,
+                     int sk, int causal, int window) {
+  constexpr int kP = pitch<D>();
+  constexpr int kN = D / 8;
   extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                 // [D][kBKP]   K^T
-  float* vt = kt + D * kBKP;        // [D][kBKP]   V^T
-  float* qs = vt + D * kBKP;        // [kBQ][kQP]  Q
-  float* dos = qs + kBQ * kQP;      // [kBQ][kQP]  dO
-  float* ps = dos + kBQ * kQP;      // [kBQ][kBKP] P
-  float* dss = ps + kBQ * kBKP;     // [kBQ][kBKP] dS
-  float* lse_s = dss + kBQ * kBKP;  // [kBQ]
+  float* ks = smem;                 // [kBK][kP]  K
+  float* vs = ks + kBK * kP;        // [kBK][kP]  V
+  float* qs = vs + kBK * kP;        // [kBQ][kP]  Q tile
+  float* dos = qs + kBQ * kP;       // [kBQ][kP]  dO tile
+  float* xs = dos + kBQ * kP;       // [4][16][kBQ] P^T, warp w to w + 4
+  float* lse_s = xs + 4 * 16 * kBQ; // [kBQ]
   float* dd_s = lse_s + kBQ;        // [kBQ]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bk = blockIdx.y;
-  const int k0 = blockIdx.x * kBK;
-  const size_t kvoff = static_cast<size_t>(bk) * sk * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = warp & 3, role = warp >> 2;   // key group; 0 dV, 1 dK
+  const int bk = gridDim.x / splits;
+  const int kvh = blockIdx.x / splits, sp = blockIdx.x % splits;
+  const int k0 = blockIdx.y * kBK;
+  const size_t kvoff = static_cast<size_t>(kvh) * sk * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const int g_lo = sp * group / splits, g_hi = (sp + 1) * group / splits;
+  const float one[2] = {1.f, 1.f};          // acc_pairs: acc += A B
 
-  stage_cols<D>(kt, k + kvoff, k0, kBK, sk, kBKP);
-  stage_cols<D>(vt, v + kvoff, k0, kBK, sk, kBKP);
+  stage_rows<D, kThreads>(ks, kP, k + kvoff, k0, kBK, sk);
+  stage_rows<D, kThreads>(vs, kP, v + kvoff, k0, kBK, sk);
+  cp_async_commit();
 
   // query rows that some key of this block may pair with
   const int key_hi = min(k0 + kBK, sk) - 1;
@@ -311,104 +306,117 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t_lo = i_lo / kBQ;
   const int t_hi = i_hi >= i_lo ? i_hi / kBQ : t_lo - 1;
 
-  float acc_k[2][kNM], acc_v[2][kNM];
+  // the warp's A operand rows: K for S^T, V for dP^T
+  const float* aw = (role == 0 ? ks : vs) + 16 * kw * kP;
+  const float* bw = role == 0 ? qs : dos;   // B of the first product
+  const float* cw = role == 0 ? dos : qs;   // B of the second
+  float* xw = xs + kw * 16 * kBQ;
+  const int key0 = k0 + 16 * kw + g;        // keys key0 and key0 + 8
+  float acc[kN][4];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int m = 0; m < kNM; ++m) acc_k[a][m] = acc_v[a][m] = 0.f;
+  for (int n = 0; n < kN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  for (int g = 0; g < group; ++g) {
-    const int bh = bk * group + g;
+  for (int hq = g_lo; hq < g_hi; ++hq) {
+    const int bh = kvh * group + hq;
     const size_t qoff = static_cast<size_t>(bh) * sq * D;
     for (int tile = t_lo; tile <= t_hi; ++tile) {
       const int i0 = tile * kBQ;
-      __syncthreads();  // the previous tile's readers are done (K, V in)
-      stage_rows<D>(qs, q + qoff, i0, kBQ, sq);
-      stage_rows<D>(dos, dout + qoff, i0, kBQ, sq);
+      __syncthreads();    // the previous tile's readers are done
+      stage_rows<D, kThreads>(qs, kP, q + qoff, i0, kBQ, sq);
+      stage_rows<D, kThreads>(dos, kP, dout + qoff, i0, kBQ, sq);
+      cp_async_commit();
       if (tid < kBQ) {
         const bool in = i0 + tid < sq;
         const size_t r = static_cast<size_t>(bh) * sq + i0 + tid;
         lse_s[tid] = in ? lse[r] : 0.f;
         dd_s[tid] = in ? dd_ws[r] : 0.f;
       }
+      cp_async_wait<0>();
       __syncthreads();
 
-      float s[2][2], dp[2][2];
+      // S^T = K Q^T (dV warps) or dP^T = V dO^T (dK warps): the warp's 16
+      // keys x the tile's 32 query rows (4 n-tiles); element (key0 + 8h,
+      // query i0 + 8j + 2t + e) at x[j][2h + e]
+      float x[4][4];
+      dot_rows<D, 4>(x, aw, bw, kP, g, t);
+      if (role == 0) {
+        // P^T, handed to the dK warp of the same keys
 #pragma unroll
-      for (int a = 0; a < 2; ++a) s[a][0] = s[a][1] = dp[a][0] = dp[a][1] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float2 kk =
-            *reinterpret_cast<const float2*>(kt + d * kBKP + 2 * ty);
-        const float2 vv =
-            *reinterpret_cast<const float2*>(vt + d * kBKP + 2 * ty);
-        const float q0v = qs[tx * kQP + d], q1v = qs[(tx + 16) * kQP + d];
-        const float o0v = dos[tx * kQP + d], o1v = dos[(tx + 16) * kQP + d];
-        s[0][0] = fmaf(kk.x, q0v, s[0][0]);
-        s[0][1] = fmaf(kk.x, q1v, s[0][1]);
-        s[1][0] = fmaf(kk.y, q0v, s[1][0]);
-        s[1][1] = fmaf(kk.y, q1v, s[1][1]);
-        dp[0][0] = fmaf(vv.x, o0v, dp[0][0]);
-        dp[0][1] = fmaf(vv.x, o1v, dp[0][1]);
-        dp[1][0] = fmaf(vv.y, o0v, dp[1][0]);
-        dp[1][1] = fmaf(vv.y, o1v, dp[1][1]);
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int qi = 8 * j + 2 * t + (c & 1), row = i0 + qi;
+            const bool ok = row < sq && allowed(row, key0 + 8 * (c >> 1), sk,
+                                                causal, window);
+            x[j][c] = ok ? expf(fmaf(x[j][c], scale, -lse_s[qi])) : 0.f;
+            xw[(4 * j + c) * 32 + lane] = x[j][c];
+          }
+        qf::hopper::named_arrive(1 + kw, 64);
+      } else {
+        qf::hopper::named_sync(1 + kw, 64);
+        // dS^T = P^T (dP^T - D_i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            x[j][c] = xw[(4 * j + c) * 32 + lane] *
+                      (x[j][c] - dd_s[8 * j + 2 * t + (c & 1)]);
       }
+      // dV += P^T dO, or dK += dS^T Q, over the tile's 32 rows (4 k-steps)
+      Frag fa[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int qi = tx + 16 * j;
-        const int row = i0 + qi;
-        float p[2], ds[2];
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          const bool ok =
-              row < sq && allowed(row, k0 + 2 * ty + a, sk, causal, window);
-          p[a] = ok ? expf(s[a][j] * scale - lse_s[qi]) : 0.f;
-          ds[a] = p[a] * (dp[a][j] - dd_s[qi]);
-        }
-        *reinterpret_cast<float2*>(ps + qi * kBKP + 2 * ty) =
-            make_float2(p[0], p[1]);
-        *reinterpret_cast<float2*>(dss + qi * kBKP + 2 * ty) =
-            make_float2(ds[0], ds[1]);
-      }
-      __syncthreads();
-
-#pragma unroll 2
-      for (int qi = 0; qi < kBQ; ++qi) {
-        const float2 pk =
-            *reinterpret_cast<const float2*>(ps + qi * kBKP + 2 * ty);
-        const float2 dk2 =
-            *reinterpret_cast<const float2*>(dss + qi * kBKP + 2 * ty);
-#pragma unroll
-        for (int m = 0; m < kNM; ++m) {
-          const float ov = dos[qi * kQP + tx + 16 * m];
-          const float qv = qs[qi * kQP + tx + 16 * m];
-          acc_v[0][m] = fmaf(pk.x, ov, acc_v[0][m]);
-          acc_v[1][m] = fmaf(pk.y, ov, acc_v[1][m]);
-          acc_k[0][m] = fmaf(dk2.x, qv, acc_k[0][m]);
-          acc_k[1][m] = fmaf(dk2.y, qv, acc_k[1][m]);
-        }
-      }
+      for (int j = 0; j < 4; ++j) fa[j] = a_acc(x[j]);
+      acc_pairs<D, 4>(acc, fa, one, cw, kP, g, t);
     }
   }
+  cp_async_wait<0>();
 
+  // fp32 partials: part[sp][role][kvh][key][D] (role 0: dV, 1: dK unscaled)
+  float* out = part + ((static_cast<size_t>(sp) * 2 + role) * bk + kvh) *
+                          static_cast<size_t>(sk) * D;
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int key = k0 + 2 * ty + a;
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
     if (key >= sk) continue;
-    const size_t r = kvoff + static_cast<size_t>(key) * D;
+    float* r = out + static_cast<size_t>(key) * D + 2 * t;
 #pragma unroll
-    for (int m = 0; m < kNM; ++m) {
-      dk[r + tx + 16 * m] = scale * acc_k[a][m];
-      dv[r + tx + 16 * m] = acc_v[a][m];
+    for (int n = 0; n < kN; ++n)
+      *reinterpret_cast<float2*>(r + 8 * n) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+// ---------------------------------------------------------------- pass C
+// dv = sum_s part[s][0], dk = scale sum_s part[s][1], s in order; n is
+// bk * sk * D, a multiple of 4
+__global__ void attn_bwd_sum_kernel(const float* __restrict__ part,
+                                    float* __restrict__ dk,
+                                    float* __restrict__ dv, int splits,
+                                    size_t n, float scale) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x * 4;
+  for (size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x) * 4;
+       i < n; i += stride) {
+    float4 a = *reinterpret_cast<const float4*>(part + i);
+    float4 b = *reinterpret_cast<const float4*>(part + n + i);
+    for (int s = 1; s < splits; ++s) {
+      const float4 x = *reinterpret_cast<const float4*>(part + 2 * s * n + i);
+      const float4 y =
+          *reinterpret_cast<const float4*>(part + (2 * s + 1) * n + i);
+      a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
+      b = make_float4(b.x + y.x, b.y + y.y, b.z + y.z, b.w + y.w);
     }
+    *reinterpret_cast<float4*>(dv + i) = a;
+    *reinterpret_cast<float4*>(dk + i) =
+        make_float4(scale * b.x, scale * b.y, scale * b.z, scale * b.w);
   }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* dq, float* dk,
-           float* dv, float* dd, int bh, int bk, int sq, int sk, int causal,
-           int window, cudaStream_t st) {
+           float* dv, float* dd, float* part, int bh, int bk, int sq, int sk,
+           int causal, int window, int splits, cudaStream_t st) {
   const int group = bh / bk;
   const size_t sa = smem_a<D>(), sb = smem_b<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -423,26 +431,41 @@ int launch(const float* q, const float* k, const float* v, const float* o,
       q, k, v, o, dout, lse, dq, dd, group, sq, sk, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_kernel<D><<<dim3((sk + kBK - 1) / kBK, bk), kThreads, sb,
-                            st>>>(q, k, v, dout, lse, dd, dk, dv, group, sq,
-                                  sk, causal, window);
+  attn_bwd_dkdv_kernel<D><<<dim3(splits * bk, (sk + kBK - 1) / kBK),
+                            kThreads, sb, st>>>(
+      q, k, v, dout, lse, dd, part, group, splits, sq, sk, causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t n = static_cast<size_t>(bk) * sk * D;
+  const size_t want = (n / 4 + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  attn_bwd_sum_kernel<<<blocks, 256, 0, st>>>(
+      part, dk, dv, splits, n, 1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_dh(const float* q, const float* k, const float* v, const float* o,
               const float* dout, const float* lse, float* dq, float* dk,
-              float* dv, float* dd, int bh, int bk, int sq, int sk, int dh,
-              int causal, int window, cudaStream_t st) {
+              float* dv, float* dd, float* part, int bh, int bk, int sq,
+              int sk, int dh, int causal, int window, int splits,
+              cudaStream_t st) {
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16)    // cp.async's and float4's
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || splits > bh / bk || lse == nullptr || dd == nullptr ||
+      part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 64:
-      return launch<64>(q, k, v, o, dout, lse, dq, dk, dv, dd, bh, bk, sq, sk,
-                        causal, window, st);
+      return launch<64>(q, k, v, o, dout, lse, dq, dk, dv, dd, part, bh, bk,
+                        sq, sk, causal, window, splits, st);
     case 128:
-      return launch<128>(q, k, v, o, dout, lse, dq, dk, dv, dd, bh, bk, sq,
-                         sk, causal, window, st);
+      return launch<128>(q, k, v, o, dout, lse, dq, dk, dv, dd, part, bh, bk,
+                         sq, sk, causal, window, splits, st);
     case 256:
-      return launch<256>(q, k, v, o, dout, lse, dq, dk, dv, dd, bh, bk, sq,
-                         sk, causal, window, st);
+      return launch<256>(q, k, v, o, dout, lse, dq, dk, dv, dd, part, bh, bk,
+                         sq, sk, causal, window, splits, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -452,11 +475,11 @@ int launch_dh(const float* q, const float* k, const float* v, const float* o,
 
 // q, o, dout, dq (bh, sq, dh); k, v, dk, dv (bk, sk, dh) with bh a
 // multiple of bk; lse fp32 (bh, sq), the forward's (qf_flash_attention);
-// dd an fp32 workspace of (bh, sq); dh 64, 128 or 256; dtype a qf::DType
-// (the same for every tensor but lse and the workspaces). bf16 also
-// takes part, an fp32 workspace of (splits, 2, bk, sk, dh), splits
-// dividing the G = bh / bk query heads of a kv head among blocks
-// (flash_attention_bwd_wgmma.cu); fp32 ignores both.
+// dd an fp32 workspace of (bh, sq); part an fp32 workspace of (splits, 2,
+// bk, sk, dh), splits in [1, bh / bk] dividing the G = bh / bk query heads
+// of a kv head among the dK/dV pass's blocks; dh 64, 128 or 256; dtype a
+// qf::DType (the same for every tensor but lse and the workspaces); every
+// tensor but lse and dd 16-byte aligned.
 extern "C" int qf_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
@@ -473,8 +496,9 @@ extern "C" int qf_flash_attention_bwd(const void* q, const void* k,
           static_cast<const float*>(v), static_cast<const float*>(o),
           static_cast<const float*>(dout), static_cast<const float*>(lse),
           static_cast<float*>(dq), static_cast<float*>(dk),
-          static_cast<float*>(dv), static_cast<float*>(dd), bh, bk, sq, sk,
-          dh, causal, window, static_cast<cudaStream_t>(stream));
+          static_cast<float*>(dv), static_cast<float*>(dd),
+          static_cast<float*>(part), bh, bk, sq, sk, dh, causal, window,
+          splits, static_cast<cudaStream_t>(stream));
     case qf::kBFloat16:
       return qf::flash_attention_bwd_bf16(q, k, v, o, dout, lse, dq, dk, dv,
                                           dd, part, bh, bk, sq, sk, dh,

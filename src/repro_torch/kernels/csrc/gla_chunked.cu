@@ -84,10 +84,15 @@
 // by the wrapper into sub-chunks that divide them (the same function: it
 // is chunk-size invariant). Every exponential is expf, every log logf.
 #include "common.cuh"
+#include "tf32.cuh"
 
 #include <cstdint>
 
 namespace {
+
+using qf::mma_3xtf32;
+using qf::split;
+using qf::Split;
 
 constexpr int kD = 64;                  // head_dim bound (smaller: padded)
 constexpr int kP = kD + 4;              // row pitch of the fp32 channel tiles
@@ -185,44 +190,6 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int pitch,
       reinterpret_cast<E*>(dst + t * pitch)[c] = src[t * step + c];
     }
   }
-}
-
-// x as a TF32 hi part (round to nearest, ties away) and the TF32 rounding
-// of what is left: hi + lo holds x to ~2^-22 of itself (3xTF32)
-struct Split {
-  unsigned hi, lo;
-};
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned y;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ Split split(float x) {
-  const unsigned hi = to_tf32(x);
-  return {hi, to_tf32(x - __uint_as_float(hi))};
-}
-
-// acc (16 x 8, fp32) += A (16 x 8) B (8 x 8) on the tensor cores, TF32
-// operands in mma.sync's fragment layouts
-__device__ __forceinline__ void mma_tf32(float (&acc)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc += A B in 3xTF32: the two cross terms, then hi x hi (alo = 0 when A
-// is exact in TF32: bf16 values)
-template <bool kAExact>
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[4],
-                                           const unsigned (&ahi)[4],
-                                           const unsigned (&alo)[4], Split b0,
-                                           Split b1) {
-  if constexpr (!kAExact) mma_tf32(acc, alo, b0.hi, b1.hi);
-  mma_tf32(acc, ahi, b0.lo, b1.lo);
-  mma_tf32(acc, ahi, b0.hi, b1.hi);
 }
 
 // the largest t with t (t + 1) / 2 <= p: the row of pair p when a

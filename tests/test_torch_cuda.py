@@ -937,8 +937,8 @@ def _attn_bwd_args(gen, bh, bk, sq, sk, dh, dtype, device):
 @pytest.mark.parametrize("case", ATTN_BWD_CASES)
 def test_attention_backward_kernel_agrees_on_ragged_cases(cuda_device, dtype,
                                                           case):
-    """The backward kernel (bf16: the wgmma kernels, fp32: the CUDA-core
-    ones) against ``ref.attention_bwd_ref`` on the same (q, k, v, o, dO)
+    """The backward kernel (bf16: the wgmma kernels, fp32: the 3xTF32
+    mma.sync ones) against ``ref.attention_bwd_ref`` on the same (q, k, v, o, dO)
     and the plain LSE of (q, k, v): fp32 within BWD_RTOL of each
     gradient's scale, bf16 within one bf16 ulp of it (both are one
     rounding of nearly the same fp32 value); the same bits on repeat;
@@ -972,8 +972,8 @@ LSE_RTOL = 1e-6   # the forward kernels' LSE, of its scale
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ATTN_BWD_CASES)
 def test_forward_lse_matches_the_plain_lse(cuda_device, dtype, case):
-    """The forward kernel's log-sum-exp (``return_lse``; fp32 CUDA-core
-    and bf16 wgmma kernels) against ``ref.attention_ref``'s on the same
+    """The forward kernel's log-sum-exp (``return_lse``; fp32 3xTF32
+    mma.sync and bf16 wgmma kernels) against ``ref.attention_ref``'s on the same
     inputs: within LSE_RTOL of its scale, -inf on exactly the rows with
     no allowed key; the output is the one without ``return_lse``, bit
     for bit; one launch a call."""
@@ -1000,7 +1000,7 @@ def test_forward_lse_matches_the_plain_lse(cuda_device, dtype, case):
 @pytest.mark.cuda
 def test_bf16_attention_backward_runs_on_the_tensor_cores(cuda_device):
     """The built bf16 backward kernels (the dQ and dK/dV passes at dh 64,
-    128, 256) issue wgmma: HGMMA in their machine code; the CUDA-core
+    128, 256) issue wgmma: HGMMA in their machine code; the fp32
     backward kernels are built for fp32 only, so no bf16 backward can
     take them."""
     from repro_torch.kernels import flash_attention as kfa
@@ -1013,6 +1013,53 @@ def test_bf16_attention_backward_runs_on_the_tensor_cores(cuda_device):
                  or "attn_bwd_dkdv_kernel" in n]
     assert len(cuda_core) == 6
     assert not any("bfloat16" in n for n in cuda_core)
+
+
+@pytest.mark.cuda
+def test_fp32_attention_runs_on_the_tensor_cores(cuda_device):
+    """The built fp32 kernels (the forward and the backward's dQ and
+    dK/dV passes, each at dh 64, 128, 256) issue TF32 tensor-core
+    instructions: HMMA (mma.sync) or HGMMA (wgmma) with .TF32 in their
+    machine code, and ``fp32_design`` reads the same. A kernel back on the
+    CUDA cores has none."""
+    from repro_torch.kernels import flash_attention as kfa
+    sass = build.sass()
+    for name in kfa.FP32_KERNELS:
+        code = [text for n, text in sass.items() if name in n]
+        assert len(code) == 3, name
+        for text in code:
+            assert any(("HMMA" in ln or "HGMMA" in ln) and "TF32" in ln
+                       for ln in text.splitlines()), name
+    assert kfa.fp32_design() in ("mma.sync", "wgmma")
+
+
+@pytest.mark.cuda
+def test_fp32_attention_backward_same_bits_on_repeat(cuda_device):
+    """The fp32 backward splits a kv head's G = 10 query heads over
+    ``bwd_splits`` > 1 blocks of its dK/dV pass and sums their fp32
+    partials in split order: the same inputs give the same bits, within
+    BWD_RTOL of the plain version, one launch a call."""
+    from repro_torch.kernels import flash_attention as kfa
+    bh, bk, sq, sk, dh = 10, 1, 256, 256, 256
+    splits = kfa.bwd_splits(bh, bk, sk, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    assert splits > 1
+    args = _attn_bwd_args(torch.Generator().manual_seed(13), bh, bk, sq, sk,
+                          dh, torch.float32, cuda_device)
+    kw = dict(causal=True, window=100)
+    kw["lse"] = kfa.flash_attention(*args[:3], causal=True, window=100,
+                                    return_lse=True)[1]
+    build.reset_launches()
+    first = kfa.flash_attention_bwd(*args, **kw)
+    for _ in range(3):
+        again = kfa.flash_attention_bwd(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"flash_attention_bwd": 4}
+    want = ref.attention_bwd_ref(*args, **kw)
+    for name, g, w in zip("qkv", first, want):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= BWD_RTOL * scale, name
 
 
 @pytest.mark.cuda

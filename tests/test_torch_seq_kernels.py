@@ -34,6 +34,9 @@ _SMOKE = importlib.util.spec_from_file_location(
 chip_smoke = importlib.util.module_from_spec(_SMOKE)
 _SMOKE.loader.exec_module(chip_smoke)
 tensor_core_scores = chip_smoke.tensor_core_scores
+# the attention function in fp64 and the size of its terms (one copy)
+attention_fp64 = chip_smoke.attention_fp64
+attention_bwd_fp64 = chip_smoke.attention_bwd_fp64
 
 TOL32 = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -370,35 +373,6 @@ def test_attention_backward_split_emulation(bh, bk, sq, sk, dh, window):
         assert float((excess - 2.0 ** -15 * t).max()) <= 0.0, name
 
 
-def attention_bwd_fp64(q, k, v, o, do, *, causal, window):
-    """dq, dk, dv of the attention function in fp64 at the given (bf16)
-    inputs and output o; the size of the terms summed into each gradient
-    element, with |dS| counted as P (|dP| + |D|), the size of what dS
-    is formed from (dP and D cancel on a row's dominant key); and the
-    largest |score| / sqrt(dh)."""
-    bh, sq, dh = q.shape
-    bk, sk = k.shape[:2]
-    g = bh // bk
-    qd, kd, vd, od, dod = (x.double() for x in (q, k, v, o, do))
-    kr, vr = (x.repeat_interleave(g, 0) for x in (kd, vd))
-    mask = ref.attention_mask(sq, sk, causal, window, q.device)
-    s = qd @ kr.transpose(1, 2) / math.sqrt(dh)
-    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
-    dp = dod @ vr.transpose(1, 2)
-    dd = (dod * od).sum(-1, keepdim=True)
-    ds = p * (dp - dd)
-    scale = 1.0 / math.sqrt(dh)
-
-    def grads(ds, p, qx, kx, dox):
-        return (scale * ds @ kx,
-                (scale * ds.transpose(1, 2) @ qx).view(bk, g, sk, dh).sum(1),
-                (p.transpose(1, 2) @ dox).view(bk, g, sk, dh).sum(1))
-    return (grads(ds, p, qd, kr, dod),
-            grads(p * (dp.abs() + dd.abs()), p, qd.abs(), kr.abs(),
-                  dod.abs()),
-            float(s[:, mask].abs().max()))
-
-
 def test_attention_backward_error_scales_with_the_logit_range():
     """The bf16 backward's arithmetic against the fp64 gradients at
     growing logits (the reference init's reach an LSE near 2000), with
@@ -432,23 +406,6 @@ def test_attention_backward_error_scales_with_the_logit_range():
     assert errs[2] > 4 * errs[0] and errs[2] > 2e-5, errs
 
 
-def attention_fp64(q, k, v, *, causal, window):
-    """The attention function in fp64 of the given (bf16) inputs, and
-    a = (P |V|) / l, the size of the terms summed into each element."""
-    g = q.shape[0] // k.shape[0]
-    kd, vd = (x.double().repeat_interleave(g, 0) for x in (k, v))
-    s = q.double() @ kd.transpose(1, 2) / math.sqrt(q.shape[-1])
-    i = torch.arange(q.shape[1])[:, None]
-    j = torch.arange(k.shape[1])[None, :]
-    ok = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool)
-    if causal:
-        ok &= j <= i
-    if window > 0:
-        ok &= j > i - window
-    p = torch.softmax(s.masked_fill(~ok, float("-inf")), -1)
-    return p @ vd, p @ vd.abs(), float(s[:, ok].abs().max())
-
-
 def test_attention_kernel_order_error_scales_with_the_logit_range():
     """Isolating the bf16 kernel's excess over one bf16 ulp on the serving
     path, whose logits are large (the reference init): every fp32 attention
@@ -480,6 +437,290 @@ def test_attention_kernel_order_error_scales_with_the_logit_range():
             assert float(((got - exact).abs() - bound).max()) <= 0.0, scale
         errs.append(float(((emu - exact).abs() / a).max()))
     assert errs[2] > 10 * errs[0] and errs[2] > 1e-4, errs
+
+
+# ------------------------------------------- fp32 attention on the tensor cores
+def tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: the low 13 of the 23
+    mantissa bits rounded to nearest, ties away from zero (an add of half
+    their range to the magnitude, then a mask)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tc_mma(acc, x, y):
+    """acc (..., m, n) + x (..., m, 8) @ y (..., 8, n) of TF32 values as one
+    mma.sync of the tensor cores sums it, as ``tensor_core_scores`` models
+    their sums: the 8 exact products and the accumulator aligned to the
+    largest exponent among them, each truncated below 2^(e - 26), added
+    exactly, and the sum truncated to fp32 (toward 0)."""
+    terms = x.double()[..., :, None, :] * y.double().transpose(-1, -2)[
+        ..., None, :, :]
+    terms = torch.cat([acc.double()[..., None], terms], -1)
+    e = torch.frexp(terms.abs().amax(-1, keepdim=True)).exponent
+    quantum = torch.ldexp(torch.ones_like(terms[..., :1]), e - 26)
+    total = (torch.trunc(terms / quantum) * quantum).sum(-1)
+    rn = total.float()
+    return torch.where(rn.double().abs() > total.abs(),
+                       torch.nextafter(rn, torch.zeros_like(rn)), rn)
+
+
+CHAIN = 32      # columns of a chain: 4 k-steps, 12 mmas (attention_tf32.cuh)
+
+
+def chain_tf32(a, b, terms=3):
+    """a (..., m, K <= CHAIN) @ b (..., K, n) as one chain of the fp32
+    kernels (``mma_3xtf32`` of csrc/tf32.cuh into a fresh accumulator): a
+    and b split into TF32 hi + lo, k-steps of 8 in order, in each the
+    products lo hi, hi lo, hi hi, each one ``tc_mma``. ``terms`` = 1: hi
+    hi alone (TF32); 4: lo lo first as well."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    pairs = {1: [(ah, bh)], 3: [(al, bh), (ah, bl), (ah, bh)],
+             4: [(al, bl), (al, bh), (ah, bl), (ah, bh)]}[terms]
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in pairs:
+            acc = tc_mma(acc, x[..., ks], y[..., ks, :])
+    return acc
+
+
+def dot_tf32(a, b, terms=3):
+    """a (..., m, K) @ b (..., K, n) as the kernels' ``dot_rows``: chains of
+    CHAIN columns, each added in order to the fp32 sum."""
+    out = chain_tf32(a[..., :CHAIN], b[..., :CHAIN, :], terms)
+    for c0 in range(CHAIN, a.shape[-1], CHAIN):
+        out = out + chain_tf32(a[..., c0:c0 + CHAIN], b[..., c0:c0 + CHAIN, :],
+                               terms)
+    return out
+
+
+def fma32(x, y, z):
+    """fmaf(x, y, z): the exact x y + z rounded once to fp32."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def tile_mask(sq, k0, k1, causal, window):
+    rows = torch.arange(sq)[:, None]
+    cols = torch.arange(k0, k1)[None, :]
+    ok = torch.ones((sq, k1 - k0), dtype=torch.bool)
+    if causal:
+        ok &= cols <= rows
+    if window > 0:
+        ok &= cols > rows - window
+    return ok
+
+
+def split_tf32_attention(q, k, v, *, causal, window, terms=3, tile=32):
+    """The fp32 CUDA kernel's arithmetic (csrc/flash_attention.cu) in
+    plain PyTorch, in its tile order: for each key tile of 32, S = Q K^T
+    (``dot_tf32``), scaled (one fp32 rounding) and masked, the online
+    softmax in fp32, then O = fma(O, alpha, P V), P V one chain
+    (``chain_tf32``, P split as well). q (BH, Sq, dh), k/v (BH / G, Sk,
+    dh) -> fp32 (BH, Sq, dh)."""
+    bh, sq, dh = q.shape
+    g = bh // k.shape[0]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(g, 0) for x in (k, v))
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32)
+    o = torch.zeros(qf.shape)
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros(m.shape)
+    for k0 in range(0, k.shape[1], tile):
+        kt, vt = kf[:, k0:k0 + tile], vf[:, k0:k0 + tile]
+        ok = tile_mask(sq, k0, k0 + kt.shape[1], causal, window)
+        s = dot_tf32(qf, kt.transpose(1, 2), terms) * scale
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, True))
+        alpha, m = torch.exp(m - m_new), m_new
+        p = torch.where(ok, torch.exp(s - m), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = fma32(o, alpha, chain_tf32(p, vt, terms))
+    return o / l.clamp_min(1e-30)
+
+
+def split_tf32_bwd_attention(q, k, v, o, do, lse, *, causal, window,
+                             splits=1, terms=3, tile=32):
+    """The fp32 backward kernels' arithmetic (csrc/flash_attention_bwd.cu)
+    in plain PyTorch, in their tile order, every product in 3xTF32 chains
+    (``dot_tf32`` over dh, ``chain_tf32`` over a tile's rows, each added
+    to its fp32 sum):
+    P = exp(fma(s, 1/sqrt(dh), -LSE)) on the allowed pairs (the fma exact,
+    then one rounding, through fp64), D_i = sum_c dO_ic O_ic,
+    dS = P (dP - D). Pass A: for each key tile of 32, S = Q K^T,
+    dP = dO V^T, then dQ += dS K, a sum for each half of the tile's keys
+    (two warps), the halves added at the end. Pass B: for each of ``splits`` groups of
+    a kv head's query heads, for each head and query tile of 32,
+    S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q; the
+    groups' partials summed in order. -> fp32 dq, dk, dv."""
+    bh, sq, dh = q.shape
+    bk, sk = k.shape[:2]
+    g = bh // bk
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    kr, vr = (x.repeat_interleave(g, 0) for x in (kf, vf))
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32)
+    lse = lse.float().clamp_min(-1e30)
+    dd = (dof * of).sum(-1)
+
+    def p_ds(s, dp, ok, lse_, dd_):
+        arg = (s.double() * scale.double() - lse_.double()).float()
+        p = torch.where(ok, torch.exp(arg), 0.0)
+        return p, p * (dp - dd_)
+    halves = [torch.zeros(qf.shape), torch.zeros(qf.shape)]
+    for k0 in range(0, sk, tile):
+        kt, vt = kr[:, k0:k0 + tile], vr[:, k0:k0 + tile]
+        ok = tile_mask(sq, k0, k0 + kt.shape[1], causal, window)
+        s = dot_tf32(qf, kt.transpose(1, 2), terms)
+        dp = dot_tf32(dof, vt.transpose(1, 2), terms)
+        _, ds = p_ds(s, dp, ok, lse[..., None], dd[..., None])
+        for h, c in enumerate((slice(0, tile // 2), slice(tile // 2, tile))):
+            halves[h] = halves[h] + chain_tf32(ds[..., c], kt[:, c], terms)
+    dq = halves[0] + halves[1]
+    parts = []
+    for sp in range(splits):
+        dk, dv = torch.zeros(kf.shape), torch.zeros(vf.shape)
+        for h in range(sp * g // splits, (sp + 1) * g // splits):
+            rows = h + g * torch.arange(bk)      # head h of each kv head
+            for i0 in range(0, sq, tile):
+                t = slice(i0, i0 + tile)
+                qt, dot = qf[rows, t], dof[rows, t]
+                ok = tile_mask(sq, 0, sk, causal, window)[t].T
+                st = dot_tf32(kf, qt.transpose(1, 2), terms)
+                dpt = dot_tf32(vf, dot.transpose(1, 2), terms)
+                pt, dst = p_ds(st, dpt, ok, lse[rows, None, t],
+                               dd[rows, None, t])
+                dv = dv + chain_tf32(pt, dot, terms)
+                dk = dk + chain_tf32(dst, qt, terms)
+        parts.append((dk, dv))
+    dk, dv = parts[0]
+    for a, b in parts[1:]:
+        dk, dv = dk + a, dv + b
+    return dq * scale, dk * scale, dv
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the emulations run many small products, which
+    threads only slow down when test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# the fp32 kernels' tolerances on the card (chip_smoke.py)
+KERNEL_RTOL, BWD_RTOL = chip_smoke.KERNEL_RTOL, chip_smoke.BWD_RTOL
+TF32_CASES = [(6, 3, 70, 70, 64, 20), (4, 4, 33, 100, 128, 0),
+              (4, 2, 100, 33, 64, 7), (20, 2, 130, 130, 256, 50)]
+
+
+@pytest.mark.parametrize("bh,bk,sq,sk,dh,window", TF32_CASES)
+def test_attention_3xtf32_emulation(bh, bk, sq, sk, dh, window, one_thread):
+    """The precision argument of the fp32 forward kernel on the tensor
+    cores, runnable without a card: its 3xTF32 arithmetic in its tile
+    order is within KERNEL_RTOL of the output's scale of the plain fp32
+    version and of the Pallas kernel in interpret mode (fp32); with TF32
+    products alone (lo dropped) it misses by more than 10x that.
+    (4, 2, 100, 33, 64, 7) has rows with no allowed key: 0 in both."""
+    (jq, tq), (jk, tk), (jv, tv) = qkv(dh + window + 2, bh, sq, sk, dh,
+                                       "float32", bk=bk)
+    kw = dict(causal=True, window=window)
+    want = ref.attention_ref(tq, tk, tv, **kw)
+    scale = max(1.0, float(want.abs().max()))
+    got = split_tf32_attention(tq, tk, tv, **kw)
+    assert float((got - want).abs().max()) <= KERNEL_RTOL * scale
+    g = bh // bk
+    pallas = jflash(jq, jnp.repeat(jk, g, axis=0), jnp.repeat(jv, g, axis=0),
+                    causal=True, window=window, block_q=64, block_k=64,
+                    interpret=True)
+    assert max_err(got, pallas) <= KERNEL_RTOL * scale
+    if sq > sk + window - 1 > 0:
+        assert float(got[:, sk + window - 1:].abs().max()) == 0.0
+    one = split_tf32_attention(tq, tk, tv, terms=1, **kw)
+    assert float((one - want).abs().max()) > 10 * KERNEL_RTOL * scale
+
+
+@pytest.mark.parametrize("bh,bk,sq,sk,dh,window", TF32_CASES)
+def test_attention_backward_3xtf32_emulation(bh, bk, sq, sk, dh, window,
+                                             one_thread):
+    """The precision argument of the fp32 backward kernels on the tensor
+    cores, runnable without a card: their 3xTF32 arithmetic, in their
+    tile order and with the wrapper's splits of the group, is within
+    BWD_RTOL of each gradient's scale of ``ref.attention_bwd_ref``
+    (the plain LSE given to both); with TF32 products alone it misses by
+    more than 5x that."""
+    from repro_torch.kernels import flash_attention as kfa
+    (_, tq), (_, tk), (_, tv) = qkv(dh + window + 3, bh, sq, sk, dh,
+                                    "float32", bk=bk)
+    tdo = torch.as_tensor(np.random.default_rng(sk).standard_normal(
+        (bh, sq, dh)), dtype=torch.float32)
+    kw = dict(causal=True, window=window)
+    to, lse = ref.attention_ref(tq, tk, tv, return_lse=True, **kw)
+    args = (tq, tk, tv, to, tdo)
+    want = ref.attention_bwd_ref(*args, lse=lse, **kw)
+    splits = kfa.bwd_splits(bh, bk, sk, 132)
+    got = split_tf32_bwd_attention(*args, lse, splits=splits, **kw)
+    one = split_tf32_bwd_attention(*args, lse, splits=splits, terms=1, **kw)
+    worst = 0.0
+    for name, x, x1, w in zip("qkv", got, one, want):
+        scale = float(w.abs().max())
+        assert float((x - w).abs().max()) <= BWD_RTOL * scale, name
+        worst = max(worst, float((x1 - w).abs().max()) / scale)
+    assert worst > 5 * BWD_RTOL
+
+
+@pytest.mark.parametrize("terms,dh", [(3, 64), (4, 64), (3, 256)])
+def test_3xtf32_attention_at_the_reference_init_logit_range(terms, dh,
+                                                           one_thread):
+    """At the reference init's logits (|s| / sqrt(dh) near 2000) every
+    fp32 arithmetic misses the fp64 function: each fp32 rounding of a
+    score at its own size (the plain version's matmul and scale; the
+    kernels' accumulator after each mma) and of the LSE puts up to
+    ~|x| 2^-24 (x the largest score in log2 units) on the exponent of each
+    weight P. There the plain fp32 version is itself more than KERNEL_RTOL
+    of the output's scale off the fp64 function, so the kernels' 3xTF32
+    arithmetic is held against fp64 to ``chip_smoke.fp32_fn_bound``, 4 |x|
+    2^-24 + 2^-15 of the size of the terms summed into each element
+    (forward: (P |V|) / l; backward: ``attention_bwd_fp64``'s, of the
+    backward's own inputs, the LSE given), twice what two such roundings
+    give, as the card's gates hold the kernels on the path's inputs: three
+    products a k-step meet it at dh 64 and at the path's 256 (8 chains a
+    score), so QK^T takes no fourth product (a fourth, lo lo, ~2^-22 of a
+    product, meets it too); TF32 alone misses."""
+    from repro_torch.kernels import flash_attention as kfa
+    (_, tq), (_, tk), (_, tv) = qkv(5, 4, 130, 130, dh, "float32", bk=2)
+    tq = tq * 512.0
+    tdo = qkv(6, 4, 130, 130, dh, "float32")[0][1]
+    kw = dict(causal=True, window=50)
+    exact, a, smax = attention_fp64(tq, tk, tv, **kw)
+    assert smax > 1500.0
+    bound = chip_smoke.fp32_fn_bound(smax)
+    plain = ref.attention_ref(tq, tk, tv, **kw).double()
+    scale = float(exact.abs().max())
+    assert float((plain - exact).abs().max()) > KERNEL_RTOL * scale
+    to, lse = ref.attention_ref(tq, tk, tv, return_lse=True, **kw)
+    gexact, gterms, _ = attention_bwd_fp64(tq, tk, tv, to, tdo, lse=lse,
+                                           **kw)
+    splits = kfa.bwd_splits(4, 2, 130, 132)
+
+    def errors(t):
+        """Each output's largest excess over the bound (absolute: an
+        element whose weights underflow fp32 may be off by 1e-30), and
+        its largest error relative to its terms."""
+        fwd = split_tf32_attention(tq, tk, tv, terms=t, **kw).double()
+        bwd = split_tf32_bwd_attention(tq, tk, tv, to, tdo, lse,
+                                       splits=splits, terms=t, **kw)
+        fits = [chip_smoke.fp64_excess(x, e, s, smax)
+                for x, e, s in zip((fwd,) + bwd, (exact,) + gexact,
+                                   (a,) + gterms)]
+        return [x for x, _ in fits], [share * bound for _, share in fits]
+    over, rel = errors(terms)
+    assert max(over) <= 1e-30, over
+    print(f"{terms} products: worst errors of the forward, dq, dk, dv "
+          f"{[f'{x:.3e}' for x in rel]} of their terms (bound {bound:.3e})")
+    if terms == 3:
+        assert max(errors(1)[0]) > 0.0
 
 
 # ---------------------------------------------------------------- rglru
@@ -614,8 +855,8 @@ def test_sequence_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_sequence_kernels_are_built_and_bound():
-    """The sources (attention: fp32 on the CUDA cores, bf16 on the
-    tensor cores) are in the library's build and the entry points have
+    """The sources (attention: fp32 in 3xTF32 mma.sync, bf16 on wgmma,
+    both on the tensor cores) are in the library's build and the entry points have
     ctypes signatures (pointers as c_void_p, so none is cut to 32 bits)."""
     names = {p.name for p in build._sources()}
     assert {"flash_attention.cu", "flash_attention_wgmma.cu",
