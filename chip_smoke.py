@@ -183,7 +183,39 @@ repository, it exits non-zero before printing any result. Phases:
    version), kill-and-resume 2 + 2 rounds against 4 bit for bit, ``python
    -m repro_torch.launch.fed_train --arch qwen1.5-4b --rounds 2`` and
    its round lines, and RWKV6 through the substrate refused
-   (NotImplementedError).
+   (NotImplementedError);
+13. the model zoo: the seven architectures of the moe kind, M-RoPE,
+   cross-attention and embedding inputs (ZOO: llama4-scout, arctic,
+   gemma3, command-r, llama3, qwen2-vl, musicgen) at their published
+   widths, random init from seed 0, bf16, depth cut to whole pattern
+   cycles so that the fp32 copy for the budget fits (each cut printed
+   with its reason), each in turn with one copy of its weights on the
+   card: a B=4 x S=4096 prefill through the attention kernel (launch
+   counts zeroed before, read after: one a layer, two with
+   cross-attention; the attention calls recorded in that run, their
+   counts by shape summing to the launches), 32 greedy decode tokens
+   (embedding-input archs through the frontend stub, M-RoPE positions
+   and the cached conditioning from the forward), the plain bf16
+   prefill and the first decode step against a prefill of S+1
+   positions; then the same weights at ``condition_``'s scale (the
+   reference init's scores reach the tens of thousands and its deep
+   stacks are chaotic, so its budgets separate nothing), where the
+   kernel and plain bf16 prefills, routed alike (``PinnedRouting``),
+   and the first decode step are held again; then, the bf16 weights
+   freed, their fp32 copy (``zoo_fp32_gates``): the bf16 budgets at
+   both weights (plain bf16 vs plain fp32), and at ``condition_``'s
+   weights the fp32 kernel prefill within ZOO_FP32_RTOL of the plain
+   one, beside a control that must fail that gate (the attention's q, k
+   and v rounded to TF32). An MoE arch's S+1 prefill is routed as the
+   prompt's prefill and the decode step were, and where either prefill
+   drops an expert assignment (capacity depends on the token count) its
+   decode is checked for finite logits only, as printed. Peak memory <=
+   70 GiB; the attention kernel at each of the prefill's shapes against
+   its plain version (and the fp32 kernel there on unit-scale inputs
+   within KERNEL_RTOL), timed beside it and SDPA with its bound; ragged
+   zoo shapes (G = 5, 7, 2 with window 1024, 8, 16, 1 at dh 64; not
+   causal with Sk = 256 and 200); prefill ms, decode ms/token, peak GiB
+   and seconds an arch.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape: each kernel at the main path's most frequent shape (launches of
@@ -200,8 +232,9 @@ one-cycle gate's fp32 kernel pass) and the scan's reverse use at the
 train step's shapes (launches a step, ``"cell"`` set), and the attention
 forward (bf16, and fp32 storage: not launched there) and backward at
 phase 12a's Qwen1.5-4B shape (launches a federated round, ``"cell"``
-set); every row carries ``device_us``, and fidelity's and mse's the
-launch floor.
+set), and the attention forward at each shape of phase 13's prefills
+(launches of that shape a prefill, ``"cell"`` set); every row carries
+``device_us``, and fidelity's and mse's the launch floor.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and never prints that line.
 
@@ -221,6 +254,8 @@ bf16 attention backward alone at phase 11's shape under several splits
 of the query heads, with its host and per-pass device time (see
 ``time_attn_bwd``).
 """
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -1511,6 +1546,278 @@ def nudge_(p32, device, slab=1 << 26):
         del up
 
 
+def batch_bs(batch):
+    """(B, S) of a model batch: its tokens or its embeddings."""
+    x = batch["tokens"] if "tokens" in batch else batch["embeddings"]
+    return tuple(x.shape[:2])
+
+
+def step_input(cfg, tok):
+    """A decode step's batch for the greedy tokens ``tok`` (B,): the
+    tokens, or for an embedding-input arch their frames through the
+    frontend stub of ``launch/serve.py``."""
+    from repro_torch.launch.serve import frame_stub
+    if cfg.input_kind == "embeddings":
+        return {"embeddings": frame_stub(tok, cfg)[:, None]}
+    return {"tokens": tok[:, None]}
+
+
+def longer_batch(cfg, batch, tok):
+    """The prompt and the decode step's input ``tok`` as one batch of
+    S + 1 positions: the conditioning as it is, M-RoPE positions 0..S."""
+    import torch
+    nxt = step_input(cfg, tok)
+    out = {k: torch.cat([batch[k], v], 1) for k, v in nxt.items()}
+    if "cond" in batch:
+        out["cond"] = batch["cond"]
+    if "mrope_positions" in batch:
+        mp = batch["mrope_positions"]
+        out["mrope_positions"] = torch.cat([mp, mp[:, :, -1:] + 1], 2)
+    return out
+
+
+def plain_bf16_dev(cfg, params, batch, logits, cache):
+    """The same prefill through the plain versions: prints each cache
+    entry's deviation from the kernel prefill's, returns the plain
+    logits and the kernel logits' deviation from them."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import Model
+    plain_logits, plain_cache = make_prefill_step(Model(cfg, impl="xla"))(
+        params, batch)
+    for key in sorted(cache):
+        say(f"    cache {key} {tuple(cache[key].shape)} {cache[key].dtype}: "
+            f"kernel vs plain {logit_dev(cache[key], plain_cache[key]):.3e} "
+            f"of its scale")
+    return plain_logits, logit_dev(logits, plain_logits)
+
+
+class PinnedRouting:
+    """An MoE layer's routing is discontinuous in its input: a last-bit
+    difference that flips one expert choice moves the logits by more than
+    any rounding does. So runs compared for their rounding are routed
+    alike: the run under ``record()`` keeps each MoE layer's top-k experts
+    (a layer a call, in order), and each run under ``replay()`` takes them
+    (its gates from its own probabilities at those experts), counting the
+    choices its own top-k would have made otherwise. Patches
+    ``moe.top_k``, which ``moe.route`` calls once a layer; a dense arch
+    records nothing."""
+
+    def __init__(self):
+        from repro_torch.models.layers import moe
+        self.moe, self.orig = moe, moe.top_k
+        self.idx, self.differ, self.choices = [], 0, 0
+
+    @contextlib.contextmanager
+    def _run(self, fn):
+        self.moe.top_k = fn
+        try:
+            yield
+        finally:
+            self.moe.top_k = self.orig
+
+    def record(self):
+        def keep(probs, k):
+            vals, idx = self.orig(probs, k)
+            self.idx.append(idx)
+            return vals, idx
+        self.idx = []
+        return self._run(keep)
+
+    def replay(self, idx=None):
+        it = iter(self.idx if idx is None else idx)
+
+        def pinned(probs, k):
+            idx = next(it)
+            self.differ += int((self.orig(probs, k)[1] != idx).sum())
+            self.choices += idx.numel()
+            return probs.gather(-1, idx), idx
+        return self._run(pinned)
+
+    def extended(self, step, b):
+        """The choices of a prefill of S + 1 positions: each layer's
+        recorded choices for the B x S prompt, and ``step``'s (a decode
+        step's, B x 1) after each prompt row (token-major, as ``moe_ffn``
+        flattens them)."""
+        import torch
+        return [torch.cat([p.view(b, -1, p.shape[-1]),
+                           q.view(b, 1, q.shape[-1])], 1).view(-1, p.shape[-1])
+                for p, q in zip(self.idx, step.idx)]
+
+
+class DropCount:
+    """While open, counts the expert assignments each MoE layer drops over
+    its capacity (patches ``moe.slots``; a dense arch counts nothing)."""
+
+    def __init__(self):
+        from repro_torch.models.layers import moe
+        self.moe, self.orig, self.seen = moe, moe.slots, []
+
+    def __enter__(self):
+        def counted(idx, cap, e):
+            keep, slot = self.orig(idx, cap, e)
+            self.seen.append((int((~keep).sum()), keep.numel(), cap))
+            return keep, slot
+        self.moe.slots = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.slots = self.orig
+
+    @property
+    def dropped(self):
+        return sum(d for d, _, _ in self.seen)
+
+    def report(self, label):
+        if self.seen:
+            say(f"  {label} dropped {self.dropped:,} of "
+                f"{sum(n for _, n, _ in self.seen):,} expert assignments "
+                f"over {len(self.seen)} MoE layers (capacity "
+                f"{self.seen[0][2]} an expert)")
+
+
+def condition_(params):
+    """Rescale in place each layer matrix from the reference init's std,
+    1/sqrt(its first dim: the stack axis for stacked weights), to
+    1/sqrt(d_in), d_in the size of what it contracts: d for the q, k, v,
+    FFN-in and router projections, H·dh for wo, f for the FFN-out ones,
+    and d / f for the expert stacks (E, d, f) / (E, f, d). (At the
+    reference init a stack cut to one cycle has its matrices at std 1,
+    and a deep one is chaotic.)"""
+    import math
+    for key, v in params.items():
+        lead = 1 if key.startswith("stack/") else 0
+        dims = v.shape[lead:]
+        name = key.rsplit("/", 1)[-1]
+        if not key.startswith(("stack/", "rem/")) or len(dims) < 2 or \
+                name.startswith("b"):
+            continue
+        fan_in = (dims[0] * dims[1] if name == "wo" else
+                  dims[1] if "/moe/w_" in key else dims[0])
+        v.mul_(math.sqrt(v.shape[0] / fan_in))
+
+
+def round_through_(params, dtype, slab=1 << 26):
+    """Round each fp32 weight to ``dtype``'s nearest value in place,
+    ``slab`` elements at a time (no full-size temporaries)."""
+    for v in params.values():
+        for part in v.view(-1).split(slab):
+            part.copy_(part.to(dtype))
+
+
+def tf32_(x):
+    """``x`` in fp32 rounded to nearest (even) at TF32's 10 mantissa bits:
+    the operands of a one-pass TF32 product."""
+    import torch
+    bits = x.float().contiguous().view(torch.int32)
+    bits = (bits + 0xFFF + ((bits >> 13) & 1)) & -0x2000
+    return bits.view(torch.float32)
+
+
+@contextlib.contextmanager
+def attention_called(call):
+    """While open, ``ops.attention(q, k, v, **kw)`` is ``call(the original,
+    q, k, v, **kw)``: the controls of phase 13's gates."""
+    from repro_torch.kernels import ops
+    orig = ops.attention
+    ops.attention = lambda *args, **kw: call(orig, *args, **kw)
+    try:
+        yield
+    finally:
+        ops.attention = orig
+
+
+def tf32_inputs(attn, q, k, v, **kw):
+    """The fp32 gate's control: a kernel without the 3xTF32 split."""
+    return attn(tf32_(q), tf32_(k), tf32_(v), **kw)
+
+
+def half_window(attn, q, k, v, **kw):
+    """The bf16 gate's control, a wrong call of the kernel: every causal
+    attention windowed to half the prompt."""
+    if kw["causal"]:
+        kw = dict(kw, window=q.shape[1] // 2)
+    return attn(q, k, v, **kw)
+
+
+def fp32_cfg(cfg):
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+
+
+def prefill_logits(cfg, impl, params, batch, *contexts):
+    """The last-position logits of one prefill of ``cfg``'s model by
+    ``impl`` under ``contexts``, and its launches (zeroed just before,
+    read just after)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import Model
+    step = make_prefill_step(Model(cfg, impl=impl))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with contextlib.ExitStack() as stack:
+        for ctx in contexts:
+            stack.enter_context(ctx)
+        logits, _ = step(params, batch)
+    torch.cuda.synchronize()
+    return logits, dict(build.LAUNCHES)
+
+
+def fp32_budgets(cfg, p32, batch, plain_logits, pin=contextlib.nullcontext):
+    """The plain and the kernel fp32 prefill of ``p32`` (the bf16 weights'
+    values in fp32), each under a fresh ``pin()``. Returns the plain fp32
+    logits, the bf16 budget (``plain_logits``, the plain bf16 prefill's,
+    off them), the fp32 kernel prefill's deviation and its launches."""
+    plain32, _ = prefill_logits(fp32_cfg(cfg), "xla", p32, batch, pin())
+    kern32, launches32 = prefill_logits(fp32_cfg(cfg), "pallas", p32, batch,
+                                        pin())
+    return (plain32, logit_dev(plain_logits, plain32),
+            logit_dev(kern32, plain32), launches32)
+
+
+# phase 13's whole-model fp32 gate, at ``condition_``'s weights: the fp32
+# kernel prefill's logits within this share of their scale of the plain
+# fp32 prefill's. It sits between the sound kernel's readings (at most
+# 6.929e-06) and those of a control that must fail it (at least 1.261e-05,
+# gemma3), the same prefill with the attention's q, k and v rounded to
+# TF32 (a kernel without the 3xTF32 split), near their geometric mean;
+# PERF.md gives each arch's pair.
+ZOO_FP32_RTOL = 9e-6
+# phase 13's bf16 gates at ``condition_``'s weights hold two bf16
+# computations of one function (kernel and plain prefill; decode step and
+# prefill of S+1) to this many times the bf16 budget, the plain bf16
+# prefill's distance from the plain fp32 one: two computations each as
+# accurate as the plain one are at most twice that apart (the triangle
+# inequality), and their own roundings differ as much as the budget.
+ZOO_BF16_FACTOR = 2
+
+
+def zoo_fp32_gates(cfg, p32, batch, plain_logits, plain_c, pins):
+    """Phase 13's fp32 prefills of ``p32`` (the seed-0 weights' bf16
+    values in fp32), which they empty. At the reference init: the bf16
+    budget of ``plain_logits`` and the fp32 kernel prefill's launches.
+    Then at ``condition_``'s weights (rounded through bf16, so the same
+    weights as the bf16 runs there), every prefill routed as ``pins``
+    recorded: the bf16 budget of ``plain_c``, the fp32 kernel prefill's
+    deviation from the plain fp32 one, and the TF32 control's. Returns
+    them in a dict."""
+    import torch
+    batch = {k: (v.float() if v.is_floating_point() else v)
+             for k, v in batch.items()}
+    _, budget, at_init, launches32 = fp32_budgets(cfg, p32, batch,
+                                                  plain_logits)
+    condition_(p32)
+    round_through_(p32, cfg.param_torch_dtype)
+    plain32, budget_c, dev32, _ = fp32_budgets(cfg, p32, batch, plain_c,
+                                               pins.replay)
+    control, _ = prefill_logits(fp32_cfg(cfg), "pallas", p32, batch,
+                                pins.replay(), attention_called(tf32_inputs))
+    p32.clear()
+    torch.cuda.empty_cache()
+    return dict(budget=budget, at_init=at_init, launches32=launches32,
+                budget_c=budget_c, dev32=dev32,
+                control=logit_dev(control, plain32))
+
+
 def check_prefill_budgets(cfg, params, batch, logits, cache):
     """The kernel prefill (``logits``, ``cache``) against the same prefill
     through the plain versions: bf16 logits within the bf16 budget (the
@@ -1519,35 +1826,17 @@ def check_prefill_budgets(cfg, params, batch, logits, cache):
     prefill's deviation when every weight moves one ulp. Prints each cache
     entry's deviation; returns the bf16 budget and the fp32 kernel
     prefill's launches (counts zeroed just before it, read just after)."""
-    import dataclasses
     import torch
-    from repro_torch.kernels import build
-    from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import Model
-    plain_logits, plain_cache = make_prefill_step(Model(cfg, impl="xla"))(
-        params, batch)
-    dev = logit_dev(logits, plain_logits)
-    for key in sorted(cache):
-        say(f"    cache {key} {tuple(cache[key].shape)} {cache[key].dtype}: "
-            f"kernel vs plain {logit_dev(cache[key], plain_cache[key]):.3e} "
-            f"of its scale")
-    del plain_cache
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    plain_logits, dev = plain_bf16_dev(cfg, params, batch, logits, cache)
     p32 = {k: v.float() for k, v in params.items()}
-    plain_step32 = make_prefill_step(Model(cfg32, impl="xla"))
-    plain32, _ = plain_step32(p32, batch)
-    torch.cuda.synchronize()
-    build.reset_launches()
-    kern32, _ = make_prefill_step(Model(cfg32))(p32, batch)
-    torch.cuda.synchronize()
-    launches32 = dict(build.LAUNCHES)
+    plain32, budget, dev32, launches32 = fp32_budgets(cfg, p32, batch,
+                                                      plain_logits)
     # the model's own fp32 noise floor: every weight one ulp off, plain
     nudge_(p32, logits.device)
-    nudged32, _ = plain_step32(p32, batch)
+    nudged32, _ = prefill_logits(fp32_cfg(cfg), "xla", p32, batch)
     del p32
     torch.cuda.empty_cache()
-    budget = logit_dev(plain_logits, plain32)
-    dev32, floor32 = logit_dev(kern32, plain32), logit_dev(nudged32, plain32)
+    floor32 = logit_dev(nudged32, plain32)
     ok = dev <= budget and dev32 <= floor32
     say(f"  last-position logits, kernels vs plain: bf16 {dev:.3e} of the "
         f"scale {float(plain_logits.abs().max()):.4g}, bf16 budget "
@@ -1561,33 +1850,27 @@ def check_prefill_budgets(cfg, params, batch, logits, cache):
     return budget, launches32
 
 
-def decode_and_check(cfg, model, params, batch, logits, cache, budget,
-                     n_gen):
+def decode_run(cfg, model, params, batch, logits, cache, n_gen):
     """Move the prefill cache into a S + n_gen cache and greedy-decode
-    n_gen tokens through ``make_serve_step`` (ms/token by CUDA events);
-    then hold the first decode step against a prefill of the prompt and
-    its token (S + 1) within the bf16 budget. Returns that prefill's
-    launch counts."""
+    n_gen tokens through ``make_serve_step``: the logits finite and the
+    tokens in the vocabulary. Returns the ms a token (CUDA events)."""
     import torch
-    from repro_torch.kernels import build
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    b, s = batch["tokens"].shape
+    from repro_torch.launch.steps import make_serve_step
+    b, s = batch_bs(batch)
     serve = make_serve_step(model)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     warm = model.extend_cache(cache, s + n_gen)
-    serve(params, warm, {"tokens": tok[:, None]}, s)     # warm-up
+    serve(params, warm, step_input(cfg, tok), s)        # warm-up
     del warm
     dcache = model.extend_cache(cache, s + n_gen)
-    first, tokens = None, []
+    tokens = []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(n_gen):
         tok, step_logits, dcache = serve(params, dcache,
-                                         {"tokens": tok[:, None]}, s + i)
+                                         step_input(cfg, tok), s + i)
         tokens.append(tok)
-        if i == 0:
-            first = step_logits.clone()
     end.record()
     torch.cuda.synchronize()
     decode_ms = start.elapsed_time(end) / n_gen
@@ -1598,38 +1881,76 @@ def decode_and_check(cfg, model, params, batch, logits, cache, budget,
     if not (bool(torch.isfinite(step_logits).all())
             and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size):
         raise RuntimeError("decode gave non-finite logits or bad tokens")
-    del dcache
-    longer = {"tokens": torch.cat([batch["tokens"],
-                                   torch.argmax(logits, -1).int()[:, None]],
-                                  1)}
-    build.reset_launches()
-    ext_logits, _ = make_prefill_step(model)(params, longer)
-    torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    dev_dec = logit_dev(first, ext_logits)
+    return decode_ms
+
+
+def first_step_dev(cfg, model, params, batch, logits, cache, prefix=None):
+    """The first greedy decode step from a prefill's ``logits`` and
+    ``cache`` against the last logits of a prefill of the prompt and that
+    step's input (S + 1 positions). An MoE arch passes ``prefix``, the
+    ``PinnedRouting`` that recorded (or pinned) the routing of the prefill
+    that wrote ``cache``: the step's own choices are recorded and the
+    longer prefill routed as prefix + step. Returns the deviation (None
+    when the longer prefill drops an expert assignment: it is then not the
+    step's function) and the longer prefill's launches (zeroed just
+    before, read just after)."""
+    import torch
+    from repro_torch.launch.steps import make_serve_step
+    b, s = batch_bs(batch)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    step = PinnedRouting()
+    with step.record() if prefix else contextlib.nullcontext():
+        _, first, _ = make_serve_step(model)(
+            params, model.extend_cache(cache, s + 1), step_input(cfg, tok), s)
+    with DropCount() as drops:
+        longer, launches = prefill_logits(
+            model.cfg, model.impl, params, longer_batch(cfg, batch, tok),
+            prefix.replay(prefix.extended(step, b)) if prefix
+            else contextlib.nullcontext())
+    drops.report(f"the prefill of S+1 = {s + 1} positions")
+    return (None if drops.dropped else logit_dev(first, longer)), launches
+
+
+def decode_gate(dev_dec, budget, s, launches, where=""):
     ok = dev_dec <= budget
-    say(f"  first decode step vs prefill of S+1 = {s + 1} tokens "
-        f"(launches {launches}): {dev_dec:.3e} of the scale (budget "
+    say(f"  first decode step vs prefill of S+1 = {s + 1} positions"
+        f"{where} (launches {launches}): {dev_dec:.3e} of the scale (limit "
         f"{budget:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError("decode disagrees with prefill")
+
+
+def decode_and_check(cfg, model, params, batch, logits, cache, budget,
+                     n_gen):
+    """``decode_run``, then the first decode step held against the
+    prefill of S + 1 positions within the bf16 budget. Returns that
+    prefill's launch counts."""
+    decode_run(cfg, model, params, batch, logits, cache, n_gen)
+    dev_dec, launches = first_step_dev(cfg, model, params, batch, logits,
+                                       cache)
+    decode_gate(dev_dec, budget, batch_bs(batch)[1], launches)
     return launches
 
 
-def prefill_main_path(prefill, params, batch, want):
+def prefill_main_path(prefill, params, batch, want, timing=None, around=()):
     """The main path: one prefill with the launch counts zeroed just
     before and read just after (they must be ``want``), timed by CUDA
-    events, then twice more; prints ms, tokens/s and peak memory."""
+    events, under the contexts ``around``, then twice more; prints ms,
+    tokens/s and peak memory (and puts the three times under "prefill_ms"
+    in ``timing``)."""
     import torch
     from repro_torch.kernels import build
-    b, s = batch["tokens"].shape
+    b, s = batch_bs(batch)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    logits, cache = prefill(params, batch)
-    end.record()
+    with contextlib.ExitStack() as stack:
+        for ctx in around:
+            stack.enter_context(ctx)
+        start.record()
+        logits, cache = prefill(params, batch)
+        end.record()
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     prefill_ms = start.elapsed_time(end)
@@ -1641,6 +1962,8 @@ def prefill_main_path(prefill, params, batch, want):
     say(f"  prefill {prefill_ms:.3f} ms (then {more[0]:.3f}, {more[1]:.3f}; "
         f"CUDA events), peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB, {b * s / prefill_ms * 1e3:,.0f} prompt tokens/s")
+    if timing is not None:
+        timing["prefill_ms"] = [prefill_ms] + more
     return logits, cache, launches
 
 
@@ -1648,13 +1971,13 @@ def profile_serving(model, params, batch, logits, cache, n_gen):
     """Profiler breakdowns of one prefill and one decode step."""
     import torch
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    b, s = batch["tokens"].shape
+    b, s = batch_bs(batch)
     prefill, serve = make_prefill_step(model), make_serve_step(model)
     profile_device(f"prefill B={b} S={s}", lambda: prefill(params, batch))
     dcache = model.extend_cache(cache, s + n_gen)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     profile_device(f"one decode step at position {s}", lambda: serve(
-        params, dcache, {"tokens": tok[:, None]}, s))
+        params, dcache, step_input(model.cfg, tok), s))
 
 
 def serve_cli(arch):
@@ -4088,6 +4411,337 @@ def phase_fed(device="cuda"):
     say(f"  phase 12 took {time.time() - t0:.1f} s (12a {t12a:.1f} s)")
     return rows
 
+# ------------------------------------------------- phase 13: the model zoo
+# The seven architectures of the moe kind, M-RoPE, cross-attention and
+# embedding inputs at their published widths, depth cut to whole pattern
+# cycles: the bf16 weights, then (after they are freed) their fp32 copy
+# for the budget (4 bytes a parameter) and the plain route's fp32 score
+# chunks must stay under ZOO_PEAK_GIB. (arch, layers run, batch, why that
+# cut; the prompts are SERVE_S long)
+ZOO = (
+    ("llama4-scout-17b-a16e", 4, 4, "fp32 copy 43.5 GB at 4 layers"),
+    ("arctic-480b", 1, 4, "one layer is 13.7 B params: fp32 copy 56.3 GB"),
+    ("gemma3-27b", 12, 4, "two 6-layer cycles, fp32 copy 25.5 GB"),
+    ("command-r-35b", 8, 4, "fp32 copy 31.0 GB at 8 layers"),
+    ("llama3-405b", 2, 2, "one layer is 3.2 B params: fp32 copy 42.3 GB; "
+     "B=2: at B=4 the plain fp32 route's 8 GiB score chunks on top of it "
+     "ran out of the card"),
+    ("qwen2-vl-72b", 8, 4, "fp32 copy 38.0 GB at 8 layers"),
+    ("musicgen-large", 48, 4, "all layers, fp32 copy 12.9 GB"),
+)
+ZOO_PEAK_GIB = 70.0
+
+
+def fp32_weights(cfg, device):
+    """The seed-0 weights in fp32 with the bf16 model's values: the fp32
+    init (the bf16 init is its rounding) rounded through bf16 in place."""
+    from repro_torch.models import Model
+    p32 = Model(fp32_cfg(cfg)).init(seed=0, device=device)
+    round_through_(p32, cfg.param_torch_dtype)
+    return p32
+
+
+def zoo_attention_rows(rec, arch):
+    """The attention kernel at each shape the arch's main-path prefill
+    handed it (``rec``, open around that run): against its plain version
+    (one bf16 ulp of the scale, as ``check_and_time_seq``); the fp32
+    kernel, which the budgets' fp32 prefills launch at these shapes, on
+    seeded unit-scale inputs of one batch row of that shape within
+    KERNEL_RTOL of the scale of its plain fp32 version, as phase 5 holds
+    it; then kernel, plain and SDPA (the yardstick checked first) timed,
+    the bound, the device time a launch. Returns the JSON rows (launches:
+    that shape's count in the main-path prefill)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for cnt, args, kw in rec.calls["flash_attention"].values():
+        kw = no_impl(kw)
+        q, k, v = args
+        got = ops.attention(q, k, v, **kw)
+        want = ops.attention(q, k, v, **dict(kw, impl="xla"))
+        err = float((got.float() - want.float()).abs().max())
+        scale = max(1.0, float(want.float().abs().max()))
+        ok = err <= BF16_RTOL * scale
+        cell = (f"{arch} prefill, "
+                f"{'causal' if kw['causal'] else 'cross-attention'}"
+                f"{', window %d' % kw['window'] if kw['window'] else ''}")
+        say(f"  flash_attention {cell} {[list(x.shape) for x in args]} "
+            f"x{cnt}: max_abs_err {err:.3e} (tol {BF16_RTOL:.2e} x scale "
+            f"{scale:.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("flash_attention disagrees with its plain "
+                               f"version at {cell}")
+        g = torch.Generator(device=q.device).manual_seed(14)
+        unit = [torch.randn((x.shape[2], x.shape[1], x.shape[3]),
+                            generator=g, device=q.device) for x in args]
+        got32, want32 = (fn(*unit, **kw) for fn in (kfa.flash_attention,
+                                                    ref.attention_ref))
+        err32 = float((got32 - want32).abs().max())
+        scale32 = max(1.0, float(want32.abs().max()))
+        ok = err32 <= KERNEL_RTOL * scale32
+        say(f"  flash_attention fp32 storage (3xTF32), unit-scale inputs "
+            f"of one batch row at {cell}: max_abs_err {err32:.3e} (tol "
+            f"{KERNEL_RTOL:.0e} x scale {scale32:.3g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        del unit, got32, want32
+        if not ok:
+            raise RuntimeError("the fp32 flash_attention disagrees with its "
+                               f"plain version at {cell}")
+
+        def heads_major(x):                 # the layout ops hands over
+            bx, sx, hx, dx = x.shape
+            return ops._dense(x.transpose(1, 2).reshape(bx * hx, sx, dx))
+        qf, kf, vf = (heads_major(x) for x in (q, k, v))
+        k_ms = cuda_ms(lambda: kfa.flash_attention(qf, kf, vf, **kw),
+                       reps=5, warmup=1)
+        p_ms = cuda_ms(lambda: ref.attention_ref(qf, kf, vf, **kw),
+                       reps=3, warmup=1)
+        mask = ref.attention_mask(q.shape[1], k.shape[1], kw["causal"],
+                                  kw["window"], q.device)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        if lib_err > YARDSTICK_RTOL * float(want.float().abs().max()):
+            raise RuntimeError("SDPA yardstick disagrees with the plain "
+                               f"attention at {cell}")
+        lib_ms = cuda_ms(lib, reps=5, warmup=1)
+        del got, want
+        b_ms, b_by = seq_bound_ms("flash_attention", args, kw)
+        dev_us = device_us(lambda *x: kfa.flash_attention(*x, **kw),
+                           [qf, kf, vf])
+        b, sq, h, dh = q.shape
+        flops = 4 * dh * b * h * allowed_pairs(sq, k.shape[1], **kw)
+        say(f"  flash_attention {cell}: kernel {k_ms:.4f} ms (device "
+            f"{dev_us:.2f} us a launch, {flops / k_ms / 1e9:.1f} TFLOP/s), "
+            f"plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms (yardstick "
+            f"{lib_err:.3e}), bound {b_ms:.6f} ms ({b_by}), kernel/bound "
+            f"{k_ms / b_ms:.2f}x, {k_ms / lib_ms:.3f}x SDPA's time")
+        rows.append(dict(name="flash_attention", route="cuda",
+                         **SEQ_KERNELS["flash_attention"],
+                         shape=[list(x.shape) for x in args],
+                         max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         device_us=dev_us, launches=cnt, cell=cell))
+        del qf, kf, vf, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_ragged(device="cuda"):
+    """The bf16 kernel on ragged shapes of the zoo's kinds, seeded,
+    against its plain version (one bf16 ulp of the scale): the groups G
+    = 5, 7, 2 (window 1024), 8, 16 and 1 at dh 64, causal, S not a
+    multiple of the tile; and cross-attention (not causal) with Sk = 256
+    and 200 keys against 4096 and 1000 queries."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cpu").manual_seed(13)
+    # (bh, bk, sq, sk, dh, window, causal)
+    cases = [(10, 2, 333, 333, 128, 0, True), (14, 2, 200, 200, 128, 0, True),
+             (4, 2, 1500, 1500, 128, 1024, True),
+             (16, 2, 130, 130, 128, 0, True), (32, 2, 100, 100, 128, 0, True),
+             (4, 4, 150, 150, 64, 0, True), (32, 32, 4096, 256, 64, 0, False),
+             (32, 32, 4096, 200, 64, 0, False),
+             (16, 2, 1000, 200, 128, 0, False)]
+    for bh, bk, sq, sk, dh, window, causal in cases:
+        q, k, v = (torch.randn(shape, generator=g).to(device, torch.bfloat16)
+                   for shape in ((bh, sq, dh), (bk, sk, dh), (bk, sk, dh)))
+        kw = dict(causal=causal, window=window)
+        got = kfa.flash_attention(q, k, v, **kw).float()
+        want = ref.attention_ref(q, k, v, **kw).float()
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        ok = err <= BF16_RTOL * scale
+        say(f"  flash_attention ragged (bh {bh}, bk {bk}, Sq {sq}, Sk {sk}, "
+            f"dh {dh}, {kw}): max_abs_err {err:.3e} (tol {BF16_RTOL:.2e} x "
+            f"scale {scale:.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("flash_attention disagrees with its plain "
+                               "version on a ragged zoo shape")
+
+
+def zoo_features(cfg):
+    parts = [str(cfg.block_pattern)]
+    if cfg.window:
+        parts.append(f"window {cfg.window}")
+    if cfg.n_experts:
+        parts.append(f"{cfg.n_experts} experts top-{cfg.top_k}"
+                     f"{' + dense residual' if cfg.moe_dense_residual else ''}"
+                     f"{' + shared expert' if cfg.shared_expert else ''}")
+    if cfg.pos_kind == "mrope":
+        parts.append(f"M-RoPE {cfg.mrope_sections}")
+    if cfg.cross_attn:
+        parts.append(f"cross-attention to {cfg.cond_len}")
+    parts.append(f"{cfg.input_kind} input")
+    return ", ".join(parts)
+
+
+def zoo_arch(arch, layers, b, why, device="cuda"):
+    """One architecture of phase 13, one copy of its weights on the card
+    at a time. At the seed-0 init in bf16: the prefill through the kernels
+    (the main path: launches zeroed before, read after, exact; its
+    attention calls recorded in that run), the plain bf16 prefill, 32
+    greedy decode tokens, and the first step against a prefill of S + 1
+    positions. Then the same weights at ``condition_``'s scale, where the
+    bf16 budget is a small share of the scale: the kernel and the plain
+    bf16 prefill, routed alike, and the first decode step again. With the
+    bf16 weights freed, their fp32 copy gives the budgets and the fp32
+    gate (``zoo_fp32_gates``); then the attention kernel at the main
+    path's shapes. Returns the JSON rows and a summary."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import Model
+    t0 = time.time()
+    s, n_gen = SERVE_S, SERVE_GEN
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    if layers % cfg.cycle_len:
+        raise RuntimeError(f"{arch}: {layers} layers is not whole cycles")
+    model = Model(cfg)
+    say(f"== phase 13: {arch} at published width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {zoo_features(cfg)}, "
+        f"{cfg.dtype}); depth cut {layers} of {full.n_layers} layers "
+        f"({why}): {model.num_params():,} params; B={b}, S={s}, {n_gen} "
+        "decode tokens")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device=device)
+    batch = concrete_batch(cfg, b, s, torch.Generator().manual_seed(1),
+                           kind="prefill", device=device)
+    prefill = make_prefill_step(model)
+    plain = make_prefill_step(Model(cfg, impl="xla"))
+    with DropCount() as drops:
+        prefill(params, batch)                  # warm-up
+        torch.cuda.synchronize()
+    drops.report("the prefill")
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": (2 if cfg.cross_attn else 1) * cfg.n_layers}
+    timing = {}
+    rec, pins = Recorder({"attention": "flash_attention"}), PinnedRouting()
+    logits, cache, launches = prefill_main_path(
+        prefill, params, batch, want, timing, around=(rec, pins.record()))
+    per_shape = [c for c, _, _ in rec.calls["flash_attention"].values()]
+    if sum(per_shape) != launches["flash_attention"]:
+        raise RuntimeError(f"the attention calls by shape {per_shape} do not "
+                           f"sum to the launches {launches}")
+    if tuple(logits.shape) != (b, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite")
+    plain_logits, dev = plain_bf16_dev(cfg, params, batch, logits, cache)
+    decode_ms = decode_run(cfg, model, params, batch, logits, cache, n_gen)
+    moe = pins if cfg.n_experts else None
+    dec = (None, None) if drops.dropped else first_step_dev(
+        cfg, model, params, batch, logits, cache, moe)
+    del cache
+    # the same weights at condition_'s scale, routed alike
+    condition_(params)
+    pins_c = PinnedRouting()
+    with pins_c.record():
+        plain_c, _ = plain(params, batch)
+    with pins_c.replay(), DropCount() as drops_c:
+        kern_c, cache_c = prefill(params, batch)
+    drops_c.report("at condition_'s weights, the kernel prefill")
+    with pins_c.replay(), attention_called(half_window):
+        control_c, _ = prefill(params, batch)
+    dev_c, control_c = (logit_dev(x, plain_c) for x in (kern_c, control_c))
+    dec_c = (None, None) if drops_c.dropped else first_step_dev(
+        cfg, model, params, batch, kern_c, cache_c,
+        pins_c if cfg.n_experts else None)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del params, cache_c
+    torch.cuda.empty_cache()
+    p32 = fp32_weights(cfg, device)
+    g = zoo_fp32_gates(cfg, p32, batch, plain_logits, plain_c, pins_c)
+    if g["launches32"] != want:
+        raise RuntimeError(f"the fp32 prefill launched {g['launches32']}")
+    lim_c = ZOO_BF16_FACTOR * g["budget_c"]
+    ok = dev <= g["budget"] and dev_c <= lim_c < control_c
+    say(f"  last-position logits, kernels vs plain, bf16: at the reference "
+        f"init {dev:.3e} of the scale {float(plain_logits.abs().max()):.4g}"
+        f" (budget {g['budget']:.3e}: plain bf16 vs plain fp32, same weights"
+        f" and batch); at condition_'s weights {dev_c:.3e} of the scale "
+        f"{float(plain_c.abs().max()):.4g} (budget {g['budget_c']:.3e}, "
+        f"limit {ZOO_BF16_FACTOR}x: {lim_c:.3e}) {'ok' if ok else 'FAIL'}; "
+        f"the control, every causal call windowed to S/2, {control_c:.3e} "
+        f"{'fails it, as it must' if control_c > lim_c else 'PASSES'}")
+    ok32 = g["dev32"] <= ZOO_FP32_RTOL < g["control"]
+    say(f"  fp32 at condition_'s weights: the kernel prefill {g['dev32']:.3e}"
+        f" of the scale off the plain one (tol {ZOO_FP32_RTOL:.0e}); the "
+        f"control, its attention's q, k, v rounded to TF32, "
+        f"{g['control']:.3e} {'ok' if ok32 else 'FAIL'} (the control must "
+        f"fail the tol; at the reference init the kernel prefill "
+        f"{g['at_init']:.3e})")
+    if cfg.n_experts:
+        say(f"  routed alike at condition_'s weights: of the plain bf16 "
+            f"prefill's expert choices, {pins_c.choices:,} replayed, the "
+            f"replaying prefills' own top-k would have changed "
+            f"{pins_c.differ:,}")
+    say(f"  fp32 kernel prefill launches: {g['launches32']}")
+    if not (ok and ok32):
+        raise RuntimeError("the kernel prefill deviates from the plain one "
+                           "beyond its limit, or a control passes it")
+    for (dev_dec, s1), lim, where, dropped in (
+            (dec, g["budget"], " at the reference init", drops.dropped),
+            (dec_c, lim_c, f" at condition_'s weights ({ZOO_BF16_FACTOR}x "
+             "the budget)", drops_c.dropped)):
+        if dev_dec is None:
+            say(f"  decode{where}: checked for finite logits only: "
+                f"{'the prompt' if dropped else 'the S+1 prefill'} dropped "
+                f"expert assignments, so no prefill is the decode step's "
+                f"function (decode launches no kernel)")
+            continue
+        if s1 != want:
+            raise RuntimeError(f"the S+1 prefill launched {s1}")
+        decode_gate(dev_dec, lim, s, s1, where)
+    peak = max(peak, torch.cuda.max_memory_allocated()) / 2**30
+    say(f"  peak {peak:.2f} GiB (limit {ZOO_PEAK_GIB:.0f})")
+    if peak > ZOO_PEAK_GIB:
+        raise RuntimeError(f"{arch} peaked at {peak:.2f} GiB")
+    rows = zoo_attention_rows(rec, arch)
+    del rec
+    torch.cuda.empty_cache()
+    summary = dict(arch=arch, layers=layers, of=full.n_layers, b=b,
+                   params=model.num_params(), prefill_ms=timing["prefill_ms"],
+                   decode_ms=decode_ms, peak_gib=peak,
+                   seconds=time.time() - t0)
+    say(f"  {arch}: prefill {timing['prefill_ms'][0]:.3f} ms (then "
+        f"{timing['prefill_ms'][1]:.3f}, {timing['prefill_ms'][2]:.3f}), "
+        f"decode {decode_ms:.3f} ms/token, peak {peak:.2f} GiB, "
+        f"{summary['seconds']:.1f} s")
+    return rows, summary
+
+
+def phase_archs(device="cuda"):
+    """Phase 13: each arch of ZOO in turn (one copy of its weights on the
+    card at a time), then the ragged zoo shapes; prints a summary."""
+    t0 = time.time()
+    rows, summaries = [], []
+    for arch, layers, b, why in ZOO:
+        r, summary = zoo_arch(arch, layers, b, why, device)
+        rows += r
+        summaries.append(summary)
+    say("== phase 13: ragged shapes of the zoo's attention")
+    zoo_ragged(device)
+    say(f"== phase 13 summary ({smi('name,power.limit')}):")
+    for sm in summaries:
+        say(f"  {sm['arch']:22s} {sm['layers']:3d} of {sm['of']:3d} layers "
+            f"{sm['params']:>15,} params, B={sm['b']}: prefill "
+            f"{sm['prefill_ms'][0]:9.3f} ms, decode {sm['decode_ms']:8.3f} "
+            f"ms/token, peak {sm['peak_gib']:6.2f} GiB, "
+            f"{sm['seconds']:6.1f} s")
+    say(f"  card during phase 13: "
+        f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    say(f"  phase 13: {time.time() - t0:.1f} s")
+    return rows
+
 
 # ------------------------------------------------------ --train-probe
 # (peak lr, grad_clip) settings of phase 11's model, batch and optimizer
@@ -4388,6 +5042,7 @@ def main() -> int:
     rows += phase_cohorts_serving()
     rows += phase_train()
     rows += phase_fed()
+    rows += phase_archs()
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,9 +1,6 @@
 """Model configurations of the port and the architecture registry:
-``--arch <id>`` resolves here.
-
-Only the architectures the port has taken over are registered. The
-reference's other architectures raise ``NotImplementedError``: they
-wait for later slices of the port (ROADMAP.md, Queue 1).
+``--arch <id>`` resolves here. The registry holds the reference's ten
+architectures, each config equal to the reference's field for field.
 ``variant_for_shape`` and ``supports_shape`` are the reference's.
 """
 from __future__ import annotations
@@ -11,18 +8,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+from repro_torch.configs.arctic_480b import CONFIG as ARCTIC
+from repro_torch.configs.command_r_35b import CONFIG as COMMAND_R
+from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3
+from repro_torch.configs.llama3_405b import CONFIG as LLAMA3
+from repro_torch.configs.llama4_scout import CONFIG as LLAMA4
+from repro_torch.configs.musicgen_large import CONFIG as MUSICGEN
 from repro_torch.configs.qwen1_5_4b import CONFIG as QWEN15
+from repro_torch.configs.qwen2_vl_72b import CONFIG as QWEN2VL
 from repro_torch.configs.recurrentgemma_2b import CONFIG as RECURRENTGEMMA
 from repro_torch.configs.rwkv6_7b import CONFIG as RWKV6
 from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 
-REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in (QWEN15,
-                                                         RECURRENTGEMMA,
-                                                         RWKV6)}
-
-# the reference's architectures that the port has not taken over yet
-NOT_PORTED = ("arctic-480b", "command-r-35b", "gemma3-27b", "llama3-405b",
-              "llama4-scout-17b-a16e", "musicgen-large", "qwen2-vl-72b")
+REGISTRY: Dict[str, ModelConfig] = {
+    c.name: c for c in (
+        ARCTIC, RWKV6, MUSICGEN, LLAMA4, LLAMA3, GEMMA3, QWEN2VL, QWEN15,
+        RECURRENTGEMMA, COMMAND_R)
+}
 
 # long_500k requires sub-quadratic attention. SSM/hybrid run natively;
 # gemma3 runs an all-local sliding-window VARIANT; pure full-attention
@@ -31,10 +33,6 @@ LONG_CONTEXT_ARCHS = {"rwkv6-7b", "recurrentgemma-2b", "gemma3-27b"}
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet (ROADMAP.md, "
-            f"Queue 1); the port has {sorted(REGISTRY)}")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]

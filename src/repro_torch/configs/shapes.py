@@ -17,22 +17,35 @@ def concrete_batch(cfg: ModelConfig, batch_size: int, seq_len: int,
                    vocab: Optional[int] = None, device="cuda"
                    ) -> Dict[str, torch.Tensor]:
     """train/prefill: full sequences; decode: one token per sequence.
+    Embedding-input archs get frontend-stub embeddings (0.02·normal in
+    ``cfg.dtype``), cross-attention archs a conditioning sequence of
+    ``cfg.cond_len`` (the same draw), M-RoPE archs position ids (3, B, S)
+    = 0..S-1 on every stream (decode: 0, the reference's batch; the
+    model's forward derives them from ``cur_len`` when none is passed).
 
     Draws on ``gen``'s device (the CPU for a default generator), then
     moves the batch to ``device``, so a seed gives the same batch on
     every machine."""
     if kind not in ("train", "prefill", "decode"):
         raise ValueError(f"kind {kind!r}")
-    if cfg.input_kind != "tokens" or cfg.cross_attn or cfg.pos_kind == "mrope":
-        raise NotImplementedError(
-            "embedding inputs, conditioning and M-RoPE positions wait for "
-            "a later slice (ROADMAP.md)")
     dev = resolve_device(device)
     vocab = vocab or cfg.vocab_size
     s = 1 if kind == "decode" else seq_len
-    batch = {"tokens": torch.randint(0, vocab, (batch_size, s), generator=gen,
-                                     dtype=torch.int32)}
+    batch = {}
+    if cfg.input_kind == "tokens":
+        batch["tokens"] = torch.randint(0, vocab, (batch_size, s),
+                                        generator=gen, dtype=torch.int32)
+    else:
+        batch["embeddings"] = 0.02 * torch.randn(
+            (batch_size, s, cfg.d_model), generator=gen).to(cfg.torch_dtype)
     if kind == "train":
         batch["labels"] = torch.randint(0, vocab, (batch_size, s),
                                         generator=gen, dtype=torch.int32)
+    if cfg.cross_attn:
+        batch["cond"] = 0.02 * torch.randn(
+            (batch_size, cfg.cond_len, cfg.d_model),
+            generator=gen).to(cfg.torch_dtype)
+    if cfg.pos_kind == "mrope":
+        pos = torch.arange(s, dtype=torch.int32)[None].expand(batch_size, s)
+        batch["mrope_positions"] = torch.stack([pos, pos, pos])
     return {k: v.to(dev) for k, v in batch.items()}

@@ -45,7 +45,8 @@ def token_batches(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
                   ) -> Iterator[Dict[str, torch.Tensor]]:
     """Infinite iterator of {tokens, labels} int32 on ``device`` (+ the
     reference's stub inputs for embedding-input, conditioned and M-RoPE
-    archs, in ``cfg.dtype``; the port's models refuse those inputs)."""
+    archs: embeddings and cond in ``cfg.dtype``, M-RoPE positions
+    (3, B, S) int32)."""
     dev = resolve_device(device)
     task = task or BigramTask(cfg.vocab_size, seed=seed)
     rng = np.random.default_rng(seed + 1)

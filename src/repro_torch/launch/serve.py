@@ -3,7 +3,10 @@
 Greedy-decodes continuations for a batch of synthetic prompts on one
 device (smoke scale: the arch's ``reduced()`` config), like the
 reference's ``repro.launch.serve``: the prompt is fed through the
-decode step token by token, then ``--gen`` tokens are generated.
+decode step token by token (its conditioning sequence with every
+prompt step, for cross-attention archs), then ``--gen`` tokens are
+generated (embedding-input archs get each generated token back through
+the frontend stub, M-RoPE archs its position on all three streams).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --batch 4 --prompt-len 32 --gen 16
@@ -20,6 +23,13 @@ from repro_torch.configs.shapes import concrete_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import Model
+
+
+def frame_stub(tok: torch.Tensor, cfg) -> torch.Tensor:
+    """The reference's frontend stub for embedding-input archs: a
+    generated token id as the frame 0.02 · one_hot(id mod d_model)."""
+    return torch.nn.functional.one_hot(
+        tok.long() % cfg.d_model, cfg.d_model).to(cfg.torch_dtype) * 0.02
 
 
 def _sync(dev: torch.device) -> None:
@@ -55,7 +65,15 @@ def main(argv=None):
     # step function; a full prompt goes through model.prefill instead
     tok = None
     for t in range(args.prompt_len):
-        db = {"tokens": prompt["tokens"][:, t:t + 1]}
+        db = {}
+        if "tokens" in prompt:
+            db["tokens"] = prompt["tokens"][:, t:t + 1]
+        else:
+            db["embeddings"] = prompt["embeddings"][:, t:t + 1]
+        if "cond" in prompt:
+            db["cond"] = prompt["cond"]
+        if "mrope_positions" in prompt:
+            db["mrope_positions"] = prompt["mrope_positions"][:, :, t:t + 1]
         tok, logits, cache = serve_step(params, cache, db, t)
     _sync(dev)
     prefill_s = time.time() - t0
@@ -63,8 +81,14 @@ def main(argv=None):
     generated = []
     t0 = time.time()
     for t in range(args.prompt_len, max_len):
-        tok, logits, cache = serve_step(params, cache,
-                                        {"tokens": tok[:, None]}, t)
+        db = {"tokens": tok[:, None]}
+        if cfg.input_kind == "embeddings":
+            # frontend stub: embed the generated token id as a frame
+            db = {"embeddings": frame_stub(tok, cfg)[:, None]}
+        if "mrope_positions" in prompt:
+            db["mrope_positions"] = torch.full((3, args.batch, 1), t,
+                                               dtype=torch.int32, device=dev)
+        tok, logits, cache = serve_step(params, cache, db, t)
         generated.append(tok)
     _sync(dev)
     decode_s = time.time() - t0

@@ -1,7 +1,8 @@
-"""Token embeddings and rotary position encodings (RoPE; M-RoPE waits)."""
+"""Token embeddings and rotary position encodings (RoPE + M-RoPE)."""
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -94,6 +95,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     dh = x.shape[-1]
     freqs = rope_freqs(dh, theta, x.device)                 # (dh/2,)
     angles = positions[..., None].float() * freqs           # (B,S,dh/2)
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x rotated by angles (B, S, dh/2), broadcast over the head axes."""
+    dh = x.shape[-1]
     while angles.dim() < x.dim():
         angles = angles[..., None, :]                       # head axes
     # cos/sin are rounded to the activation dtype before the multiply,
@@ -102,3 +109,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     sin = torch.sin(angles).to(x.dtype)
     x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Tuple[int, int, int], theta: float
+                ) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. positions: (3, B, S), the temporal,
+    height and width position ids; ``sections`` splits the dh/2
+    frequencies among the three streams in that order (e.g. (16, 24, 24)
+    for head_dim 128)."""
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim / 2 = {dh // 2}")
+    freqs = rope_freqs(dh, theta, x.device)                 # (dh/2,)
+    ang = positions[..., None].float() * freqs              # (3,B,S,dh/2)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))            # (dh/2,)
+    angles = ang.gather(0, sec_id.expand(ang.shape[1:])[None])[0]
+    return _rotate(x, angles)

@@ -1,6 +1,7 @@
 """Training losses: masked cross-entropy (+ router aux/z losses), the
-port of ``repro.models.losses``. No ported block kind produces aux
-losses yet (the ``moe`` kind comes later); the branch is kept."""
+port of ``repro.models.losses``. The MoE layers' aux losses (summed over
+the stack by ``transformer.forward``) enter as their mean per MoE layer,
+weighted by ``cfg.router_aux_weight`` and ``cfg.router_z_weight``."""
 from __future__ import annotations
 
 from typing import Dict, Tuple

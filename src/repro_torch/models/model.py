@@ -49,12 +49,19 @@ class Model:
         return sum(math.prod(v.shape) for v in self.abstract_params().values())
 
     # ---- full sequence ----
+    def _inputs(self, batch) -> Dict:
+        """The model inputs of a batch: tokens or embeddings, and cond and
+        mrope_positions where the config takes them."""
+        return {k: batch.get(k) for k in ("tokens", "embeddings", "cond",
+                                          "mrope_positions")}
+
     def forward_train(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        """Logits (B, S, V) in fp32 and the aux losses (none for the
-        ported block kinds)."""
-        x, _ = tfm.forward(params, self.cfg, mode="train",
-                           tokens=batch["tokens"], impl=self.impl)
-        return tfm.logits_from_hidden(params, x, self.cfg), {}
+        """Logits (B, S, V) in fp32 and the aux losses (each MoE layer's
+        load-balance and router z-loss summed over the stack; {} for a
+        model without MoE layers)."""
+        x, _, aux = tfm.forward(params, self.cfg, mode="train",
+                                impl=self.impl, **self._inputs(batch))
+        return tfm.logits_from_hidden(params, x, self.cfg), aux
 
     def loss_fn(self, params, batch):
         """(loss, metrics) of a batch {tokens, labels}, differentiable in
@@ -68,7 +75,8 @@ class Model:
 
     def microbatches(self, batch):
         """The batch as ``cfg.microbatch``-row pieces (the whole batch
-        when it is not larger)."""
+        when it is not larger); ``mrope_positions`` (3, B, S) is split on
+        its batch axis, 1."""
         b = batch["labels"].shape[0]
         mb = self.cfg.microbatch
         if not mb or b <= mb:
@@ -76,7 +84,8 @@ class Model:
         if b % mb:
             raise ValueError(f"batch {b} is not a multiple of the "
                              f"microbatch {mb}")
-        return [{k: v[i:i + mb] for k, v in batch.items()}
+        return [{k: (v[:, i:i + mb] if k == "mrope_positions"
+                     else v[i:i + mb]) for k, v in batch.items()}
                 for i in range(0, b, mb)]
 
     def _loss_accum(self, params, batch):
@@ -92,18 +101,19 @@ class Model:
     # ---- serving ----
     def prefill(self, params, batch):
         """Full-sequence forward; returns (last_logits (B, V), cache)."""
-        x, cache = tfm.forward(params, self.cfg, mode="prefill",
-                               tokens=batch["tokens"], impl=self.impl)
+        x, cache, _ = tfm.forward(params, self.cfg, mode="prefill",
+                                  impl=self.impl, **self._inputs(batch))
         logits = tfm.logits_from_hidden(params, x[:, -1:], self.cfg)
         return logits[:, 0], cache
 
     def decode_step(self, params, batch, cache, cur_len: int):
-        """One-token decode (serve_step): batch["tokens"] is (B, 1) at
-        position ``cur_len``. Returns (logits (B, V), cache); the cache's
-        tensors are updated in place."""
-        x, new_cache = tfm.forward(params, self.cfg, mode="decode",
-                                   tokens=batch["tokens"], cur_len=cur_len,
-                                   cache=cache, impl=self.impl)
+        """One-token decode (serve_step): batch carries tokens (B, 1) or
+        embeddings (B, 1, d) at position ``cur_len`` (and optionally cond
+        and mrope_positions (3, B, 1)). Returns (logits (B, V), cache);
+        the cache's tensors are updated in place."""
+        x, new_cache, _ = tfm.forward(params, self.cfg, mode="decode",
+                                      cur_len=cur_len, cache=cache,
+                                      impl=self.impl, **self._inputs(batch))
         logits = tfm.logits_from_hidden(params, x, self.cfg)
         return logits[:, 0], new_cache
 

@@ -4,8 +4,10 @@ The reference scans over "pattern cycles" (one cycle = one repetition of
 cfg.block_pattern); here a Python loop walks the leading ``n_cycles``
 axis of the stacked params ("stack/{pos}/{kind}/..."). Remainder layers
 (n_layers % cycle_len, "rem/{i}/{kind}/...") follow unstacked. The
-port has the block kinds "attn", "local", "rec" and "rwkv"; "moe"
-raises.
+block kinds are the reference's: "attn", "local", "moe" (attention and
+the MoE FFN, whose aux losses ``forward`` sums over every layer), "rec"
+and "rwkv"; with ``cfg.cross_attn`` every attention block also attends
+to the conditioning sequence (musicgen).
 
 Modes:
   train   — full sequence, no caches; with ``cfg.remat`` each cycle is
@@ -24,25 +26,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import params as pp
 from repro_torch.models.layers import attention as attn
+from repro_torch.models.layers import moe as moe_lib
 from repro_torch.models.layers import rglru, rwkv
 from repro_torch.models.layers.embeddings import (embed_tokens,
                                                    init_embeddings, unembed)
 from repro_torch.models.layers.mlp import init_mlp, mlp
 from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 
-ATTN_KINDS = ("attn", "local")
-PORTED_KINDS = ATTN_KINDS + ("rec", "rwkv")
-
-
-def _check(cfg) -> None:
-    missing = [k for k in cfg.block_pattern if k not in PORTED_KINDS]
-    if missing:
-        raise NotImplementedError(
-            f"block kinds {missing} wait for a later slice (ROADMAP.md)")
-    if cfg.cross_attn or cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            "cross-attention and embedding inputs wait for a later slice "
-            "(ROADMAP.md)")
+ATTN_KINDS = ("attn", "local", "moe")
 
 
 # --------------------------------------------------------------------------
@@ -51,24 +42,29 @@ def _check(cfg) -> None:
 
 def init_block(ini, pfx: str, kind: str, cfg, stack: int = 0) -> None:
     init_rmsnorm(ini, f"{pfx}/ln1", cfg.d_model, stack)
-    if kind == "rwkv":
+    if kind in ATTN_KINDS:
+        attn.init_attention(ini, f"{pfx}/attn", cfg, stack)
+        if cfg.cross_attn:
+            init_rmsnorm(ini, f"{pfx}/ln_x", cfg.d_model, stack)
+            attn.init_attention(ini, f"{pfx}/xattn", cfg, stack, cross=True)
+        init_rmsnorm(ini, f"{pfx}/ln2", cfg.d_model, stack)
+        if kind == "moe":
+            moe_lib.init_moe(ini, f"{pfx}/moe", cfg, stack)
+        else:
+            init_mlp(ini, f"{pfx}/mlp", cfg, stack)
+    elif kind == "rwkv":
         rwkv.init_rwkv_time_mix(ini, f"{pfx}/tm", cfg, stack)
         init_rmsnorm(ini, f"{pfx}/ln2", cfg.d_model, stack)
         rwkv.init_rwkv_channel_mix(ini, f"{pfx}/cm", cfg, stack)
-        return
-    if kind in ATTN_KINDS:
-        attn.init_attention(ini, f"{pfx}/attn", cfg, stack)
     elif kind == "rec":
         rglru.init_recurrent_block(ini, f"{pfx}/rec", cfg, stack)
+        init_rmsnorm(ini, f"{pfx}/ln2", cfg.d_model, stack)
+        init_mlp(ini, f"{pfx}/mlp", cfg, stack)
     else:
-        raise NotImplementedError(f"block kind {kind!r} waits for a later "
-                                  "slice (ROADMAP.md)")
-    init_rmsnorm(ini, f"{pfx}/ln2", cfg.d_model, stack)
-    init_mlp(ini, f"{pfx}/mlp", cfg, stack)
+        raise ValueError(f"block kind {kind!r}")
 
 
 def init_model(ini, cfg) -> None:
-    _check(cfg)
     init_embeddings(ini, cfg)
     for pos, kind in enumerate(cfg.block_pattern):
         if cfg.n_cycles > 0:
@@ -88,7 +84,12 @@ def block_cache(kind: str, cfg, batch: int, max_len: int, *, device
                 ) -> Dict[str, torch.Tensor]:
     """Zero decode state for one block of the given kind."""
     if kind in ATTN_KINDS:
-        return attn.init_cache(cfg, batch, max_len, device=device)
+        c = attn.init_cache(cfg, batch, max_len, device=device)
+        if cfg.cross_attn:
+            shape = (batch, cfg.cond_len, cfg.n_kv_heads, cfg.head_dim)
+            c["xk"] = torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+            c["xv"] = torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+        return c
     if kind == "rec":
         return {
             "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_rnn),
@@ -106,7 +107,7 @@ def block_cache(kind: str, cfg, batch: int, max_len: int, *, device
                                 cfg.head_dim), dtype=torch.float32,
                                device=device),
         }
-    raise NotImplementedError(f"block kind {kind!r}")
+    raise ValueError(f"block kind {kind!r}")
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device
@@ -133,7 +134,8 @@ def extend_cache(cfg, cache: Dict[str, torch.Tensor], max_len: int
                  ) -> Dict[str, torch.Tensor]:
     """A prefill cache (k/v over the S prompt positions) copied into a
     zero ``max_len`` decode cache: k/v at offset 0, the recurrent states
-    (conv, h; shift_tm, shift_cm, wkv) as they are."""
+    (conv, h; shift_tm, shift_cm, wkv) and the conditioning k/v (xk, xv)
+    as they are."""
     out = {}
     for key, v in cache.items():
         if key.endswith("/k") or key.endswith("/v"):
@@ -157,24 +159,49 @@ def extend_cache(cfg, cache: Dict[str, torch.Tensor], max_len: int
 
 def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
                   cfg, *, mode: str, positions, cur_len=None, cache=None,
-                  impl: str = "pallas"):
-    """Returns (x, new_cache_or_None). In decode mode ``cache``'s tensors
-    are updated in place."""
+                  cond=None, mrope_positions=None, impl: str = "pallas"):
+    """Returns (x, new_cache_or_None, aux_losses). In decode mode
+    ``cache``'s tensors are updated in place."""
     window = cfg.window if kind == "local" else 0
     new_cache = {}
+    aux = {}
 
     if kind in ATTN_KINDS:
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         a, kv = attn.self_attention(
             pp.subtree(p, "attn"), h, cfg, positions=positions,
             window=window, cur_len=cur_len, impl=impl,
+            mrope_positions=mrope_positions,
             cache=({"k": cache["k"], "v": cache["v"]} if mode == "decode"
                    else None))
         if mode in ("prefill", "decode"):
             new_cache.update(kv)
         x = x + a
+
+        if cfg.cross_attn:
+            hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+            px = pp.subtree(p, "xattn")
+            if mode == "decode" and cond is None:
+                # serving: the conditioning k/v were cached at prefill
+                xk, xv = cache["xk"].to(x.dtype), cache["xv"].to(x.dtype)
+            else:
+                xk, xv = attn.cross_kv(px, cond, cfg)
+                if mode == "decode":
+                    cache["xk"].copy_(xk)
+                    cache["xv"].copy_(xv)
+            if mode == "prefill":
+                new_cache.update({"xk": xk, "xv": xv})
+            elif mode == "decode":
+                new_cache.update({"xk": cache["xk"], "xv": cache["xv"]})
+            x = x + attn.cross_attention(px, hx, xk, xv, cfg,
+                                         decode=mode == "decode", impl=impl)
+
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + mlp(pp.subtree(p, "mlp"), h, cfg)
+        if kind == "moe":
+            y, aux = moe_lib.moe_ffn(pp.subtree(p, "moe"), h, cfg)
+        else:
+            y = mlp(pp.subtree(p, "mlp"), h, cfg)
+        x = x + y
 
     elif kind == "rec":
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -214,40 +241,66 @@ def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
             new_cache.update(state)
 
     else:
-        raise NotImplementedError(f"block kind {kind!r}")
+        raise ValueError(f"block kind {kind!r}")
 
-    return x, (new_cache if new_cache else None)
+    return x, (new_cache if new_cache else None), aux
 
 
 # --------------------------------------------------------------------------
 # full stack
 # --------------------------------------------------------------------------
 
+def _add_aux(acc: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    for k, v in aux.items():
+        acc[k] = acc[k] + v if k in acc else v
+    return acc
+
+
 def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
-            tokens: torch.Tensor, cur_len=None, cache=None,
+            tokens: torch.Tensor = None, embeddings: torch.Tensor = None,
+            cur_len=None, cache=None, cond=None, mrope_positions=None,
             impl: str = "pallas"):
-    """Shared forward. Returns (hidden, new_cache). Decode updates
-    ``cache`` in place and returns it."""
+    """Shared forward. Returns (hidden, new_cache, aux): aux sums each
+    MoE layer's losses over the stack ({} without MoE layers). Decode
+    updates ``cache`` in place and returns it.
+
+    Inputs: ``tokens`` (B, S) int, or ``embeddings`` (B, S, d) for
+    ``cfg.input_kind == "embeddings"``; ``cond`` (B, cond_len, d) for
+    cross-attention (at decode None reads the cached conditioning k/v);
+    ``mrope_positions`` (3, B, S) for M-RoPE, by default the token
+    positions on all three streams (at decode ``cur_len``)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
-    _check(cfg)
     if (mode == "decode") != (cache is not None):
         raise ValueError("decode, and only decode, takes a cache")
-    x = embed_tokens(params, tokens, cfg)
-    b, s = tokens.shape
+    if cfg.input_kind == "tokens":
+        x = embed_tokens(params, tokens, cfg)
+        b, s = tokens.shape
+    else:
+        x = embeddings.to(cfg.torch_dtype)
+        b, s = embeddings.shape[:2]
+    if cfg.cross_attn and cond is None and mode != "decode":
+        raise ValueError("cross-attention needs cond (B, cond_len, d)")
     if mode == "decode":
         positions = torch.full((b, 1), cur_len, dtype=torch.int32,
                                device=x.device)
     else:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
+    if cfg.pos_kind == "mrope" and mrope_positions is None:
+        mrope_positions = positions[None].expand(3, b, positions.shape[1])
 
     new_cache: Dict[str, torch.Tensor] = {}
+    aux: Dict[str, torch.Tensor] = {}
+    kw = dict(mode=mode, positions=positions, cur_len=cur_len, cond=cond,
+              mrope_positions=mrope_positions, impl=impl)
 
     # ---- stacked cycles ----
     per_cycle: Dict[str, List[torch.Tensor]] = {}
 
     def cycle(x, c: int):
+        cyc_aux: Dict[str, torch.Tensor] = {}
         for pos, kind in enumerate(cfg.block_pattern):
             pfx = f"stack/{pos}/{kind}/"
             p = {k[len(pfx):]: v[c] for k, v in params.items()
@@ -256,18 +309,18 @@ def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
             if cache is not None:
                 cc = {k: v[c] for k, v in
                       pp.subtree(cache, f"stack/{pos}").items()}
-            x, nc = block_forward(kind, p, x, cfg, mode=mode,
-                                  positions=positions, cur_len=cur_len,
-                                  cache=cc, impl=impl)
+            x, nc, a = block_forward(kind, p, x, cfg, cache=cc, **kw)
+            _add_aux(cyc_aux, a)
             if mode == "prefill":
                 for kk, vv in nc.items():
                     per_cycle.setdefault(f"stack/{pos}/{kk}", []).append(vv)
-        return x
+        return x, cyc_aux
 
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for c in range(cfg.n_cycles):
-        x = (checkpoint(cycle, x, c, use_reentrant=False) if remat
-             else cycle(x, c))
+        x, a = (checkpoint(cycle, x, c, use_reentrant=False) if remat
+                else cycle(x, c))
+        _add_aux(aux, a)
     if mode == "prefill":
         new_cache.update({k: torch.stack(v) for k, v in per_cycle.items()})
     elif mode == "decode":
@@ -279,15 +332,14 @@ def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
         kind = cfg.block_pattern[i]
         p = pp.subtree(params, f"rem/{i}/{kind}")
         c = pp.subtree(cache, f"rem/{i}") if cache is not None else None
-        x, nc = block_forward(kind, p, x, cfg, mode=mode,
-                              positions=positions, cur_len=cur_len,
-                              cache=c, impl=impl)
+        x, nc, a = block_forward(kind, p, x, cfg, cache=c, **kw)
+        _add_aux(aux, a)
         if nc:
             for kk, vv in nc.items():
                 new_cache[f"rem/{i}/{kk}"] = vv
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, (new_cache if new_cache else None)
+    return x, (new_cache if new_cache else None), aux
 
 
 def logits_from_hidden(params, x, cfg):

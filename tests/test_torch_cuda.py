@@ -1289,3 +1289,156 @@ def test_classical_round_on_the_card_matches_the_plain_route(cuda_device,
     for key, x in agg_x.items():
         scale = float(x.abs().max())
         assert float((agg[key] - x).abs().max()) <= 1e-3 * scale, key
+
+
+# ------------------------------------------- the model zoo's attention shapes
+# (bh, bk, sq, sk, dh, window, causal): the query-per-kv-head groups G and
+# head sizes of the seven architectures the moe kind, M-RoPE,
+# cross-attention and embedding inputs bring in (llama4-scout G = 5,
+# arctic G = 7, gemma3 G = 2 with window 1024, command-r and qwen2-vl G =
+# 8, llama3 G = 16, musicgen G = 1 at dh 64), and musicgen's
+# cross-attention: every query against the conditioning keys, Sk = 256
+# (its cond_len) and a ragged Sk = 200, far fewer keys than queries.
+ZOO_ATTN_CASES = {
+    "llama4-G5": (10, 2, 1100, 1100, 128, 0, True),
+    "arctic-G7": (14, 2, 700, 700, 128, 0, True),
+    "gemma3-G2-window1024": (8, 4, 2100, 2100, 128, 1024, True),
+    "command-r-G8": (16, 2, 1000, 1000, 128, 0, True),
+    "llama3-G16": (32, 2, 600, 600, 128, 0, True),
+    "musicgen-G1-dh64": (8, 8, 1000, 1000, 64, 0, True),
+    "musicgen-cross-Sk256": (8, 8, 4096, 256, 64, 0, False),
+    "cross-Sk200": (8, 8, 1000, 200, 64, 0, False),
+    "cross-G8-Sk200": (16, 2, 300, 200, 128, 0, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ZOO_ATTN_CASES.values()),
+                         ids=list(ZOO_ATTN_CASES))
+def test_bf16_attention_at_the_model_zoo_shapes(cuda_device, case):
+    """The bf16 kernel within one ulp (plus ATTN_TERM_TOL of the terms)
+    of the fp32 function element by element, as the existing shapes;
+    one launch each."""
+    from repro_torch.kernels import flash_attention as kfa
+    bh, bk, sq, sk, dh, window, causal = case
+    gen = torch.Generator().manual_seed(sum(case))
+    q, k, v = _attn_case(gen, bh, bk, sq, sk, dh, torch.bfloat16, cuda_device)
+    kw = dict(causal=causal, window=window)
+    build.reset_launches()
+    got = kfa.flash_attention(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"flash_attention": 1}
+    want = ref.attention_ref(q, k, v, **kw).float()
+    terms = ref.attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    excess = ((got - want).abs() - bf16_ulp(want)).clamp_min(0)
+    assert float((excess - ATTN_TERM_TOL * terms).max()) <= 0.0, case
+    assert float((got != want).float().mean()) <= ATTN_SHARE_DIFFERING, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [ZOO_ATTN_CASES["musicgen-cross-Sk256"],
+                                  ZOO_ATTN_CASES["cross-G8-Sk200"]],
+                         ids=["Sk256", "G8-Sk200"])
+def test_fp32_attention_with_few_keys_not_causal(cuda_device, case):
+    """The fp32-storage kernel (3xTF32) at the cross-attention shapes,
+    which the fp32 budget prefill of musicgen runs: within RTOL of the
+    plain version's scale."""
+    from repro_torch.kernels import flash_attention as kfa
+    bh, bk, sq, sk, dh, window, causal = case
+    gen = torch.Generator().manual_seed(sum(case) + 1)
+    q, k, v = _attn_case(gen, bh, bk, sq, sk, dh, torch.float32, cuda_device)
+    kw = dict(causal=causal, window=window)
+    got = kfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v, **kw)
+    assert float((got - want).abs().max()) <= RTOL * float(want.abs().max())
+
+
+def _moe_case(device, dtype, **over):
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as pp
+    from repro_torch.models.layers import moe
+    cfg = get_config("arctic-480b").reduced(
+        d_model=64, d_ff=128, n_experts=8, top_k=2, capacity_factor=0.5,
+        dtype="float32", **over)
+    ini = pp.Initializer(torch.float32, seed=3)
+    moe.init_moe(ini, "moe", cfg)
+    p = {k: v.to(device, dtype) for k, v in pp.subtree(ini.params,
+                                                        "moe").items()}
+    x = 0.5 * torch.randn((4, 96, 64), generator=torch.Generator()
+                          .manual_seed(4))
+    return cfg, p, x.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [{}, {"shared_expert": True,
+                                       "moe_dense_residual": False}],
+                         ids=["dense-residual", "shared-expert"])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda_device, over):
+    """fp32 (no TF32 in the products): the same experts and kept
+    assignments as the same call on the CPU (capacity factor 0.5 drops
+    some), the output and the aux losses within RTOL of the CPU's
+    scale."""
+    from repro_torch.models.layers import moe
+    cfg, p, x = _moe_case(cuda_device, torch.float32, **over)
+    cpu = {k: v.cpu() for k, v in p.items()}
+    xf = x.reshape(-1, x.shape[-1])
+    _, idx, _ = moe.route(p, xf, cfg)
+    _, idx_cpu, _ = moe.route(cpu, xf.cpu(), cfg)
+    assert torch.equal(idx.cpu(), idx_cpu)
+    cap = moe.capacity(cfg, xf.shape[0])
+    keep, _ = moe.slots(idx, cap, cfg.n_experts)
+    keep_cpu, _ = moe.slots(idx_cpu, cap, cfg.n_experts)
+    assert torch.equal(keep.cpu(), keep_cpu) and not bool(keep_cpu.all())
+    y, aux = moe.moe_ffn(p, x, cfg)
+    y_cpu, aux_cpu = moe.moe_ffn(cpu, x.cpu(), cfg)
+    scale = float(y_cpu.abs().max())
+    assert float((y.cpu() - y_cpu).abs().max()) <= RTOL * scale
+    for key, val in aux_cpu.items():
+        assert abs(float(aux[key]) - float(val)) <= RTOL * abs(float(val))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_gives_the_same_bits_on_repeat(cuda_device, dtype):
+    """Dispatch writes each kept slot once (no atomic sums): repeated
+    calls give the same bits."""
+    from repro_torch.models.layers import moe
+    cfg, p, x = _moe_case(cuda_device, dtype)
+    first, aux = moe.moe_ffn(p, x, cfg)
+    for _ in range(3):
+        again, aux2 = moe.moe_ffn(p, x, cfg)
+        assert torch.equal(first, again)
+        assert all(torch.equal(aux[k], aux2[k]) for k in aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["arctic-480b", "command-r-35b",
+                                  "gemma3-27b", "llama3-405b",
+                                  "llama4-scout-17b-a16e", "musicgen-large",
+                                  "qwen2-vl-72b"])
+def test_model_zoo_prefill_with_kernels_matches_plain(cuda_device, arch):
+    """Each of the seven at ``reduced()`` (fp32), T = 96 (past gemma3's
+    reduced window): one prefill through the kernels against the plain
+    route, the whole-model tolerance of tests/test_torch_archs.py (1e-3
+    of the scale), logits and every cache entry; one attention launch a
+    layer, two with cross-attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.models import Model
+    cfg = get_config(arch).reduced()
+    params = Model(cfg).init(seed=0, device=cuda_device)
+    batch = concrete_batch(cfg, 2, 96, torch.Generator().manual_seed(1),
+                           kind="prefill", device=cuda_device)
+    build.reset_launches()
+    got, cache = Model(cfg).prefill(params, batch)
+    torch.cuda.synchronize()
+    per_layer = 2 if cfg.cross_attn else 1
+    assert dict(build.LAUNCHES) == {"flash_attention":
+                                    per_layer * cfg.n_layers}
+    want, want_cache = Model(cfg, impl="xla").prefill(params, batch)
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert sorted(cache) == sorted(want_cache)
+    for key, w in want_cache.items():
+        assert float((cache[key] - w).abs().max()) <= 1e-3 * float(
+            w.abs().max()), key

@@ -392,19 +392,24 @@ def test_convert_bfloat16_and_checks():
 
 # ---------------------------------------------------------------- configs
 def test_config_registry():
+    """The port's registry is the reference's, config for config (and
+    each ``reduced()`` too)."""
     from repro_torch import configs
     from repro.configs import REGISTRY as JREG
+    from repro.configs import get_config as jget
+    assert sorted(configs.REGISTRY) == sorted(JREG)
+    for name, jcfg in JREG.items():
+        mine = configs.get_config(name)
+        assert dataclasses.asdict(mine) == dataclasses.asdict(jcfg), name
+        assert dataclasses.asdict(mine.reduced()) == dataclasses.asdict(
+            jget(name).reduced()), name
+        assert Model(mine).num_params() == JModel(jcfg).num_params(), name
     cfg = configs.get_config(ARCH)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(JREG[ARCH])
     assert cfg.torch_dtype == torch.bfloat16
     assert cfg.reduced().torch_dtype == torch.float32
     assert dataclasses.asdict(cfg.reduced(n_layers=5)) == dataclasses.asdict(
         JREG[ARCH].reduced(n_layers=5))
-    unported = [name for name in JREG if name not in configs.REGISTRY]
-    assert unported and ARCH not in unported
-    for name in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs.get_config(name)
+    assert not hasattr(configs, "NOT_PORTED")
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
     shape = configs.INPUT_SHAPES["prefill_32k"]
@@ -427,14 +432,26 @@ def test_concrete_batch(kind):
 
 
 def test_unported_paths_raise():
+    """What the port refuses: an unknown block kind, the score softcap on
+    the kernel route (the attention kernel has none), per-slot decode
+    positions (the serving scheduler's), an unknown impl, and a param
+    whose axes do not match its shape."""
     cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(dataclasses.replace(cfg, block_pattern=("moe",))).init(
+    with pytest.raises(ValueError, match="block kind"):
+        Model(dataclasses.replace(cfg, block_pattern=("ssm",))).init(
             device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="softcap"):
         attn.self_attention({}, torch.zeros(1, 2, 256),
                             dataclasses.replace(cfg, logit_softcap=30.0),
                             positions=torch.zeros(1, 2, dtype=torch.int32))
+    p = Model(cfg).init(device="cpu")
+    sub = pp.subtree(p, "stack/2/local/attn")
+    cache = attn.init_cache(cfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="per-slot"):
+        attn.self_attention({k: v[0] for k, v in sub.items()},
+                            torch.zeros(1, 1, 256), cfg,
+                            positions=torch.zeros(1, 1, dtype=torch.int32),
+                            cache=cache, cur_len=torch.tensor([1]))
     with pytest.raises(ValueError, match="impl"):
         Model(cfg, impl="triton")
     with pytest.raises(ValueError):
