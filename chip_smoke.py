@@ -6,6 +6,7 @@
     python3 chip_smoke.py --time-seq [--src DIR]
     python3 chip_smoke.py --time-serve
     python3 chip_smoke.py --train-probe
+    python3 chip_smoke.py --nan-check [--src DIR]
 
 Runs on cuda:0 only; without a CUDA device, or outside a checkout of the
 repository, it exits non-zero before printing any result. Phases:
@@ -215,7 +216,39 @@ repository, it exits non-zero before printing any result. Phases:
    within KERNEL_RTOL), timed beside it and SDPA with its bound; ragged
    zoo shapes (G = 5, 7, 2 with window 1024, 8, 16, 1 at dh 64; not
    causal with Sk = 256 and 200); prefill ms, decode ms/token, peak GiB
-   and seconds an arch.
+   and seconds an arch;
+14. continuous batching: (a) Qwen1.5-4B (40 layers) and RecurrentGemma-2B
+   (26) at published width and depth, bf16, seed-0 weights at
+   ``condition_``'s scale, through ``serving.ContinuousBatcher``: 4 slots,
+   max_len 256, 6 requests (prompt lengths 8-32 and budgets 4-12 from a
+   seed; request 2's eos_id the third token of its solo run, so it ends
+   early; six through four slots, so slots are reused; the slot holders
+   printed by tick; the kernel launches of the batched run counted: decode
+   runs none). Gates: each request's tokens and per-step logits equal,
+   bit for bit, its run alone through a 4-slot batcher (else within
+   BF16_RTOL of the scale, the deviation printed); each request's logits
+   within BATCH_BF16_FACTOR x its bf16 budget of its B = 1 bf16 decode of
+   the same tokens (the budget: that decode against the B = 1 fp32 one);
+   and a control that must fail each: RecurrentGemma's idle slots not
+   frozen (the first gate), Qwen's slots all decoding at one shared
+   position, the int path at max(cur) (the second). Reports ticks,
+   ms/tick, ms a slot step by active slots (CUDA events) beside phase 5's
+   decode ms/token, generated tokens/s over ``run_until_drained``, a
+   profiled 4-slot tick's busy share, peak GiB and seconds. (b) the
+   system loop: ``launch/train.py --scale smoke`` recurrentgemma-2b on the
+   card, ``--steps 4 --ckpt A``, then ``--restore A --steps 6 --ckpt B``
+   (checkpoints under the gitignored ``build/``), each run's
+   flash_attention, flash_attention_bwd and rglru_scan launches counted
+   (zeroed before, read after; each must be non-zero), A and B read back
+   bit for bit as the params the trainer held, and the batcher on the
+   restored B giving the tokens and logits, bit for bit, of the batcher on
+   the params in memory.
+
+Phase 5's fp32-storage attention row also plants NaNs (``nan_rows_check``:
+torch's 0x7fc00000, the card's 0x7fffffff and 0xffffffff) in q, k and v
+for the forward and in q, k, v and dO for the backward: every row a NaN
+reaches by the attention's data flow must be NaN in the kernels' outputs,
+and no row the plain version keeps finite.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape: each kernel at the main path's most frequent shape (launches of
@@ -247,8 +280,11 @@ prefills' shapes and for the fp32-storage attention forward (the
 RecurrentGemma-2B prefill's shape) and backward (phase 11's) (see
 ``time_seq``). ``--time-serve`` builds the kernels
 and runs bench_serve.py's 10,000-tenant cell alone (see ``time_serve``).
-``--train-probe`` builds the kernels and runs phase 11's model and
-batch at other learning rates and clips, without gates (see
+``--nan-check`` runs ``nan_rows_check`` alone at phase 5's fp32
+attention shape on seeded unit-scale inputs for the port under ``--src``
+(see ``nan_check``). ``--train-probe`` builds the kernels and runs
+phase 11's model and batch at other learning rates and clips, without
+gates (see
 ``train_probe``). ``--time-attn-bwd`` builds the kernels and times the
 bf16 attention backward alone at phase 11's shape under several splits
 of the query heads, with its host and per-pass device time (see
@@ -1298,6 +1334,111 @@ def fp64_excess(got, exact, terms, smax):
     return float((err - bound * terms).max()), share
 
 
+# NaN bit patterns planted in the fp32 attention's inputs: torch's NaN,
+# the NaN the card's arithmetic makes, and that one negated
+NAN_BITS = (0x7fc00000, 0x7fffffff, -1)
+
+
+def nan_of(bits, device):
+    """The fp32 value of the 32-bit pattern ``bits`` (as an int32)."""
+    import torch
+    return torch.tensor(bits, dtype=torch.int32, device=device).view(
+        torch.float32)
+
+
+def nan_reach(q, k, v, *, causal, window, o=None, do=None, lse=None):
+    """Where the NaNs in the inputs must reach the attention function's
+    outputs, by its data flow over the allowed pairs (a NaN that only meets
+    a masked pair reaches nothing, whatever 0 x NaN a plain version makes
+    of it). Forward (``do`` None): the (BH, Sq) rows of the output. With
+    ``do``, ``o`` and ``lse``: the rows of dq (BH, Sq), dk and dv (BK,
+    Sk): P_ij = exp(s_ij - lse_i) carries q_i, k_j, lse_i; dS_ij = P_ij
+    (dO_i . v_j - D_i) with D_i = dO_i . o_i adds dO_i, v_j, o_i; dq_i sums
+    dS_i. k, dk_j sums dS_.j q over the group's query heads, dv_j sums
+    P_.j dO."""
+    import torch
+    from repro_torch.kernels import ref
+    bh, sq = q.shape[:2]
+    bk, sk = k.shape[:2]
+    g = bh // bk
+    m = ref.attention_mask(sq, sk, causal, window, q.device).float()
+
+    def rows(x):
+        return torch.isnan(x).reshape(x.shape[0], x.shape[1], -1).any(-1)
+
+    def any_allowed(ai, bj):
+        """Per query head h: row i is reached when some allowed j has
+        ai[h, i] or bj[h // g, j]; returns (BH, Sq) and, through the
+        transpose, per kv head (BK, Sk) the keys some allowed i reaches."""
+        bjh = bj.repeat_interleave(g, 0).float()          # (BH, Sk)
+        by_row = (ai & (m.sum(1) > 0)) | (bjh @ m.T > 0)
+        by_key = ((bj.repeat_interleave(g, 0) & (m.sum(0) > 0))
+                  | (ai.float() @ m > 0)).view(bk, g, sk).any(1)
+        return by_row, by_key
+
+    nq, nk, nv = rows(q), rows(k), rows(v)
+    if do is None:
+        return any_allowed(nq, nk | nv)[0]
+    nl = torch.isnan(lse)
+    dq, dk = any_allowed(nq | nl | rows(do) | rows(o), nk | nv)
+    dv = any_allowed(nq | nl | rows(do), nk)[1]
+    return dq, dk, dv
+
+
+def plant_nans(tensors, spots, bits):
+    """Copies of ``tensors`` with the pattern ``bits`` at each (tensor
+    index, head, row, column) of ``spots``."""
+    out = [t.clone() for t in tensors]
+    for i, h, r, c in spots:
+        out[i][h, r, c] = nan_of(bits, out[i].device)
+    return out
+
+
+def nan_rows_check(q, k, v, kw, label):
+    """A NaN planted in q, k and v (forward) and in q, k, v and dO
+    (backward) of the fp32 attention at the given heads-major inputs, for
+    each pattern of NAN_BITS: the kernels' outputs must be NaN in every
+    row the NaN reaches (``nan_reach``) and in no row the plain version
+    keeps finite. Prints the row counts; returns False on a miss."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    bh, sq, dh = q.shape
+    bk, sk = k.shape[:2]
+    g = bh // bk
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    do = torch.randn(q.shape, generator=gen).to(q.device)
+    # q in the last group's first head; k, v and dO in other groups
+    spots = [(0, (bk - 1) * g, sq - 1, 7), (1, 0, sk // 4, 5),
+             (2, min(1, bk - 1), sk // 2, 9), (3, bh // 2 + 1, sq // 3, 3)]
+    ok = True
+    for bits in NAN_BITS:
+        pq, pk, pv, pdo = plant_nans((q, k, v, do), spots, bits)
+        want_o, want_lse = ref.attention_ref(pq, pk, pv, return_lse=True,
+                                             **kw)
+        got = kfa.flash_attention(pq, pk, pv, **kw)
+        grads = kfa.flash_attention_bwd(pq, pk, pv, want_o, pdo,
+                                        lse=want_lse, **kw)
+        plain = ref.attention_bwd_ref(pq, pk, pv, want_o, pdo, lse=want_lse,
+                                      **kw)
+        reach = ((nan_reach(pq, pk, pv, **kw),)
+                 + nan_reach(pq, pk, pv, o=want_o, do=pdo, lse=want_lse,
+                             **kw))
+        line = []
+        for name, kern, pl, need in zip(("out", "dq", "dk", "dv"),
+                                        (got,) + grads, (want_o,) + plain,
+                                        reach):
+            kr, pr = (torch.isnan(x).any(-1) for x in (kern, pl))
+            hit = bool((kr | ~need).all()) and bool((~kr | pr).all())
+            ok &= hit
+            line.append(f"{name} {int(need.sum())}/{int(kr.sum())}/"
+                        f"{int(pr.sum())}{'' if hit else ' MISS'}")
+        say(f"  {label} NaN 0x{bits & 0xffffffff:08x} in q, k, v, dO: rows "
+            f"reached/kernel/plain: {', '.join(line)}")
+        del pq, pk, pv, pdo, want_o, want_lse, got, grads, plain
+    return ok
+
+
 def fp32_attention_row(q, k, v, kw, mask, flops, cell):
     """The fp32-storage attention (``csrc/flash_attention.cu``, 3xTF32
     on the tensor cores: its design read from the machine code, a gate)
@@ -1363,6 +1504,9 @@ def fp32_attention_row(q, k, v, kw, mask, flops, cell):
     if not (ok and ok_unit):
         raise RuntimeError("the fp32 attention disagrees with its plain "
                            "version or with the fp64 function")
+    if not nan_rows_check(qf, kf, vf, kw, f"{name:16s} fp32"):
+        raise RuntimeError("a NaN in the fp32 attention's inputs does not "
+                           "reach the rows it reaches in the function")
     b, sq, h, dh = q.shape
 
     def lib():
@@ -1874,6 +2018,7 @@ def decode_run(cfg, model, params, batch, logits, cache, n_gen):
     end.record()
     torch.cuda.synchronize()
     decode_ms = start.elapsed_time(end) / n_gen
+    DECODE_MS[cfg.name] = decode_ms
     gen = torch.stack(tokens, 1)
     say(f"  decode {decode_ms:.3f} ms/token over {n_gen} steps (CUDA "
         f"events, batch {b}: {b / decode_ms * 1e3:,.0f} tokens/s); sample "
@@ -4743,6 +4888,399 @@ def phase_archs(device="cuda"):
     return rows
 
 
+# ------------------------------------------ phase 14: continuous batching
+BATCH_ARCHS = ("qwen1.5-4b", "recurrentgemma-2b")
+BATCH_SLOTS, BATCH_MAX_LEN, BATCH_N = 4, 256, 6
+BATCH_PROMPT_LENS, BATCH_BUDGETS = (8, 32), (4, 12)
+# the request whose eos_id is the third token of its solo run
+BATCH_EOS_UID = 2
+# the controls run the first requests only (two overlap in the slots)
+BATCH_CONTROL_N = 3
+# a request's batched bf16 logits against its B = 1 bf16 decode of the
+# same tokens: at most this many times its bf16 budget (the B = 1 bf16
+# logits' distance from the B = 1 fp32 ones), ZOO_BF16_FACTOR's reasoning
+BATCH_BF16_FACTOR = 2
+# phase 5's decode ms/token by config name (printed beside phase 14's)
+DECODE_MS = {}
+# the kernels the system loop's training must launch
+LOOP_KERNELS = ("flash_attention", "flash_attention_bwd", "rglru_scan")
+
+
+def batch_requests(vocab, n=BATCH_N, seed=0):
+    """n (prompt, budget) pairs from ``seed``: prompt lengths and budgets
+    uniform in BATCH_PROMPT_LENS and BATCH_BUDGETS, tokens in the vocab."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(BATCH_PROMPT_LENS[0], BATCH_PROMPT_LENS[1] + 1, n)
+    budgets = rng.integers(BATCH_BUDGETS[0], BATCH_BUDGETS[1] + 1, n)
+    return [(rng.integers(0, vocab, int(k)).astype(np.int32), int(m))
+            for k, m in zip(lens, budgets)]
+
+
+def keep_logits(b):
+    """Wrap the batcher ``b``'s step function to keep, for each request,
+    the (V,) logits of every step its slot was active in (prompt steps
+    included), in order; returns that dict (uid -> list), which fills as
+    ``b`` runs."""
+    import numpy as np
+    kept = {}
+    step_fn = b.step_fn
+
+    def step(*args):
+        out = step_fn(*args)
+        for i in np.flatnonzero(args[-1]):
+            kept.setdefault(b.slots[i].uid, []).append(out[1][i].clone())
+        return out
+
+    b.step_fn = step
+    return kept
+
+
+def run_batcher(model, params, reqs, eos=None, device="cuda"):
+    """``reqs`` through a BATCH_SLOTS-slot ``ContinuousBatcher`` (``eos``
+    maps a uid to its eos_id). Returns the batcher and its record: each
+    request's per-step logits (``keep_logits``), each slot step's CUDA
+    events and active count, each tick's slot holders, the wall seconds
+    of ``run_until_drained``."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import ContinuousBatcher, Request
+    b = ContinuousBatcher(model, params, n_slots=BATCH_SLOTS,
+                          max_len=BATCH_MAX_LEN, device=device)
+    for uid, (prompt, budget) in enumerate(reqs):
+        b.submit(Request(uid=uid, prompt=prompt, max_new_tokens=budget,
+                         eos_id=(eos or {}).get(uid, -1)))
+    rec = dict(steps=[], ticks=[], holders=None, logits=keep_logits(b))
+    step_fn, tick = b.step_fn, b.step
+
+    def timed_step(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn(*args)
+        end.record()
+        rec["steps"].append((start, end, int(np.sum(args[-1]))))
+        rec["holders"] = tuple(None if r is None else r.uid for r in b.slots)
+        return out
+
+    def logged_tick():
+        n = tick()
+        rec["ticks"].append(rec["holders"])
+        return n
+
+    b.step_fn, b.step = timed_step, logged_tick
+    t0 = time.time()
+    b.run_until_drained()
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.time() - t0
+    return b, rec
+
+
+def slot_map(ticks):
+    """Which request held each slot in each tick, as runs of ticks."""
+    runs = []
+    for i, holders in enumerate(ticks, 1):
+        if runs and runs[-1][2] == holders:
+            runs[-1][1] = i
+        else:
+            runs.append([i, i, holders])
+    return "; ".join(
+        f"{a}{'' if a == z else f'-{z}'}: "
+        + " ".join("--" if u is None else f"r{u}" for u in h)
+        for a, z, h in runs)
+
+
+def expected_run(solo, prompt, eos_id):
+    """A request's solo tokens and logits (``solo``: its request and
+    logits from its run alone), cut after the first eos_id."""
+    req, logits = solo
+    toks = req.generated
+    if eos_id >= 0 and eos_id in toks:
+        toks = toks[:toks.index(eos_id) + 1]
+        logits = logits[:len(prompt) + len(toks) - 1]
+    return toks, logits
+
+
+def alone_vs_batched(b, rec, solos, reqs, eos, label):
+    """Gate 1: each request's tokens and per-step logits in the batched
+    run (``b``, ``rec`` from ``run_batcher``) against its run alone
+    through a BATCH_SLOTS-slot batcher (the other slots idle): bit for
+    bit, or else within BF16_RTOL of the logits' scale. Returns (passed,
+    bit for bit, largest deviation)."""
+    import torch
+    worst, exact, toks_ok = 0.0, True, True
+    for uid, (prompt, _) in enumerate(reqs):
+        got, kept = b.completed[uid], rec["logits"][uid]
+        toks, logits = expected_run(solos[uid], prompt,
+                                    eos.get(uid, -1))
+        toks_ok &= got.generated == toks
+        n = min(len(kept), len(logits))
+        g, w = torch.stack(kept[:n]), torch.stack(logits[:n])
+        exact &= len(kept) == len(logits) and torch.equal(g, w)
+        worst = max(worst, logit_dev(g, w))
+    ok = toks_ok and (exact or worst <= BF16_RTOL)
+    say(f"  {label}: tokens {'equal' if toks_ok else 'DIFFER'}, logits "
+        f"{'bit for bit' if exact else f'{worst:.3e} of their scale'} "
+        f"(limit: bit for bit, else {BF16_RTOL:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, exact, worst
+
+
+def b1_logits(model, params, seq, device="cuda"):
+    """Teacher-forced B = 1 decode of ``seq`` through
+    ``Model.decode_step`` (int positions): the (len(seq), V) fp32
+    logits."""
+    import torch
+    cache = model.init_cache(1, BATCH_MAX_LEN, device=device)
+    out = []
+    with torch.no_grad():
+        for t, tok in enumerate(seq):
+            logits, cache = model.decode_step(
+                params, {"tokens": torch.tensor([[int(tok)]], device=device)},
+                cache, t)
+            out.append(logits[0].float())
+    return torch.stack(out)
+
+
+def b1_gate(model, params, b, rec, reqs, device="cuda"):
+    """Gate 2: each request's batched logits (``b``, ``rec`` from
+    ``run_batcher``) against the B = 1 decode of its prompt and generated
+    tokens; returns the deviations (share of the B = 1 logits' scale) and
+    the B = 1 logits, by uid."""
+    import torch
+    devs, b1 = {}, {}
+    for uid, (prompt, _) in enumerate(reqs):
+        seq = list(prompt) + b.completed[uid].generated[:-1]
+        b1[uid] = b1_logits(model, params, seq, device)
+        devs[uid] = logit_dev(torch.stack(rec["logits"][uid]), b1[uid])
+    return devs, b1
+
+
+def busy_tick(model, params, vocab, device="cuda"):
+    """Profile one tick with every slot decoding (the queue empty)."""
+    import numpy as np
+    from repro_torch.serving import ContinuousBatcher, Request
+    b = ContinuousBatcher(model, params, n_slots=BATCH_SLOTS,
+                          max_len=BATCH_MAX_LEN, device=device)
+    rng = np.random.default_rng(9)
+    for uid in range(BATCH_SLOTS):
+        b.submit(Request(uid=uid, prompt=rng.integers(0, vocab, 2).astype(
+            np.int32), max_new_tokens=8))
+    b.step()                        # admits all four, decodes once
+    b.step()                        # warm
+    profile_device(f"one tick, {BATCH_SLOTS} slots decoding",
+                   lambda: b.step())
+
+
+def batch_arch(arch, device="cuda"):
+    """Phase 14(a) for one arch at published width and depth, bf16, seed-0
+    weights at ``condition_``'s scale."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import Model
+    from repro_torch.serving import scheduler
+    t0 = time.time()
+    cfg = get_config(arch)
+    say(f"== phase 14: {cfg.name} continuous batching ({cfg.n_layers} layers "
+        f"{cfg.block_pattern}, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.dtype}): "
+        f"{BATCH_SLOTS} slots, max_len {BATCH_MAX_LEN}, {BATCH_N} requests")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    params = model.init(seed=0, device=device)
+    condition_(params)
+    reqs = batch_requests(cfg.vocab_size)
+    say(f"  requests (prompt tokens, budget): "
+        f"{[(len(p), m) for p, m in reqs]}")
+    solos = []
+    for r in reqs:
+        sb, srec = run_batcher(model, params, [r], device=device)
+        solos.append((sb.completed[0], srec["logits"][0]))
+    first = solos[BATCH_EOS_UID][0].generated
+    eos = {BATCH_EOS_UID: first[2]}
+    say(f"  request r{BATCH_EOS_UID}'s eos_id: {eos[BATCH_EOS_UID]}, the "
+        f"third token of its solo run {first}")
+    build.reset_launches()
+    b, rec = run_batcher(model, params, reqs, eos, device)
+    launches = dict(build.LAUNCHES)
+    say(f"  slot holders by tick: {slot_map(rec['ticks'])}")
+    say(f"  kernel launches in the batched run: {launches} (decode runs "
+        f"no hand-written kernel, as in the reference)")
+    cut = b.completed[BATCH_EOS_UID]
+    if len(cut.generated) >= reqs[BATCH_EOS_UID][1] \
+            or cut.generated[-1] != eos[BATCH_EOS_UID]:
+        raise RuntimeError(f"r{BATCH_EOS_UID} did not end at its eos_id: "
+                           f"{cut.generated}")
+    if max(u for h in rec["ticks"] for u in h if u is not None) \
+            < BATCH_SLOTS:
+        raise RuntimeError("no slot was reused")
+    ok1, _, _ = alone_vs_batched(b, rec, solos, reqs, eos,
+                                 "alone vs batched, each request")
+
+    devs, b1 = b1_gate(model, params, b, rec, reqs, device=device)
+    p32 = {k: v.float() for k, v in params.items()}
+    m32 = Model(fp32_cfg(cfg))
+    budgets = {}
+    for uid, (prompt, _) in enumerate(reqs):
+        seq = list(prompt) + b.completed[uid].generated[:-1]
+        budgets[uid] = logit_dev(b1[uid], b1_logits(m32, p32, seq, device))
+    del p32, b1
+    torch.cuda.empty_cache()
+    ok2 = all(devs[u] <= BATCH_BF16_FACTOR * budgets[u] for u in devs)
+    for uid in devs:
+        say(f"    r{uid}: batched vs B = 1 bf16 {devs[uid]:.3e} of the "
+            f"scale, bf16 budget {budgets[uid]:.3e} (B = 1 bf16 vs fp32), "
+            f"{devs[uid] / budgets[uid]:.3f}x")
+    say(f"  B = 1 oracle: batched within {BATCH_BF16_FACTOR}x each "
+        f"request's bf16 budget {'ok' if ok2 else 'FAIL'}")
+
+    ctl = reqs[:BATCH_CONTROL_N]
+    if arch == "recurrentgemma-2b":
+        orig = scheduler.snapshot_idle
+        scheduler.snapshot_idle = lambda *a: []
+        try:
+            cb, crec = run_batcher(model, params, ctl, device=device)
+        finally:
+            scheduler.snapshot_idle = orig
+        c_ok, _, c_dev = alone_vs_batched(
+            cb, crec, solos, ctl, {}, "control, idle slots not frozen")
+        control_failed = not c_ok
+    else:
+        shared = Model.decode_step
+        model.decode_step = lambda p, bt, c, cur: shared(
+            model, p, bt, c, int(cur.max()))
+        try:
+            cb, crec = run_batcher(model, params, ctl, device=device)
+        finally:
+            del model.decode_step
+        c_devs, _ = b1_gate(model, params, cb, crec, ctl, device=device)
+        limit = BATCH_BF16_FACTOR * max(budgets.values())
+        control_failed = max(c_devs.values()) > limit
+        say(f"  control, every slot at one shared position (max(cur)): "
+            f"batched vs B = 1 bf16 up to {max(c_devs.values()):.3e} of the "
+            f"scale (limit {limit:.3e}, the largest budget x "
+            f"{BATCH_BF16_FACTOR}) {'FAIL (as it must)' if control_failed else 'passes'}")
+    if not control_failed:
+        raise RuntimeError("the control passed the gate it must fail")
+    if not (ok1 and ok2):
+        raise RuntimeError("the batcher disagrees with its solo runs or "
+                           "with the B = 1 decode")
+
+    per = {}
+    for start, end, n in rec["steps"]:
+        per.setdefault(n, []).append(start.elapsed_time(end))
+    n_gen = sum(len(r.generated) for r in b.completed.values())
+    ticks = len(rec["ticks"])
+    steps_ms = sum(sum(v) for v in per.values())
+    say(f"  {ticks} ticks, {b.steps_run} slot steps in "
+        f"{rec['wall_s'] * 1e3:.1f} ms: {rec['wall_s'] * 1e3 / ticks:.3f} "
+        f"ms/tick, {steps_ms / b.steps_run:.3f} ms a slot step (CUDA events),"
+        f" {n_gen} tokens generated, {n_gen / rec['wall_s']:.2f} tokens/s")
+    for n in sorted(per):
+        say(f"    steps with {n} of {BATCH_SLOTS} slots active: {len(per[n])}"
+            f", {sum(per[n]) / len(per[n]):.3f} ms each")
+    full = per.get(BATCH_SLOTS)
+    say(f"  B = {BATCH_SLOTS} decode: "
+        f"{'n/a' if not full else f'{sum(full) / len(full):.3f}'} ms a step;"
+        f" phase 5's decode (B = 4, after a 4096-token prefill): "
+        + (f"{DECODE_MS[cfg.name]:.3f} ms/token" if cfg.name in DECODE_MS
+           else "not run"))
+    busy_tick(model, params, cfg.vocab_size, device)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"  peak {peak:.2f} GiB; {cfg.name}: {time.time() - t0:.1f} s")
+    del params, b, solos
+    torch.cuda.empty_cache()
+
+
+def system_loop(device="cuda"):
+    """Phase 14(b): launch/train.py at --scale smoke on the card with
+    --ckpt A, then --restore A --ckpt B; both checkpoints read back bit
+    for bit, the training's kernel launches counted, and the batcher on
+    the restored B against the batcher on the params the trainer held."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatcher, Request
+    say("== phase 14: system loop, recurrentgemma-2b --scale smoke: train "
+        "--ckpt, --restore, serve")
+    d = ROOT / "build" / "phase14"
+    d.mkdir(parents=True, exist_ok=True)
+    paths = [str(d / "a.npz"), str(d / "b.npz")]
+    common = ["--arch", "recurrentgemma-2b", "--scale", "smoke",
+              "--log-every", "2", "--device", device]
+    saved = []
+    save = ckpt.save
+
+    def saving(path, params, **kw):
+        saved.append({k: v.clone() for k, v in params.items()})
+        return save(path, params, **kw)
+
+    runs = (["--steps", "4", "--ckpt", paths[0]],
+            ["--steps", "6", "--restore", paths[0], "--ckpt", paths[1]])
+    ckpt.save = saving
+    try:
+        for argv in runs:
+            build.reset_launches()
+            loss = train.main(common + argv)
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+            shown = " ".join(Path(a).name for a in argv)
+            say(f"  train {shown}: loss {loss:.4f}, launches {launches}")
+            for name in LOOP_KERNELS:
+                if not launches.get(name):
+                    raise RuntimeError(f"the training launched no {name}")
+    finally:
+        ckpt.save = save
+    for path, held in zip(paths, saved):
+        back, meta = ckpt.restore(path, device=device)
+        same = sorted(back) == sorted(held) and all(
+            back[k].dtype == held[k].dtype and torch.equal(back[k], held[k])
+            for k in held)
+        say(f"  {Path(path).name} (step {meta['step']}): restored "
+            f"{'bit for bit' if same else 'DIFFERS'}")
+        if not same:
+            raise RuntimeError(f"{path} does not restore what was saved")
+    cfg = get_config("recurrentgemma-2b").reduced()
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+            for n, m in ((5, 6), (9, 4), (3, 8))]
+    served = []
+    for params in (ckpt.restore(paths[1], device=device)[0], saved[1]):
+        b = ContinuousBatcher(Model(cfg), params, n_slots=2, max_len=32,
+                              device=device)
+        kept = keep_logits(b)
+        for uid, (p, m) in enumerate(reqs):
+            b.submit(Request(uid=uid, prompt=p, max_new_tokens=m))
+        b.run_until_drained()
+        served.append({u: (r.generated, torch.stack(kept[u]))
+                       for u, r in b.completed.items()})
+    same = served[0].keys() == served[1].keys() and all(
+        served[0][u][0] == served[1][u][0]
+        and torch.equal(served[0][u][1], served[1][u][1]) for u in served[1])
+    say(f"  the batcher on the restored B vs on the params in memory: "
+        f"{'same tokens and logits, bit for bit' if same else 'DIFFER'} "
+        f"({[served[1][u][0] for u in sorted(served[1])]})")
+    if not same:
+        raise RuntimeError("serving the restored params differs")
+
+
+def phase_batching(device="cuda"):
+    """Phase 14: continuous batching at published width, then the system
+    loop."""
+    t0 = time.time()
+    for arch in BATCH_ARCHS:
+        batch_arch(arch, device)
+    system_loop(device)
+    say(f"  card during phase 14: "
+        f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    say(f"  phase 14: {time.time() - t0:.1f} s")
+
+
 # ------------------------------------------------------ --train-probe
 # (peak lr, grad_clip) settings of phase 11's model, batch and optimizer
 PROBE_SETTINGS = ((1e-3, 1.0), (1e-3, 0.0), (1e-2, 1.0))
@@ -5003,6 +5541,26 @@ def time_seq(trials=5):
     return 0
 
 
+def nan_check():
+    """``--nan-check``: ``nan_rows_check`` alone, at phase 5's fp32
+    attention shape (q (40, 4096, 256), kv (4, 4096, 256), causal, window
+    2048) on seeded unit-scale inputs, for the port under ``--src``; one
+    JSON line. Exits 1 when a NaN misses a row it reaches."""
+    import torch
+    from repro_torch.kernels import build
+    g = torch.Generator(device="cpu").manual_seed(21)
+    q, k, v = (torch.randn(shape, generator=g).cuda() for shape in (
+        (SERVE_B * 10, SERVE_S, 256), (SERVE_B, SERVE_S, 256),
+        (SERVE_B, SERVE_S, 256)))
+    ok = nan_rows_check(q, k, v, dict(causal=True, window=2048),
+                        "flash_attention fp32")
+    print(json.dumps({"src": str(build.__file__).rsplit("/repro_torch/",
+                                                        1)[0],
+                      "nan_rows_ok": ok, "card": smi("name,power.limit")}),
+          flush=True)
+    return 0 if ok else 1
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5018,6 +5576,8 @@ def main() -> int:
         return time_quantum()
     if "--time-seq" in sys.argv:
         return time_seq()
+    if "--nan-check" in sys.argv:
+        return nan_check()
     if "--time-serve" in sys.argv:
         phase_build()
         return time_serve()
@@ -5043,6 +5603,7 @@ def main() -> int:
     rows += phase_train()
     rows += phase_fed()
     rows += phase_archs()
+    phase_batching()
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -43,7 +43,8 @@
 // and its operands would have to sit split in shared memory, twice the
 // tiles; mma.sync takes hand-loaded fragments, split in registers as they
 // are loaded (split_finite: four instructions a value where cvt.rna's
-// inf and NaN check makes seven). Every tile stays in its row layout
+// inf and NaN check makes seven; split's seven, to keep a NaN, in a call
+// whose inputs hold one). Every tile stays in its row layout
 // (attention_tf32.cuh): K^T is read in place for Q K^T, P goes from the S
 // accumulator straight into the A operand of P V with the key order of
 // each k-step permuted, and V's rows are read in the same order. Nothing
@@ -98,12 +99,12 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * static_cast<size_t>(kBQ + 2 * kBK) * pitch<D>();
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out,
-             float* __restrict__ lse, int group, int sq, int sk, int causal,
-             int window) {
+template <int D, bool kNaN>
+__device__ __forceinline__ void flash_body(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int group, int sq, int sk, int causal,
+    int window) {
   constexpr int kP = pitch<D>();
   constexpr int kN = D / 8;        // n-tiles of O
   extern __shared__ __align__(16) float smem[];
@@ -150,7 +151,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // S = Q K^T: rows of the warp x the tile's 32 keys (4 n-tiles)
     float s[4][4];
-    dot_rows<D, 4>(s, qw, ks, kP, g, t);
+    dot_rows<D, 4, kNaN>(s, qw, ks, kP, g, t);
     __syncthreads();      // every warp is done with K(tile)
     if (tile < t_hi) stage_rows<D, kThreads>(ks, kP, kb, k0 + kBK, kBK, sk);
     cp_async_commit();
@@ -189,12 +190,12 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // P as the A operand of P V, k-steps of 8 keys
     Frag pa[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) pa[j] = a_acc(s[j]);
+    for (int j = 0; j < 4; ++j) pa[j] = a_acc<kNaN>(s[j]);
 
     cp_async_wait<1>();   // V(tile) is in; K(tile + 1) may be in flight
     __syncthreads();
     // O = alpha O + P V
-    acc_pairs<D, 4>(o, pa, alpha, vs, kP, g, t);
+    acc_pairs<D, 4, kNaN>(o, pa, alpha, vs, kP, g, t);
     __syncthreads();      // every warp is done with V(tile)
     if (tile < t_hi) stage_rows<D, kThreads>(vs, kP, vb, k0 + kBK, kBK, sk);
     cp_async_commit();
@@ -219,41 +220,75 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// Both splits are launched, each built alone (the four-instruction one
+// keeps its registers and its time); the one *nan_flag (scan_nans) does
+// not pick returns at once.
+template <int D, bool kNaN>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out,
+             float* __restrict__ lse, const int* __restrict__ nan_flag,
+             int group, int sq, int sk, int causal, int window) {
+  if ((*nan_flag != 0) != kNaN) return;
+  flash_body<D, kNaN>(q, k, v, out, lse, group, sq, sk, causal, window);
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int bh, int group, int sq, int sk, int causal, int window,
-           void* stream) {
+           void* nan_flag, int bh, int group, int sq, int sk, int causal,
+           int window, void* stream) {
   const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const void* kernels[2] = {
+      reinterpret_cast<const void*>(flash_kernel<D, false>),
+      reinterpret_cast<const void*>(flash_kernel<D, true>)};
+  for (const void* fn : kernels) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* inputs[3] = {static_cast<const float*>(q),
+                            static_cast<const float*>(k),
+                            static_cast<const float*>(v)};
+  const size_t sizes[3] = {static_cast<size_t>(bh) * sq * D,
+                           static_cast<size_t>(bh / group) * sk * D,
+                           static_cast<size_t>(bh / group) * sk * D};
+  cudaError_t err = scan_nans(inputs, sizes, 3,
+                              static_cast<int*>(nan_flag), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_kernel<D><<<grid, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  flash_kernel<D, false><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), group, sq, sk, causal, window);
+      static_cast<float*>(lse), static_cast<const int*>(nan_flag), group,
+      sq, sk, causal, window);
+  flash_kernel<D, true><<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), static_cast<const int*>(nan_flag), group,
+      sq, sk, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_dh(const void* q, const void* k, const void* v, void* out,
-              void* lse, int bh, int group, int sq, int sk, int dh,
-              int causal, int window, void* stream) {
+              void* lse, void* nan_flag, int bh, int group, int sq, int sk,
+              int dh, int causal, int window, void* stream) {
   const void* ptrs[4] = {q, k, v, out};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16)    // cp.async's alignment
       return static_cast<int>(cudaErrorInvalidValue);
+  if (nan_flag == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 64:
-      return launch<64>(q, k, v, out, lse, bh, group, sq, sk, causal, window,
-                        stream);
+      return launch<64>(q, k, v, out, lse, nan_flag, bh, group, sq, sk,
+                        causal, window, stream);
     case 128:
-      return launch<128>(q, k, v, out, lse, bh, group, sq, sk, causal, window,
-                         stream);
+      return launch<128>(q, k, v, out, lse, nan_flag, bh, group, sq, sk,
+                         causal, window, stream);
     case 256:
-      return launch<256>(q, k, v, out, lse, bh, group, sq, sk, causal, window,
-                         stream);
+      return launch<256>(q, k, v, out, lse, nan_flag, bh, group, sq, sk,
+                         causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -262,22 +297,24 @@ int launch_dh(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q (bh, sq, dh); k, v (bk, sk, dh) with bh a multiple of bk, each and
-// out 16-byte aligned; dh 64, 128 or 256; dtype a qf::DType. lse, fp32 (bh, sq) or null, receives each
-// row's log-sum-exp of its scaled allowed scores, in natural-log units
-// for both dtypes (-inf for a row with no allowed key): the backward
-// (qf_flash_attention_bwd) reads it.
+// out 16-byte aligned; dh 64, 128 or 256; dtype a qf::DType. lse, fp32
+// (bh, sq) or null, receives each row's log-sum-exp of its scaled
+// allowed scores, in natural-log units for both dtypes (-inf for a row
+// with no allowed key): the backward (qf_flash_attention_bwd) reads it.
+// nan_flag, one int of device memory for fp32 (the bf16 kernels ignore
+// it), receives whether q, k or v holds a NaN.
 extern "C" int qf_flash_attention(const void* q, const void* k,
                                   const void* v, void* out, void* lse,
-                                  int bh, int bk, int sq, int sk, int dh,
-                                  int causal, int window, int dtype,
-                                  void* stream) {
+                                  void* nan_flag, int bh, int bk, int sq,
+                                  int sk, int dh, int causal, int window,
+                                  int dtype, void* stream) {
   if (bh <= 0 || bk <= 0 || bh % bk || bh > 65535 || sq <= 0 || sk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = bh / bk;
   switch (dtype) {
     case qf::kFloat32:
-      return launch_dh(q, k, v, out, lse, bh, group, sq, sk, dh, causal,
-                       window, stream);
+      return launch_dh(q, k, v, out, lse, nan_flag, bh, group, sq, sk, dh,
+                       causal, window, stream);
     case qf::kBFloat16:
       return qf::flash_attention_bf16(q, k, v, out, lse, bh, bk, sq, sk, dh,
                                       causal, window, stream);

@@ -89,6 +89,8 @@
 // within 1e-4 of them by repeating their rounding; this one does not,
 // and is nearer the fp64 gradients (1.0e-4 at most; the forward's note;
 // chip_smoke.py's phase 11 measures both).
+#include <utility>
+
 #include "attention_tf32.cuh"
 #include "hopper.cuh"
 
@@ -120,14 +122,13 @@ constexpr size_t smem_b() {
 }
 
 // ---------------------------------------------------------------- pass A
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ o,
-                   const float* __restrict__ dout,
-                   const float* __restrict__ lse, float* __restrict__ dq,
-                   float* __restrict__ dd_ws, int group, int sq, int sk,
-                   int causal, int window) {
+template <int D, bool kNaN>
+__device__ __forceinline__ void attn_bwd_dq_body(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ o,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ dq, float* __restrict__ dd_ws, int group, int sq,
+    int sk, int causal, int window) {
   constexpr int kP = pitch<D>();
   constexpr int kN = D / 8;
   extern __shared__ __align__(16) float smem[];
@@ -201,14 +202,14 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     // dP = dO V^T: the warp's rows x its 16 keys (2 n-tiles)
     float dp[2][4], s[2][4];
-    dot_rows<D, 2>(dp, dow, vs + kw * kP, kP, g, t);
+    dot_rows<D, 2, kNaN>(dp, dow, vs + kw * kP, kP, g, t);
     __syncthreads();      // every warp is done with V(tile)
     if (tile < t_hi) stage_rows<D, kThreads>(vs, kP, vb, k0 + kAK, kAK, sk);
     cp_async_commit();
     cp_async_wait<1>();   // K(tile) is in; V(tile + 1) may be in flight
     __syncthreads();
     // S = Q K^T
-    dot_rows<D, 2>(s, qw, ks + kw * kP, kP, g, t);
+    dot_rows<D, 2, kNaN>(s, qw, ks + kw * kP, kP, g, t);
     // P and dS (in s) of rows row0 + 8h, keys k0 + kw + 8j + 2t + e
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -224,8 +225,8 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           s[j][2 * h + e] = p * (dp[j][2 * h + e] - dd_r[h]);
         }
     // dQ += dS K over the warp's 16 keys (2 k-steps)
-    const Frag fa[2] = {a_acc(s[0]), a_acc(s[1])};
-    acc_pairs<D, 2>(acc, fa, one, ks + kw * kP, kP, g, t);
+    const Frag fa[2] = {a_acc<kNaN>(s[0]), a_acc<kNaN>(s[1])};
+    acc_pairs<D, 2, kNaN>(acc, fa, one, ks + kw * kP, kP, g, t);
     __syncthreads();      // every warp is done with K(tile)
     if (tile < t_hi) stage_rows<D, kThreads>(ks, kP, kb, k0 + kAK, kAK, sk);
     cp_async_commit();
@@ -263,16 +264,31 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- pass B
-template <int D>
+// Both splits are launched, each built alone (the four-instruction one
+// keeps its registers and its time); the one *nan_flag (scan_nans) does
+// not pick returns at once. Likewise pass B.
+template <int D, bool kNaN>
 __global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dd_ws,
-                     float* __restrict__ part, int group, int splits, int sq,
-                     int sk, int causal, int window) {
+attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ o,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ dq,
+                   float* __restrict__ dd_ws,
+                   const int* __restrict__ nan_flag, int group, int sq,
+                   int sk, int causal, int window) {
+  if ((*nan_flag != 0) != kNaN) return;
+  attn_bwd_dq_body<D, kNaN>(q, k, v, o, dout, lse, dq, dd_ws, group, sq, sk,
+                            causal, window);
+}
+
+// ---------------------------------------------------------------- pass B
+template <int D, bool kNaN>
+__device__ __forceinline__ void attn_bwd_dkdv_body(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dd_ws,
+    float* __restrict__ part, int group, int splits, int sq, int sk,
+    int causal, int window) {
   constexpr int kP = pitch<D>();
   constexpr int kN = D / 8;
   extern __shared__ __align__(16) float smem[];
@@ -338,7 +354,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // keys x the tile's 32 query rows (4 n-tiles); element (key0 + 8h,
       // query i0 + 8j + 2t + e) at x[j][2h + e]
       float x[4][4];
-      dot_rows<D, 4>(x, aw, bw, kP, g, t);
+      dot_rows<D, 4, kNaN>(x, aw, bw, kP, g, t);
       if (role == 0) {
         // P^T, handed to the dK warp of the same keys
 #pragma unroll
@@ -365,8 +381,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // dV += P^T dO, or dK += dS^T Q, over the tile's 32 rows (4 k-steps)
       Frag fa[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) fa[j] = a_acc(x[j]);
-      acc_pairs<D, 4>(acc, fa, one, cw, kP, g, t);
+      for (int j = 0; j < 4; ++j) fa[j] = a_acc<kNaN>(x[j]);
+      acc_pairs<D, 4, kNaN>(acc, fa, one, cw, kP, g, t);
     }
   }
   cp_async_wait<0>();
@@ -384,6 +400,21 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float2*>(r + 8 * n) =
           make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
   }
+}
+
+template <int D, bool kNaN>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dd_ws,
+                     float* __restrict__ part,
+                     const int* __restrict__ nan_flag, int group, int splits,
+                     int sq, int sk, int causal, int window) {
+  if ((*nan_flag != 0) != kNaN) return;
+  attn_bwd_dkdv_body<D, kNaN>(q, k, v, dout, lse, dd_ws, part, group,
+                              splits, sq, sk, causal, window);
 }
 
 // ---------------------------------------------------------------- pass C
@@ -415,25 +446,44 @@ __global__ void attn_bwd_sum_kernel(const float* __restrict__ part,
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* dq, float* dk,
-           float* dv, float* dd, float* part, int bh, int bk, int sq, int sk,
-           int causal, int window, int splits, cudaStream_t st) {
+           float* dv, float* dd, float* part, int* nan_flag, int bh, int bk,
+           int sq, int sk, int causal, int window, int splits,
+           cudaStream_t st) {
   const int group = bh / bk;
   const size_t sa = smem_a<D>(), sb = smem_b<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sa));
+  const std::pair<const void*, size_t> attrs[4] = {
+      {reinterpret_cast<const void*>(attn_bwd_dq_kernel<D, false>), sa},
+      {reinterpret_cast<const void*>(attn_bwd_dq_kernel<D, true>), sa},
+      {reinterpret_cast<const void*>(attn_bwd_dkdv_kernel<D, false>), sb},
+      {reinterpret_cast<const void*>(attn_bwd_dkdv_kernel<D, true>), sb}};
+  cudaError_t err = cudaSuccess;
+  for (const auto& [fn, bytes] : attrs) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t nq = static_cast<size_t>(bh) * sq * D;
+  const size_t nk = static_cast<size_t>(bk) * sk * D;
+  const float* inputs[6] = {q, k, v, o, dout, lse};
+  const size_t sizes[6] = {nq, nk, nk, nq, nq, static_cast<size_t>(bh) * sq};
+  err = scan_nans(inputs, sizes, 6, nan_flag, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(sb));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq_kernel<D><<<dim3((sq + kAQ - 1) / kAQ, bh), kThreads, sa, st>>>(
-      q, k, v, o, dout, lse, dq, dd, group, sq, sk, causal, window);
+  const dim3 grid_a((sq + kAQ - 1) / kAQ, bh);
+  attn_bwd_dq_kernel<D, false><<<grid_a, kThreads, sa, st>>>(
+      q, k, v, o, dout, lse, dq, dd, nan_flag, group, sq, sk, causal,
+      window);
+  attn_bwd_dq_kernel<D, true><<<grid_a, kThreads, sa, st>>>(
+      q, k, v, o, dout, lse, dq, dd, nan_flag, group, sq, sk, causal,
+      window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_kernel<D><<<dim3(splits * bk, (sk + kBK - 1) / kBK),
-                            kThreads, sb, st>>>(
-      q, k, v, dout, lse, dd, part, group, splits, sq, sk, causal, window);
+  const dim3 grid_b(splits * bk, (sk + kBK - 1) / kBK);
+  attn_bwd_dkdv_kernel<D, false><<<grid_b, kThreads, sb, st>>>(
+      q, k, v, dout, lse, dd, part, nan_flag, group, splits, sq, sk, causal,
+      window);
+  attn_bwd_dkdv_kernel<D, true><<<grid_b, kThreads, sb, st>>>(
+      q, k, v, dout, lse, dd, part, nan_flag, group, splits, sq, sk, causal,
+      window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(bk) * sk * D;
@@ -446,26 +496,29 @@ int launch(const float* q, const float* k, const float* v, const float* o,
 
 int launch_dh(const float* q, const float* k, const float* v, const float* o,
               const float* dout, const float* lse, float* dq, float* dk,
-              float* dv, float* dd, float* part, int bh, int bk, int sq,
-              int sk, int dh, int causal, int window, int splits,
-              cudaStream_t st) {
+              float* dv, float* dd, float* part, int* nan_flag, int bh,
+              int bk, int sq, int sk, int dh, int causal, int window,
+              int splits, cudaStream_t st) {
   const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16)    // cp.async's and float4's
       return static_cast<int>(cudaErrorInvalidValue);
   if (splits < 1 || splits > bh / bk || lse == nullptr || dd == nullptr ||
-      part == nullptr)
+      part == nullptr || nan_flag == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 64:
-      return launch<64>(q, k, v, o, dout, lse, dq, dk, dv, dd, part, bh, bk,
-                        sq, sk, causal, window, splits, st);
+      return launch<64>(q, k, v, o, dout, lse, dq, dk, dv, dd, part,
+                        nan_flag, bh, bk, sq, sk, causal, window, splits,
+                        st);
     case 128:
-      return launch<128>(q, k, v, o, dout, lse, dq, dk, dv, dd, part, bh, bk,
-                         sq, sk, causal, window, splits, st);
+      return launch<128>(q, k, v, o, dout, lse, dq, dk, dv, dd, part,
+                         nan_flag, bh, bk, sq, sk, causal, window, splits,
+                         st);
     case 256:
-      return launch<256>(q, k, v, o, dout, lse, dq, dk, dv, dd, part, bh, bk,
-                         sq, sk, causal, window, splits, st);
+      return launch<256>(q, k, v, o, dout, lse, dq, dk, dv, dd, part,
+                         nan_flag, bh, bk, sq, sk, causal, window, splits,
+                         st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -477,16 +530,19 @@ int launch_dh(const float* q, const float* k, const float* v, const float* o,
 // multiple of bk; lse fp32 (bh, sq), the forward's (qf_flash_attention);
 // dd an fp32 workspace of (bh, sq); part an fp32 workspace of (splits, 2,
 // bk, sk, dh), splits in [1, bh / bk] dividing the G = bh / bk query heads
-// of a kv head among the dK/dV pass's blocks; dh 64, 128 or 256; dtype a
+// of a kv head among the dK/dV pass's blocks; nan_flag one int of device
+// memory (fp32: whether an input holds a NaN; the bf16 kernels ignore
+// it); dh 64, 128 or 256; dtype a
 // qf::DType (the same for every tensor but lse and the workspaces); every
 // tensor but lse and dd 16-byte aligned.
 extern "C" int qf_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
                                       void* dq, void* dk, void* dv, void* dd,
-                                      void* part, int bh, int bk, int sq,
-                                      int sk, int dh, int causal, int window,
-                                      int splits, int dtype, void* stream) {
+                                      void* part, void* nan_flag, int bh,
+                                      int bk, int sq, int sk, int dh,
+                                      int causal, int window, int splits,
+                                      int dtype, void* stream) {
   if (bh <= 0 || bk <= 0 || bh % bk || bh > 65535 || sq <= 0 || sk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
@@ -497,8 +553,8 @@ extern "C" int qf_flash_attention_bwd(const void* q, const void* k,
           static_cast<const float*>(dout), static_cast<const float*>(lse),
           static_cast<float*>(dq), static_cast<float*>(dk),
           static_cast<float*>(dv), static_cast<float*>(dd),
-          static_cast<float*>(part), bh, bk, sq, sk, dh, causal, window,
-          splits, static_cast<cudaStream_t>(stream));
+          static_cast<float*>(part), static_cast<int*>(nan_flag), bh, bk, sq,
+          sk, dh, causal, window, splits, static_cast<cudaStream_t>(stream));
     case qf::kBFloat16:
       return qf::flash_attention_bwd_bf16(q, k, v, o, dout, lse, dq, dk, dv,
                                           dd, part, bh, bk, sq, sk, dh,

@@ -31,10 +31,11 @@ __device__ __forceinline__ Split split(float x) {
 // round to nearest (ties away) is an add of half the dropped range to the
 // magnitude, then a mask (for lo the tensor cores drop the low 13 bits
 // themselves, and the compiler leaves its mask out). Not for inf or NaN:
-// the NaN the card's arithmetic makes (0x7fffffff) carries into the sign
-// bit and reads as -0, so a NaN operand drops out of the product. The
-// fp32 attention kernels take this form (their splits are a large share
-// of their time), so a NaN in q, k, v or dO does not reach their outputs;
+// the add reads the NaN the card's arithmetic makes (0x7fffffff, or
+// negated 0xffffffff) as -0 or +0, carried past the exponent, so such a
+// NaN operand drops out of the product. The fp32 attention kernels take
+// this form (their splits are a large share of their time) unless a scan
+// of the call's inputs finds a NaN, and split then (attention_tf32.cuh);
 // GLA keeps split, under which a NaN operand stays NaN as in its plain
 // version, so that moving its helpers here changed none of its results.
 __device__ __forceinline__ unsigned to_tf32_finite(float x) {

@@ -9,8 +9,10 @@ q (BH, Sq, dh) and k/v (BH / G, Sk, dh), all fp32 or all bf16, on the
 card -> (BH, Sq, dh) in q's dtype, the fp32 function inside (bf16: exact
 bf16 products summed in fp32, and P, and in the backward dS, split into
 two bf16 halves where they are a product's operand; fp32: every operand
-split into TF32 hi + lo and each product run as three TF32 products);
-query row i reads kv row i // G. dh is 64, 128 or 256. The forward can
+split into TF32 hi + lo and each product run as three TF32 products;
+a scan of the call's inputs for a NaN comes first, and only where it
+finds one do the kernels run the split that keeps it, one instruction
+more a value); query row i reads kv row i // G. dh is 64, 128 or 256. The forward can
 also return each row's log-sum-exp (fp32 (BH, Sq), natural-log units,
 -inf for a row with no allowed key), which the backward takes. Launches
 on PyTorch's current stream without synchronising; raises on a tensor
@@ -29,6 +31,15 @@ from repro_torch.kernels.zgemm import check_operand, launch
 # dtype codes of the sequence kernels' C entry points (qf::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
+
+
+def _nan_flag(q: torch.Tensor):
+    """The fp32 kernels' int of device memory, where their C entry scans
+    the call's inputs for a NaN (the split that keeps one runs only then);
+    None for bf16."""
+    if q.dtype != torch.float32:
+        return None
+    return torch.empty(1, dtype=torch.int32, device=q.device)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -55,9 +66,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    flag = _nan_flag(q)
     launch("flash_attention", "qf_flash_attention", dev, q.data_ptr(),
            k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           None if lse is None else lse.data_ptr(), bh, bk, sq, sk, dh,
+           None if lse is None else lse.data_ptr(),
+           None if flag is None else flag.data_ptr(), bh, bk, sq, sk, dh,
            int(causal), int(window), DTYPE_CODES[q.dtype])
     return (out, lse) if return_lse else out
 
@@ -114,10 +127,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.device).multi_processor_count)
     part = torch.empty((splits, 2, bk, sk, dh), dtype=torch.float32,
                        device=q.device)
+    flag = _nan_flag(q)
     launch("flash_attention_bwd", "qf_flash_attention_bwd", dev,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-           dv.data_ptr(), dd.data_ptr(), part.data_ptr(), bh, bk, sq, sk, dh,
+           dv.data_ptr(), dd.data_ptr(), part.data_ptr(),
+           None if flag is None else flag.data_ptr(), bh, bk, sq, sk, dh,
            int(causal), int(window), splits, DTYPE_CODES[q.dtype])
     return dq, dk, dv
 

@@ -159,7 +159,7 @@ def _refuse_softcap(cfg, impl: str) -> None:
 def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                    positions: torch.Tensor, window: int = 0,
                    cache: Optional[Dict[str, torch.Tensor]] = None,
-                   cur_len: Optional[int] = None, impl: str = "pallas",
+                   cur_len=None, impl: str = "pallas",
                    mrope_positions: Optional[torch.Tensor] = None,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Self-attention with RoPE / M-RoPE and optional KV-cache decode.
@@ -168,9 +168,12 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     ``mrope_positions`` (3, B, S)). Returns the output and the rotated
     k/v, which are the prefill cache (offset 0).
     Decode: cache holds (B, S_max, K, dh) k/v; x is (B, 1, d); cur_len
-    is the int position of the new token. The new k/v are written into
-    ``cache`` IN PLACE (the reference's dynamic_update_slice, without the
-    copy), and ``cache`` is returned. The qkv biases (``cfg.qkv_bias``)
+    is the int position of the new token, or a (B,) int tensor of each
+    row's own position (continuous batching; positions (B, 1) = cur_len
+    per row, each row masked to its own ``cur_len + 1`` keys). The new
+    k/v are written into ``cache`` IN PLACE (the reference's
+    dynamic_update_slice or, per row, its scatter, without the copy), and
+    ``cache`` is returned. The qkv biases (``cfg.qkv_bias``)
     enter q, k and v before the rotation, so the prefill cache carries
     them. A softcap runs on the plain route only (``impl="xla"``).
     """
@@ -199,17 +202,23 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
             out = ops.attention(q, k, v, causal=True, window=window,
                                 impl=impl)
     else:
-        if not isinstance(cur_len, int):
-            raise NotImplementedError(
-                "per-slot decode positions wait for the serving scheduler")
-        cache["k"][:, cur_len:cur_len + s] = k.to(cache["k"].dtype)
-        cache["v"][:, cur_len:cur_len + s] = v.to(cache["v"].dtype)
+        if isinstance(cur_len, torch.Tensor):
+            # per-slot positions (continuous batching): each row's token
+            # goes in at its own index
+            rows = torch.arange(b, device=x.device)
+            cache["k"][rows, cur_len] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, cur_len] = v[:, 0].to(cache["v"].dtype)
+            valid = (cur_len + s)[:, None, None]
+        else:
+            cache["k"][:, cur_len:cur_len + s] = k.to(cache["k"].dtype)
+            cache["v"][:, cur_len:cur_len + s] = v.to(cache["v"].dtype)
+            valid = cur_len + s
         new_cache = cache
         ck, cv = cache["k"].to(dt), cache["v"].to(dt)
         k_pos = torch.arange(ck.shape[1], dtype=torch.int32, device=x.device)
         out = gqa_attention(q.reshape(b, s, k_heads, g, dh), ck, cv,
                             positions, k_pos, window=window, causal=True,
-                            valid_len=cur_len + s, softcap=cap)
+                            valid_len=valid, softcap=cap)
 
     out = out.reshape(b, s, k_heads * g * dh)
     y = out @ p["wo"].to(dt).reshape(k_heads * g * dh, -1)

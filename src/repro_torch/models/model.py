@@ -106,11 +106,14 @@ class Model:
         logits = tfm.logits_from_hidden(params, x[:, -1:], self.cfg)
         return logits[:, 0], cache
 
-    def decode_step(self, params, batch, cache, cur_len: int):
+    def decode_step(self, params, batch, cache, cur_len):
         """One-token decode (serve_step): batch carries tokens (B, 1) or
         embeddings (B, 1, d) at position ``cur_len`` (and optionally cond
-        and mrope_positions (3, B, 1)). Returns (logits (B, V), cache);
-        the cache's tensors are updated in place."""
+        and mrope_positions (3, B, 1)). ``cur_len`` is an int, every row
+        at that position, or a (B,) int tensor on the cache's device, each
+        row at its own position (its k/v written at its own index, its
+        mask its own; the continuous batcher's slots). Returns (logits
+        (B, V), cache); the cache's tensors are updated in place."""
         x, new_cache, _ = tfm.forward(params, self.cfg, mode="decode",
                                       cur_len=cur_len, cache=cache,
                                       impl=self.impl, **self._inputs(batch))

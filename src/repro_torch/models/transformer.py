@@ -269,7 +269,9 @@ def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
     ``cfg.input_kind == "embeddings"``; ``cond`` (B, cond_len, d) for
     cross-attention (at decode None reads the cached conditioning k/v);
     ``mrope_positions`` (3, B, S) for M-RoPE, by default the token
-    positions on all three streams (at decode ``cur_len``)."""
+    positions on all three streams (at decode ``cur_len``). At decode
+    ``cur_len`` is an int, or a (B,) int tensor of each row's own
+    position (``Model.decode_step``)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     if (mode == "decode") != (cache is not None):
@@ -282,7 +284,13 @@ def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
         b, s = embeddings.shape[:2]
     if cfg.cross_attn and cond is None and mode != "decode":
         raise ValueError("cross-attention needs cond (B, cond_len, d)")
-    if mode == "decode":
+    if mode == "decode" and isinstance(cur_len, torch.Tensor):
+        if tuple(cur_len.shape) != (b,) or s != 1:
+            raise ValueError(f"per-row cur_len {tuple(cur_len.shape)} for "
+                             f"a ({b}, {s}) decode input: needs ({b},) and "
+                             "one position a row")
+        positions = cur_len.to(torch.int32)[:, None]
+    elif mode == "decode":
         positions = torch.full((b, 1), cur_len, dtype=torch.int32,
                                device=x.device)
     else:

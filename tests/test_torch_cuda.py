@@ -1001,8 +1001,8 @@ def test_forward_lse_matches_the_plain_lse(cuda_device, dtype, case):
 def test_bf16_attention_backward_runs_on_the_tensor_cores(cuda_device):
     """The built bf16 backward kernels (the dQ and dK/dV passes at dh 64,
     128, 256) issue wgmma: HGMMA in their machine code; the fp32
-    backward kernels are built for fp32 only, so no bf16 backward can
-    take them."""
+    backward kernels (both passes at each dh, with each split) are built
+    for fp32 only, so no bf16 backward can take them."""
     from repro_torch.kernels import flash_attention as kfa
     sass = build.sass()
     for name in kfa.BF16_KERNELS[1:]:
@@ -1011,14 +1011,15 @@ def test_bf16_attention_backward_runs_on_the_tensor_cores(cuda_device):
     assert kfa.bf16_design() == "wgmma"
     cuda_core = [n for n in sass if "attn_bwd_dq_kernel" in n
                  or "attn_bwd_dkdv_kernel" in n]
-    assert len(cuda_core) == 6
+    assert len(cuda_core) == 12
     assert not any("bfloat16" in n for n in cuda_core)
 
 
 @pytest.mark.cuda
 def test_fp32_attention_runs_on_the_tensor_cores(cuda_device):
     """The built fp32 kernels (the forward and the backward's dQ and
-    dK/dV passes, each at dh 64, 128, 256) issue TF32 tensor-core
+    dK/dV passes, each at dh 64, 128, 256, with the four-instruction split
+    and with the one that keeps a NaN) issue TF32 tensor-core
     instructions: HMMA (mma.sync) or HGMMA (wgmma) with .TF32 in their
     machine code, and ``fp32_design`` reads the same. A kernel back on the
     CUDA cores has none."""
@@ -1026,7 +1027,7 @@ def test_fp32_attention_runs_on_the_tensor_cores(cuda_device):
     sass = build.sass()
     for name in kfa.FP32_KERNELS:
         code = [text for n, text in sass.items() if name in n]
-        assert len(code) == 3, name
+        assert len(code) == 6, name
         for text in code:
             assert any(("HMMA" in ln or "HGMMA" in ln) and "TF32" in ln
                        for ln in text.splitlines()), name
@@ -1442,3 +1443,148 @@ def test_model_zoo_prefill_with_kernels_matches_plain(cuda_device, arch):
     for key, w in want_cache.items():
         assert float((cache[key] - w).abs().max()) <= 1e-3 * float(
             w.abs().max()), key
+
+
+# ---------------------------------------------------- continuous batching
+def _serve_on(device, arch, over, n_slots=2):
+    """Four requests through ``n_slots`` slots of the reduced (fp32) arch,
+    seed-0 params made on the CPU and copied to ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatcher, Request
+    cfg = get_config(arch).reduced(**over)
+    model = Model(cfg)
+    params = {k: v.to(device) for k, v in model.init(0, device="cpu").items()}
+    rng = np.random.default_rng(0)
+    b = ContinuousBatcher(model, params, n_slots=n_slots, max_len=96,
+                          device=device)
+    for uid, (n, m) in enumerate([(5, 6), (3, 6), (40, 30), (7, 6)]):
+        b.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=m))
+    b.run_until_drained()
+    return {uid: r.generated for uid, r in b.completed.items()}, b.steps_run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [("qwen1.5-4b", {"n_layers": 2}),
+                                       ("recurrentgemma-2b", {"n_layers": 4}),
+                                       ("rwkv6-7b", {}), ("gemma3-27b", {})])
+def test_the_batcher_on_the_card_gives_the_cpu_tokens(cuda_device, arch,
+                                                      over):
+    """The continuous batcher at ``reduced()`` (fp32), four requests
+    through two slots (one past gemma3's and recurrentgemma's window of
+    64): the card's tokens and steps are the CPU port's."""
+    assert _serve_on(cuda_device, arch, over) == _serve_on("cpu", arch, over)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [("qwen1.5-4b", {"n_layers": 2}),
+                                       ("recurrentgemma-2b", {"n_layers": 4}),
+                                       ("rwkv6-7b", {}), ("gemma3-27b", {})])
+def test_the_batcher_freezes_idle_slots_on_the_card(cuda_device, arch, over):
+    """One slot active, three idle at their own positions, every cache
+    entry random: after the slot step on the card each idle slot's rows
+    are the same bits, the active slot's have moved."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import scheduler as sched
+    cfg = get_config(arch).reduced(**over)
+    model = Model(cfg)
+    params = model.init(0, device=cuda_device)
+    cache = model.init_cache(4, 32, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    for v in cache.values():
+        v.copy_(torch.randn(v.shape, generator=g, device=cuda_device))
+    before = {k: v.clone() for k, v in cache.items()}
+    cur = torch.tensor([3, 10, 0, 20], dtype=torch.int32, device=cuda_device)
+    tokens = torch.tensor([[1], [2], [3], [4]], dtype=torch.int32,
+                          device=cuda_device)
+    _, _, new_cur, cache = sched.make_slot_step(model)(
+        params, cache, tokens, cur, np.array([False, True, False, False]))
+    assert new_cur.tolist() == [3, 11, 0, 20]
+    for key, v in cache.items():
+        new = sched._slot_major(key, v)
+        old = sched._slot_major(key, before[key])
+        for i in (0, 2, 3):
+            assert torch.equal(new[i], old[i]), (key, i)
+        assert not torch.equal(new[1], old[1]), key
+
+
+# ------------------------------------------------ NaN in the fp32 attention
+@pytest.mark.cuda
+def test_fp32_attention_keeps_planted_nans(cuda_device):
+    """A NaN planted in q, k and v (forward) and in q, k, v and dO
+    (backward) of the fp32-storage kernels, as torch's NaN (0x7fc00000),
+    the card's arithmetic NaN (0x7fffffff) and that one negated: every row
+    the NaN reaches by the attention's data flow is NaN in the kernels'
+    outputs, and no row the plain version keeps finite
+    (``chip_smoke.nan_rows_check``; phase 5 runs it at the prefill's
+    shape)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    gen = torch.Generator().manual_seed(17)
+    bh, bk, s, dh = 20, 4, 384, 256
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda_device)
+               for shape in ((bh, s, dh), (bk, s, dh), (bk, s, dh)))
+    assert smoke.nan_rows_check(q, k, v, dict(causal=True, window=200),
+                                "fp32 attention")
+
+
+@pytest.mark.cuda
+def test_fp32_attention_nan_path_keeps_finite_bits(cuda_device):
+    """The fp32 kernels run the split that keeps a NaN (cvt.rna's
+    ``split``) only when a scan of the call's inputs finds one; for a
+    finite operand it gives ``split_finite``'s bits. So a NaN planted in
+    one query head changes no bit of the other heads' outputs and
+    gradients (the same inputs, once through each split)."""
+    from repro_torch.kernels import flash_attention as kfa
+    gen = torch.Generator().manual_seed(23)
+    bh, bk, s, dh = 8, 2, 256, 128
+    q, k, v, do = (torch.randn(shape, generator=gen).to(cuda_device)
+                   for shape in ((bh, s, dh), (bk, s, dh), (bk, s, dh),
+                                 (bh, s, dh)))
+    kw = dict(causal=True, window=100)
+    o, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
+    grads = kfa.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    pq, pdo = q.clone(), do.clone()
+    pq[bh - 1, 7, 3] = float("nan")          # the last head of kv head 1
+    pdo[bh - 1, 9, 5] = float("nan")
+    po, plse = kfa.flash_attention(pq, k, v, return_lse=True, **kw)
+    pgrads = kfa.flash_attention_bwd(pq, k, v, o, pdo, lse=lse, **kw)
+    keep = slice(0, bh - 1)
+    assert bool(torch.isnan(po[bh - 1]).any())
+    assert torch.equal(po[keep], o[keep]) and torch.equal(plse[keep],
+                                                          lse[keep])
+    assert torch.equal(pgrads[0][keep], grads[0][keep])
+    # dk, dv of kv head 0 (heads 0..3) are free of the planted NaNs
+    for g, pg in zip(grads[1:], pgrads[1:]):
+        assert torch.equal(pg[0], g[0])
+
+
+@pytest.mark.cuda
+def test_fp32_attention_bwd_takes_an_lse_off_16_byte_alignment(cuda_device):
+    """The backward leaves lse free of cp.async's 16-byte alignment, and
+    its NaN scan reads lse too (in float4s only where it is aligned): an
+    lse view 4 bytes into its buffer, with bh * sq a multiple of 4, gives
+    the gradients of the aligned lse, bit for bit."""
+    from repro_torch.kernels import flash_attention as kfa
+    gen = torch.Generator().manual_seed(29)
+    bh, bk, s, dh = 4, 2, 128, 64
+    q, k, v, do = (torch.randn(shape, generator=gen).to(cuda_device)
+                   for shape in ((bh, s, dh), (bk, s, dh), (bk, s, dh),
+                                 (bh, s, dh)))
+    kw = dict(causal=True)
+    o, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
+    buf = torch.empty(bh * s + 1, dtype=torch.float32, device=cuda_device)
+    off = buf[1:].view(bh, s)
+    off.copy_(lse)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    want = kfa.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    got = kfa.flash_attention_bwd(q, k, v, o, do, lse=off, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -55,6 +55,8 @@ def test_importing_the_port_loads_no_jax():
                  "serve.server"):
         assert f"repro_torch.core.fed.{name}" in res["modules"]
     assert "repro_torch.checkpoint.checkpoint" in res["modules"]
+    for name in ("serving", "serving.sampling", "serving.scheduler"):
+        assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
 

@@ -434,8 +434,9 @@ def test_concrete_batch(kind):
 def test_unported_paths_raise():
     """What the port refuses: an unknown block kind, the score softcap on
     the kernel route (the attention kernel has none), per-slot decode
-    positions (the serving scheduler's), an unknown impl, and a param
-    whose axes do not match its shape."""
+    positions that are not one a row (a (B,) ``cur_len`` is the serving
+    scheduler's path, tests/test_torch_serving.py), an unknown impl, and
+    a param whose axes do not match its shape."""
     cfg = get_config(ARCH).reduced()
     with pytest.raises(ValueError, match="block kind"):
         Model(dataclasses.replace(cfg, block_pattern=("ssm",))).init(
@@ -445,13 +446,10 @@ def test_unported_paths_raise():
                             dataclasses.replace(cfg, logit_softcap=30.0),
                             positions=torch.zeros(1, 2, dtype=torch.int32))
     p = Model(cfg).init(device="cpu")
-    sub = pp.subtree(p, "stack/2/local/attn")
-    cache = attn.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="per-slot"):
-        attn.self_attention({k: v[0] for k, v in sub.items()},
-                            torch.zeros(1, 1, 256), cfg,
-                            positions=torch.zeros(1, 1, dtype=torch.int32),
-                            cache=cache, cur_len=torch.tensor([1]))
+    cache = Model(cfg).init_cache(2, 4, device="cpu")
+    with pytest.raises(ValueError, match="per-row cur_len"):
+        Model(cfg).decode_step(p, {"tokens": torch.zeros(
+            (2, 1), dtype=torch.int32)}, cache, torch.tensor([1]))
     with pytest.raises(ValueError, match="impl"):
         Model(cfg, impl="triton")
     with pytest.raises(ValueError):

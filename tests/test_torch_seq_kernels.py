@@ -867,3 +867,40 @@ def test_sequence_kernels_are_built_and_bound():
         assert argtypes[-1] is build._VP       # the stream
         text = "".join(p.read_text() for p in build._sources())
         assert f'extern "C" int {fn}(' in text
+
+
+# ------------------------------------------------ NaN in the fp32 attention
+def test_nan_reach_is_the_attention_data_flow():
+    """``chip_smoke.nan_reach`` (the rows a planted NaN must reach in the
+    fp32 attention kernels' outputs, ``nan_rows_check``'s gate on the
+    card) against the plain version with one NaN planted at a time: every
+    row it names is NaN in the plain version's outputs; where the plain
+    version has no 0 x NaN of a masked pair (a NaN in q; in k, forward)
+    the two agree row for row; the counts follow the mask (window 40)."""
+    gen = torch.Generator().manual_seed(0)
+    bh, bk, s, dh = 20, 4, 96, 64
+    q, k, v, do = (torch.randn(shape, generator=gen) for shape in (
+        (bh, s, dh), (bk, s, dh), (bk, s, dh), (bh, s, dh)))
+    kw = dict(causal=True, window=40)
+    # (spot, rows of out / dq reached, keys of dk / dv reached)
+    cases = [((0, 17, 95, 7), (1, 1), (40, 40)),
+             ((1, 0, 24, 5), (200, 200), (64, 1)),
+             # o from the plain forward is NaN on all 480 rows of the
+             # group (0 x NaN), so D_i carries it into every dq, dk row
+             ((2, 1, 48, 9), (200, 480), (96, 0)),
+             ((3, 11, 32, 3), (0, 1), (33, 33))]
+    for spot, (n_out, n_dq), (n_dk, n_dv) in cases:
+        pq, pk, pv, pdo = chip_smoke.plant_nans((q, k, v, do), [spot],
+                                                0x7fc00000)
+        o, lse = ref.attention_ref(pq, pk, pv, return_lse=True, **kw)
+        reach = ((chip_smoke.nan_reach(pq, pk, pv, **kw),)
+                 + chip_smoke.nan_reach(pq, pk, pv, o=o, do=pdo, lse=lse,
+                                        **kw))
+        plain = (o,) + ref.attention_bwd_ref(pq, pk, pv, o, pdo, lse=lse,
+                                             **kw)
+        for need, out in zip(reach, plain):
+            assert bool((~need | torch.isnan(out).any(-1)).all()), spot
+        assert [int(x.sum()) for x in reach] == [n_out, n_dq, n_dk, n_dv]
+        if spot[0] in (0, 1):
+            assert torch.equal(reach[0], torch.isnan(o).any(-1))
+
