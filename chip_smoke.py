@@ -140,8 +140,7 @@ repository, it exits non-zero before printing any result. Phases:
    and reverse, the 2 remainder layers forward and reverse), the
    reverse scans of step 1 counted apart inside the scan's adjoint and
    gated (18), ms/step, tokens/s, peak memory and a profile's busy
-   share. Before it, RWKV6's backward under ``impl="pallas"`` must
-   raise NotImplementedError, and one cycle (3 layers, full width)
+   share. Before it, one cycle (3 layers, full width)
    backpropagated through the kernels must give every parameter's
    gradient close to the plain route's: in bf16 at the init within the
    bf16 budget (the plain bf16 gradients' deviation from the plain fp32
@@ -162,6 +161,28 @@ repository, it exits non-zero before printing any result. Phases:
    five products), the fp32-storage backward (its design a gate, its
    splits of the group printed) beside fp32 SDPA's; the
    scan's reverse use against autograd of the plain scan (1e-5), timed;
+11b. RWKV6 training: RWKV6-7B at its published width (d_model 4096, 64
+   heads of 64, d_ff 14336, vocab 65536) with its depth cut from 32 to
+   16 layers (at 12 bytes a parameter the full model needs ~91 GB),
+   bf16 params, fp32 AdamW moments, remat, the zero decay, bonus and
+   mixing tensors redrawn (seed 1), trained as phase 11 (5 steps, B=1 x
+   S=4096, clip 1) at lr 1e-3: the loss finite and falling, the counted
+   peak and the measured one under 70 GiB, each step's launches gated
+   exactly (32 gla_chunked: the forward and the remat recompute; 16
+   gla_chunked_bwd), ms/step, tokens/s and a profile's busy share.
+   Before it, one layer at full width in fp32 (std 1/sqrt(d_in), the
+   decays redrawn) backpropagated through both GLA kernels must give
+   every parameter's gradient within 1e-3 of the plain route's (each
+   printed), and two planted faults must fail that gate: the carried dS
+   dropped every 16 tokens, and dw = 0. After it, the GLA backward
+   kernel at the step's recorded inputs and on ragged shapes (chunks 1,
+   16, 48, 128, S = 17, 33, 4097, dh 5 to 64, w at the clip's ends and
+   in bf16, with and without a dstate) against its plain version (fp32
+   1e-5, bf16 one ulp of each gradient's scale), bit for bit on repeat,
+   and where S <= 128 in fp32 against the fp64 function (1e-6); timed
+   beside its plain version and the forward kernel, with its device
+   time and bound; then ``python -m repro_torch.launch.train --arch
+   rwkv6-7b --scale smoke`` on the card (6 steps, launches counted);
 12. the classical federation: (a) Qwen1.5-4B at its published width
    (d_model 2560, 20 heads of 128, MHA, d_ff 6912, vocab 151936, qkv
    biases, bf16 params, fp32 AdamW moments, remat) with its depth cut
@@ -181,10 +202,10 @@ repository, it exits non-zero before printing any result. Phases:
    layer) and of reduced RecurrentGemma-2B through the kernels against
    the plain route under SGD (the aggregated delta within 1e-3 of its
    scale, launches exact, every recorded kernel call against its plain
-   version), kill-and-resume 2 + 2 rounds against 4 bit for bit, ``python
-   -m repro_torch.launch.fed_train --arch qwen1.5-4b --rounds 2`` and
-   its round lines, and RWKV6 through the substrate refused
-   (NotImplementedError);
+   version), the same for reduced RWKV6-7B (2 layers, its decays
+   redrawn) through both GLA kernels, kill-and-resume 2 + 2 rounds
+   against 4 bit for bit, and ``python -m repro_torch.launch.fed_train
+   --arch qwen1.5-4b --rounds 2`` and its round lines;
 13. the model zoo: the seven architectures of the moe kind, M-RoPE,
    cross-attention and embedding inputs (ZOO: llama4-scout, arctic,
    gemma3, command-r, llama3, qwen2-vl, musicgen) at their published
@@ -262,7 +283,10 @@ set; launches of phase 5's fp32 kernel prefill), and zgemm at the
 two-level tree's pod-tier and merge shapes (``"cell"`` set), and
 the attention backward (bf16, and fp32 storage: launches of the
 one-cycle gate's fp32 kernel pass) and the scan's reverse use at the
-train step's shapes (launches a step, ``"cell"`` set), and the attention
+train step's shapes (launches a step, ``"cell"`` set), the GLA backward
+at phase 11b's train step (launches a step, ``"cell"`` set; it replaces
+no TPU kernel: XLA differentiated the reference's plain chunked form),
+and the attention
 forward (bf16, and fp32 storage: not launched there) and backward at
 phase 12a's Qwen1.5-4B shape (launches a federated round, ``"cell"``
 set), and the attention forward at each shape of phase 13's prefills
@@ -276,9 +300,9 @@ checkout whose ``src`` is DIR (this one by default) and prints one JSON
 line (see ``time_quantum``), so that two checkouts can be compared on
 one card, in turns, each in its own process. ``--time-seq`` does the
 same for gla_chunked (chunk 16 and chunk 1) and rglru_scan at the
-prefills' shapes and for the fp32-storage attention forward (the
-RecurrentGemma-2B prefill's shape) and backward (phase 11's) (see
-``time_seq``). ``--time-serve`` builds the kernels
+prefills' shapes, for the fp32-storage attention forward (the
+RecurrentGemma-2B prefill's shape) and backward (phase 11's) and for the
+GLA backward (phase 11b's) (see ``time_seq``). ``--time-serve`` builds the kernels
 and runs bench_serve.py's 10,000-tenant cell alone (see ``time_serve``).
 ``--nan-check`` runs ``nan_rows_check`` alone at phase 5's fp32
 attention shape on seeded unit-scale inputs for the port under ``--src``
@@ -1010,6 +1034,91 @@ def gla_least_ms(b, s, h, dh):
     return min(p / (TF32_FLOPS / 3) + q / FP32_FLOPS
                for p, q in (gla_flops(b, s, h, dh, n) for n in range(1, 65))
                ) * 1e3
+
+
+def gla_bwd_flops(b, s, h, dh, chunk):
+    """fp32 operations of the chunked GLA backward at these inputs, as
+    (products, the rest), by the forward's reckoning (``gla_flops``): per
+    chunk of L tokens the products are five (L x dh) by (dh x dh)
+    products (the states' recompute k_dec^T v, the carried dS's q_dec^T
+    dO, and the inter terms of dr, dk and dv, 2 L dh^2 each) and two over
+    the L(L+1)/2 pairs (dO v^T and A^T dO, 2 dh a pair each); the rest
+    is the decayed scores again and the decayed pair terms of dr and dk
+    (13 a strictly lower pair and channel), per token-channel the
+    forward's 12 and the bonus terms of dr, dk and du and dw's sums (11),
+    and per chunk the decays of the state and of dS and dw's chunk term
+    (dh^2 each)."""
+    def per_chunk(n):
+        return (10 * n * dh * dh + 2 * dh * n * (n + 1),
+                13 * dh * n * (n - 1) // 2 + 23 * n * dh + 3 * dh * dh)
+    whole, tail = divmod(s, chunk)
+    (p, q), (pt, qt) = per_chunk(chunk), per_chunk(tail)
+    return (b * h * (whole * p + (pt if tail else 0)),
+            b * h * (whole * q + (qt if tail else 0)))
+
+
+def gla_bwd_bound_ms(args):
+    """Least time for the GLA backward at (r, k, v, w, u, dout[, dstate]):
+    r, k, v, w, dout and dstate read once, dr, dk, dv, dw and du written
+    once, at HBM rate, against its operations as ``gla_least_ms`` takes
+    the forward's (the least over chunk lengths 1 to 64 of the products
+    at the 3xTF32 rate and the rest at the fp32 rate); the larger."""
+    r, w, u = args[0], args[3], args[4]
+    b, s, h, dh = r.shape
+    nbytes = (r.element_size() * 7 * r.numel()     # r k v dout; dr dk dv
+              + w.element_size() * 2 * w.numel()   # w; dw
+              + 4 * 2 * u.numel()
+              + sum(4 * x.numel() for x in args[6:] if x is not None))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = min(p / (TF32_FLOPS / 3) + q / FP32_FLOPS
+                for p, q in (gla_bwd_flops(b, s, h, dh, n)
+                             for n in range(1, 65))) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gla_bwd_fp64(r, k, v, w, u, dout, dstate=None):
+    """The GLA's gradients in fp64: the step recurrence (w clamped to
+    1e-20 as the forward clamps it) differentiated by autograd on the
+    inputs cast to fp64, for the cotangents ``dout`` of out and
+    ``dstate`` of the final state. (dr, dk, dv, dw, du) in fp64."""
+    import torch
+    xs = [x.detach().double().requires_grad_() for x in (r, k, v, w, u)]
+    rd, kd, vd, wd, ud = xs
+    b, s, h, dh = r.shape
+    wc = torch.clamp_min(wd, 1e-20)
+    state = torch.zeros((b, h, dh, dh), dtype=torch.float64, device=r.device)
+    loss = 0.0
+    for t in range(s):
+        kv = kd[:, t, :, :, None] * vd[:, t, :, None, :]
+        out = torch.einsum("bhc,bhce->bhe", rd[:, t], state + ud[..., None] * kv)
+        loss = loss + (out * dout[:, t].double()).sum()
+        state = wc[:, t, :, :, None] * state + kv
+    if dstate is not None:
+        loss = loss + (state * dstate.double()).sum()
+    return torch.autograd.grad(loss, xs)
+
+
+def gla_bwd_dropped_carry(bwd, args, chunk, span=16):
+    """A planted fault: the GLA backward with the carried dS dropped at
+    every ``span``-token boundary. ``bwd(r, k, v, w, u, dout, dstate,
+    chunk=...)`` runs once a span with dout zero outside it (and dstate
+    only for the last); each span keeps its own tokens' gradients, du
+    sums the spans' in order."""
+    import torch
+    r, k, v, w, u, do = args[:6]
+    dstate = args[6] if len(args) > 6 else None
+    s = r.shape[1]
+    out = [torch.empty_like(x) for x in (r, k, v, w)]
+    du = None
+    for t0 in range(0, s, span):
+        part = torch.zeros_like(do)
+        part[:, t0:t0 + span] = do[:, t0:t0 + span]
+        g = bwd(r, k, v, w, u, part, dstate if t0 + span >= s else None,
+                chunk=chunk)
+        for x, y in zip(out, g[:4]):
+            x[:, t0:t0 + span] = y[:, t0:t0 + span]
+        du = g[4] if du is None else du + g[4]
+    return (*out, du)
 
 
 def seq_bound_ms(name, args, kw):
@@ -3612,29 +3721,38 @@ ATTN_BWD = "flash_attention_bwd"
 ATTN_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu"
 ATTN_BWD32 = "flash_attention_bwd fp32"
 SCAN_REV = "rglru_scan reverse"
+GLA_BWD = "gla_chunked_bwd"
+GLA_BWD_SOURCE = "src/repro_torch/kernels/csrc/gla_chunked_bwd.cu"
+GLA_BWD_REPLACES = ("no TPU kernel: XLA differentiated "
+                    "src/repro/models/layers/rwkv.py:80 gla_chunked_ref")
 
 
 def train_launches(cfg):
     """Launches of one train step, from the config (and, under
-    SCAN_REV, how many of the scan's are the backward's): each local layer's
-    attention forward twice (the forward and the recompute of its remat
-    cycle) and its backward once; each recurrent layer's scan in the
-    forward, the reverse scan of the backward, and the recompute where
-    the layer sits in a remat cycle (remainder layers are not
-    recomputed, as in the reference)."""
+    SCAN_REV, how many of the scan's are the backward's), the kernels
+    that launch at all: each local layer's attention forward twice (the
+    forward and the recompute of its remat cycle) and its backward once;
+    each recurrent layer's scan in the forward, the reverse scan of the
+    backward, and the recompute where the layer sits in a remat cycle;
+    each RWKV layer's GLA forward (and recompute) and its backward
+    (remainder layers are not recomputed, as in the reference)."""
     per_cycle = {kind: cfg.block_pattern.count(kind)
-                 for kind in ("local", "attn", "rec")}
+                 for kind in ("local", "attn", "rec", "rwkv")}
     rem = [cfg.block_pattern[i] for i in range(cfg.n_rem)]
     recompute = 1 if cfg.remat else 0
     attn_c = per_cycle["local"] + per_cycle["attn"]
     attn_r = sum(k in ("local", "attn") for k in rem)
     rec_c, rec_r = per_cycle["rec"], rem.count("rec")
-    return {"flash_attention": cfg.n_cycles * attn_c * (1 + recompute)
-            + attn_r,
-            ATTN_BWD: cfg.n_cycles * attn_c + attn_r,
-            "rglru_scan": cfg.n_cycles * rec_c * (2 + recompute)
-            + 2 * rec_r,
-            SCAN_REV: cfg.n_cycles * rec_c + rec_r}
+    gla_c, gla_r = per_cycle["rwkv"], rem.count("rwkv")
+    counts = {"flash_attention": cfg.n_cycles * attn_c * (1 + recompute)
+              + attn_r,
+              ATTN_BWD: cfg.n_cycles * attn_c + attn_r,
+              "rglru_scan": cfg.n_cycles * rec_c * (2 + recompute)
+              + 2 * rec_r,
+              SCAN_REV: cfg.n_cycles * rec_c + rec_r,
+              "gla_chunked": cfg.n_cycles * gla_c * (1 + recompute) + gla_r,
+              GLA_BWD: cfg.n_cycles * gla_c + gla_r}
+    return {k: n for k, n in counts.items() if n}
 
 
 def attn_bwd_bound_ms(q, k, kw):
@@ -3853,8 +3971,8 @@ def lse_check(q, k, v, kw, label, lse=None):
                            "plain one")
 
 
-def one_cycle_params(cfg, params, well_conditioned=False):
-    """The full model's first cycle and its embedding. With
+def one_cycle_params(cfg, params, well_conditioned=False, cycles=1):
+    """The full model's first ``cycles`` cycles and its embedding. With
     ``well_conditioned`` the stacked matrices are rescaled from the
     init's std 1/sqrt(n_cycles) to the unstacked layer's 1/sqrt(d_in)
     (the CPU tests' ``well_conditioned``): at the init's std the
@@ -3866,7 +3984,7 @@ def one_cycle_params(cfg, params, well_conditioned=False):
         if k.startswith("rem/"):
             continue
         if k.startswith("stack/"):
-            w = v[:1]
+            w = v[:cycles]
             if well_conditioned and v.ndim >= 3:
                 w = (w.float() * math.sqrt(v.shape[0] / v.shape[1])
                      ).to(v.dtype)
@@ -3990,29 +4108,6 @@ def one_cycle_gate(cfg, params, batch):
     return launches, launches32
 
 
-def rwkv_training_refused(device):
-    """RWKV6's backward under impl="pallas" on the card must raise
-    NotImplementedError: the GLA kernel has no backward yet."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch.steps import loss_and_grads
-    from repro_torch.models import Model
-    cfg = get_config("rwkv6-7b").reduced()
-    model = Model(cfg)
-    params = model.init(seed=0, device=device)
-    g = torch.Generator().manual_seed(3)
-    batch = {k: torch.randint(0, cfg.vocab_size, (2, 32), generator=g,
-                              dtype=torch.int32).to(device)
-             for k in ("tokens", "labels")}
-    try:
-        loss_and_grads(model, params, batch)
-    except NotImplementedError as e:
-        say(f"  RWKV6 training under impl='pallas' refused: {e}")
-        return
-    raise RuntimeError("RWKV6's backward through the GLA kernel did not "
-                       "raise")
-
-
 def phase_train(device="cuda"):
     import torch
     from repro_torch.configs import get_config
@@ -4040,7 +4135,6 @@ def phase_train(device="cuda"):
     batch = next(token_batches(cfg, b, s, seed=0, device=device))
     torch.cuda.synchronize()
     say(f"  init {model.num_params():,} params in {time.time() - t0:.1f} s")
-    rwkv_training_refused(device)
     _, launches32 = one_cycle_gate(cfg, params, batch)
 
     opt = train.optimizer(cfg)
@@ -4048,7 +4142,7 @@ def phase_train(device="cuda"):
     state = opt.init(params)
     step_fn = make_train_step(model, opt)
     per_step = train_launches(cfg)
-    rev_want = per_step.pop(SCAN_REV)
+    rev_want = per_step.pop(SCAN_REV, 0)
     rec, rev = {}, []
     bwd_orig, scan_orig = kfa.flash_attention_bwd, krg.rglru_scan
     adj_orig = ops.lru_scan_adjoint
@@ -4235,6 +4329,367 @@ def phase_train(device="cuda"):
                  cell=cell)]
 
 
+# ------------------------------------ phase 11b: RWKV6-7B training
+# RWKV6-7B at its published width with its depth cut from 32 to 16
+# layers: 7,576,752,128 params are ~0.54 B of embeddings and ~220 M a
+# layer, 12 bytes a parameter in training (bf16 params and grads, fp32
+# AdamW moments), so 32 layers need ~91 GB and the card has 80 GB; 16
+# layers need ~48.7 GB before the activations
+RWKV_ARCH, RWKV_LAYERS = "rwkv6-7b", 16
+RWKV_PEAK_GIB = 70.0
+# phase 11's lr 1e-2 makes RWKV6's loss climb after its first step
+# (11.57, 8.89, 12.89, 21.68, 14.56 on an H100); at 1e-3 it falls at
+# every step
+RWKV_LR = 1e-3
+
+
+def rwkv_train_memory_gb(n_par, n_embed, tokens, vocab):
+    """Device memory phase 11b's step must hold at its peak, counted
+    (decimal GB): bf16 params and grads, fp32 AdamW moments, AdamW's fp32
+    temporaries of the largest leaf (the embedding: about four), and
+    the fp32 logits with their gradient and softmax."""
+    return {"params + grads": 2 * 2 * n_par / 1e9,
+            "moments": 2 * 4 * n_par / 1e9,
+            "AdamW temporaries": 4 * 4 * n_embed / 1e9,
+            "logits": 3 * 4 * tokens * vocab / 1e9}
+
+
+def gla_bwd_ragged(device):
+    """Edge shapes for the GLA backward, seeded (r, k, v, w, u, dout,
+    dstate or None; chunk): chunks 1, 16 and above 16 (48; 128, a whole
+    sequence), S that 16 does not divide (17, 33, 4097 at chunk 1), one
+    token, dh 5, 8, 40 (a partial row tile) and 64 (two), w at the clip's
+    ends and in bf16, fp32 and bf16 r, k, v, dout, with and without the
+    final state's cotangent."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(16)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def case(dtype, b, s, h, dh, chunk, ends=False, w_dtype=f32,
+             state=False):
+        x = [(0.5 * torch.randn((b, s, h, dh), generator=g)).to(device, dtype)
+             for _ in range(3)]
+        w = torch.rand((b, s, h, dh), generator=g) * 0.5 + 0.45
+        if ends:
+            w = torch.tensor([1.9e-24, 1.0 - 6.1e-6])[
+                torch.randint(0, 2, w.shape, generator=g)]
+        u = (0.5 * torch.randn((h, dh), generator=g)).to(device)
+        do = torch.randn((b, s, h, dh), generator=g).to(device, dtype)
+        ds = (torch.randn((b, h, dh, dh), generator=g).to(device)
+              if state else None)
+        return (*x, w.to(device, w_dtype), u, do, ds), chunk
+    return [case(f32, 2, 48, 3, 64, 16, ends=True, state=True),
+            case(bf, 1, 64, 2, 64, 16),
+            case(f32, 1, 17, 3, 8, 1, state=True),
+            case(bf, 2, 33, 2, 40, 3, ends=True),
+            case(f32, 1, 96, 2, 64, 48, state=True),
+            case(f32, 1, 128, 2, 32, 128, ends=True, w_dtype=bf),
+            case(bf, 2, 1, 5, 64, 1, state=True),
+            case(f32, 2, 32, 3, 5, 16, ends=True),
+            case(bf, 1, 4097, 1, 64, 1)]
+
+
+def gla_bwd_case(args, chunk, label, exact=False):
+    """The GLA backward kernel on (r, k, v, w, u, dout, dstate) against its
+    plain version: fp32 gradients within KERNEL_RTOL of each one's scale,
+    bf16 within one bf16 ulp of it; dw 0 below the 1e-20 clamp; the same
+    bits on repeat. With ``exact`` also both against the fp64 function
+    (``gla_bwd_fp64``) within 1e-6 of each scale. Returns the largest
+    deviation from the plain version."""
+    import torch
+    from repro_torch.kernels import gla_chunked as kgla
+    from repro_torch.kernels import ref
+    got = kgla.gla_chunked_bwd(*args, chunk=chunk)
+    again = kgla.gla_chunked_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    del again
+    want = ref.gla_chunked_bwd_ref(*args, chunk)
+    devs, worst, ok = [], 0.0, same
+    for x, y in zip(got, want):
+        scale = max(float(y.float().abs().max()), 1e-30)
+        err = float((x.float() - y.float()).abs().max())
+        tol = BF16_RTOL if y.dtype == torch.bfloat16 else KERNEL_RTOL
+        devs.append(err / scale)
+        ok = ok and err <= tol * scale
+        worst = max(worst, err)
+    floor_ok = bool((got[3][args[3] < 1e-20] == 0).all())
+    ok = ok and floor_ok
+    text = ", ".join(f"{n} {d:.3e}" for n, d in zip(
+        ("dr", "dk", "dv", "dw", "du"), devs))
+    if exact:
+        fp64 = gla_bwd_fp64(*args)
+        ex = [float((x.double() - e).abs().max()) / max(float(e.abs().max()),
+                                                        1e-300)
+              for x, e in zip(got, fp64)]
+        ex_p = [float((x.double() - e).abs().max()) / max(float(e.abs().max()),
+                                                          1e-300)
+                for x, e in zip(want, fp64)]
+        ok = ok and all(d <= 1e-6 for d in ex + ex_p)
+        text += ("; against fp64, kernel " + ", ".join(f"{d:.2e}" for d in ex)
+                 + ", plain " + ", ".join(f"{d:.2e}" for d in ex_p)
+                 + " (tol 1e-06)")
+    say(f"  {GLA_BWD} {label}: of each scale {text}; dw 0 below the clamp "
+        f"{floor_ok}; same bits on repeat {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the GLA backward kernel disagrees with its plain "
+                           "version or the fp64 function")
+    return worst
+
+
+def rwkv_one_cycle_gate(cfg, params, batch):
+    """One RWKV6 layer at full width (the full model's first layer and
+    its embedding) in fp32, the stacked matrices at std 1/sqrt(d_in) and
+    the decay, bonus and mixing tensors drawn again (``redraw_rwkv``):
+    every parameter's gradient through the two GLA kernels against the
+    plain route's (autodiff of the plain chunked form), within
+    GRAD_RTOL_FP32 of its scale, each printed. Two planted faults must
+    fail it: the backward with the carried dS dropped at every 16-token
+    stage (``gla_bwd_dropped_carry``) and one that returns dw = 0.
+    Returns the kernel pass's launches."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import gla_chunked as kgla
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model
+    cfg32 = dataclasses.replace(cfg, n_layers=cfg.cycle_len, dtype="float32",
+                                param_dtype="float32")
+    w32 = {k: v.float() for k, v in
+           one_cycle_params(cfg, params, well_conditioned=True).items()}
+    redraw_rwkv(w32, seed=2)
+    t0 = time.time()
+    loss_x, _, h_x = loss_and_grads(Model(cfg32, impl="xla"), w32, batch)
+    torch.cuda.synchronize()
+    t_plain = time.time() - t0
+    scale = {k: max(float(h.abs().max()), 1e-30) for k, h in h_x.items()}
+
+    def devs(h):
+        dev = {k: float((h[k] - h_x[k]).abs().max()) / scale[k]
+               for k in sorted(scale)}
+        return dev, [k for k in dev if not dev[k] <= GRAD_RTOL_FP32]
+    build.reset_launches()
+    loss_k, _, h_k = loss_and_grads(Model(cfg32), w32, batch)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    dev, fails = devs(h_k)
+    del h_k
+    say(f"  one RWKV6 layer in fp32 ({len(dev)} params, std 1/sqrt(d_in), "
+        f"decays redrawn): loss kernels {float(loss_k):.6f}, plain "
+        f"{float(loss_x):.6f} (plain pass {t_plain:.1f} s); launches "
+        f"{launches}; each gradient through the kernels against the plain "
+        f"route's, of its scale (tol {GRAD_RTOL_FP32:.0e}):")
+    for k in dev:
+        say(f"    {k}: {dev[k]:.3e} {'FAIL' if k in fails else 'ok'}")
+    if fails or launches != {"gla_chunked": 2, GLA_BWD: 1}:
+        raise RuntimeError(f"RWKV6 gradients through the kernels deviate "
+                           f"({fails}) or launched {launches}")
+    bwd = kgla.gla_chunked_bwd
+
+    def dropped(*args, chunk):
+        return gla_bwd_dropped_carry(bwd, args, chunk)
+
+    def no_dw(*args, chunk):
+        dr, dk, dv, dw, du = bwd(*args, chunk=chunk)
+        return dr, dk, dv, torch.zeros_like(dw), du
+    for label, fn in (("the carried dS dropped every 16 tokens", dropped),
+                      ("dw = 0", no_dw)):
+        kgla.gla_chunked_bwd = fn
+        try:
+            _, _, h_f = loss_and_grads(Model(cfg32), w32, batch)
+        finally:
+            kgla.gla_chunked_bwd = bwd
+        dev_f, caught = devs(h_f)
+        del h_f
+        say(f"  planted fault, {label}: the gate fails at {caught} (worst "
+            f"{max(dev_f.values()):.3e})")
+        if not caught:
+            raise RuntimeError(f"the RWKV6 gradient gate passed a planted "
+                               f"fault ({label})")
+    del h_x, w32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rwkv_train_cli(device="cuda"):
+    """``python -m repro_torch.launch.train --arch rwkv6-7b --scale smoke``
+    on the card (``train.main`` in this process, so that its launches
+    are counted): 6 steps of B=4 x S=64 (chunk 16), the loss finite, the
+    GLA kernels launched as the steps need."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    argv = ["--arch", RWKV_ARCH, "--scale", "smoke", "--steps", "6",
+            "--batch", "4", "--seq", "64", "--log-every", "2", "--device",
+            device]
+    say(f"  python -m repro_torch.launch.train {' '.join(argv)}:")
+    build.reset_launches()
+    loss = train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    want = {k: 6 * n for k, n in train_launches(
+        get_config(RWKV_ARCH).reduced()).items()}
+    say(f"  the train CLI: loss {loss:.4f}, launches {launches} (expected "
+        f"{want})")
+    if not math.isfinite(loss) or launches != want:
+        raise RuntimeError("the RWKV6 train CLI failed on the card")
+
+
+def phase_train_rwkv(device="cuda"):
+    """11b: RWKV6-7B trained at published width (depth cut to 16 of 32
+    layers) through both GLA kernels; returns the backward kernel's row."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batches
+    from repro_torch.kernels import build
+    from repro_torch.kernels import gla_chunked as kgla
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import linear_warmup_cosine
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    full = get_config(RWKV_ARCH)
+    cfg = dataclasses.replace(full, n_layers=RWKV_LAYERS)
+    b, s = TRAIN_B, TRAIN_S
+    model = Model(cfg)
+    n_par = model.num_params()
+    n_embed = cfg.vocab_size * cfg.d_model
+    mem = rwkv_train_memory_gb(n_par, n_embed, b * s, cfg.vocab_size)
+    say(f"== phase 11b: {cfg.name} training at published width (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, gla_chunk {cfg.gla_chunk}, "
+        f"{cfg.param_dtype} params, {cfg.opt_state_dtype} AdamW moments, "
+        f"remat {cfg.remat}); depth cut from {full.n_layers} to "
+        f"{cfg.n_layers} layers ({n_par:,} params: at 12 bytes a parameter "
+        f"the full depth needs ~91 GB of the card's 80): B={b}, S={s}, "
+        f"{TRAIN_STEPS} steps on one batch; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held on entry")
+    say("  counted: " + ", ".join(f"{k} {v:.2f} GB" for k, v in mem.items())
+        + f"; {sum(mem.values()):.1f} GB (limit {RWKV_PEAK_GIB:.0f} GiB)")
+    if sum(mem.values()) > RWKV_PEAK_GIB * 2**30 / 1e9:
+        raise RuntimeError("phase 11b's counted peak passes the limit")
+    t0 = time.time()
+    params = model.init(seed=0, device=device)
+    redraw_rwkv(params, seed=1)
+    batch = next(token_batches(cfg, b, s, seed=0, device=device))
+    torch.cuda.synchronize()
+    say(f"  init in {time.time() - t0:.1f} s (decay, bonus and mixing "
+        f"tensors redrawn)")
+    t0 = time.time()
+    launches32 = rwkv_one_cycle_gate(cfg, params, batch)
+    say(f"  (the gradient gate in {time.time() - t0:.1f} s)")
+
+    opt = train.optimizer(cfg)
+    schedule = linear_warmup_cosine(RWKV_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt)
+    per_step = train_launches(cfg)
+    bwd_orig, rec = kgla.gla_chunked_bwd, []
+
+    def bwd_rec(*args, chunk):
+        if not rec:
+            rec.append((tuple(None if x is None else x.detach()
+                              for x in args), chunk))
+        return bwd_orig(*args, chunk=chunk)
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        build.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        kgla.gla_chunked_bwd = bwd_rec if i == 0 else bwd_orig
+        try:
+            start.record()
+            params, state, metrics = step_fn(params, state, batch,
+                                             schedule(i))
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            kgla.gla_chunked_bwd = bwd_orig
+        launches = dict(build.LAUNCHES)
+        if i == 0:
+            first = launches
+        losses.append(float(metrics["loss"]))
+        step_ms.append(start.elapsed_time(end))
+        say(f"  step {i + 1}: loss {losses[-1]:.6f}, lr "
+            f"{float(schedule(i)):.3e}, {step_ms[-1]:.1f} ms, launches "
+            f"{launches}")
+        if launches != per_step:
+            raise RuntimeError(f"train step launched {launches}, expected "
+                               f"{per_step}")
+        if not math.isfinite(losses[-1]):
+            raise RuntimeError("non-finite training loss")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall: {losses}")
+    if peak > RWKV_PEAK_GIB:
+        raise RuntimeError(f"phase 11b peaked at {peak:.2f} GiB")
+    ms = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
+    say(f"  loss {losses[0]:.6f} -> {losses[-1]:.6f} (AdamW grad_clip "
+        f"{opt.grad_clip}, peak lr {RWKV_LR}, warmup {TRAIN_WARMUP}); "
+        f"{ms:.1f} ms/step over steps 2-{TRAIN_STEPS} (CUDA events), "
+        f"{b * s / ms * 1e3:,.0f} tokens/s, peak {peak:.2f} GiB; launches "
+        f"a step {per_step}; card {smi('name,power.limit')}")
+    profile_device("one RWKV6 train step", lambda: step_fn(
+        params, state, batch, schedule(TRAIN_STEPS)))
+    del state, params
+    torch.cuda.empty_cache()
+
+    say(f"  {GLA_BWD} at the step's recorded inputs and ragged shapes, "
+        "against its plain version:")
+    args, chunk = rec[0]
+    if args[6] is not None or args[0].dtype != torch.bfloat16 \
+            or args[3].dtype != torch.float32:
+        raise RuntimeError("the train step's GLA backward took other "
+                           "operands than bf16 r, k, v, dout, fp32 w and no "
+                           "dstate")
+    t0 = time.time()
+    worst = gla_bwd_case(args, chunk, f"path {[list(args[0].shape)]} bf16, w "
+                         f"fp32, chunk {chunk}, no dstate")
+    for r_args, r_chunk in gla_bwd_ragged(device):
+        label = (f"ragged {list(r_args[0].shape)} {str(r_args[0].dtype)[6:]}"
+                 f", w {str(r_args[3].dtype)[6:]}, chunk {r_chunk}, dstate "
+                 f"{r_args[6] is not None}")
+        gla_bwd_case(r_args, r_chunk, label, exact=(
+            r_args[0].shape[1] <= 128 and r_args[0].dtype == torch.float32
+            and r_args[3].dtype == torch.float32))
+    k_ms = cuda_ms(lambda: kgla.gla_chunked_bwd(*args, chunk=chunk), reps=10,
+                   warmup=2)
+    p_ms = cuda_ms(lambda: ref.gla_chunked_bwd_ref(*args, chunk), reps=1,
+                   warmup=1)
+    dev_us = device_us(lambda *x: kgla.gla_chunked_bwd(*x, chunk=chunk),
+                       list(args), n=3)
+    b_ms, b_by = gla_bwd_bound_ms(args)
+    f_ms = cuda_ms(lambda: kgla.gla_chunked(*args[:5], chunk=chunk), reps=10,
+                   warmup=2)
+    say(f"  {GLA_BWD} timed at {list(args[0].shape)} bf16, w fp32, chunk "
+        f"{chunk}: kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch; "
+        f"the forward kernel {f_ms:.4f} ms at the same inputs), plain "
+        f"{p_ms:.4f} ms, library n/a, bound {b_ms:.6f} ms ({b_by}), "
+        f"kernel/bound {k_ms / b_ms:.2f}x; card "
+        f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')} (checks "
+        f"and times in {time.time() - t0:.1f} s)")
+    row = dict(name=GLA_BWD, route="cuda", source=GLA_BWD_SOURCE,
+               replaces=GLA_BWD_REPLACES, launches=first[GLA_BWD],
+               shape=[list(args[0].shape), list(args[4].shape)],
+               max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None, device_us=dev_us,
+               cell=f"{cfg.name} train step B={b} S={s}, {cfg.n_layers} of "
+               f"{full.n_layers} layers")
+    del args, rec
+    torch.cuda.empty_cache()
+    rwkv_train_cli(device)
+    say(f"  phase 11b took {time.time() - t_phase:.1f} s (the one-layer gate's"
+        f" fp32 kernel pass: {launches32})")
+    return [row]
+
+
 # --------------------------------- phase 12: the classical federation
 # 12a: Qwen1.5-4B at its published width, depth cut from 40 to 8 layers
 # (at 40, two nodes' fp32 AdamW moments alone are 63.2 GB); the spec of
@@ -4394,7 +4849,8 @@ def fed_kernel_round(arch, overrides, device="cuda"):
     params are the init's with the stacked matrices at std 1/sqrt(d_in)
     (``one_cycle_params``: at the init's stacked fan-in the gates and the
     softmax saturate, and the second local step amplifies the first
-    one's rounding). The aggregated delta within GRAD_RTOL_FP32 of each
+    one's rounding); RWKV6's decay, bonus and mixing tensors drawn again
+    (``redraw_rwkv``). The aggregated delta within GRAD_RTOL_FP32 of each
     leaf's scale; the launches exact; every kernel call of the round,
     forward and backward, against its plain version at its recorded
     inputs."""
@@ -4403,6 +4859,7 @@ def fed_kernel_round(arch, overrides, device="cuda"):
     from repro_torch.core.fed.api import phases
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import gla_chunked as kgla
     from repro_torch.models import Model
     from repro_torch.optim import SGD
     spec = api.FedSpec.classical(arch=arch, lr=FED_SMALL_LR, **overrides,
@@ -4410,27 +4867,37 @@ def fed_kernel_round(arch, overrides, device="cuda"):
     sub = api.ClassicalSubstrate(spec, opt=SGD(), device=device)
     plain = api.ClassicalSubstrate(spec, model=Model(sub.cfg, impl="xla"),
                                    opt=SGD(), device=device)
-    state = sub.init_state(0, params=one_cycle_params(
-        sub.cfg, sub.model.init(seed=0, device=device),
-        well_conditioned=True))
+    params = one_cycle_params(sub.cfg, sub.model.init(seed=0, device=device),
+                              well_conditioned=True, cycles=sub.cfg.n_cycles)
+    if "rwkv" in sub.cfg.block_pattern:
+        redraw_rwkv(params, seed=1)
+    state = sub.init_state(0, params=params)
     steps = spec.nodes_per_round * spec.interval_length
     want = {k: n * steps for k, n in train_launches(sub.cfg).items()
-            if n and k != SCAN_REV}
-    bwd_orig, bwd_calls = kfa.flash_attention_bwd, []
+            if k != SCAN_REV}
+    bwd_calls = {ATTN_BWD: [], GLA_BWD: []}
+    origs = {ATTN_BWD: (kfa, kfa.flash_attention_bwd),
+             GLA_BWD: (kgla, kgla.gla_chunked_bwd)}
 
-    def bwd_rec(*args, **kw):
-        bwd_calls.append((tuple(x.detach() for x in args), kw))
-        return bwd_orig(*args, **kw)
+    def recording(name, fn):
+        def rec_call(*args, **kw):
+            bwd_calls[name].append((tuple(
+                None if x is None else x.detach() for x in args), kw))
+            return fn(*args, **kw)
+        return rec_call
     build.reset_launches()
-    kfa.flash_attention_bwd = bwd_rec
+    for name, (mod, fn) in origs.items():
+        setattr(mod, name, recording(name, fn))
     try:
         with Recorder({"attention": "flash_attention",
-                       "lru_scan": "rglru_scan"}) as rec:
+                       "lru_scan": "rglru_scan",
+                       "gla_chunked": "gla_chunked"}) as rec:
             _, cohort, got, _ = phases.dispatch_round(
                 sub, sub.snapshot(state), 5, 0)
             torch.cuda.synchronize()
     finally:
-        kfa.flash_attention_bwd = bwd_orig
+        for name, (mod, fn) in origs.items():
+            setattr(mod, name, fn)
     launches = {k: n for k, n in build.LAUNCHES.items() if n}
     _, _, ref_up, _ = phases.dispatch_round(
         plain, plain.snapshot(state), 5, 0)
@@ -4450,19 +4917,28 @@ def fed_kernel_round(arch, overrides, device="cuda"):
         raise RuntimeError(f"the kernel round's delta deviates: {dev}")
     if launches != want:
         raise RuntimeError(f"the kernel round launched {launches}")
-    op = {"flash_attention": ops.attention, "rglru_scan": ops.lru_scan}
+    op = {"flash_attention": ops.attention, "rglru_scan": ops.lru_scan,
+          "gla_chunked": ops.gla_chunked}
     for name, calls in rec.calls.items():
         for key, (cnt, args, kw) in calls.items():
-            out = op[name](*args, **no_impl(kw))
-            ref_out = op[name](*args, **dict(no_impl(kw), impl="xla"))
-            err = float((out - ref_out).abs().max())
-            scale = max(1.0, float(ref_out.abs().max()))
-            say(f"    {name} {[list(a.shape) for a in args]} x{cnt}: "
-                f"max_abs_err {err:.3e} (tol {KERNEL_RTOL:.0e} x scale "
-                f"{scale:.3g})")
-            if err > KERNEL_RTOL * scale:
-                raise RuntimeError(f"{name} disagrees with its plain version")
-    attn_bwd_case(*bwd_calls[0], f"{sub.cfg.name} round fp32")
+            outs = op[name](*args, **no_impl(kw))
+            ref_outs = op[name](*args, **dict(no_impl(kw), impl="xla"))
+            for out, ref_out in zip(*(x if isinstance(x, tuple) else (x,)
+                                      for x in (outs, ref_outs))):
+                err = float((out - ref_out).abs().max())
+                scale = max(1.0, float(ref_out.abs().max()))
+                say(f"    {name} {[list(a.shape) for a in args]} x{cnt}: "
+                    f"max_abs_err {err:.3e} (tol {KERNEL_RTOL:.0e} x scale "
+                    f"{scale:.3g})")
+                if err > KERNEL_RTOL * scale:
+                    raise RuntimeError(f"{name} disagrees with its plain "
+                                       "version")
+    if bwd_calls[ATTN_BWD]:
+        attn_bwd_case(*bwd_calls[ATTN_BWD][0], f"{sub.cfg.name} round fp32")
+    if bwd_calls[GLA_BWD]:
+        args, kw = bwd_calls[GLA_BWD][0]
+        gla_bwd_case(args, kw["chunk"], f"{sub.cfg.name} round fp32",
+                     exact=True)
     return launches
 
 
@@ -4524,22 +5000,6 @@ def fed_train_cli(device="cuda"):
         raise RuntimeError("the fed_train CLI failed")
 
 
-def fed_rwkv_refused(device="cuda"):
-    """RWKV6 through ``ClassicalSubstrate`` on the card must raise
-    NotImplementedError in its first local step (the GLA kernel has no
-    backward)."""
-    from repro_torch.core.fed import api
-    spec = api.FedSpec.classical(arch="rwkv6-7b", **FED_SMALL)
-    sess = api.FederationSession.create(spec, 0, device=device)
-    try:
-        sess.step()
-    except NotImplementedError as e:
-        say(f"  RWKV6 through ClassicalSubstrate refused: {e}")
-        return
-    raise RuntimeError("an RWKV6 federated round ran through the GLA "
-                       "kernel's missing backward")
-
-
 def phase_fed(device="cuda"):
     t0 = time.time()
     rows = fed_full_width(device)
@@ -4547,9 +5007,9 @@ def phase_fed(device="cuda"):
     say("== phase 12b: the classical federation at reduced width (fp32, "
         "the reference's test sizes: N=3, N_p=2, I_l=2, B=2, S=16)")
     for arch, overrides in (("qwen1.5-4b", dict(n_layers=1)),
-                            ("recurrentgemma-2b", {})):
+                            ("recurrentgemma-2b", {}), ("rwkv6-7b", {})):
         fed_kernel_round(arch, overrides, device)
-    for part in (fed_resume_bit_exact, fed_train_cli, fed_rwkv_refused):
+    for part in (fed_resume_bit_exact, fed_train_cli):
         t = time.time()
         part(device)
         say(f"  ({part.__name__} in {time.time() - t:.1f} s)")
@@ -5436,15 +5896,16 @@ def seq_timing_inputs(device="cuda"):
     RecurrentGemma-2B prefill's shape (q (40, 4096, 256), kv (4, 4096,
     256) heads-major, causal, window 2048) and its backward at phase 11's
     (q, o, dO (10, 4096, 256), kv (1, 4096, 256), the LSE from the
-    forward of the port under test)."""
+    forward of the port under test); the GLA backward at phase 11b's
+    (B = 1, the same draws, dout bf16 N(0, 1), no dstate)."""
     import torch
     from repro_torch.kernels import flash_attention as kfa
     g = torch.Generator(device="cpu").manual_seed(12)
 
-    def gla(s):
-        rkv = [(0.5 * torch.randn((SERVE_B, s, 64, 64), generator=g)).to(
+    def gla(s, b=SERVE_B):
+        rkv = [(0.5 * torch.randn((b, s, 64, 64), generator=g)).to(
             device, torch.bfloat16) for _ in range(3)]
-        x = torch.rand((SERVE_B, s, 64, 64), generator=g) * 16.0 - 12.0
+        x = torch.rand((b, s, 64, 64), generator=g) * 16.0 - 12.0
         return rkv + [torch.exp(-torch.exp(x)).to(device),
                       (0.5 * torch.randn((64, 64), generator=g)).to(device)]
     a = torch.rand((SERVE_B, SERVE_S, 2560), generator=g).to(device)
@@ -5458,6 +5919,9 @@ def seq_timing_inputs(device="cuda"):
     q, k, v, do = (r(10, TRAIN_S, 256), r(1, TRAIN_S, 256),
                    r(1, TRAIN_S, 256), r(10, TRAIN_S, 256))
     o, lse = kfa.flash_attention(q, k, v, return_lse=True, **mask)
+    gla_bwd = gla(TRAIN_S, TRAIN_B)
+    gla_bwd += [torch.randn(gla_bwd[0].shape, generator=g).to(
+        device, torch.bfloat16), None]
     return {"gla_chunked (4,4096,64,64) bf16 chunk 16": ("gla", gla(SERVE_S),
                                                          16),
             "gla_chunked (4,4097,64,64) bf16 chunk 1": ("gla",
@@ -5466,7 +5930,9 @@ def seq_timing_inputs(device="cuda"):
             "flash_attention fp32 (4,4096,10|1,256) window 2048": (
                 "attn", fwd, mask),
             "flash_attention_bwd fp32 (1,4096,10|1,256) window 2048": (
-                "attn_bwd", (q, k, v, o, do), dict(mask, lse=lse))}
+                "attn_bwd", (q, k, v, o, do), dict(mask, lse=lse)),
+            "gla_chunked_bwd (1,4096,64,64) bf16 chunk 16": (
+                "gla_bwd", gla_bwd, 16)}
 
 
 def time_attn_bwd(splits=(1, 2, 3, 5, 10), reps=20):
@@ -5515,10 +5981,11 @@ def time_attn_bwd(splits=(1, 2, 3, 5, 10), reps=20):
 
 
 def time_seq(trials=5):
-    """ms per call (``cuda_ms``, ``trials`` times) of gla_chunked,
-    rglru_scan and the fp32-storage attention forward and backward
-    through their wrappers at ``seq_timing_inputs``, for the port under
-    ``--src``; one JSON line of medians and trials."""
+    """ms per call (``cuda_ms``, ``trials`` times) of gla_chunked and its
+    backward, rglru_scan and the fp32-storage attention forward and
+    backward through their wrappers at ``seq_timing_inputs``, for the
+    port under ``--src`` (a port without the GLA backward skips it); one
+    JSON line of medians and trials."""
     import statistics
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import gla_chunked as kgla
@@ -5526,8 +5993,13 @@ def time_seq(trials=5):
     result = {"src": str(kgla.__file__).rsplit("/repro_torch/", 1)[0],
               "card": smi("name,power.limit")}
     for label, (kind, args, extra) in seq_timing_inputs().items():
+        if kind == "gla_bwd" and not hasattr(kgla, "gla_chunked_bwd"):
+            continue                      # a port from before the kernel
         if kind == "gla":
             fn = lambda: kgla.gla_chunked(*args, chunk=extra)  # noqa: E731
+        elif kind == "gla_bwd":
+            fn = lambda: kgla.gla_chunked_bwd(  # noqa: E731
+                *args, chunk=extra)
         elif kind == "attn":
             fn = lambda: kfa.flash_attention(*args, **extra)  # noqa: E731
         elif kind == "attn_bwd":
@@ -5601,6 +6073,7 @@ def main() -> int:
     phase_api()
     rows += phase_cohorts_serving()
     rows += phase_train()
+    rows += phase_train_rwkv()
     rows += phase_fed()
     rows += phase_archs()
     phase_batching()

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "qf_flash_attention_bwd": ([_VP] * 12 + [_INT] * 9 + [_VP], _INT),
     "qf_rglru_scan": ([_VP] * 3 + [_INT] * 4 + [_VP], _INT),
     "qf_gla_chunked": ([_VP] * 7 + [_INT] * 7 + [_VP], _INT),
+    "qf_gla_chunked_bwd": ([_VP] * 15 + [_INT] * 6 + [_VP], _INT),
+    "qf_gla_chunked_bwd_workspace": ([_INT] * 5, ctypes.c_longlong),
     "qf_error_string": ([_INT], ctypes.c_char_p),
 }
 

@@ -8,14 +8,14 @@ gives the plain version on any device. There is no other route and no
 fallback.
 
 Gradients. Plain torch differentiates every plain version. On the card,
-attention and the RG-LRU scan are ``torch.autograd.Function``s: the
-forward is the kernel's launch, the backward a kernel too (attention's
-own backward kernel; the scan's adjoint is the same scan kernel run on
-the reversed sequence). The kernels with no backward refuse an input
-that requires grad while autograd records, rather than return an output
-that would silently drop the gradient: the GLA kernel (RWKV6's wkv)
-with ``NotImplementedError``, the quantum kernels with ``ValueError``
-(the quantum path never uses autograd).
+attention, the RG-LRU scan and the chunked GLA (RWKV6's wkv) are
+``torch.autograd.Function``s: the forward is the kernel's launch, the
+backward a kernel too (attention's and the GLA's own backward kernels;
+the scan's adjoint is the same scan kernel run on the reversed
+sequence). The quantum kernels have no backward: they refuse an input
+that requires grad while autograd records (``ValueError``), rather than
+return an output that would silently drop the gradient (the quantum
+path never uses autograd).
 """
 from __future__ import annotations
 
@@ -152,6 +152,31 @@ class _LruScanFn(torch.autograd.Function):
         return da, db, None
 
 
+class _GlaChunkedFn(torch.autograd.Function):
+    """The chunked GLA kernel with its backward kernel. Saves the inputs
+    (the backward kernel recomputes the states it needs); dr, dk, dv come
+    back in r's dtype, dw in w's and du fp32. The final state's cotangent
+    goes to the backward kernel as it is, or as None where the state
+    does not reach the loss."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk: int):
+        ctx.set_materialize_grads(False)
+        out, state = _gla.gla_chunked(r, k, v, w, u, chunk=chunk)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.chunk = chunk
+        return out, state
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u = ctx.saved_tensors
+        dout = torch.zeros_like(r) if dout is None else _dense(
+            dout.to(r.dtype))
+        dstate = None if dstate is None else _dense(dstate.float())
+        return (*_gla.gla_chunked_bwd(r, k, v, w, u, dout, dstate,
+                                      chunk=ctx.chunk), None)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, impl: str = "pallas"
               ) -> torch.Tensor:
@@ -186,16 +211,12 @@ def gla_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """RWKV6 wkv as chunked gated linear attention: r, k, v, w
     (B, S, H, dh) with w in (0, 1) (keep it fp32), u (H, dh), ``chunk``
     dividing S -> (out (B, S, H, dh) in r's dtype, final state
-    (B, H, dh, dh) fp32). The model layer's entry."""
+    (B, H, dh, dh) fp32). The model layer's entry; on the card both
+    outputs differentiate through the backward kernel."""
     if plain_route(r, impl):
         return ref.gla_chunked_ref(r, k, v, w, u, chunk)
-    if _records_grad(r, k, v, w, u):
-        raise NotImplementedError(
-            "gla_chunked: the GLA kernel has no backward yet; RWKV6 "
-            "training on the card waits for it (ROADMAP.md, Queue 2: the "
-            "GLA backward kernel and RWKV6 training)")
-    return _gla.gla_chunked(_dense(r), _dense(k), _dense(v), _dense(w),
-                            _dense(u.float()), chunk=chunk)
+    return _GlaChunkedFn.apply(_dense(r), _dense(k), _dense(v), _dense(w),
+                               _dense(u.float()), chunk)
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -186,9 +186,15 @@ def gla_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                + (sum_c r_tc k_tc u_c) v_t + (r_t * e^{lp_prev,t}) S
         S     <- e^{lp_last} * S + sum_i (k_i * e^{lp_last - lp_i}) v_i^T
 
-    Every exponent is <= 0. The pairwise tensor (B, n, t, i, H, dh) is
-    built a slab of chunks at a time, so a full-width prefill stays
-    within a few GB."""
+    Every exponent of a pair that counts is <= 0. The pairs above the
+    diagonal, which do not count, are set to -inf before the exp: the
+    reference's ``where(tri, exp(pair), 0)`` overflows there (the pair's
+    exponent reaches +736 within a chunk of 16 at the decay clip) and
+    its autodiff multiplies the masked gradient's 0 by that inf, so dw
+    comes back NaN (``tests/test_torch_gla_grad.py``). The forward's
+    values are the same bits either way. The pairwise tensor (B, n, t,
+    i, H, dh) is built a slab of chunks at a time, so a full-width
+    prefill stays within a few GB."""
     b, s, h, dh = r.shape
     if chunk < 1 or s % chunk:
         raise ValueError(f"chunk {chunk} does not divide the sequence {s}")
@@ -210,7 +216,8 @@ def gla_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for n0 in range(0, n, slab):
         sl = slice(n0, n0 + slab)
         pair = lp_prev[:, sl, :, None] - lp[:, sl, None]  # (b,n,t,i,h,c)
-        dec = torch.where(tri, pair.exp_(), 0.0)
+        dec = torch.where(tri, pair.masked_fill_(~tri, float("-inf"))
+                          .exp_(), 0.0)
         del pair
         a = dec.mul_(r_[:, sl, :, None]).mul_(k_[:, sl, None]).sum(-1)
         del dec
@@ -228,6 +235,82 @@ def gla_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv = torch.einsum("bthc,bthe->bhce", k_dec[:, i], v_[:, i])
         state = decay[:, i] * state + kv
     return out.reshape(b, s, h, dh).to(r.dtype), state
+
+
+# tokens a stage of the GLA backward: the state before each stage is kept
+# from a forward sweep, and the states within a stage recomputed from it
+GLA_BWD_STAGE = 16
+
+
+def gla_chunked_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
+                        dstate: torch.Tensor | None = None, chunk: int = 16):
+    """Gradients of ``gla_chunked_ref``'s (out, final state) at (r, k, v,
+    w, u) for the cotangents ``dout`` of out and ``dstate`` of the final
+    state (None: zero): (dr, dk, dv in r's dtype, dw in w's dtype, du
+    (H, dh) fp32, summed over B and S). The plain version of the CUDA
+    kernel ``csrc/gla_chunked_bwd.cu``, by the same algorithm, fp32
+    arithmetic.
+
+    The function does not depend on the chunk (``chunk`` is checked as
+    the forward checks it). With S_t the state after token t (S_0 = 0)
+    and dS_t its cotangent, carried in reverse from ``dstate``:
+
+        dr_t = (S_{t-1} + diag(u) k_t v_t^T) do_t
+        dk_t = (dS_t + diag(u) r_t do_t^T) v_t
+        dv_t = (dS_t + diag(u) r_t do_t^T)^T k_t
+        dw_t = sum_e dS_t S_{t-1}    (0 where w_t < 1e-20: the clamp)
+        du   = sum_t r_t k_t (v_t . do_t)
+        dS_{t-1} = diag(w_t) dS_t + r_t do_t^T
+
+    with w clamped to 1e-20 as the forward clamps it. dw is formed from
+    the states directly, never as d(log w) / w: the chunked form's
+    autodiff (the reference's) takes d(log w) as a difference of sums
+    that cancel to nothing at a strong decay, so its dw is 0 where the
+    function's is O(1) (and NaN where its masked exp overflowed). No
+    exponential is taken at all. The states before each stage of
+    GLA_BWD_STAGE tokens come from a forward sweep; a stage's own states
+    are recomputed from them, so a full-width layer holds S / 16 states
+    and no more."""
+    b, s, h, dh = r.shape
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence {s}")
+    r_, k_, v_, do = (x.float() for x in (r, k, v, dout))
+    wf = w.float()
+    wc = torch.clamp_min(wf, GLA_W_FLOOR)[..., None]     # (b, s, h, dh, 1)
+    vd = (v_ * do).sum(-1, keepdim=True)                  # (b, s, h, 1)
+    bonus = (r_ * u.float() * k_).sum(-1, keepdim=True)
+    state = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    starts = []
+    for t in range(s):
+        if t % GLA_BWD_STAGE == 0:
+            starts.append(state)
+        state = wc[:, t] * state + k_[:, t, :, :, None] * v_[:, t, :, None, :]
+    ds = (torch.zeros_like(state) if dstate is None
+          else dstate.float().clone())
+    dr, dk, dv, dw = (torch.empty_like(r_) for _ in range(4))
+    for j in reversed(range(len(starts))):
+        t0 = j * GLA_BWD_STAGE
+        prev, state = [], starts[j]
+        for t in range(t0, min(s, t0 + GLA_BWD_STAGE)):
+            prev.append(state)
+            state = (wc[:, t] * state
+                     + k_[:, t, :, :, None] * v_[:, t, :, None, :])
+        for t in reversed(range(t0, t0 + len(prev))):
+            sp = prev[t - t0]
+            dr[:, t] = torch.einsum("bhce,bhe->bhc", sp, do[:, t])
+            dk[:, t] = torch.einsum("bhce,bhe->bhc", ds, v_[:, t])
+            dv[:, t] = torch.einsum("bhce,bhc->bhe", ds, k_[:, t])
+            dw[:, t] = (ds * sp).sum(-1)
+            ds = wc[:, t] * ds + r_[:, t, :, :, None] * do[:, t, :, None, :]
+    u_ = u.float()
+    dr += u_ * k_ * vd
+    dk += u_ * r_ * vd
+    dv += bonus * do
+    du = (r_ * k_ * vd).sum((0, 1))
+    dw = torch.where(wf >= GLA_W_FLOOR, dw, 0.0)
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw.to(w.dtype),
+            du)
 
 
 def gla_recurrence_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

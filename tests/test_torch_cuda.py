@@ -1150,19 +1150,136 @@ def test_forward_train_backprop_through_kernels_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_rwkv_training_through_the_gla_kernel_raises(cuda_device):
+def test_rwkv_training_through_the_gla_kernels_matches_plain(cuda_device):
+    """RWKV6 reduced (fp32, remat on, the redrawn decays across the clip):
+    every parameter's gradient of the training loss through the GLA
+    kernel and its backward kernel matches the plain route's (autodiff of
+    the chunked form) within 1e-3 of its scale, the whole-model tolerance
+    of the RecurrentGemma case above; the remat cycle runs the forward
+    kernel twice a layer and the backward once. Without autograd
+    recording the same forward runs the forward kernel alone."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import Model
-    cfg = get_config("rwkv6-7b").reduced()
-    params = Model(cfg).init(seed=0, device=cuda_device)
-    batch = {k: torch.zeros((1, 16), dtype=torch.int32, device=cuda_device)
+    cfg = dataclasses.replace(get_config("rwkv6-7b").reduced(), remat=True)
+    params = _rwkv_params(cfg, cuda_device)
+    g = torch.Generator().manual_seed(7)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 96), generator=g,
+                              dtype=torch.int32).to(cuda_device)
              for k in ("tokens", "labels")}
-    with pytest.raises(NotImplementedError, match="GLA"):
-        loss_and_grads(Model(cfg), params, batch)
-    # without autograd recording, the same forward runs the kernel
+    build.reset_launches()
+    loss, _, got = loss_and_grads(Model(cfg), params, batch)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"gla_chunked": 2 * cfg.n_layers,
+                                    "gla_chunked_bwd": cfg.n_layers}
+    want_loss, _, want = loss_and_grads(Model(cfg, impl="xla"), params,
+                                        batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for key, w in want.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        assert bool(torch.isfinite(got[key]).all()), key
+        assert float((got[key] - w).abs().max()) <= 1e-3 * scale, key
+    build.reset_launches()
     with torch.no_grad():
         Model(cfg).forward_train(params, batch)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"gla_chunked": cfg.n_layers}
+
+
+# (b, s, h, dh, chunk, w at the clip's ends, w dtype, a dstate): the
+# train step's chunk 16 and chunk 1 (S that 16 does not divide: the
+# kernel's last stage short), chunks above 16 (48; 128, a whole
+# sequence), a single token, dh 8, 40 and 5 (a partial row tile; rows of
+# 5 elements), dh 64 in two row tiles, w in bf16, with and without the
+# final state's cotangent
+GLA_BWD_CASES = [(1, 64, 3, 64, 16, False, torch.float32, False),
+                 (2, 48, 2, 64, 16, True, torch.float32, True),
+                 (1, 17, 3, 8, 1, False, torch.float32, True),
+                 (2, 33, 2, 40, 3, True, torch.float32, False),
+                 (1, 96, 2, 64, 48, False, torch.float32, True),
+                 (1, 128, 2, 32, 128, True, torch.float32, False),
+                 (2, 1, 5, 64, 1, False, torch.float32, True),
+                 (2, 32, 3, 5, 16, True, torch.float32, False),
+                 (1, 40, 2, 64, 20, False, torch.bfloat16, True),
+                 (1, 4097, 1, 64, 1, False, torch.float32, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_backward_kernel_agrees_on_ragged_cases(cuda_device, dtype):
+    """dr, dk, dv, dw, du against the plain backward on the same inputs:
+    fp32 within 1e-5 of each gradient's scale (the two sum the same
+    terms in another order), bf16 outputs within one bf16 ulp of it; dw
+    exactly 0 where w is below the 1e-20 clamp; one launch a call."""
+    from repro_torch.kernels import gla_chunked as kgla
+    gen = torch.Generator().manual_seed(10)
+    build.reset_launches()
+    for b, s, h, dh, chunk, ends, w_dtype, with_state in GLA_BWD_CASES:
+        args = _gla_case(gen, b, s, h, dh, dtype, cuda_device, ends, w_dtype)
+        dout = torch.randn((b, s, h, dh), generator=gen).to(cuda_device,
+                                                            dtype)
+        dstate = (torch.randn((b, h, dh, dh), generator=gen).to(cuda_device)
+                  if with_state else None)
+        got = kgla.gla_chunked_bwd(*args, dout, dstate, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ref.gla_chunked_bwd_ref(*args, dout, dstate, chunk)
+        assert [x.dtype for x in got] == [x.dtype for x in want]
+        assert [x.shape for x in got] == [x.shape for x in want]
+        for name, x, y in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+            tol = BF16_ULP if y.dtype == torch.bfloat16 else RTOL
+            scale = max(float(y.float().abs().max()), 1e-30)
+            err = float((x.float() - y.float()).abs().max())
+            assert err <= tol * scale, (b, s, h, dh, chunk, name, err, scale)
+        assert bool((got[3][args[3] < 1e-20] == 0).all())
+    assert dict(build.LAUNCHES) == {"gla_chunked_bwd": len(GLA_BWD_CASES)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_backward_gives_the_same_bits_on_repeat(cuda_device, dtype):
+    """No atomics: the same inputs give the same gradients bit for bit
+    (the kill-and-resume of a federated RWKV6 run depends on it)."""
+    from repro_torch.kernels import gla_chunked as kgla
+    gen = torch.Generator().manual_seed(11)
+    args = _gla_case(gen, 2, 300, 4, 64, dtype, cuda_device)
+    dout = torch.randn((2, 300, 4, 64), generator=gen).to(cuda_device, dtype)
+    dstate = torch.randn((2, 4, 64, 64), generator=gen).to(cuda_device)
+    first = kgla.gla_chunked_bwd(*args, dout, dstate, chunk=4)
+    again = kgla.gla_chunked_bwd(*args, dout, dstate, chunk=4)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_gla_backward_wrapper_refuses_bad_operands(cuda_device):
+    from repro_torch.kernels import gla_chunked as kgla
+    gen = torch.Generator().manual_seed(12)
+    r, k, v, w, u = _gla_case(gen, 1, 16, 2, 64, torch.float32, cuda_device)
+    do = torch.randn_like(r)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kgla.gla_chunked_bwd(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu(),
+                             do.cpu(), chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        kgla.gla_chunked_bwd(r, k, v, w, u, do.transpose(1, 2), chunk=16)
+    with pytest.raises(ValueError):
+        kgla.gla_chunked_bwd(r, k, v, w, u, do.bfloat16(), chunk=16)
+    with pytest.raises(ValueError):
+        kgla.gla_chunked_bwd(r, k, v, w, u, do[:, :8].contiguous(), chunk=8)
+    with pytest.raises(ValueError, match="dstate"):
+        kgla.gla_chunked_bwd(r, k, v, w, u, do,
+                             torch.zeros((1, 2, 64, 32), device=cuda_device),
+                             chunk=16)
+    with pytest.raises(ValueError):
+        kgla.gla_chunked_bwd(r, k, v, w, u, do,
+                             torch.zeros((1, 2, 64, 64), device=cuda_device,
+                                         dtype=torch.bfloat16), chunk=16)
+    with pytest.raises(ValueError, match="divide"):
+        kgla.gla_chunked_bwd(r, k, v, w, u, do, chunk=5)
+    big = [torch.zeros((1, 4, 1, 128), device=cuda_device)] * 4
+    with pytest.raises(ValueError, match="head_dim"):
+        kgla.gla_chunked_bwd(*big, torch.zeros((1, 128), device=cuda_device),
+                             big[0], chunk=4)
 
 
 @pytest.mark.cuda

@@ -55,6 +55,7 @@ from repro_torch.core.quantum import channel_noise  # noqa: E402
 from repro_torch.data import BigramTask, token_batches  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import gla_chunked as kgla  # noqa: E402
 from repro_torch.kernels import rglru_scan as krg  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads, make_train_step  # noqa: E402
@@ -228,18 +229,22 @@ def _count(name, fn):
     return counted
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 def test_kernel_route_functions_backpropagate_like_the_plain_route(
-        monkeypatch):
+        monkeypatch, arch):
     """The card's route on the CPU, with each kernel replaced by its plain
     version (counted): ``_FlashAttentionFn`` (forward with its LSE, then
     the backward from the forward's output and LSE), ``_LruScanFn`` (the
-    reverse scan) and the remat cycle give the plain route's loss and
+    reverse scan), ``_GlaChunkedFn`` (RWKV6's wkv and its backward, at
+    chunk 16: S = 32) and the remat cycle give the plain route's loss and
     gradients, with the card's launch counts: the forward kernels twice
     (remat), the backward and the reverse scan once each. The backward
-    gets the recompute's LSE."""
-    arch = "recurrentgemma-2b"
+    gets the recompute's LSE. The GLA backward is the step form, which
+    differs from autodiff of the chunked form by that form's rounding
+    (tests/test_torch_gla_grad.py), well within 1e-5 here."""
     cfg, jcfg = cfg_pair(arch, remat=True)
-    params, batch = model_inputs(arch, jcfg, seed=5)
+    params, batch = model_inputs(arch, jcfg, seed=5,
+                                 seq=32 if arch == "rwkv6-7b" else S)
     params = well_conditioned(params)
     tp = convert.model_params_to_torch(params, cfg, device="cpu")
     want_loss, _, want = loss_and_grads(Model(cfg, impl="xla"), tp,
@@ -261,25 +266,32 @@ def test_kernel_route_functions_backpropagate_like_the_plain_route(
                         _count("flash_attention_bwd", backward))
     monkeypatch.setattr(krg, "rglru_scan",
                         _count("rglru_scan", ref.rglru_scan_ref))
+    monkeypatch.setattr(kgla, "gla_chunked", _count(
+        "gla_chunked", lambda *x, chunk: ref.gla_chunked_ref(*x, chunk)))
+    monkeypatch.setattr(kgla, "gla_chunked_bwd", _count(
+        "gla_chunked_bwd",
+        lambda *x, chunk: ref.gla_chunked_bwd_ref(*x, chunk)))
     build.reset_launches()
     loss, _, grads = loss_and_grads(Model(cfg), tp, port_batch(batch))
-    assert dict(build.LAUNCHES) == {"flash_attention": 2,
-                                    "flash_attention_bwd": 1,
-                                    "rglru_scan": 6}
+    expected = ({"flash_attention": 2, "flash_attention_bwd": 1,
+                 "rglru_scan": 6} if arch == "recurrentgemma-2b" else
+                {"gla_chunked": 2 * cfg.n_layers,
+                 "gla_chunked_bwd": cfg.n_layers})
+    assert dict(build.LAUNCHES) == expected
     build.reset_launches()
     assert abs(float(loss) - float(want_loss)) <= 1e-6 * float(want_loss)
     for k, w in want.items():
         assert rel(grads[k], w) <= 1e-5, k
 
 
-def test_gla_kernel_route_refuses_gradients(monkeypatch):
-    """RWKV6's wkv has no backward kernel: the card's route refuses an
-    input that requires grad (and never falls back to the plain one);
-    without autograd recording it runs."""
+def test_gla_kernel_route_never_takes_the_plain_version(monkeypatch):
+    """RWKV6's wkv on the card's route reaches the kernel's wrapper with or
+    without autograd recording, and never falls back to the plain one:
+    the wrapper refuses CPU tensors."""
     monkeypatch.setattr(ops, "_on_cpu", lambda x: False)
     r = torch.randn(1, 16, 2, 8, requires_grad=True)
     w = torch.rand(1, 16, 2, 8)
-    with pytest.raises(NotImplementedError, match="GLA backward"):
+    with pytest.raises(ValueError, match="CUDA kernel"):
         ops.gla_chunked(r, r, r, w, torch.zeros(2, 8), chunk=16)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA kernel"):
         ops.gla_chunked(r, r, r, w, torch.zeros(2, 8), chunk=16)
