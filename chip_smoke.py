@@ -176,12 +176,15 @@ repository, it exits non-zero before printing any result. Phases:
    printed), and two planted faults must fail that gate: the carried dS
    dropped every 16 tokens, and dw = 0. After it, the GLA backward
    kernel at the step's recorded inputs and on ragged shapes (chunks 1,
-   16, 48, 128, S = 17, 33, 4097, dh 5 to 64, w at the clip's ends and
-   in bf16, with and without a dstate) against its plain version (fp32
-   1e-5, bf16 one ulp of each gradient's scale), bit for bit on repeat,
-   and where S <= 128 in fp32 against the fp64 function (1e-6); timed
-   beside its plain version and the forward kernel, with its device
-   time and bound; then ``python -m repro_torch.launch.train --arch
+   16, 48, 128, S = 17, 33, 4097 and the stages' cut points 65 and 129,
+   B up to 3, dh 5 to 64, w at the clip's ends and in bf16, with and
+   without a dstate) against its plain version (fp32 1e-5, bf16 one ulp
+   of each gradient's scale), bit for bit on repeat, and where S <= 128
+   in fp32 against the fp64 function (1e-6); timed beside its plain
+   version and the forward kernel, with its device time, its bound and
+   its checkpoints' bytes (the path's operands must take its TMA
+   copies), and the step profile's device time of its three kernels;
+   then ``python -m repro_torch.launch.train --arch
    rwkv6-7b --scale smoke`` on the card (6 steps, launches counted);
 12. the classical federation: (a) Qwen1.5-4B at its published width
    (d_model 2560, 20 heads of 128, MHA, d_ff 6912, vocab 151936, qkv
@@ -1057,19 +1060,25 @@ def gla_bwd_flops(b, s, h, dh, chunk):
             b * h * (whole * q + (qt if tail else 0)))
 
 
+def gla_bwd_bytes(args):
+    """Bytes the GLA backward must move at (r, k, v, w, u, dout[,
+    dstate]): r, k, v, w, dout, u and dstate read once, dr, dk, dv, dw
+    and du written once."""
+    r, w, u = args[0], args[3], args[4]
+    return (r.element_size() * 7 * r.numel()     # r k v dout; dr dk dv
+            + w.element_size() * 2 * w.numel()   # w; dw
+            + 4 * 2 * u.numel()
+            + sum(4 * x.numel() for x in args[6:] if x is not None))
+
+
 def gla_bwd_bound_ms(args):
     """Least time for the GLA backward at (r, k, v, w, u, dout[, dstate]):
-    r, k, v, w, dout and dstate read once, dr, dk, dv, dw and du written
-    once, at HBM rate, against its operations as ``gla_least_ms`` takes
-    the forward's (the least over chunk lengths 1 to 64 of the products
-    at the 3xTF32 rate and the rest at the fp32 rate); the larger."""
-    r, w, u = args[0], args[3], args[4]
-    b, s, h, dh = r.shape
-    nbytes = (r.element_size() * 7 * r.numel()     # r k v dout; dr dk dv
-              + w.element_size() * 2 * w.numel()   # w; dw
-              + 4 * 2 * u.numel()
-              + sum(4 * x.numel() for x in args[6:] if x is not None))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ``gla_bwd_bytes`` at HBM rate against its operations as
+    ``gla_least_ms`` takes the forward's (the least over chunk lengths 1
+    to 64 of the products at the 3xTF32 rate and the rest at the fp32
+    rate); the larger."""
+    b, s, h, dh = args[0].shape
+    t_bytes = gla_bwd_bytes(args) / HBM_BYTES_PER_S * 1e3
     t_ops = min(p / (TF32_FLOPS / 3) + q / FP32_FLOPS
                 for p, q in (gla_bwd_flops(b, s, h, dh, n)
                              for n in range(1, 65))) * 1e3
@@ -1080,7 +1089,8 @@ def gla_bwd_fp64(r, k, v, w, u, dout, dstate=None):
     """The GLA's gradients in fp64: the step recurrence (w clamped to
     1e-20 as the forward clamps it) differentiated by autograd on the
     inputs cast to fp64, for the cotangents ``dout`` of out and
-    ``dstate`` of the final state. (dr, dk, dv, dw, du) in fp64."""
+    ``dstate`` of the final state. (dr, dk, dv, dw, du) in fp64; dw is 0
+    where w reaches nothing (one token and no dstate)."""
     import torch
     xs = [x.detach().double().requires_grad_() for x in (r, k, v, w, u)]
     rd, kd, vd, wd, ud = xs
@@ -1095,7 +1105,9 @@ def gla_bwd_fp64(r, k, v, w, u, dout, dstate=None):
         state = wc[:, t, :, :, None] * state + kv
     if dstate is not None:
         loss = loss + (state * dstate.double()).sum()
-    return torch.autograd.grad(loss, xs)
+    grads = torch.autograd.grad(loss, xs, allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for x, g in zip(xs, grads))
 
 
 def gla_bwd_dropped_carry(bwd, args, chunk, span=16):
@@ -4358,9 +4370,11 @@ def gla_bwd_ragged(device):
     """Edge shapes for the GLA backward, seeded (r, k, v, w, u, dout,
     dstate or None; chunk): chunks 1, 16 and above 16 (48; 128, a whole
     sequence), S that 16 does not divide (17, 33, 4097 at chunk 1), one
-    token, dh 5, 8, 40 (a partial row tile) and 64 (two), w at the clip's
-    ends and in bf16, fp32 and bf16 r, k, v, dout, with and without the
-    final state's cotangent."""
+    token, dh 5, 8, 40 (a partial row block) and 64 (four), w at the
+    clip's ends and in bf16, fp32 and bf16 r, k, v, dout, with and
+    without the final state's cotangent; the stages' cut points (S = 65
+    and 129, one past a multiple of the kernel's 16-token stage) at
+    B = 3, so that du sums over b and over stages."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(16)
     bf, f32 = torch.bfloat16, torch.float32
@@ -4386,7 +4400,9 @@ def gla_bwd_ragged(device):
             case(f32, 1, 128, 2, 32, 128, ends=True, w_dtype=bf),
             case(bf, 2, 1, 5, 64, 1, state=True),
             case(f32, 2, 32, 3, 5, 16, ends=True),
-            case(bf, 1, 4097, 1, 64, 1)]
+            case(bf, 1, 4097, 1, 64, 1),
+            case(f32, 3, 65, 2, 64, 5, ends=True, state=True),
+            case(bf, 3, 129, 2, 64, 3)]
 
 
 def gla_bwd_case(args, chunk, label, exact=False):
@@ -4435,6 +4451,36 @@ def gla_bwd_case(args, chunk, label, exact=False):
         raise RuntimeError("the GLA backward kernel disagrees with its plain "
                            "version or the fp64 function")
     return worst
+
+
+def gla_bwd_checkpoint_bytes(args):
+    """Bytes of the GLA backward kernel's checkpoints at (r, k, v, w, u,
+    dout[, dstate]): the state before each stage and its cotangent after
+    each stage's last token, as the kernel sizes them, written once and
+    read once."""
+    from repro_torch.kernels import build
+    b, s, h, _ = args[0].shape
+    floats = build.load().qf_gla_chunked_bwd_workspace(b, s, h, 0)
+    return 2 * 2 * 4 * floats
+
+
+GLA_BWD_KERNELS = ("gla_bwd_scan", "gla_bwd_stage", "gla_bwd_du")
+
+
+def gla_bwd_split(by_name, launches):
+    """The GLA backward's device ms in a profile (``profile_device``'s
+    {name: (us, count)}): one line with each of its kernels' total, its
+    records and its ms a record, beside the wrapper's ``launches``."""
+    import re
+    parts = []
+    for kernel in GLA_BWD_KERNELS:
+        pat = re.compile(rf"::{kernel}[<(]")
+        hits = [v for k, v in by_name.items() if pat.search(k)]
+        us, cnt = sum(t for t, _ in hits), sum(c for _, c in hits)
+        parts.append(f"{kernel} {us / 1e3:.3f} ms x {cnt}"
+                     + (f" ({us / 1e3 / cnt:.4f} a launch)" if cnt else ""))
+    say(f"    {GLA_BWD}'s kernels in the step ({launches} launches of the "
+        "wrapper): " + ", ".join(parts))
 
 
 def rwkv_one_cycle_gate(cfg, params, batch):
@@ -4636,8 +4682,9 @@ def phase_train_rwkv(device="cuda"):
         f"{ms:.1f} ms/step over steps 2-{TRAIN_STEPS} (CUDA events), "
         f"{b * s / ms * 1e3:,.0f} tokens/s, peak {peak:.2f} GiB; launches "
         f"a step {per_step}; card {smi('name,power.limit')}")
-    profile_device("one RWKV6 train step", lambda: step_fn(
+    by_name = profile_device("one RWKV6 train step", lambda: step_fn(
         params, state, batch, schedule(TRAIN_STEPS)))
+    gla_bwd_split(by_name, per_step[GLA_BWD])
     del state, params
     torch.cuda.empty_cache()
 
@@ -4649,6 +4696,9 @@ def phase_train_rwkv(device="cuda"):
         raise RuntimeError("the train step's GLA backward took other "
                            "operands than bf16 r, k, v, dout, fp32 w and no "
                            "dstate")
+    if not kgla.backward_copies_by_tma(*args[:6]):
+        raise RuntimeError("the train step's GLA backward operands do not "
+                           "take the kernel's TMA copies")
     t0 = time.time()
     worst = gla_bwd_case(args, chunk, f"path {[list(args[0].shape)]} bf16, w "
                          f"fp32, chunk {chunk}, no dstate")
@@ -4672,7 +4722,9 @@ def phase_train_rwkv(device="cuda"):
         f"{chunk}: kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch; "
         f"the forward kernel {f_ms:.4f} ms at the same inputs), plain "
         f"{p_ms:.4f} ms, library n/a, bound {b_ms:.6f} ms ({b_by}), "
-        f"kernel/bound {k_ms / b_ms:.2f}x; card "
+        f"kernel/bound {k_ms / b_ms:.2f}x; TMA copies; checkpoints "
+        f"{gla_bwd_checkpoint_bytes(args) / 1e6:.1f} MB written and read "
+        f"beside the function's {gla_bwd_bytes(args) / 1e6:.1f} MB; card "
         f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')} (checks "
         f"and times in {time.time() - t0:.1f} s)")
     row = dict(name=GLA_BWD, route="cuda", source=GLA_BWD_SOURCE,
@@ -6060,23 +6112,31 @@ def main() -> int:
         phase_build()
         return time_attn_bwd()
     t0 = time.time()
-    phase_build()
-    results = phase_kernels()
-    launches = phase_main()
+    seconds = {}
+
+    def timed(label, phase):
+        start = time.time()
+        out = phase()
+        seconds[label] = round(time.time() - start, 1)
+        return out
+    timed("1", phase_build)
+    results = timed("2", phase_kernels)
+    launches = timed("3", phase_main)
     for name, row in results.items():
         row["launches"] = launches[name]
-    rows = list(results.values()) + phase_wide()
-    rows += list(phase_serve().values())
-    rows += phase_rwkv()
-    rows += phase_engines()
-    rows += phase_fed_core()
-    phase_api()
-    rows += phase_cohorts_serving()
-    rows += phase_train()
-    rows += phase_train_rwkv()
-    rows += phase_fed()
-    rows += phase_archs()
-    phase_batching()
+    rows = list(results.values()) + timed("4", phase_wide)
+    rows += list(timed("5", phase_serve).values())
+    rows += timed("6", phase_rwkv)
+    rows += timed("7", phase_engines)
+    rows += timed("8", phase_fed_core)
+    timed("9", phase_api)
+    rows += timed("10", phase_cohorts_serving)
+    rows += timed("11", phase_train)
+    rows += timed("11b", phase_train_rwkv)
+    rows += timed("12", phase_fed)
+    rows += timed("13", phase_archs)
+    timed("14", phase_batching)
+    say(f"seconds a phase {seconds}")
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -46,7 +46,8 @@ _SIGNATURES = {
     "qf_rglru_scan": ([_VP] * 3 + [_INT] * 4 + [_VP], _INT),
     "qf_gla_chunked": ([_VP] * 7 + [_INT] * 7 + [_VP], _INT),
     "qf_gla_chunked_bwd": ([_VP] * 15 + [_INT] * 6 + [_VP], _INT),
-    "qf_gla_chunked_bwd_workspace": ([_INT] * 5, ctypes.c_longlong),
+    "qf_gla_chunked_bwd_workspace": ([_INT] * 4, ctypes.c_longlong),
+    "qf_gla_chunked_bwd_tma": ([_VP] * 6 + [_INT] * 3, _INT),
     "qf_error_string": ([_INT], ctypes.c_char_p),
 }
 

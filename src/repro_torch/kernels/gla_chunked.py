@@ -17,9 +17,12 @@ on the card, differentiates through both kernels.
 out in r's dtype and optionally ``dstate`` of the final state
 (B, H, dh, dh) fp32, and returns dr, dk, dv in r's dtype, dw in w's
 dtype and du (H, dh) fp32: the plain version is
-``ref.gla_chunked_bwd_ref``. It allocates the kernel's fp32 workspaces
-(the state before each 16-token stage, dv's partial a 32-row tile,
-du's partial a (b, h)) for the launch.
+``ref.gla_chunked_bwd_ref``. The kernel cuts the sequence into stages of
+16 tokens; the wrapper allocates its fp32 workspaces for the launch:
+the state before each stage and its cotangent after each stage's last
+token (B * H * stages * 64 * 64 floats each), and du's partial a
+(b, h, stage). ``backward_copies_by_tma`` says how the kernel will copy
+a set of operands' rows.
 """
 from __future__ import annotations
 
@@ -94,14 +97,27 @@ def gla_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dw = torch.empty_like(w)
     du = u.new_empty((h, dh))
     size = build.load().qf_gla_chunked_bwd_workspace
-    states, dv_part, du_part = (
-        r.new_empty((size(b, s, h, dh, part),), dtype=torch.float32)
+    ck_f, ck_b, du_part = (
+        r.new_empty((size(b, s, h, part),), dtype=torch.float32)
         for part in range(3))
     launch("gla_chunked_bwd", "qf_gla_chunked_bwd", dev, r.data_ptr(),
            k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
            dout.data_ptr(), None if dstate is None else dstate.data_ptr(),
            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-           du.data_ptr(), states.data_ptr(), dv_part.data_ptr(),
+           du.data_ptr(), ck_f.data_ptr(), ck_b.data_ptr(),
            du_part.data_ptr(), b, s, h, dh, DTYPE_CODES[r.dtype],
            DTYPE_CODES[w.dtype])
     return dr, dk, dv, dw, du
+
+
+def backward_copies_by_tma(r: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                           dout: torch.Tensor) -> bool:
+    """Whether ``gla_chunked_bwd`` copies these operands' rows by TMA
+    (16-byte aligned pointers and rows), not element by element. The
+    kernel decides from the operands alone, and a tensor map it cannot
+    encode for them makes the launch fail."""
+    return bool(build.load().qf_gla_chunked_bwd_tma(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        dout.data_ptr(), r.shape[-1], DTYPE_CODES[r.dtype],
+        DTYPE_CODES[w.dtype]))

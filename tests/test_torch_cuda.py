@@ -1190,9 +1190,9 @@ def test_rwkv_training_through_the_gla_kernels_matches_plain(cuda_device):
 # (b, s, h, dh, chunk, w at the clip's ends, w dtype, a dstate): the
 # train step's chunk 16 and chunk 1 (S that 16 does not divide: the
 # kernel's last stage short), chunks above 16 (48; 128, a whole
-# sequence), a single token, dh 8, 40 and 5 (a partial row tile; rows of
-# 5 elements), dh 64 in two row tiles, w in bf16, with and without the
-# final state's cotangent
+# sequence), a single token, dh 8, 40 and 5 (a partial row block; rows
+# of 5 elements), dh 64 (a cluster of four row blocks), w in bf16, with
+# and without the final state's cotangent
 GLA_BWD_CASES = [(1, 64, 3, 64, 16, False, torch.float32, False),
                  (2, 48, 2, 64, 16, True, torch.float32, True),
                  (1, 17, 3, 8, 1, False, torch.float32, True),
@@ -1203,6 +1203,16 @@ GLA_BWD_CASES = [(1, 64, 3, 64, 16, False, torch.float32, False),
                  (2, 32, 3, 5, 16, True, torch.float32, False),
                  (1, 40, 2, 64, 20, False, torch.bfloat16, True),
                  (1, 4097, 1, 64, 1, False, torch.float32, False)]
+# the backward's cut points: S one short of and one past a multiple of
+# its 16-token stage (63, 65, 31, 127, 129), S below a stage (15), B = 3,
+# so that du sums over b and over stages
+GLA_CUT_CASES = [(3, 63, 2, 64, 1, False, torch.float32, True),
+                 (3, 65, 2, 64, 5, True, torch.float32, False),
+                 (1, 15, 3, 64, 5, False, torch.float32, True),
+                 (3, 31, 2, 40, 1, True, torch.float32, True),
+                 (2, 127, 2, 64, 127, False, torch.bfloat16, False),
+                 (3, 129, 2, 24, 3, False, torch.float32, True)]
+GLA_BWD_CASES += GLA_CUT_CASES
 
 
 @pytest.mark.cuda
@@ -1233,6 +1243,37 @@ def test_gla_backward_kernel_agrees_on_ragged_cases(cuda_device, dtype):
             assert err <= tol * scale, (b, s, h, dh, chunk, name, err, scale)
         assert bool((got[3][args[3] < 1e-20] == 0).all())
     assert dict(build.LAUNCHES) == {"gla_chunked_bwd": len(GLA_BWD_CASES)}
+
+
+@pytest.mark.cuda
+def test_gla_backward_copies_by_tma_at_the_train_shape(cuda_device):
+    """RWKV6-7B's train step (1, 4096, 64, 64), bf16 with w fp32, takes
+    the kernel's TMA copies, as do fp32 rows of 64; rows of 5 elements and
+    operands 2 or 4 bytes off a 16-byte boundary take the element copy,
+    which gives the TMA copy's gradients bit for bit."""
+    from repro_torch.kernels import gla_chunked as kgla
+    gen = torch.Generator().manual_seed(13)
+    bf = torch.bfloat16
+    args = _gla_case(gen, 1, 4096, 64, 64, bf, cuda_device)
+    assert kgla.backward_copies_by_tma(*args, torch.zeros_like(args[0]))
+    args = _gla_case(gen, 2, 200, 3, 64, torch.float32, cuda_device)
+    assert kgla.backward_copies_by_tma(*args, torch.zeros_like(args[0]))
+    args = _gla_case(gen, 1, 40, 2, 5, torch.float32, cuda_device)
+    assert not kgla.backward_copies_by_tma(*args, torch.zeros_like(args[0]))
+
+    def shifted(x):             # the same values one element further on
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        return buf[1:].view(x.shape).copy_(x)
+    args = _gla_case(gen, 2, 200, 3, 64, bf, cuda_device)
+    dout = torch.randn((2, 200, 3, 64), generator=gen).to(cuda_device, bf)
+    dstate = torch.randn((2, 3, 64, 64), generator=gen).to(cuda_device)
+    off = [shifted(x) for x in args + [dout]]
+    assert not kgla.backward_copies_by_tma(*off)
+    want = kgla.gla_chunked_bwd(*args, dout, dstate, chunk=8)
+    got = kgla.gla_chunked_bwd(*off[:5], off[5], dstate, chunk=8)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.cuda

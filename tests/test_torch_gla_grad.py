@@ -306,5 +306,181 @@ def test_backward_kernel_is_built_and_bound():
     assert argtypes[-1] is build._VP          # the stream
     text = (build.CSRC / "gla_chunked_bwd.cu").read_text()
     assert 'extern "C" int qf_gla_chunked_bwd(' in text
+    argtypes, _ = build._SIGNATURES["qf_gla_chunked_bwd_tma"]
+    assert argtypes == [build._VP] * 6 + [build._INT] * 3
+    assert 'extern "C" int qf_gla_chunked_bwd_tma(' in text
     assert "src/repro/models/layers/rwkv.py:80" in text
     assert "atomicAdd" not in text            # repeatable bit for bit
+
+
+# ---- the backward kernel's cut schedule, emulated in fp32 torch
+
+D, SUB, ROWS = 64, 16, 16      # the kernel's state width, sub-stage, rows
+
+
+def _lr(x):
+    """x (..., n) summed left to right (zeros for n = 0)."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype)
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i] if i else x[..., 0]
+    return acc
+
+
+def _tree(x):
+    """x (..., 2^m) summed as the kernel's xor butterflies sum it: the
+    pairs (i, i + n / 2) first, then the halves' pairs, and so on."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def _pairs(x):
+    """x (..., n) summed as the kernel sums warps and blocks: adjacent
+    pairs first, ((x0 + x1) + (x2 + x3)) + .., and three as
+    (x0 + x1) + x2."""
+    if x.shape[-1] == 3:
+        return (x[..., 0] + x[..., 1]) + x[..., 2]
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def cut_schedule(r, k, v, w, u, dout, dstate, stage):
+    """``csrc/gla_chunked_bwd.cu``'s decomposition in fp32 torch: the
+    per-entry scans write S before every ``stage`` tokens and dS after
+    every stage's last token; each stage then runs from its two
+    checkpoints alone (its states recomputed in sub-stages of 16 tokens:
+    the kernel's stage is one sub-stage, 16 tokens; 32 and 64, which it
+    measured no faster, keep the decomposition's longer stages checked);
+    dr, dk and dw sum a thread's 4 columns left to right and the row's 16
+    threads by the butterfly; dv pairs a warp's two rows, sums a block's
+    8 warps pairwise and the cluster's blocks (16 rows each) pairwise in
+    rank order, the bonus's block partials likewise, then adds the bonus
+    times dout; v . dout sums 4
+    columns and the 16 groups' butterfly; du sums a stage's tokens by
+    warp (tokens 2w, 2w + 1 of each sub-stage, the sub-stages in the
+    walk's order) and the 8 warps in order, then 16 runs of (b, stage)
+    partials. Everything is padded to 64 columns as the kernel pads."""
+    pad = torch.nn.functional.pad
+    b, s, h, dh = r.shape
+    r_, k_, v_, do, wr = (pad(x.float(), (0, D - dh))
+                          for x in (r, k, v, dout, w))
+    wc = torch.clamp_min(wr, 1e-20)
+    u_ = pad(u.float(), (0, D - dh))
+    nst, nq = -(-s // stage), -(-dh // ROWS)
+
+    def fwd(S, t):
+        return wc[:, t, :, :, None] * S + k_[:, t, :, :, None] * v_[:, t, :,
+                                                                    None]
+
+    # 1. the scans, parallel over the entries
+    ck_f = [torch.zeros((b, h, D, D))] + [None] * (nst - 1)
+    S = ck_f[0]
+    for t in range((nst - 1) * stage):
+        S = fwd(S, t)
+        if (t + 1) % stage == 0:
+            ck_f[(t + 1) // stage] = S
+    dS = (torch.zeros((b, h, D, D)) if dstate is None
+          else pad(dstate.float(), (0, D - dh, 0, D - dh)))
+    ck_b = [None] * (nst - 1) + [dS]
+    for t in range(s - 1, stage - 1, -1):
+        dS = wc[:, t, :, :, None] * dS + r_[:, t, :, :, None] * do[:, t, :,
+                                                                   None]
+        if t % stage == 0:
+            ck_b[t // stage - 1] = dS
+
+    # 2. each stage from its checkpoints
+    def rows(x):                        # (b, h, D, D) terms -> row sums
+        return _tree(_lr(x.reshape(b, h, D, D // 4, 4)))
+    dr, dk, dv, dw = (torch.zeros((b, s, h, D)) for _ in range(4))
+    du_part = torch.zeros((b, h, nst, D))
+    for j in range(nst):
+        t0 = j * stage
+        n = min(stage, s - t0)
+        tok = slice(t0, t0 + n)
+        vd = _tree(_lr((v_[:, tok] * do[:, tok]).reshape(b, n, h, D // 4,
+                                                         4)))  # (b, n, h)
+        urk = u_ * r_[:, tok] * k_[:, tok]
+        bnp = torch.stack([_tree(urk[..., ROWS * p:ROWS * (p + 1)])
+                           for p in range(nq)], -1)             # (b, n, h, nq)
+        subs, S = [ck_f[j]], ck_f[j]
+        for m in range(-(-n // SUB) - 1):
+            for t in range(SUB):
+                S = fwd(S, t0 + m * SUB + t)
+            subs.append(S)
+        dS, dvc = ck_b[j], torch.zeros((b, n, h, nq, D))
+        for m in reversed(range(len(subs))):
+            ns = min(SUB, n - m * SUB)
+            hist, S = [], subs[m]
+            for t in range(ns):
+                hist.append(S)
+                S = fwd(S, t0 + m * SUB + t)
+            for t in reversed(range(ns)):
+                tt, tl = t0 + m * SUB + t, m * SUB + t
+                dd, vv = do[:, tt, :, None, :], v_[:, tt, :, None, :]
+                sr, sk = rows(hist[t] * dd), rows(dS * vv)
+                sw = rows(dS * hist[t])
+                pv = dS * k_[:, tt, :, :, None]
+                pairs = (pv[:, :, 0::2] + pv[:, :, 1::2]).reshape(b, h, 4, 8,
+                                                                  D)
+                dvc[:, tl] = _pairs(pairs.transpose(-1, -2))[:, :, :nq]
+                dS = (wc[:, tt, :, :, None] * dS
+                      + r_[:, tt, :, :, None] * do[:, tt, :, None])
+                dr[:, tt] = sr + u_ * k_[:, tt] * vd[:, tl, :, None]
+                dk[:, tt] = sk + u_ * r_[:, tt] * vd[:, tl, :, None]
+                dw[:, tt] = torch.where(wr[:, tt] >= 1e-20, sw, 0.0)
+        dv[:, tok] = (_pairs(dvc.transpose(-1, -2))
+                      + _pairs(bnp)[..., None] * do[:, tok])
+        terms = pad(r_[:, tok] * k_[:, tok] * vd[..., None],
+                    (0, 0, 0, 0, 0, -n % SUB))     # (b, n + pad, h, D)
+        warps = []
+        for wp in range(8):   # warp wp: tokens 2wp, 2wp + 1 of each sub-stage
+            acc = torch.zeros((b, h, D))
+            for m in reversed(range(len(subs))):
+                t = m * SUB + 2 * wp
+                acc = acc + (terms[:, t] + terms[:, t + 1])
+            warps.append(acc)
+        du_part[:, :, j] = _lr(torch.stack(warps, -1))
+
+    # 3. du: 16 runs of consecutive (b, stage) partials, then the runs
+    flat = du_part.permute(1, 0, 2, 3).reshape(h, b * nst, D)
+    length = -(-(b * nst) // 16)
+    du = _lr(torch.stack([_lr(flat[:, g * length:(g + 1) * length]
+                              .transpose(1, 2)) for g in range(16)], -1))
+    cut = (..., slice(0, dh))
+    return (dr[cut].to(r.dtype), dk[cut].to(r.dtype), dv[cut].to(r.dtype),
+            dw[cut].to(w.dtype), du[cut])
+
+
+# (stage, S, dh, B, a final-state cotangent, w at the clip's ends): S of
+# one token, 17, and one short of, one past and three times the stage;
+# dh 5 (one partial row block), 40 (a cluster of three, the last partial)
+# and 64 (four)
+CUT_CASES = [(16, 1, 64, 2, True, False), (16, 15, 5, 1, False, True),
+             (16, 17, 40, 2, True, True), (16, 48, 64, 1, False, False),
+             (32, 1, 5, 1, True, True), (32, 17, 64, 2, False, False),
+             (32, 31, 40, 1, True, False), (32, 33, 64, 2, True, True),
+             (32, 96, 5, 2, False, True), (64, 1, 40, 2, False, False),
+             (64, 17, 5, 2, True, False), (64, 63, 64, 1, False, True),
+             (64, 65, 40, 1, True, True), (64, 192, 64, 2, True, False)]
+
+
+@pytest.mark.parametrize("stage,s,dh,b,with_state,ends", CUT_CASES)
+def test_the_kernels_cut_schedule_is_the_function(stage, s, dh, b,
+                                                  with_state, ends):
+    """The backward kernel's decomposition (``cut_schedule``: checkpoints
+    from per-entry scans, stages run apart from them, its reduction
+    orders) against the plain backward within 1e-5 of each gradient's
+    scale and the fp64 function within 1e-6; dw 0 below the clamp."""
+    a = inputs(100 + stage + s, b, s, 2, dh, w="ends" if ends else "random")
+    t = [torch.as_tensor(x) for x in a]
+    ds = t[6] if with_state else None
+    got = cut_schedule(*t[:6], ds, stage)
+    want = ref.gla_chunked_bwd_ref(*t[:6], ds, 1)
+    exact = chip_smoke.gla_bwd_fp64(*t[:6], ds)
+    assert [tuple(g.shape) for g in got] == [tuple(x.shape) for x in want]
+    for name, g, x, e in zip(NAMES, got, want, exact):
+        assert rel(g, x) <= TOL32, name
+        assert rel(g, e) <= TOL64, name
+    assert bool((got[3][t[3] < 1e-20] == 0).all())
