@@ -266,7 +266,21 @@ repository, it exits non-zero before printing any result. Phases:
    (zeroed before, read after; each must be non-zero), A and B read back
    bit for bit as the params the trainer held, and the batcher on the
    restored B giving the tokens and logits, bit for bit, of the batcher on
-   the params in memory.
+   the params in memory;
+15. the mesh and the roofline: (a) phase 3's round with
+   fanout="shard_map" on the NCCL host mesh (world 1, a 'pod' axis),
+   flat and two_level, equal to the batched round bit for bit, through
+   all four quantum kernels (counts zeroed before, read after), ms/round
+   of both in turns, and the host time of one NCCL gather; (b)
+   ``launch.dryrun_fed`` on the (pod 2, data 16, model 16) mesh of
+   torch's fake backend at phase 12a's Qwen1.5-4B shape, I_l = 1, 4, 1
+   (the first cold): pod 0's node trains for real through the attention
+   kernels (launches gated), the cross-pod bytes a round equal, a
+   quarter a local step at I_l = 4; (c) the roofline of phase 5's
+   prefill from ``roofline.trace_parse`` and ``roofline.analysis``:
+   device time by family, busy share, the ATen dot FLOPs and the
+   kernels' FLOPs and bytes, the compute and memory terms and their
+   shares of the prefill's time, beside the card's name and power limit.
 
 Phase 5's fp32-storage attention row also plants NaNs (``nan_rows_check``:
 torch's 0x7fc00000, the card's 0x7fffffff and 0xffffffff) in q, k and v
@@ -332,12 +346,13 @@ SRC = (Path(sys.argv[sys.argv.index("--src") + 1]).resolve()
        if "--src" in sys.argv[:-1] else ROOT / "src")
 sys.path.insert(0, str(SRC))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and fp32 FLOP/s
-# outside the tensor cores, which is what the quantum kernels and the scan
-# use (the fp32 attention kernels and GLA's tensor-core path run their
-# products in 3xTF32 at TF32_FLOPS / 3 instead).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+# the H100's peaks and each kernel's operations, bytes and least time
+# (bound_ms, seq_bound_ms, ...) live in the package, beside the roofline
+# tooling that reads them too
+from repro_torch.roofline.costs import (  # noqa: E402
+    FP32_FLOPS, allowed_pairs, attn_bwd_bound_ms, bound_ms, gla_bwd_bound_ms,
+    gla_bwd_bytes, seq_bound_ms)
+
 # Kernels compute in fp32 on complex128 storage. Their sums run in
 # another order than the plain versions', so each is held to 1e-5 times
 # the scale of the plain result: fp32 keeps ~7 digits, and the longest
@@ -353,9 +368,6 @@ MAIN_FIDELITY = 0.95
 # rounding of nearly the same fp32 value, so they differ by at most one
 # bf16 ulp: 2^-7 of the value at worst (8 significand bits).
 BF16_RTOL = 2.0 ** -7
-# the bf16 and TF32 tensor-core peaks (same data sheet, dense)
-BF16_FLOPS = 989e12
-TF32_FLOPS = 495e12
 # SDPA as a yardstick computes the same attention in its own bf16 way;
 # it is checked against the plain version first, at the reference's own
 # bf16 gate (tests/test_kernels.py), relative to the output's scale.
@@ -413,32 +425,6 @@ def cuda_ms(fn, *args, reps=100, warmup=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound_ms(name, args):
-    """Least time for the work on an H100: each input read once, each
-    output written once, at HBM rate, against the fp32 operations at the
-    fp32 peak; the larger of the two, and which one it is."""
-    if name == "zgemm":
-        a, b = args
-        bsz, m, k = a.shape
-        n = b.shape[2]
-        nbytes = 16 * (bsz * m * k + bsz * k * n + bsz * m * n)
-        flops = 8 * bsz * m * n * k            # 4 mul + 4 add per complex MAC
-    elif name == "ensemble_commutator_trace":
-        a, b = args
-        j, n, ea, dk, dr = a.shape
-        eb, k = b.shape[2], dk * dr
-        nbytes = 16 * (a.numel() + b.numel() + j * dk * dk)
-        flops = 8 * j * n * (2 * ea * eb * k + dk * dk * eb * dr)
-    else:
-        phi, rho = args
-        n, d = phi.shape
-        nbytes = 16 * (phi.numel() + rho.numel()) + 8 * n
-        flops = (10 if name == "fidelity" else 12) * n * d * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ----------------------------------------------------------------- phases
@@ -891,37 +877,15 @@ def round_ms(cfg, ds, params, reps):
 
 
 def profile_device(label, fn):
-    """Device time by kernel over one call of ``fn`` (torch.profiler):
-    the busy share is the union of the device's kernel and copy intervals
-    over the call's wall time (both under the profiler)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and "Buffer" not in e.name)
-    busy_us, end_us, by_name = 0.0, float("-inf"), {}
-    for t_start, t_end, name in spans:
-        busy_us += max(0.0, t_end - max(t_start, end_us))
-        end_us = max(end_us, t_end)
-        tot, cnt = by_name.get(name, (0.0, 0))
-        by_name[name] = (tot + t_end - t_start, cnt + 1)
-    busy_ms = busy_us / 1e3
-    say(f"  profile {label}: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-        f"{len(spans)} device ops")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    for name, (tot, cnt) in top:
-        say(f"    {tot / 1e3:9.3f} ms  x{cnt:5d}  {name[:70]}")
-    return by_name
+    """Device time by kernel over one call of ``fn``
+    (``roofline.trace_parse.profile``: the busy share is the union of the
+    device's kernel and copy intervals over the call's wall time, both
+    under the profiler), its top rows printed by ``roofline.breakdown``.
+    Returns {kernel name: (device us, launches)}."""
+    from repro_torch.roofline import breakdown, trace_parse
+    trace = trace_parse.profile(fn)
+    breakdown.show(trace, label, lambda line: say("  " + line))
+    return trace.by_op
 
 
 def profile_round(cfg, ds, params, label):
@@ -997,94 +961,6 @@ def phase_wide():
 
 
 # ------------------------------------------------------- phase 5: serving
-def allowed_pairs(sq, sk, causal, window):
-    """(query, key) pairs the mask allows for one head: positions from 0,
-    j < sk, j <= i when causal, j > i - window when window > 0."""
-    n = 0
-    for i in range(sq):
-        hi = min(i, sk - 1) if causal else sk - 1
-        lo = max(0, i - window + 1) if window > 0 else 0
-        n += max(0, hi - lo + 1)
-    return n
-
-
-def gla_flops(b, s, h, dh, chunk):
-    """fp32 operations of the chunked GLA form at these inputs, as
-    (products, the rest): per chunk of L tokens (the last one shorter
-    where L does not divide S), the products are the inter term and the
-    state update (2 L dh^2 each: a multiply and an add per term) and
-    scores @ v over the L(L+1)/2 pairs (2 per value column); the rest is
-    the decayed scores of the L(L-1)/2 strictly lower pairs (subtract,
-    exp, two multiplies and an add per channel), the bonus (3 per
-    token-channel), the per-element log-decay, its cumulative sum and the
-    decayed q and k (9 per token-channel), and the state's decay (one
-    multiply per entry)."""
-    def per_chunk(n):
-        return (4 * n * dh * dh + dh * n * (n + 1),
-                5 * dh * n * (n - 1) // 2 + 12 * n * dh + dh * dh)
-    whole, tail = divmod(s, chunk)
-    (p, q), (pt, qt) = per_chunk(chunk), per_chunk(tail)
-    return (b * h * (whole * p + (pt if tail else 0)),
-            b * h * (whole * q + (qt if tail else 0)))
-
-
-def gla_least_ms(b, s, h, dh):
-    """Least time on an H100 for GLA's operations at these inputs: the
-    function does not depend on the chunk, so the least over chunk
-    lengths (1 to 64; longer ones only cost more) of the products at the
-    3xTF32 rate (three TF32 tensor-core products each, as the kernel's
-    tensor-core path runs them) and the rest at the fp32 rate."""
-    return min(p / (TF32_FLOPS / 3) + q / FP32_FLOPS
-               for p, q in (gla_flops(b, s, h, dh, n) for n in range(1, 65))
-               ) * 1e3
-
-
-def gla_bwd_flops(b, s, h, dh, chunk):
-    """fp32 operations of the chunked GLA backward at these inputs, as
-    (products, the rest), by the forward's reckoning (``gla_flops``): per
-    chunk of L tokens the products are five (L x dh) by (dh x dh)
-    products (the states' recompute k_dec^T v, the carried dS's q_dec^T
-    dO, and the inter terms of dr, dk and dv, 2 L dh^2 each) and two over
-    the L(L+1)/2 pairs (dO v^T and A^T dO, 2 dh a pair each); the rest
-    is the decayed scores again and the decayed pair terms of dr and dk
-    (13 a strictly lower pair and channel), per token-channel the
-    forward's 12 and the bonus terms of dr, dk and du and dw's sums (11),
-    and per chunk the decays of the state and of dS and dw's chunk term
-    (dh^2 each)."""
-    def per_chunk(n):
-        return (10 * n * dh * dh + 2 * dh * n * (n + 1),
-                13 * dh * n * (n - 1) // 2 + 23 * n * dh + 3 * dh * dh)
-    whole, tail = divmod(s, chunk)
-    (p, q), (pt, qt) = per_chunk(chunk), per_chunk(tail)
-    return (b * h * (whole * p + (pt if tail else 0)),
-            b * h * (whole * q + (qt if tail else 0)))
-
-
-def gla_bwd_bytes(args):
-    """Bytes the GLA backward must move at (r, k, v, w, u, dout[,
-    dstate]): r, k, v, w, dout, u and dstate read once, dr, dk, dv, dw
-    and du written once."""
-    r, w, u = args[0], args[3], args[4]
-    return (r.element_size() * 7 * r.numel()     # r k v dout; dr dk dv
-            + w.element_size() * 2 * w.numel()   # w; dw
-            + 4 * 2 * u.numel()
-            + sum(4 * x.numel() for x in args[6:] if x is not None))
-
-
-def gla_bwd_bound_ms(args):
-    """Least time for the GLA backward at (r, k, v, w, u, dout[, dstate]):
-    ``gla_bwd_bytes`` at HBM rate against its operations as
-    ``gla_least_ms`` takes the forward's (the least over chunk lengths 1
-    to 64 of the products at the 3xTF32 rate and the rest at the fp32
-    rate); the larger."""
-    b, s, h, dh = args[0].shape
-    t_bytes = gla_bwd_bytes(args) / HBM_BYTES_PER_S * 1e3
-    t_ops = min(p / (TF32_FLOPS / 3) + q / FP32_FLOPS
-                for p, q in (gla_bwd_flops(b, s, h, dh, n)
-                             for n in range(1, 65))) * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def gla_bwd_fp64(r, k, v, w, u, dout, dstate=None):
     """The GLA's gradients in fp64: the step recurrence (w clamped to
     1e-20 as the forward clamps it) differentiated by autograd on the
@@ -1131,41 +1007,6 @@ def gla_bwd_dropped_carry(bwd, args, chunk, span=16):
             x[:, t0:t0 + span] = y[:, t0:t0 + span]
         du = g[4] if du is None else du + g[4]
     return (*out, du)
-
-
-def seq_bound_ms(name, args, kw):
-    """Least time on an H100 for the function at these inputs: bytes
-    (inputs once, outputs once) at HBM rate against the operations at the
-    peak for their type (bf16 tensor cores for bf16 attention, the
-    3xTF32 rate TF32_FLOPS / 3 for fp32 attention's products, fp32 CUDA
-    cores for the scan, ``gla_least_ms`` for GLA), the larger of the
-    two."""
-    if name == "flash_attention":
-        q, k, v = args                          # (B, Sq, H, dh), (B, Sk, K, dh)
-        b, sq, h, dh = q.shape
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        pairs = allowed_pairs(sq, k.shape[1], kw.get("causal", True),
-                              kw.get("window", 0))
-        flops = 4 * dh * pairs * b * h          # QK^T and PV, 2 each per MAC
-        peak = BF16_FLOPS if q.element_size() == 2 else TF32_FLOPS / 3
-    elif name == "gla_chunked":
-        r, k, v, w, u = args                    # (B, S, H, dh); u (H, dh)
-        b, s, h, dh = r.shape
-        nbytes = (r.element_size() * 4 * r.numel()      # r, k, v, out
-                  + w.element_size() * w.numel() + 4 * u.numel()
-                  + 4 * b * h * dh * dh)                 # the final state
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = gla_least_ms(b, s, h, dh)
-        return (max(t_bytes, t_ops),
-                "bytes" if t_bytes >= t_ops else "operations")
-    else:
-        a, b_ = args
-        nbytes = a.element_size() * 3 * a.numel()
-        flops = 2 * a.numel()
-        peak = BF16_FLOPS if a.element_size() == 2 else FP32_FLOPS
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def seq_ragged_cases(device):
@@ -3767,20 +3608,6 @@ def train_launches(cfg):
     return {k: n for k, n in counts.items() if n}
 
 
-def attn_bwd_bound_ms(q, k, kw):
-    """Least time for the attention backward at these inputs: q, o, dO,
-    dQ and k, v, dK, dV crossing HBM once against the five products (10
-    dh FLOP an allowed pair) at the peak for the storage type (bf16
-    tensor cores, or fp32 in 3xTF32 at TF32_FLOPS / 3)."""
-    bh, sq, dh = q.shape
-    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
-    flops = 10 * dh * bh * allowed_pairs(sq, k.shape[1], kw["causal"],
-                                         kw["window"])
-    peak = BF16_FLOPS if q.element_size() == 2 else TF32_FLOPS / 3
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def attn_bwd_timing(q, k, v, o, do, kw):
     """The bf16 attention backward kernel at (q, k, v, o, dO) (heads-major)
     timed by CUDA events beside its plain version and SDPA's backward,
@@ -5793,6 +5620,226 @@ def phase_batching(device="cuda"):
     say(f"  phase 14: {time.time() - t0:.1f} s")
 
 
+# ------------------------------------------------------------ phase 15
+MESH_REPS = 20
+# I_l = 1 twice: the first round of a fresh model run alone is cold (on
+# an H100 80GB HBM3, 10.0-10.4 s against ~1.5 s at I_l = 4 after it)
+MESH_INTERVALS = (1, 4, 1)
+ROOF_ARCH = "recurrentgemma-2b"
+
+
+def mesh_round(device="cuda"):
+    """15a: phase 3's round (the paper's (2,3,2), N=100, N_p=10, I_l=2,
+    impl="pallas") with fanout="shard_map" on the NCCL host mesh (world
+    1, a 'pod' axis), flat and two_level (2 pods), against the batched
+    round from the same params and generator: the same bits, the test
+    fidelity and mse of the result through the kernels, every kernel
+    launched (counts zeroed before the mesh round and its evaluation,
+    read after), and ms/round of both (CUDA events, in turns)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.quantum import federated as fed
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import collectives
+    cfg, ds, test, params = main_cell(device=device)
+    mesh = mesh_lib.make_host_mesh((1,), ("pod",), device=device)
+    card = smi("name,power.limit")
+    say(f"== phase 15a: the {cfg.widths} N={cfg.num_nodes}, "
+        f"N_p={cfg.nodes_per_round}, I_l={cfg.interval_length} round, "
+        f"impl={cfg.impl!r}, fanout='shard_map' on {mesh} (backend "
+        f"{dist.get_backend()}, world {dist.get_world_size()})")
+    try:
+        for topology, pods in (("flat", None), ("two_level", 2)):
+            c = cfg._replace(topology=topology, pods=pods)
+            batched, shard = c._replace(fanout="vmap"), c._replace(
+                fanout="shard_map")
+            want = fed.server_round(params, ds,
+                                    torch.Generator().manual_seed(5), batched)
+            build.reset_launches()
+            with mesh:
+                got = fed.server_round(params, ds,
+                                       torch.Generator().manual_seed(5), shard)
+                ev = fed.evaluate(got, *test, c.widths, impl=c.impl)
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in build.LAUNCHES.items() if n}
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"{topology}: the shard_map round differs "
+                                   "from the batched round")
+            missing = [k for k in KERNELS if not launches.get(k)]
+            if missing:
+                raise RuntimeError(f"{topology}: the mesh round never "
+                                   f"launched {missing}")
+            ms = {"vmap": [], "shard_map": []}
+            for side in ("vmap", "shard_map", "shard_map", "vmap"):
+                ctx = mesh if side == "shard_map" else contextlib.nullcontext()
+                with ctx:
+                    ms[side].append(round_ms(c._replace(fanout=side), ds,
+                                             params, MESH_REPS))
+            say(f"  {topology}: shard_map == vmap bit for bit; test fidelity "
+                f"{float(ev['fidelity']):.6f}, mse {float(ev['mse']):.6e}; "
+                f"launches {launches}; ms/round vmap "
+                f"{sum(ms['vmap']) / 2:.4f}, shard_map "
+                f"{sum(ms['shard_map']) / 2:.4f} (CUDA events, {MESH_REPS} "
+                f"rounds a run, two runs each in turns; card {card})")
+        x = torch.zeros((cfg.nodes_per_round, cfg.interval_length, 3, 8, 8),
+                        dtype=torch.complex128, device=device)
+        ms = {}
+        for label, call in (
+                ("the mesh's group lookup", lambda: mesh.get_group("pod")),
+                ("dist.all_gather", lambda: dist.all_gather(
+                    [torch.empty_like(x)], x, group=mesh.get_group("pod"))),
+                ("collectives.all_gather", lambda: collectives.all_gather(
+                    x, mesh, "pod"))):
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_REPS):
+                call()
+            torch.cuda.synchronize()
+            ms[label] = (time.perf_counter() - t0) * 1e3 / MESH_REPS
+        say(f"  one call on the mesh, host clock to a synchronize, of the "
+            f"round's {tuple(x.shape)} layer-1 uploads: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in ms.items()) + f"; card {card}")
+    finally:
+        mesh_lib.close()
+
+
+def mesh_dryrun_fed(device="cuda"):
+    """15b: ``launch.dryrun_fed`` on the 2-pod fake mesh at phase 12a's
+    shape (Qwen1.5-4B at published width, 8 of 40 layers, B=2 x S=4096 a
+    local step), I_l = 1, 4 and 1 again (the first round is cold): pod
+    0's node trains for real through the attention kernels (launches
+    gated: I_l x one step's), cross-pod bytes a round equal for all,
+    a quarter a local step at I_l = 4."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun_fed
+    cfg = dataclasses.replace(get_config(FED_ARCH), n_layers=FED_LAYERS)
+    per_step = train_launches(cfg)
+    card = smi("name,power.limit")
+    say(f"== phase 15b: dryrun_fed, {FED_ARCH} {FED_LAYERS} of "
+        f"{get_config(FED_ARCH).n_layers} layers, B=2 x S={SERVE_S} a local "
+        f"step, on the (pod 2, data 16, model 16) fake mesh")
+    recs = []
+    for il in MESH_INTERVALS:
+        torch.cuda.empty_cache()
+        build.reset_launches()
+        rec = dryrun_fed.run(FED_ARCH, il, layers=FED_LAYERS, batch=2,
+                             seq=SERVE_S, device=device)
+        launches = {k: n for k, n in build.LAUNCHES.items() if n}
+        want = {k: per_step[k] * il for k in ("flash_attention", ATTN_BWD)}
+        if launches != want:
+            raise RuntimeError(f"I_l={il}: launched {launches}, expected "
+                               f"{want}")
+        if not math.isfinite(rec["loss"]):
+            raise RuntimeError(f"I_l={il}: non-finite loss {rec['loss']}")
+        say(f"  I_l={il}: cross-pod {rec['cross_pod_bytes']:.0f} B a round, "
+            f"{rec['cross_pod_bytes_per_local_step']:.0f} B a local step, by "
+            f"axis {rec['collective_bytes_by_axis']}, collectives "
+            f"{rec['collective_count']}; round {rec['round_ms']:.1f} ms "
+            f"(host clock to a synchronize), loss {rec['loss']:.6f}, "
+            f"launches {launches}; card {card}")
+        recs.append(rec)
+    cold, four, one = recs
+    if not (cold["cross_pod_bytes"] == one["cross_pod_bytes"]
+            == four["cross_pod_bytes"] > 0
+            and 4 * four["cross_pod_bytes_per_local_step"]
+            == one["cross_pod_bytes_per_local_step"]):
+        raise RuntimeError("cross-pod bytes a local step did not fall to "
+                           "1/4 from I_l = 1 to 4")
+    say(f"  cross-pod bytes a round equal at I_l = 1, 4, 1; a local step "
+        f"{one['cross_pod_bytes_per_local_step']:.0f} -> "
+        f"{four['cross_pod_bytes_per_local_step']:.0f} B (1/4); "
+        f"{one['values']}")
+    torch.cuda.empty_cache()
+
+
+def tensor_bytes(tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def roofline_prefill(device="cuda"):
+    """15c: the roofline of phase 5's RecurrentGemma-2B prefill (B=4,
+    S=4096, bf16, random weights from seed 0) through
+    ``roofline.trace_parse`` and ``roofline.analysis``: device time by
+    family and the busy share of one profiled prefill (launches zeroed
+    before, read after: 8 flash_attention, 18 rglru_scan), the ATen dot
+    FLOPs and the kernels' FLOPs and bytes of another, the compute and
+    memory terms and their shares of the prefill's time (CUDA events)."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import concrete_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import Model
+    from repro_torch.roofline import analysis, breakdown, trace_parse
+    torch.cuda.empty_cache()
+    cfg = get_config(ROOF_ARCH)
+    model = Model(cfg)
+    params = model.init(seed=0, device=device)
+    batch = concrete_batch(cfg, SERVE_B, SERVE_S,
+                           torch.Generator().manual_seed(0), kind="prefill",
+                           device=device)
+    step = make_prefill_step(model)
+    card = smi("name,power.limit")
+    say(f"== phase 15c: roofline of the {ROOF_ARCH} prefill, B={SERVE_B} x "
+        f"S={SERVE_S}, {cfg.param_dtype}, {cfg.n_layers} layers")
+    with torch.no_grad():
+        logits, cache = step(params, batch)
+        out_bytes = tensor_bytes([logits, *cache.values()])
+        del logits, cache
+        ms = cuda_ms(step, params, batch, reps=5, warmup=1)
+        work = trace_parse.count(lambda: step(params, batch))
+        build.reset_launches()
+        trace = trace_parse.profile(lambda: step(params, batch))
+        launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    want = {"flash_attention": 8, "rglru_scan": 18}
+    if launches != want or {k: v[0] for k, v in work.kernels.items()} != want:
+        raise RuntimeError(f"the profiled prefill launched {launches}, the "
+                           f"counted one {work.kernels}; expected {want}")
+    arg_bytes = tensor_bytes(params.values()) + tensor_bytes(batch.values())
+    t = analysis.trace_terms(work, trace, arg_bytes, out_bytes, ms)
+    for line in breakdown.lines(trace, "one prefill") + \
+            breakdown.family_lines(trace):
+        say("  " + line)
+    fam = t["device_ms_by_family"]
+    if not all(fam.get(k, 0) > 0 for k in want) or not all(
+            math.isfinite(t[k]) and t[k] > 0 for k in
+            ("t_compute_ms", "t_memory_ms", "compute_share")):
+        raise RuntimeError(f"roofline incomplete: {t}")
+    say(f"  prefill {ms:.3f} ms (CUDA events, 5 runs), device busy "
+        f"{100 * t['busy_share']:.1f}% of the profiled call; card {card}")
+    say(f"  work: ATen dot FLOPs {t['dot_flops']:.6e} (FlopCounterMode), "
+        f"kernels {t['kernel_flops']:.6e} FLOPs and {t['kernel_bytes']:.6e} "
+        f"B from their shapes {t['kernels']}; arguments {arg_bytes:.6e} B, "
+        f"outputs {out_bytes:.6e} B; card {card}")
+    say(f"  terms: compute {t['t_compute_ms']:.4f} ms "
+        f"({100 * t['compute_share']:.1f}% of the measured time), memory "
+        f"{t['t_memory_ms']:.4f} ms ({100 * t['memory_share']:.1f}%), "
+        f"bound by {t['bound_by']} (H100 SXM peaks: 989 TFLOP/s bf16, "
+        f"3.35 TB/s); card {card}")
+    say("  roofline " + json.dumps(dict(t, card=card, arch=ROOF_ARCH,
+                                        batch=SERVE_B, seq=SERVE_S)))
+    del params, batch
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_roofline(device="cuda"):
+    """Phase 15: the mesh fan-out of the quantum round on the NCCL host
+    mesh, the federated dry run on the fake production mesh, and the
+    roofline of a prefill from profiler traces."""
+    t0 = time.time()
+    mesh_round(device)
+    mesh_dryrun_fed(device)
+    roofline_prefill(device)
+    say(f"  phase 15: {time.time() - t0:.1f} s")
+
+
 # ------------------------------------------------------ --train-probe
 # (peak lr, grad_clip) settings of phase 11's model, batch and optimizer
 PROBE_SETTINGS = ((1e-3, 1.0), (1e-3, 0.0), (1e-2, 1.0))
@@ -6136,6 +6183,7 @@ def main() -> int:
     rows += timed("12", phase_fed)
     rows += timed("13", phase_archs)
     timed("14", phase_batching)
+    timed("15", phase_mesh_roofline)
     say(f"seconds a phase {seconds}")
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))

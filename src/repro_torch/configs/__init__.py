@@ -1,7 +1,8 @@
 """Model configurations of the port and the architecture registry:
 ``--arch <id>`` resolves here. The registry holds the reference's ten
 architectures, each config equal to the reference's field for field.
-``variant_for_shape`` and ``supports_shape`` are the reference's.
+``variant_for_shape``, ``supports_shape`` and ``all_pairs`` are the
+reference's.
 """
 from __future__ import annotations
 
@@ -57,5 +58,13 @@ def variant_for_shape(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
     return cfg
 
 
-__all__ = ["INPUT_SHAPES", "REGISTRY", "get_config", "supports_shape",
-           "variant_for_shape"]
+def all_pairs():
+    """(name, cfg, shape, supported) for every architecture x input
+    shape."""
+    for name, cfg in REGISTRY.items():
+        for shape in INPUT_SHAPES.values():
+            yield name, cfg, shape, supports_shape(cfg, shape)
+
+
+__all__ = ["INPUT_SHAPES", "REGISTRY", "all_pairs", "get_config",
+           "supports_shape", "variant_for_shape"]

@@ -1,15 +1,56 @@
-"""Concrete model-input batches for smoke runs, tests and examples,
-drawn from a ``torch.Generator`` (the port's counterpart of
-``repro.configs.shapes.concrete_batch``; the dry-run's abstract specs
-wait for the mesh tooling)."""
+"""Model-input batches (the port of ``repro.configs.shapes``): abstract
+specs for the dry run (``meta`` tensors: shapes and dtypes, no memory)
+with their logical axes, and concrete batches for smoke runs, tests and
+examples, drawn from a ``torch.Generator``."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import InputShape, ModelConfig
+
+META = torch.device("meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: InputShape
+                ) -> Dict[str, torch.Tensor]:
+    """Abstract model-input batch for (cfg, shape), on the meta device.
+
+    train/prefill: full sequences; decode: one new token per sequence.
+    Embedding-input archs (audio/vlm) get frontend-stub embeddings;
+    decode reads the conditioning k/v cached at prefill, so it has no
+    ``cond``."""
+    b = shape.global_batch
+    s = 1 if shape.kind == "decode" else shape.seq_len
+    i32 = dict(dtype=torch.int32, device=META)
+    act = dict(dtype=cfg.torch_dtype, device=META)
+    batch: Dict[str, torch.Tensor] = {}
+    if cfg.input_kind == "tokens":
+        batch["tokens"] = torch.empty((b, s), **i32)
+    else:
+        batch["embeddings"] = torch.empty((b, s, cfg.d_model), **act)
+    if shape.kind == "train":
+        batch["labels"] = torch.empty((b, s), **i32)
+    if cfg.cross_attn and shape.kind != "decode":
+        batch["cond"] = torch.empty((b, cfg.cond_len, cfg.d_model), **act)
+    if cfg.pos_kind == "mrope":
+        batch["mrope_positions"] = torch.empty((3, b, s), **i32)
+    return batch
+
+
+BATCH_AXES = {
+    "tokens": ("act_batch", None),
+    "labels": ("act_batch", None),
+    "embeddings": ("act_batch", None, None),
+    "cond": ("act_batch", None, None),
+    "mrope_positions": (None, "act_batch", None),
+}
+
+
+def batch_axes(batch) -> Dict[str, Tuple]:
+    return {k: BATCH_AXES[k] for k in batch}
 
 
 def concrete_batch(cfg: ModelConfig, batch_size: int, seq_len: int,

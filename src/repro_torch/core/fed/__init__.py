@@ -10,6 +10,6 @@ from repro_torch.core.fed import (  # noqa: F401
     channel, faults, participation, server_opt, strategies)
 from repro_torch.core.fed.config import FederatedConfig  # noqa: F401
 from repro_torch.core.fed.fed_step import (  # noqa: F401
-    fed_train_round, replicate_for_pods)
+    fed_params_axes, fed_train_round, replicate_for_pods)
 from repro_torch.core.fed.local import local_steps  # noqa: F401
 from repro_torch.core.fed import api  # noqa: E402,F401  (after the registries)

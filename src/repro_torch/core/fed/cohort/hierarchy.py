@@ -24,9 +24,16 @@ fails loudly instead of silently aggregating flat.
 Every tensor here carries the round's leading session axis S (a solo
 round is the stack of one): uploads are (S, N, I_l, m, d, d) and the
 pods are formed inside each session, as (S, pods, per, ...), so one
-session's pods never mix with another's. On one card the pod tier is
-the batched computation of the reference's one-device path; the
-``shard_map`` fan-out over a mesh's 'pod' axis is not in the port.
+session's pods never mix with another's.
+
+The pod tier runs spread over the mesh axis backing the 'fed_node' rule
+('pod') when a mesh is given and the pod count splits across it: each
+rank computes its contiguous block of pods' partials and the partials
+are gathered in pod order over that axis (``sharding.collectives``),
+mirroring the local phase's fan-out; the cross-pod merge then runs on
+every rank alike. Otherwise (no mesh, one rank on the axis, or pods not
+splitting evenly) it is the batched computation of the reference's
+one-device path.
 
 The tree forms each step's update unitary first and then applies it to
 the layer's unitary, so its rounding differs from the flat chain's:
@@ -39,6 +46,7 @@ import torch
 from repro_torch.core.fed import strategies
 from repro_torch.core.fed.cohort import topology as ftopo
 from repro_torch.core.quantum import qnn
+from repro_torch.sharding import collectives, rules
 
 
 def _chain_steps(acc, seq: torch.Tensor, impl: str) -> torch.Tensor:
@@ -63,9 +71,34 @@ def _group(x: torch.Tensor, topo: ftopo.Topology) -> torch.Tensor:
     return x.reshape((x.shape[0], topo.pods, per) + x.shape[2:])
 
 
+def _shard_axis(mesh, topo: ftopo.Topology):
+    """The mesh axis to spread the pod tier over: None for the batched
+    fallback (no mesh, a 1-rank axis, or pods not splitting evenly)."""
+    if mesh is None:
+        return None
+    axis = rules.fed_fanout_axis(mesh)
+    ranks = rules.axis_size(mesh, axis)
+    if axis is None or ranks <= 1:
+        return None
+    return axis if topo.pods % ranks == 0 else None
+
+
+def _pod_tier(body, grouped: torch.Tensor, mesh, topo: ftopo.Topology):
+    """``body`` over the pod-major input (S, pods, ...): this rank's
+    block of pods, the outputs (S, pods, ...) gathered in pod order over
+    the 'pod' mesh axis when it splits them; all pods at once otherwise."""
+    axis = _shard_axis(mesh, topo)
+    if axis is None:
+        return body(grouped)
+    per = topo.pods // rules.axis_size(mesh, axis)
+    lo = collectives.axis_rank(mesh, axis) * per
+    return collectives.all_gather(body(grouped[:, lo:lo + per]), mesh, axis,
+                                  dim=1)
+
+
 # ----------------------------------------------------------- product tree
 def pod_products(upd: torch.Tensor, topo: ftopo.Topology, *,
-                 impl: str = "xla") -> torch.Tensor:
+                 impl: str = "xla", mesh=None) -> torch.Tensor:
     """Per-pod partial chains of the scaled update unitaries.
 
     upd: (S, N_p, I_l, m, d, d), slot order = Eq. 6 node order.
@@ -73,9 +106,9 @@ def pod_products(upd: torch.Tensor, topo: ftopo.Topology, *,
     u_{first(p),k}, each pod's slice of the Eq. 6 chain; every step
     multiplies all sessions, pods, interval steps and sublayers at once.
     """
-    grouped = _group(upd, topo)              # (S, pods, per, I_l, m, d, d)
-    seq = grouped.movedim(2, 0).contiguous()  # (per, S, pods, I_l, m, d, d)
-    return _chain_steps(None, seq, impl)
+    def body(g):                             # (S, pods, per, I_l, m, d, d)
+        return _chain_steps(None, g.movedim(2, 0).contiguous(), impl)
+    return _pod_tier(body, _group(upd, topo), mesh, topo)
 
 
 def merge_products(partials: torch.Tensor, *, impl: str = "xla"
@@ -87,18 +120,19 @@ def merge_products(partials: torch.Tensor, *, impl: str = "xla"
 
 
 def tree_chain(us: torch.Tensor, upd: torch.Tensor, topo: ftopo.Topology,
-               *, impl: str = "xla") -> torch.Tensor:
+               *, impl: str = "xla", mesh=None) -> torch.Tensor:
     """Hierarchical Eq. 6 application for one layer: pod partial chains,
     cross-pod merge, then the per-step round unitaries onto ``us``
     (S, m, d, d) in ascending interval-step order (k = 1 applied first),
     the exact reassociation of the flat ``(k outer, node inner)`` chain."""
-    u_steps = merge_products(pod_products(upd, topo, impl=impl), impl=impl)
+    u_steps = merge_products(pod_products(upd, topo, impl=impl, mesh=mesh),
+                             impl=impl)
     return _chain_steps(us, u_steps.movedim(1, 0).contiguous(), impl)
 
 
 # ----------------------------------------------------------- average tree
 def pod_generators(ks: torch.Tensor, weights: torch.Tensor,
-                   topo: ftopo.Topology) -> torch.Tensor:
+                   topo: ftopo.Topology, *, mesh=None) -> torch.Tensor:
     """Per-pod partial weighted generator sums.
 
     ks: (S, N_p, I_l, m, d, d), weights: (S, N_p) ->
@@ -106,7 +140,8 @@ def pod_generators(ks: torch.Tensor, weights: torch.Tensor,
     """
     w = weights.to(ks.dtype)
     w = w.reshape(w.shape + (1,) * (ks.dim() - 2))
-    return torch.sum(_group(ks * w, topo), dim=2)
+    return _pod_tier(lambda g: torch.sum(g, dim=2), _group(ks * w, topo),
+                     mesh, topo)
 
 
 def merge_generators(partials: torch.Tensor) -> torch.Tensor:
@@ -115,10 +150,10 @@ def merge_generators(partials: torch.Tensor) -> torch.Tensor:
 
 
 def tree_mean_generators(ks: torch.Tensor, weights: torch.Tensor,
-                         topo: ftopo.Topology) -> torch.Tensor:
+                         topo: ftopo.Topology, *, mesh=None) -> torch.Tensor:
     """Hierarchical Eq. 8 generator mean for one layer, per session: the
     exact reassociation of ``einsum('sn,snk...->sk...', w, ks)``."""
-    return merge_generators(pod_generators(ks, weights, topo))
+    return merge_generators(pod_generators(ks, weights, topo, mesh=mesh))
 
 
 def partial_fn(agg: strategies.Aggregation):

@@ -15,8 +15,14 @@ deltas and the inner optimizer state, which stays per node
 port's optimizers do; the reference's jitted step donates it), so a
 round consumes the opt state it is given. The global params are never
 written: each node steps a copy, and the aggregate returns new params.
-The reference's ``fed_params_axes`` maps the node axis onto a mesh and
-waits for the mesh tooling (ROADMAP.md, Queue 1 item 7).
+
+On a mesh whose 'fed_node' axis ('pod') has more than one rank (passed
+as ``mesh=`` or entered with ``with mesh:``), the node axis is sharded
+over that axis, as the reference's ``fed_params_axes`` lays it out:
+each rank trains its contiguous block of the nodes and holds only
+their optimizer states and batches; the weighted delta sum is one
+all-reduce over the 'pod' group (``sharding.collectives``). Without a
+mesh, or on one rank, the round is the one-process round.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from repro_torch.core.fed import participation, strategies
 from repro_torch.core.fed.config import FederatedConfig
 from repro_torch.core.fed.local import node_delta
 from repro_torch.optim.tree import tree_map
+from repro_torch.sharding import collectives, rules
 
 F32 = torch.float32
 
@@ -36,6 +43,25 @@ def replicate_for_pods(tree, num_nodes: int):
     """Give every node its own copy (leading node axis)."""
     return tree_map(lambda x: x.unsqueeze(0).expand(
         (num_nodes,) + tuple(x.shape)).clone(), tree)
+
+
+def fed_params_axes(axes_tree, abstract_tree=None, num_nodes: int = 0):
+    """Logical axes for node-indexed trees: prepend 'fed_node' (mapped
+    to the 'pod' mesh axis by the rule table). ``axes_tree``: a dict of
+    axes tuples, nested dicts allowed."""
+    if isinstance(axes_tree, dict):
+        return {k: fed_params_axes(v) for k, v in axes_tree.items()}
+    return ("fed_node",) + tuple(axes_tree)
+
+
+def node_shard(mesh):
+    """(axis, ranks, rank) of the node axis' sharding on ``mesh``, or
+    None without a mesh or with one rank on its 'fed_node' axis."""
+    axis = None if mesh is None else rules.fed_fanout_axis(mesh)
+    ranks = rules.axis_size(mesh, axis)
+    if ranks <= 1:
+        return None
+    return axis, ranks, collectives.axis_rank(mesh, axis)
 
 
 def resolve_delta_dtype(fed_cfg: FederatedConfig) -> torch.dtype:
@@ -146,8 +172,8 @@ def aggregate_deltas(params, deltas, w: torch.Tensor, outer_lr,
 def fed_train_round(loss_fn: Callable, opt, params, opt_states_nodes,
                     node_batches, lr, fed_cfg: FederatedConfig,
                     token_counts: Optional[torch.Tensor] = None,
-                    participation_mask: Optional[torch.Tensor] = None
-                    ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
+                    participation_mask: Optional[torch.Tensor] = None,
+                    mesh=None) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
     """One synchronization iteration — the canonical local -> aggregate
     phase composition (``node_uploads`` + ``aggregate_deltas``).
 
@@ -160,10 +186,25 @@ def fed_train_round(loss_fn: Callable, opt, params, opt_states_nodes,
     participation_mask: (num_nodes,) 1.0/0.0 mask from the participation
     schedule — a dropped node's delta is zero-weighted and the remaining
     weights renormalize.
+    mesh: a DeviceMesh (default: the ambient one). When its 'fed_node'
+    axis has R > 1 ranks, ``opt_states_nodes`` and ``node_batches``
+    hold this rank's block of num_nodes / R nodes (rank r: nodes r *
+    num_nodes / R onwards), ``token_counts`` and the mask all nodes.
     Returns (new_params, new opt states, metrics averaged over nodes and
     steps).
     """
     n = fed_cfg.num_nodes
+    mesh = mesh if mesh is not None else rules.current_mesh()
+    shard = node_shard(mesh)
+    if shard is not None:
+        axis, ranks, rank = shard
+        per = n // ranks
+        held = next(iter(node_batches.values())).shape[0]
+        if n % ranks or held != per:
+            raise ValueError(
+                f"num_nodes={n} on mesh axis '{axis}' of size {ranks}: "
+                f"each rank holds num_nodes / {ranks} nodes' batches, "
+                f"got {held}")
     delta_dt = resolve_delta_dtype(fed_cfg)
     deltas, new_opt_states, metrics = node_uploads(
         loss_fn, opt, params, opt_states_nodes, node_batches, lr, delta_dt)
@@ -174,6 +215,28 @@ def fed_train_round(loss_fn: Callable, opt, params, opt_states_nodes,
             if participation_mask is None
             else participation_mask.to(dev, F32))
     w = participation.round_weights(fed_cfg.participation, sizes, mask)
-    new_params, _ = aggregate_deltas(params, deltas, w, fed_cfg.outer_lr)
-    return new_params, new_opt_states, {k: v.mean()
-                                        for k, v in metrics.items()}
+    if shard is None:
+        new_params, _ = aggregate_deltas(params, deltas, w, fed_cfg.outer_lr)
+        return new_params, new_opt_states, {k: v.mean()
+                                            for k, v in metrics.items()}
+    w_local = w[rank * per:(rank + 1) * per]
+    # this rank's weighted partial sums, every leaf in one flat buffer in
+    # the wire dtype: one all-reduce sums the pods' partials
+    flat = torch.empty(sum(p.numel() for p in params.values()),
+                       dtype=delta_dt, device=dev)
+    views, at = {}, 0
+    for k, d in deltas.items():
+        views[k] = flat[at:at + d[0].numel()].view(d.shape[1:])
+        torch.sum(d * w_local.to(d.dtype).reshape(
+            (-1,) + (1,) * (d.dim() - 1)), dim=0, out=views[k])
+        at += d[0].numel()
+    del deltas
+    collectives.all_reduce(flat, mesh, axis)
+    new_params = {k: (p.to(F32) + fed_cfg.outer_lr * views[k].to(F32)
+                      ).to(p.dtype) for k, p in params.items()}
+    names = list(metrics)
+    sums = torch.stack([metrics[k].sum().to(F32) for k in names])
+    collectives.all_reduce(sums, mesh, axis)
+    count = metrics[names[0]].numel() // per * n       # nodes x steps
+    return new_params, new_opt_states, {k: sums[i] / count
+                                        for i, k in enumerate(names)}

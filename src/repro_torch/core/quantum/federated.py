@@ -1,5 +1,5 @@
 """QuantumFed: QuanFedNode (Alg. 1) + QuanFedPS (Alg. 2), the port of
-``repro.core.quantum.federated`` on one device.
+``repro.core.quantum.federated``.
 
 One round is four phases: ``select_phase`` (participation sampling and
 the Alg. 2 weights), ``local_phase`` (the QuanFedNode pass of every
@@ -9,6 +9,19 @@ optional Byzantine-robust defense, optional server momentum on the
 averaged generators). ``server_round`` / ``server_round_opt`` /
 ``server_round_certified`` compose them. The nodes of a round run as one
 batch on an explicit leading node axis, where the reference ``vmap``s.
+
+``cfg.fanout`` spreads the node pass over ranks, as the reference's
+``shard_map`` over its mesh: under ``with mesh:`` (a DeviceMesh whose
+'fed_node' rule axis, 'pod', divides N_p), "shard_map" (or "auto" with
+more than one rank on that axis) has each rank run the node pass of its
+contiguous block of the round's nodes. The selection and every per-node
+draw are made before the split, on every rank alike, and the uploads
+are gathered in node order over the 'pod' group
+(``sharding.collectives``), so every rank runs the same Eq. 6 chain (or
+Eq. 8 sum) on all of them; a two-level tree's pod tier is spread the
+same way (``hierarchy``). On one rank the round is the batched round
+bit for bit. Stacked rounds always run batched.
+
 ``cfg.topology="two_level"`` routes either combine through the pod tree
 of ``repro_torch.core.fed.cohort.hierarchy`` (an exact reassociation,
 so its rounding differs from the flat chain's only in order).
@@ -50,6 +63,7 @@ from repro_torch.core.fed.cohort import topology as ftopology
 from repro_torch.core.quantum import linalg as ql
 from repro_torch.core.quantum import qnn
 from repro_torch.core.quantum.data import QuantumDataset
+from repro_torch.sharding import collectives, rules
 
 Gens = Union[torch.Generator, Sequence[torch.Generator]]
 
@@ -102,9 +116,7 @@ def _topology_of(cfg: QuantumFedConfig) -> Optional[ftopology.Topology]:
 
 
 def check_supported(cfg: QuantumFedConfig) -> QuantumFedConfig:
-    """Fail loudly on config values whose paths the port does not have
-    (NotImplementedError: the ``shard_map`` pod fan-out) and on values
-    no path accepts (ValueError)."""
+    """Fail loudly (ValueError) on config values no path accepts."""
     if cfg.engine not in qnn.ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; use one of "
                          f"{qnn.ENGINES}")
@@ -123,11 +135,9 @@ def check_supported(cfg: QuantumFedConfig) -> QuantumFedConfig:
             "topology='flat' only")
     if _topology_of(cfg) is not None:
         strategies.partial_kind(agg)    # fail loudly for tree-less combines
-    if cfg.fanout not in ("auto", "vmap"):
-        raise NotImplementedError(
-            f"not in the port yet: fanout={cfg.fanout!r} (the mesh fan-out, "
-            "ROADMAP.md Queue 1 item 7); one card runs the batched node "
-            "pass, fanout='auto' or 'vmap'")
+    if cfg.fanout not in ("auto", "vmap", "shard_map"):
+        raise ValueError(f"unknown fanout {cfg.fanout!r}; use "
+                         "'auto' | 'vmap' | 'shard_map'")
     qnn._check_impl(cfg.impl)
     participation.validate(cfg.participation)
     participation.validate_method(cfg.participation_method)
@@ -158,11 +168,11 @@ def _per_node(x, p: int):
     return x.repeat_interleave(p) if torch.is_tensor(x) else x
 
 
-def _minibatch(gens: List[torch.Generator], phi_in, phi_out, mask,
-               size: int):
-    """Per-node SGD draw of ``size`` pairs without replacement (valid
-    pairs only when a mask is given). The nodes split into len(gens)
-    equal blocks, block b drawing from gens[b] in node order."""
+def _draw(gens: List[torch.Generator], phi_in, mask, size: int):
+    """Per-node SGD draw of ``size`` pair indices without replacement
+    (valid pairs only when a mask is given): (P, size). The nodes split
+    into len(gens) equal blocks, block b drawing from gens[b] in node
+    order."""
     p, n_per = phi_in.shape[:2]
     per = p // len(gens)
     rows = []
@@ -175,8 +185,21 @@ def _minibatch(gens: List[torch.Generator], phi_in, phi_out, mask,
             idx = torch.multinomial(prob, size, replacement=False,
                                     generator=gen)
         rows.append(idx[:size].to(phi_in.device))
-    idx = torch.stack(rows)
-    take = torch.arange(p, device=phi_in.device)[:, None]
+    return torch.stack(rows)
+
+
+def _draws(gens: List[torch.Generator], phi_in, mask,
+           cfg: QuantumFedConfig) -> Optional[List[torch.Tensor]]:
+    """Every interval step's minibatch draw for every node, in step
+    order; None under GD (or a minibatch no smaller than the data)."""
+    if cfg.minibatch is None or cfg.minibatch >= phi_in.shape[1]:
+        return None
+    return [_draw(gens, phi_in, mask, cfg.minibatch)
+            for _ in range(cfg.interval_length)]
+
+
+def _minibatch(phi_in, phi_out, mask, idx):
+    take = torch.arange(idx.shape[0], device=phi_in.device)[:, None]
     b_w = None if mask is None else mask[take, idx]
     return phi_in[take, idx], phi_out[take, idx], b_w
 
@@ -184,7 +207,8 @@ def _minibatch(gens: List[torch.Generator], phi_in, phi_out, mask,
 def node_update(params: qnn.Params, phi_in: torch.Tensor,
                 phi_out: torch.Tensor, gen: Gens, eta, eps,
                 cfg: QuantumFedConfig, mask: Optional[torch.Tensor] = None,
-                return_factors: bool = False, with_bound: bool = False):
+                return_factors: bool = False, with_bound: bool = False,
+                draws: Optional[List[torch.Tensor]] = None):
     """QuanFedNode: I_l temporary-update steps on each node's local data,
     through ``cfg.engine`` (and the approximate-rank knobs).
 
@@ -193,7 +217,9 @@ def node_update(params: qnn.Params, phi_in: torch.Tensor,
     nodes; mask: optional (P, n_per) validity mask of padded nodes.
     eta, eps: scalars, or (P,) tensors of one value per node (K is
     linear in eta: a per-node eta scales the unit-eta K's). gen: one
-    generator, or one per equal block of nodes (the minibatch draws).
+    generator, or one per equal block of nodes (the minibatch draws,
+    every step's made first, in step order); or ``draws``: those
+    (P, minibatch) index draws, one a step, made already.
 
     Returns the per-step update matrices per layer, stacked
     (P, I_l, m, d, d); with ``return_factors`` also their eigh factors
@@ -202,8 +228,9 @@ def node_update(params: qnn.Params, phi_in: torch.Tensor,
     per-node certificates, each summed over the interval's steps (zeros
     for exact configs).
     """
-    gens = _gen_list(gen)
-    p_nodes, n_per = phi_in.shape[:2]
+    if draws is None:
+        draws = _draws(_gen_list(gen), phi_in, mask, cfg)
+    p_nodes = phi_in.shape[0]
     p = [u if u.dim() == 4 else u.expand((p_nodes,) + u.shape)
          for u in params]
     eta_scale = eta if torch.is_tensor(eta) else None
@@ -211,10 +238,9 @@ def node_update(params: qnn.Params, phi_in: torch.Tensor,
     eps_k = _lead(eps, 3)
     ks_seq, fac_seq = [], []
     bound = 0.0
-    for _ in range(cfg.interval_length):
-        if cfg.minibatch is not None and cfg.minibatch < n_per:
-            b_in, b_out, b_w = _minibatch(gens, phi_in, phi_out, mask,
-                                          cfg.minibatch)
+    for step in range(cfg.interval_length):
+        if draws is not None:
+            b_in, b_out, b_w = _minibatch(phi_in, phi_out, mask, draws[step])
         else:
             b_in, b_out, b_w = phi_in, phi_out, mask
         out = qnn.update_matrices(p, b_in, b_out, cfg.widths, eta_k,
@@ -265,10 +291,12 @@ def _steps_first(upd: torch.Tensor) -> torch.Tensor:
 # (S, P, I_l, m, d, d); weights (S, P) float32; eps and beta scalars or
 # (S,) tensors; momentum per layer (S, I_l, m, d, d) or None.
 
-def _product(params, ks_all, weights, eps, impl, factors=None, topo=None):
+def _product(params, ks_all, weights, eps, impl, factors=None, topo=None,
+             mesh=None):
     """Eq. 6 for every session: U <- prod_{k=I_l}^{1} prod_n
     e^{i eps w_n K_{n,k}} U, one chain over (S * m, d, d); under a
-    ``topo`` the same chain reassociated by pod (``hierarchy.tree_chain``)."""
+    ``topo`` the same chain reassociated by pod (``hierarchy.tree_chain``,
+    its pod tier spread over ``mesh``'s 'pod' axis when it splits)."""
     new_params = []
     for li, (us, ks) in enumerate(zip(params, ks_all)):
         s, p, il = ks.shape[:3]
@@ -281,7 +309,7 @@ def _product(params, ks_all, weights, eps, impl, factors=None, topo=None):
             upd = ql.expm_eigh(lam * wl, v, _lead(eps, 5))
         if topo is not None:
             new_params.append(fhierarchy.tree_chain(us, upd, topo,
-                                                    impl=impl))
+                                                    impl=impl, mesh=mesh))
             continue
         # interval step k outermost (k = 1 first), node n innermost
         seq = upd.permute(2, 1, 0, 3, 4, 5).reshape(
@@ -362,7 +390,7 @@ def _clip_uploads(ks_all, weights, clip_norm: float):
 
 def _aggregate(params, smom, ks_all, weights, eps, beta,
                cfg: QuantumFedConfig, server_opt: str, factors=None,
-               probe=None):
+               probe=None, mesh=None):
     """The strategy's combine for every session, with ``cfg.defense``
     and, for average combines, server momentum on the averaged
     generators K̄_k. Returns ``(new_params, new_smom)``, new_smom None
@@ -382,7 +410,7 @@ def _aggregate(params, smom, ks_all, weights, eps, beta,
                                                  eps, cfg, probe)
             factors = None  # factor the SANITIZED K's, not the raw ones
         return _product(params, ks_all, weights, eps, cfg.impl,
-                        factors, topo), None
+                        factors, topo, mesh), None
     if cfg.defense == "clip":
         ks_all, weights = _clip_uploads(ks_all, weights, cfg.clip_norm)
     robust = cfg.defense in ("trimmed_mean", "median")
@@ -392,17 +420,17 @@ def _aggregate(params, smom, ks_all, weights, eps, beta,
     valid = (weights > 0) & _finite(ks_all) if robust else None
     k_bars = [strategies.robust_combine(ks.transpose(0, 1), valid.T,
                                         cfg.defense, cfg.trim_frac)
-              if robust else _weighted_mean(ks, weights, topo)
+              if robust else _weighted_mean(ks, weights, topo, mesh)
               for ks in ks_all]
     return _average(params, smom, k_bars, eps, beta, server_opt, cfg.impl)
 
 
-def _weighted_mean(ks, weights, topo=None):
+def _weighted_mean(ks, weights, topo=None, mesh=None):
     """Eq. 8's K_k = sum_n w_n K_{n,k} per session: (S, I_l, m, d, d);
     the flat einsum, or under a ``topo`` the pod-partial sums merged
     (``hierarchy.tree_mean_generators``)."""
     if topo is not None:
-        return fhierarchy.tree_mean_generators(ks, weights, topo)
+        return fhierarchy.tree_mean_generators(ks, weights, topo, mesh=mesh)
     return torch.einsum("sn,snk...->sk...", weights.to(ks.dtype), ks)
 
 
@@ -456,20 +484,75 @@ def _select(dataset: QuantumDataset, gens: List[torch.Generator],
     return sel, pmask, weights
 
 
+def _fan_out(params, phi_in, phi_out, mask, gens, eta, eps,
+             cfg: QuantumFedConfig, mesh, with_factors: bool,
+             with_bound: bool):
+    """The node pass of a batch of nodes: in one batch, or with
+    ``cfg.fanout == "shard_map"`` each rank of ``mesh``'s 'fed_node' axis
+    running its contiguous block of them and the outputs gathered in
+    node order over that axis, all in one collective. Every minibatch
+    draw is made first, for all the nodes, on every rank alike. Returns
+    ``node_update``'s outputs as a tuple."""
+    if cfg.fanout != "shard_map":
+        out = node_update(params, phi_in, phi_out, gens, eta, eps, cfg, mask,
+                          return_factors=with_factors, with_bound=with_bound)
+        return out if isinstance(out, tuple) else (out,)
+    axis = rules.fed_fanout_axis(mesh) if mesh is not None else None
+    if axis is None:
+        raise ValueError(
+            "fanout='shard_map' needs a mesh carrying the 'fed_node' "
+            "rule axis (e.g. 'pod'); use `with mesh:` or fanout='auto' "
+            "for the vmap fallback")
+    ranks = rules.axis_size(mesh, axis)
+    if cfg.nodes_per_round % ranks != 0:
+        raise ValueError(
+            f"nodes_per_round={cfg.nodes_per_round} must be divisible by "
+            f"mesh axis '{axis}' of size {ranks}")
+    draws = _draws(gens, phi_in, mask, cfg)
+    per = phi_in.shape[0] // ranks
+    lo = collectives.axis_rank(mesh, axis) * per
+    mine = slice(lo, lo + per)
+
+    def block(x):
+        return x[mine] if torch.is_tensor(x) and x.dim() else x
+    out = node_update([u[mine] for u in params], phi_in[mine],
+                      phi_out[mine], [], block(eta), block(eps), cfg,
+                      block(mask), return_factors=with_factors,
+                      with_bound=with_bound,
+                      draws=None if draws is None else [d[mine]
+                                                        for d in draws])
+    out = out if isinstance(out, tuple) else (out,)
+    # every output of the block in one gather, in node order
+    n_l = len(out[0])
+    flat = list(out[0])
+    if with_factors:
+        flat += [x for lam_v in out[1] for x in lam_v]
+    if with_bound:
+        flat.append(out[-1].to(flat[-1].real.dtype))
+    full = collectives.all_gather_rows(flat, mesh, axis)
+    res = [full[:n_l]]
+    if with_factors:
+        res.append(list(zip(full[n_l:3 * n_l:2], full[n_l + 1:3 * n_l:2])))
+    if with_bound:
+        res.append(full[-1].to(out[-1].dtype))
+    return tuple(res)
+
+
 def _local(params, dataset: QuantumDataset, sel: torch.Tensor,
            gens: Optional[List[torch.Generator]], eta, eps,
-           cfg: QuantumFedConfig, with_factors: bool, with_bound: bool):
+           cfg: QuantumFedConfig, with_factors: bool, with_bound: bool,
+           mesh=None):
     """The node pass of every session's selected nodes as one batch of
-    S * P nodes; outputs regrouped per session: uploads (S, P, I_l, m,
-    d, d) per layer, factors likewise, bounds (S, P)."""
+    S * P nodes (spread over ``mesh`` by ``_fan_out``); outputs regrouped
+    per session: uploads (S, P, I_l, m, d, d) per layer, factors
+    likewise, bounds (S, P)."""
     s, p = sel.shape
     phi_in, phi_out, mask = _gather_nodes(dataset, sel.to(
         dataset.phi_in.device))
-    out = node_update([u.repeat_interleave(p, 0) for u in params], phi_in,
-                      phi_out, gens if gens is not None else [],
-                      _per_node(eta, p), _per_node(eps, p), cfg, mask,
-                      return_factors=with_factors, with_bound=with_bound)
-    out = out if isinstance(out, tuple) else (out,)
+    out = _fan_out([u.repeat_interleave(p, 0) for u in params], phi_in,
+                   phi_out, mask, gens if gens is not None else [],
+                   _per_node(eta, p), _per_node(eps, p), cfg, mesh,
+                   with_factors, with_bound)
 
     def split(x):
         return x.reshape((s, p) + x.shape[1:])
@@ -507,7 +590,8 @@ def _factors_survive_wire(cfg: QuantumFedConfig) -> bool:
 def _round(params, smom, dataset: QuantumDataset,
            gens: Optional[List[torch.Generator]],
            sel: Optional[torch.Tensor], eta, eps, beta,
-           cfg: QuantumFedConfig, server_opt: str, probe, certify: bool):
+           cfg: QuantumFedConfig, server_opt: str, probe, certify: bool,
+           mesh=None):
     """select -> local -> transmit -> aggregate for S sessions. Returns
     ``(new_params, new_smom, err_bound (S,) float64)``."""
     if sel is None:
@@ -519,13 +603,14 @@ def _round(params, smom, dataset: QuantumDataset,
             torch.ones(sel.shape, dtype=torch.float32, device=sel.device))
     reuse = _factors_survive_wire(cfg)
     out = _local(params, dataset, sel, gens, eta, eps, cfg,
-                 with_factors=reuse, with_bound=certify)
+                 with_factors=reuse, with_bound=certify, mesh=mesh)
     out = out if isinstance(out, tuple) else (out,)
     ks_all = out[0]
     factors = out[1] if reuse else None
     ks_all = _transmit(ks_all, gens, cfg)
     new_params, new_smom = _aggregate(params, smom, ks_all, weights, eps,
-                                      beta, cfg, server_opt, factors, probe)
+                                      beta, cfg, server_opt, factors, probe,
+                                      mesh)
     if certify:
         err = torch.sum(weights.to(torch.float64) * out[-1].to(
             weights.device), dim=-1)
@@ -536,6 +621,37 @@ def _round(params, smom, dataset: QuantumDataset,
 
 
 # ----------------------------------------------------- solo entry points
+def _resolve_fanout(cfg: QuantumFedConfig) -> str:
+    """The fan-out a solo round runs: "vmap" (one batch) or "shard_map"
+    (spread over the ambient mesh's 'fed_node' axis), read from the
+    mesh entered with ``with mesh:``."""
+    if cfg.fanout == "vmap":
+        return "vmap"
+    mesh = rules.current_mesh()
+    axis = rules.fed_fanout_axis(mesh) if mesh is not None else None
+    ok = (axis is not None
+          and cfg.nodes_per_round % rules.axis_size(mesh, axis) == 0)
+    if cfg.fanout == "shard_map":
+        if not ok:
+            raise ValueError(
+                "fanout='shard_map' needs an active `with mesh:` whose "
+                "'fed_node' rule axis divides nodes_per_round")
+        return "shard_map"
+    if cfg.fanout != "auto":
+        raise ValueError(f"unknown fanout {cfg.fanout!r}; use "
+                         "'auto' | 'vmap' | 'shard_map'")
+    # auto: shard only when the mesh actually has >1 pod to spread over
+    return "shard_map" if ok and rules.axis_size(mesh, axis) > 1 else "vmap"
+
+
+def _round_statics(cfg: QuantumFedConfig):
+    """(cfg with its fan-out resolved, the mesh it spreads over or
+    None)."""
+    fanout = _resolve_fanout(cfg)
+    mesh = rules.current_mesh() if fanout == "shard_map" else None
+    return cfg._replace(fanout=fanout), mesh
+
+
 def _one(xs):
     return None if xs is None else [x[None] for x in xs]
 
@@ -592,9 +708,10 @@ def local_phase(params: qnn.Params, dataset: QuantumDataset,
     (N_p, I_l, m, d, d), plus the eigh factors with ``with_factors`` and
     the (N_p,) per-node certificates with ``with_bound``."""
     check_supported(cfg)
+    cfg, mesh = _round_statics(cfg)
     out = _local(_one(params), _one_dataset(dataset),
                  sel.to(dataset.phi_in.device)[None], [gen], cfg.eta,
-                 cfg.eps, cfg, with_factors, with_bound)
+                 cfg.eps, cfg, with_factors, with_bound, mesh)
     if not isinstance(out, tuple):
         return _unone(out)
     res = [_unone(out[0])]
@@ -622,11 +739,12 @@ def aggregate_phase(params: qnn.Params, ks_all: List[torch.Tensor],
     for ``cfg.defense == "screen"``. factors: the node pass's eigh
     factors, valid when ``_factors_survive_wire(cfg)``."""
     check_supported(cfg)
+    cfg, mesh = _round_statics(cfg)
     fac = None if factors is None else [(lam[None], v[None])
                                         for lam, v in factors]
     new_params, new_smom = _aggregate(
         _one(params), _one(smom), _one(ks_all), weights[None], cfg.eps,
-        server_beta, cfg, server_opt, fac, _one_probe(probe))
+        server_beta, cfg, server_opt, fac, _one_probe(probe), mesh)
     return _unone(new_params), _unone(new_smom)
 
 
@@ -644,10 +762,11 @@ def server_round_certified(params: qnn.Params, dataset: QuantumDataset,
     those of ``server_round_opt`` bit for bit."""
     check_supported(cfg)
     fserver_opt.validate(server_opt)
+    cfg, mesh = _round_statics(cfg)
     new_params, new_smom, err = _round(
         _one(params), _one(smom), _one_dataset(dataset), [gen], None,
         cfg.eta, cfg.eps, server_beta, cfg, server_opt, _one_probe(probe),
-        certify=True)
+        certify=True, mesh=mesh)
     return _unone(new_params), _unone(new_smom), err[0]
 
 
@@ -661,10 +780,11 @@ def server_round_opt(params: qnn.Params, smom, dataset: QuantumDataset,
     required when ``cfg.defense == "screen"``."""
     check_supported(cfg)
     fserver_opt.validate(server_opt)
+    cfg, mesh = _round_statics(cfg)
     new_params, new_smom, _ = _round(
         _one(params), _one(smom), _one_dataset(dataset), [gen], None,
         cfg.eta, cfg.eps, server_beta, cfg, server_opt, _one_probe(probe),
-        certify=False)
+        certify=False, mesh=mesh)
     return _unone(new_params), _unone(new_smom)
 
 
@@ -699,6 +819,8 @@ def server_round_stacked(params: qnn.Params, dataset: QuantumDataset,
     (S,) float64 (zeros for exact configs)."""
     check_supported(cfg)
     fserver_opt.validate(server_opt)
+    # a pod mesh spreads the nodes of ONE federation, not the sessions
+    cfg = cfg._replace(fanout="vmap")
     dev = params[0].device
     if torch.is_tensor(gens_or_sels):
         gens, sel = None, gens_or_sels

@@ -1,1 +1,2 @@
-"""Launchers of the port: the serving steps and the serving CLI."""
+"""Launchers of the port: the train, serve and federated CLIs, the step
+builders, the meshes and the two dry runs."""

@@ -1,16 +1,49 @@
-"""The step builders shared by the launchers (the port of
-``repro.launch.steps``). PyTorch runs eagerly, so a step is the plain
-function; the mesh and sharding artifacts of the reference wait for the
-mesh tooling (ROADMAP.md)."""
+"""The step builders shared by the launchers and the dry run (the port
+of ``repro.launch.steps``). PyTorch runs eagerly, so a step is the plain
+function. Each ``*_artifacts`` builder returns ``(step, args, specs)``:
+the step function, its arguments as meta tensors (shapes and dtypes, no
+memory) and each argument's partition spec on ``mesh`` by the logical
+axis rules (``sharding.rules.spec_for``), where the reference returns
+its jitted step with the shardings bound in."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.configs.shapes import BATCH_AXES, batch_specs
 from repro_torch.models import Model
+from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.models.model import mean_metrics
 from repro_torch.optim import AdamW
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.sharding.rules import spec_for
+
+META = torch.device("meta")
+
+
+def param_shardings(model: Model, mesh):
+    """(meta params, their specs)."""
+    specs, axes = model.abstract_params(), model.param_axes()
+    return specs, {k: spec_for(v.shape, axes[k], mesh)
+                   for k, v in specs.items()}
+
+
+def batch_shardings(batch: Dict[str, torch.Tensor], mesh):
+    return {k: spec_for(v.shape, BATCH_AXES[k], mesh)
+            for k, v in batch.items()}
+
+
+def cache_shardings(model: Model, cache, mesh):
+    axes = model.cache_axes()
+    return {k: spec_for(v.shape, axes[k], mesh) for k, v in cache.items()}
+
+
+def opt_shardings(opt_state: AdamWState, params_shardings, mesh):
+    """AdamW m/v mirror the param shardings; step is replicated."""
+    return AdamWState(step=(),
+                      m={k: params_shardings[k] for k in opt_state.m},
+                      v={k: params_shardings[k] for k in opt_state.v})
 
 
 def value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
@@ -83,3 +116,45 @@ def make_serve_step(model: Model):
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tok, logits, new_cache
     return serve_step
+
+
+# ----------------------------------------------------------- dry run
+def train_step_artifacts(cfg: ModelConfig, shape: InputShape, mesh):
+    model = Model(cfg)
+    opt = AdamW(state_dtype=cfg.opt_state_dtype)
+    p_specs, p_shard = param_shardings(model, mesh)
+    o_specs = opt.init_abstract(p_specs)
+    batch = batch_specs(cfg, shape)
+    lr = torch.empty((), dtype=torch.float32, device=META)
+    return (make_train_step(model, opt), (p_specs, o_specs, batch, lr),
+            (p_shard, opt_shardings(o_specs, p_shard, mesh),
+             batch_shardings(batch, mesh), ()))
+
+
+def prefill_artifacts(cfg: ModelConfig, shape: InputShape, mesh):
+    model = Model(cfg)
+    p_specs, p_shard = param_shardings(model, mesh)
+    batch = batch_specs(cfg, shape)
+    return (make_prefill_step(model), (p_specs, batch),
+            (p_shard, batch_shardings(batch, mesh)))
+
+
+def serve_step_artifacts(cfg: ModelConfig, shape: InputShape, mesh):
+    model = Model(cfg)
+    p_specs, p_shard = param_shardings(model, mesh)
+    cache = model.init_cache(shape.global_batch, shape.seq_len, device=META)
+    batch = batch_specs(cfg, shape)
+    cur = torch.empty((), dtype=torch.int32, device=META)
+    return (make_serve_step(model), (p_specs, cache, batch, cur),
+            (p_shard, cache_shardings(model, cache, mesh),
+             batch_shardings(batch, mesh), ()))
+
+
+def artifacts_for(cfg: ModelConfig, shape: InputShape, mesh):
+    if shape.kind == "train":
+        return train_step_artifacts(cfg, shape, mesh)
+    if shape.kind == "prefill":
+        return prefill_artifacts(cfg, shape, mesh)
+    if shape.kind == "decode":
+        return serve_step_artifacts(cfg, shape, mesh)
+    raise ValueError(shape.kind)

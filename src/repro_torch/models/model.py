@@ -45,6 +45,13 @@ class Model:
         tfm.init_model(ini, self.cfg)
         return ini.params
 
+    def param_axes(self) -> pp.Axes:
+        """The logical axes of every param, path for path (the
+        reference's ``abstract_params()[1]``)."""
+        ini = pp.Initializer(self.cfg.param_torch_dtype, device="meta")
+        tfm.init_model(ini, self.cfg)
+        return ini.axes
+
     def num_params(self) -> int:
         return sum(math.prod(v.shape) for v in self.abstract_params().values())
 
@@ -124,6 +131,10 @@ class Model:
     def init_cache(self, batch: int, max_len: int, device="cuda"):
         return tfm.init_cache(self.cfg, batch, max_len,
                               device=resolve_device(device))
+
+    def cache_axes(self):
+        """The logical axes of ``init_cache``'s entries."""
+        return tfm.cache_axes(self.cfg)
 
     def extend_cache(self, cache, max_len: int):
         """A prefill cache moved into a ``max_len`` decode cache."""

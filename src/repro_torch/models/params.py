@@ -1,6 +1,7 @@
 """Parameter factory (the port's ``repro.models.params``).
 
-Params are a FLAT dict path -> tensor. Scan-stacked layer params carry a
+Params are a FLAT dict path -> tensor, with their logical axes in a
+parallel dict path -> names (``Initializer.axes``). Scan-stacked layer params carry a
 leading "layers" axis. Subtree selection is by path prefix. Paths,
 shapes, init kinds and scales are the reference's; the random numbers
 are torch's, one generator per path seeded with the path's CRC-32
@@ -16,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 Params = Dict[str, torch.Tensor]
+Axes = Dict[str, Tuple[Optional[str], ...]]
 
 
 class Initializer:
@@ -25,6 +27,7 @@ class Initializer:
         self.seed = seed
         self.device = torch.device(device)
         self.params: Params = {}
+        self.axes: Axes = {}
 
     def _gen_for(self, path: str) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -37,13 +40,15 @@ class Initializer:
     def make(self, path: str, shape: Tuple[int, ...],
              names: Tuple[Optional[str], ...], init: str = "normal",
              scale: Optional[float] = None) -> None:
-        """``names`` are the reference's logical axes, one per dim."""
+        """``names`` are the reference's logical axes, one per dim, kept
+        in ``self.axes`` (the sharding rules read them)."""
         if len(shape) != len(names):
             raise ValueError(f"{path}: shape {shape} vs axes {names}")
         if path in self.params:
             raise ValueError(f"duplicate param {path}")
         if init not in ("zeros", "ones", "normal", "uniform"):
             raise ValueError(init)
+        self.axes[path] = tuple(names)
         kw = dict(dtype=self.dtype, device=self.device)
         if self.device.type == "meta":
             p = torch.empty(shape, **kw)

@@ -130,6 +130,37 @@ def init_cache(cfg, batch: int, max_len: int, *, device
     return cache
 
 
+# Logical axes of the decode cache's entries (the reference's): batch
+# over ('pod','data'); kv_heads over 'model' when divisible, else the
+# seq dim; head_dim only for the conditioning k/v.
+CACHE_AXES = {
+    "k": ("act_batch", "act_cache_seq", "act_kv_heads", None),
+    "v": ("act_batch", "act_cache_seq", "act_kv_heads", None),
+    "xk": ("act_batch", None, "act_kv_heads", "cache_head_dim"),
+    "xv": ("act_batch", None, "act_kv_heads", "cache_head_dim"),
+    "shift_tm": ("act_batch", None),
+    "shift_cm": ("act_batch", None),
+    "wkv": ("act_batch", "act_heads", None, None),
+    "conv": ("act_batch", None, "act_rnn"),
+    "h": ("act_batch", "act_rnn"),
+}
+
+
+def cache_axes(cfg) -> Dict[str, tuple]:
+    """Logical axes of ``init_cache``'s entries, key for key."""
+    meta = torch.device("meta")
+    axes = {}
+    for pos, kind in enumerate(cfg.block_pattern):
+        if cfg.n_cycles == 0:
+            continue
+        for k in block_cache(kind, cfg, 1, 8, device=meta):
+            axes[f"stack/{pos}/{k}"] = ("layers",) + CACHE_AXES[k]
+    for i in range(cfg.n_rem):
+        for k in block_cache(cfg.block_pattern[i], cfg, 1, 8, device=meta):
+            axes[f"rem/{i}/{k}"] = CACHE_AXES[k]
+    return axes
+
+
 def extend_cache(cfg, cache: Dict[str, torch.Tensor], max_len: int
                  ) -> Dict[str, torch.Tensor]:
     """A prefill cache (k/v over the S prompt positions) copied into a

@@ -45,6 +45,19 @@ class AdamW:
         return AdamWState(step=torch.zeros((), dtype=torch.int32),
                           m=tree_map(z, params), v=tree_map(z, params))
 
+    def init_abstract(self, param_specs) -> AdamWState:
+        """The state's shapes and dtypes on the meta device (the dry
+        run's): no memory."""
+        dt = getattr(torch, self.state_dtype)
+        meta = torch.device("meta")
+
+        def z(p):
+            return torch.empty(p.shape, dtype=dt, device=meta)
+        return AdamWState(step=torch.empty((), dtype=torch.int32,
+                                           device=meta),
+                          m=tree_map(z, param_specs),
+                          v=tree_map(z, param_specs))
+
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, lr
                ) -> Tuple[Any, AdamWState]:

@@ -261,7 +261,9 @@ def test_classical_spec_constructs_and_its_substrate_is_refused():
 def test_two_level_spec_is_refused_by_the_port_round():
     """The two-level spec is no longer refused: its substrate builds and
     its session rounds equal the flat spec's (the tree reassociates the
-    Eq. 6 chain), while the mesh fan-out stays refused."""
+    Eq. 6 chain). The mesh fan-out is no longer refused either: its
+    substrate builds, and its round outside a mesh raises the
+    reference's ValueError."""
     spec = api.FedSpec.quantum(**dict(QBASE, topology="two_level", pods=2))
     flat = api.FedSpec.quantum(**QBASE)
     tree = api.FederationSession.create(spec, 4, device="cpu")
@@ -272,8 +274,10 @@ def test_two_level_spec_is_refused_by_the_port_round():
                for a, b in zip(tree.state, ref.state)) <= 1e-10
     mesh = api.FedSpec.quantum(**dict(QBASE, topology="two_level", pods=2,
                                       fanout="shard_map"))
-    with pytest.raises(NotImplementedError, match="shard_map"):
-        api.QuantumSubstrate(mesh, device="cpu")
+    api.QuantumSubstrate(mesh, device="cpu")
+    sess = api.FederationSession.create(mesh, 4, device="cpu")
+    with pytest.raises(ValueError, match="needs an active `with mesh:`"):
+        sess.run(1)
 
 
 def test_api_exports_the_reference_names():

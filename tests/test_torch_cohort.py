@@ -12,10 +12,11 @@ hierarchy``) and the rounds that take it, on the CPU.
   the mean tree; momentum on the tree's mean).
 * The port's two-level round equals the reference's (full
   participation, GD: no draw in the round) to <= 1e-10.
-* The strided product's error, ``partial_fn``'s dispatch, the refused
-  mesh fan-out; a two-level stacked round against each session's solo
-  round; a two-level session run and resumed bit for bit under the sync
-  and async schedulers."""
+* The strided product's error, ``partial_fn``'s dispatch; the round
+  with fanout="shard_map" on two gloo ranks (the nodes and the pod tier
+  spread) against the reference's vmap round; a two-level stacked round
+  against each session's solo round; a two-level session run and
+  resumed bit for bit under the sync and async schedulers."""
 import dataclasses
 import functools
 
@@ -306,10 +307,75 @@ def test_strided_product_error_equals_reference(x64):
         _error(lambda: japi.FedSpec.quantum(WIDTHS, **spec_kw))
 
 
-def test_mesh_fanout_stays_refused():
-    cfg = port_cfg(fanout="shard_map", topology="two_level", pods=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        fed.check_supported(cfg)
+RANKS = """
+from repro_torch.core.fed.cohort import hierarchy
+from repro_torch.core.quantum import federated as fed
+from repro_torch.core.quantum.data import QuantumDataset
+case = torch.load(OUT + "/in.pt", weights_only=False)
+mesh = host_mesh((WORLD,), ("pod",))
+calls = {"pod_tier": 0}
+tier = hierarchy._pod_tier
+
+def counted(body, grouped, mesh_, topo):
+    calls["pod_tier"] += hierarchy._shard_axis(mesh_, topo) == "pod"
+    return tier(body, grouped, mesh_, topo)
+hierarchy._pod_tier = counted
+out, spread = [], []
+with mesh:
+    for kw in case["cfgs"]:
+        calls["pod_tier"] = 0
+        out.append(fed.server_round(
+            case["params"], QuantumDataset(*case["dataset"]),
+            torch.Generator().manual_seed(2), fed.QuantumFedConfig(**kw)))
+        spread.append(calls["pod_tier"])
+torch.save((out, spread), f"{OUT}/rank{RANK}.pt")
+mesh_lib.close()
+"""
+
+
+def tree_base(aggregation):
+    return dict(widths=WIDTHS, num_nodes=8, nodes_per_round=8,
+                interval_length=2, eps=0.05, aggregation=aggregation,
+                participation="full", topology="two_level", pods=4)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The two-level round of both combines with fanout="shard_map" on
+    two gloo ranks: each rank runs 4 of the 8 nodes and 2 of the 4 pods'
+    partials. {aggregation: ((rank 0's params, rank 1's), the pod tiers
+    each rank spread)}."""
+    from torch_ranks import run_ranks
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        _, (tparams, tds) = ref_setup()
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+    tmp = tmp_path_factory.mktemp("ranks")
+    aggs = ("product", "average")
+    torch.save({"params": tparams, "dataset": tuple(tds),
+                "cfgs": [dict(tree_base(a), fanout="shard_map")
+                         for a in aggs]}, tmp / "in.pt")
+    run_ranks(RANKS, 2, tmp)
+    outs = [torch.load(tmp / f"rank{r}.pt") for r in range(2)]
+    return {a: (tuple(out[i] for out, _ in outs),
+                [spread[i] for _, spread in outs])
+            for i, a in enumerate(aggs)}
+
+
+@pytest.mark.parametrize("aggregation", ["product", "average"])
+def test_two_level_shard_map_on_two_ranks_matches_reference(
+        x64, two_ranks, aggregation):
+    """The node pass and the pod tier spread over two ranks: the
+    reference's vmap round to 1e-10, the same bits on both ranks."""
+    (jparams, jds), _ = ref_setup()
+    want = jfed.server_round(jparams, jds, jax.random.PRNGKey(2),
+                             jfed.QuantumFedConfig(**tree_base(aggregation)))
+    (rank0, rank1), spread = two_ranks[aggregation]
+    assert spread == [2, 2]           # one pod tier a layer, on each rank
+    assert all(torch.equal(a, b) for a, b in zip(rank0, rank1))
+    assert max_dev(rank0, want) <= TOL
 
 
 # ------------------------------------------------- sessions

@@ -1746,3 +1746,70 @@ def test_fp32_attention_bwd_takes_an_lse_off_16_byte_alignment(cuda_device):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------ the mesh and the roofline
+@pytest.fixture
+def nccl_pod_mesh(cuda_device):
+    """The NCCL host mesh (world 1) with a 'pod' axis, closed at teardown."""
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_host_mesh((1,), ("pod",), device="cuda")
+    yield mesh
+    mesh_lib.close()
+
+
+@pytest.mark.cuda
+def test_nccl_host_mesh_gathers_and_reduces(nccl_pod_mesh):
+    import torch.distributed as dist
+    from repro_torch.sharding import collectives, rules
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    x = torch.arange(6, dtype=torch.float64).to(torch.complex128).reshape(
+        2, 3).cuda()
+    with collectives.record() as tally, nccl_pod_mesh:
+        assert rules.current_mesh() is nccl_pod_mesh
+        got = collectives.all_gather(x, nccl_pod_mesh, "pod")
+        summed = collectives.all_reduce(x.clone(), nccl_pod_mesh, "pod")
+    torch.cuda.synchronize()
+    assert torch.equal(got, x) and torch.equal(summed, x)
+    assert dict(tally.bytes_by_axis) == {"pod": 96 + 2 * 96}
+    assert rules.current_mesh() is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", ["flat", "two_level"])
+def test_kernel_round_fanout_is_the_batched_round(nccl_pod_mesh, topology):
+    widths = (2, 3, 2)
+    _, ds, _ = qdata.make_federated_dataset(
+        torch.Generator().manual_seed(1), 2, num_nodes=6, n_per_node=3,
+        n_test=5, device="cuda")
+    params = qnn.init_params(torch.Generator().manual_seed(2), widths,
+                             device="cuda")
+    cfg = fed.QuantumFedConfig(widths=widths, num_nodes=6, nodes_per_round=4,
+                               interval_length=2, eps=0.05, impl="pallas",
+                               topology=topology,
+                               pods=2 if topology == "two_level" else None)
+    want = fed.server_round(params, ds, torch.Generator().manual_seed(3),
+                            cfg._replace(fanout="vmap"))
+    build.reset_launches()
+    with nccl_pod_mesh:
+        got = fed.server_round(params, ds, torch.Generator().manual_seed(3),
+                               cfg._replace(fanout="shard_map"))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["zgemm"] > 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_trace_parse_finds_the_kernel_by_name(cuda_device):
+    from repro_torch.roofline import trace_parse
+    rng = np.random.default_rng(4)
+    a = torch.as_tensor(rand_c(rng, 3, 16, 16)).cuda()
+    b = torch.as_tensor(rand_c(rng, 3, 16, 16)).cuda()
+    ops.complex_matmul(a, b)
+    trace = trace_parse.profile(lambda: ops.complex_matmul(a, b))
+    us, n = trace.by_family["zgemm"]
+    assert n == 1 and us > 0
+    assert 0 < trace.busy_share <= 1
+    work = trace_parse.count(lambda: ops.complex_matmul(a, b))
+    assert work.kernels["zgemm"][:3] == [1, 8 * 3 * 16 ** 3,
+                                         16 * 3 * 3 * 16 * 16]

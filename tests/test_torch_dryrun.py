@@ -1,0 +1,223 @@
+"""The port's dry runs (``repro_torch.launch.dryrun`` / ``dryrun_fed``)
+and the classical round's mesh path, on the CPU.
+
+* Per architecture, every record's per-device argument bytes (each input
+  shape, both production meshes) equal EXACTLY the sum the reference's
+  own ``spec_for`` gives on a FakeMesh over the reference's abstract
+  params, AdamW states, batch, cache and scalars; the train step's
+  outputs are its params and optimizer state.
+* The skipped pairs keep the reference's record; the CLI writes one
+  file a pair and resumes; the report goes to the file it is given.
+* The classical round on two gloo ranks (``fed_train_round`` on a 'pod'
+  mesh, each rank one node) equals the one-process round within 1e-6;
+  the fake-mesh dry run's cross-pod bytes a round are fixed, so per
+  local step they halve from I_l = 1 to 2.
+"""
+import json
+import math
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import shapes as jshapes  # noqa: E402
+from repro.configs import supports_shape as jsupports  # noqa: E402
+from repro.configs import variant_for_shape as jvariant  # noqa: E402
+from repro.models import Model as JModel  # noqa: E402
+from repro.models.config import INPUT_SHAPES  # noqa: E402
+from repro.optim import AdamW as JAdamW  # noqa: E402
+from repro.sharding import rules as jrules  # noqa: E402
+from repro_torch.configs import REGISTRY  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.roofline import make_report  # noqa: E402
+
+
+class FakeMesh:
+    def __init__(self, shape):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+def ref_bytes(tree, axes, mesh) -> int:
+    """Per-device bytes of a reference tree of ShapeDtypeStructs under
+    the reference's specs."""
+    total = 0
+    for k, sds in tree.items():
+        n = 1
+        for i, d in enumerate(sds.shape):
+            entry = (tuple(jrules.spec_for(sds.shape, axes[k], mesh)) +
+                     (None,) * len(sds.shape))[i]
+            axes_i = () if entry is None else (
+                entry if isinstance(entry, tuple) else (entry,))
+            n *= d // math.prod(mesh.shape[a] for a in axes_i)
+        total += n * sds.dtype.itemsize
+    return total
+
+
+def ref_argument_bytes(arch, shape_name, mesh_shape) -> int:
+    shape = INPUT_SHAPES[shape_name]
+    cfg = jvariant(jget_config(arch), shape)
+    mesh = FakeMesh(mesh_shape)
+    model = JModel(cfg)
+    specs, axes = model.abstract_params()
+    total = ref_bytes(specs, axes, mesh)
+    batch = jshapes.batch_specs(cfg, shape)
+    total += ref_bytes(batch, jshapes.batch_axes(batch), mesh)
+    if shape.kind == "train":
+        opt = JAdamW(state_dtype=cfg.opt_state_dtype).init_abstract(specs)
+        total += (ref_bytes(opt.m, axes, mesh) + ref_bytes(opt.v, axes, mesh)
+                  + opt.step.dtype.itemsize + 4)          # step, lr
+    elif shape.kind == "decode":
+        cache = model.init_cache(shape.global_batch, shape.seq_len,
+                                 abstract=True)
+        total += ref_bytes(cache, model.cache_axes(), mesh) + 4   # cur_len
+    return total
+
+
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
+def test_argument_bytes_equal_the_reference(arch, tmp_path):
+    for shape_name in INPUT_SHAPES:
+        if not jsupports(jget_config(arch), INPUT_SHAPES[shape_name]):
+            continue
+        for mesh_name, mesh in dryrun.MESHES.items():
+            rec = dryrun.run_one(arch, shape_name, mesh_name == "multi",
+                                 str(tmp_path))
+            mem = rec["memory_analysis"]
+            assert mem["argument_bytes"] == ref_argument_bytes(
+                arch, shape_name, mesh), (shape_name, mesh_name)
+            assert mem["argument_bytes"] == sum(
+                mem["argument_split"].values())
+            assert mem["temp_bytes"] is None and rec["hlo"] is None
+            assert set(rec["not_measured"]) == {"temp_bytes",
+                                                "peak_bytes_per_device",
+                                                "hlo"}
+            if INPUT_SHAPES[shape_name].kind == "train":
+                split = mem["argument_split"]
+                assert mem["output_bytes"] == (split["params"]
+                                               + split["opt_state"])
+            assert rec["n_devices"] == math.prod(mesh.values())
+            assert rec["model_flops_per_device"] > 0
+
+
+def test_skipped_pairs_keep_the_reference_record(tmp_path):
+    rec = dryrun.run_one("llama3-405b", "long_500k", True, str(tmp_path))
+    assert rec == {"arch": "llama3-405b", "shape": "long_500k",
+                   "mesh": "multi", "status": "skipped",
+                   "reason": "full-attention arch: long_500k requires "
+                             "sub-quadratic attention (DESIGN.md)"}
+    with open(tmp_path / "llama3-405b__long_500k__multi.json") as f:
+        assert json.load(f) == rec
+
+
+def test_cli_writes_a_file_a_pair_and_resumes(tmp_path, monkeypatch,
+                                              capsys):
+    argv = ["dryrun", "--arch", "qwen1.5-4b", "--mesh", "single",
+            "--inline", "--out", str(tmp_path)]
+    monkeypatch.setattr(sys, "argv", argv)
+    dryrun.main()
+    names = sorted(p.name for p in tmp_path.glob("*.json"))
+    assert names == sorted(f"qwen1.5-4b__{s}__single.json"
+                           for s in INPUT_SHAPES)
+    dryrun.main()
+    assert capsys.readouterr().out.count("(done)") == len(INPUT_SHAPES)
+    out = tmp_path / "report" / "dryrun.md"
+    monkeypatch.setattr(sys, "argv", ["make_report", "--dir", str(tmp_path),
+                                      "--out", str(out)])
+    make_report.main()
+    text = out.read_text()
+    assert "| qwen1.5-4b | train_4k | ok | 256 |" in text
+    assert "SKIP" in text and "n/m" in text
+    rows = json.loads((tmp_path / "report" / "dryrun.json").read_text())
+    decode = [r for r in rows if r.get("shape") == "decode_32k"][0]
+    assert decode["t_collective_s"] is None and decode["dominant"]
+
+
+# ------------------------------------------------ the classical mesh path
+CLASSICAL = """
+from repro_torch.configs import get_config
+from repro_torch.core.fed.config import FederatedConfig
+from repro_torch.core.fed.fed_step import fed_train_round, replicate_for_pods
+from repro_torch.data import token_batches
+from repro_torch.models import Model
+from repro_torch.optim import AdamW
+
+def setup():
+    cfg = get_config("qwen1.5-4b").reduced(n_layers=1)
+    model, opt = Model(cfg), AdamW(state_dtype=cfg.opt_state_dtype)
+    params = model.init(seed=0, device="cpu")
+    data = token_batches(cfg, 2, 16, seed=0, device="cpu")
+    steps = [next(data) for _ in range(4)]
+    batches = {k: torch.stack([s[k] for s in steps]).reshape(
+        (2, 2) + tuple(steps[0][k].shape)) for k in steps[0]}
+    fed_cfg = FederatedConfig(num_nodes=2, nodes_per_round=2,
+                              interval_length=2, participation="full")
+    return model, opt, params, batches, fed_cfg
+
+if RANK >= 0:
+    model, opt, params, batches, fed_cfg = setup()
+    mesh = host_mesh((WORLD,), ("pod",))
+    mine = {k: v[RANK:RANK + 1] for k, v in batches.items()}
+    counts = torch.tensor([3.0, 1.0])
+    new, _, metrics = fed_train_round(
+        model.loss_fn, opt, params, replicate_for_pods(opt.init(params), 1),
+        mine, 1e-3, fed_cfg, token_counts=counts, mesh=mesh)
+    torch.save((new, {k: float(v) for k, v in metrics.items()}),
+               f"{OUT}/rank{RANK}.pt")
+    mesh_lib.close()
+"""
+
+
+def test_classical_round_on_two_ranks_equals_one_process(tmp_path):
+    from torch_ranks import run_ranks
+    from repro_torch.core.fed.fed_step import (fed_train_round,
+                                               replicate_for_pods)
+    run_ranks(CLASSICAL, 2, tmp_path)
+    scope = {"RANK": -1, "torch": torch}
+    exec(CLASSICAL, scope)              # the ranks' setup, in this process
+    model, opt, params, batches, fed_cfg = scope["setup"]()
+    want, _, metrics = fed_train_round(
+        model.loss_fn, opt, params, replicate_for_pods(opt.init(params), 2),
+        batches, 1e-3, fed_cfg, token_counts=torch.tensor([3.0, 1.0]))
+    outs = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    for new, got_metrics in outs:
+        assert max(float((new[k] - want[k]).abs().max()) for k in want) \
+            <= 1e-6
+        assert got_metrics["loss"] == pytest.approx(float(metrics["loss"]),
+                                                    abs=1e-6)
+    assert all(torch.equal(outs[0][0][k], outs[1][0][k]) for k in want)
+
+
+DRYRUN_FED = """
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun_fed
+cfg = get_config("qwen1.5-4b").reduced(n_layers=1)
+recs = [dryrun_fed.run("qwen1.5-4b", i, batch=2, seq=16, device="cpu",
+                       cfg=cfg, out_dir=OUT) for i in (1, 2)]
+recs += [dryrun_fed.run_quantum(i, device="cpu", out_dir=OUT)
+         for i in (1, 2)]
+import json
+print(json.dumps(recs))
+"""
+
+
+def test_dryrun_fed_cross_pod_bytes_per_local_step_halve(tmp_path):
+    from torch_ranks import run_ranks
+    out, = run_ranks(DRYRUN_FED, 1, tmp_path)
+    one, two, q1, q2 = json.loads(out.strip().splitlines()[-1])
+    assert one["n_devices"] == two["n_devices"] == 512
+    assert one["cross_pod_bytes"] == two["cross_pod_bytes"] > 0
+    assert two["cross_pod_bytes_per_local_step"] == \
+        one["cross_pod_bytes_per_local_step"] / 2
+    assert set(one["collective_bytes_by_axis"]) == {"pod"}
+    assert one["in_pod_bytes_per_local_step"] is None
+    assert one["round_ms"] is None and "fake" in one["values"]
+    # the uploads of both pods' nodes, gathered over 'pod' in node order
+    assert set(q1["collective_bytes_by_axis"]) == {"pod"}
+    assert q2["cross_pod_bytes"] == 2 * q1["cross_pod_bytes"]
+    assert q1["collective_count"] == {"all-gather": 1}
+    files = sorted(p.name for p in tmp_path.glob("*.json"))
+    assert files == sorted(["qwen1.5-4b__fed_I1_float32.json",
+                            "qwen1.5-4b__fed_I2_float32.json",
+                            "quantum__fed_I1.json", "quantum__fed_I2.json"])

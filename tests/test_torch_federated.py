@@ -226,13 +226,155 @@ def test_minibatch_draws_valid_pairs_per_node(x64):
     assert herm <= 1e-12
 
 
-@pytest.mark.parametrize("bad", [dict(fanout="shard_map"),
-                                 dict(fanout="shard_map",
-                                      topology="two_level", pods=2)])
-def test_unported_options_are_refused(bad):
-    _, tcfg = config("xla", **bad)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        fed.check_supported(tcfg)
+# ------------------------------------------------- the mesh fan-out
+# Full participation and GD: the round draws nothing, so the port's
+# round meets the reference's vmap round. (The reference's own shard_map
+# round does not run on this JAX; its tests of it are standing failures.)
+FANOUT_CASES = [("product", "flat"), ("average", "flat"),
+                ("product", "two_level"), ("average", "two_level")]
+
+
+def fanout_kw(aggregation, topology, **kw):
+    return dict(aggregation=aggregation, participation="full",
+                topology=topology,
+                pods=2 if topology == "two_level" else None, **kw)
+
+
+@pytest.fixture
+def pod_mesh():
+    """A one-rank gloo mesh with a 'pod' axis, destroyed at teardown."""
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_host_mesh((1,), ("pod",), device="cpu")
+    yield mesh
+    mesh_lib.close()
+
+
+@pytest.mark.parametrize("aggregation,topology", FANOUT_CASES)
+def test_shard_map_on_one_rank_is_the_vmap_round(x64, pod_mesh, aggregation,
+                                                 topology):
+    jcfg, tcfg = config("xla", **fanout_kw(aggregation, topology))
+    (params, ds, _), (tparams, tds, _) = setup()
+    want = jfed.server_round(params, ds, ROUND_KEY,
+                             jcfg._replace(fanout="vmap"))
+    batched = fed.server_round(tparams, tds, gen(),
+                               tcfg._replace(fanout="vmap"))
+    with pod_mesh:
+        got = fed.server_round(tparams, tds, gen(),
+                               tcfg._replace(fanout="shard_map"))
+    assert all(torch.equal(a, b) for a, b in zip(got, batched))
+    assert max_err(got, want) <= TOLS["xla"]
+
+
+def test_shard_map_draws_every_minibatch_before_the_split(x64, pod_mesh):
+    _, tcfg = config("xla", minibatch=2, num_nodes=4)
+    _, (tparams, tds, _) = setup(node_sizes=(3, 4, 2, 4))
+    batched = fed.server_round(tparams, tds, gen(3),
+                               tcfg._replace(fanout="vmap"))
+    with pod_mesh:
+        got = fed.server_round(tparams, tds, gen(3),
+                               tcfg._replace(fanout="shard_map"))
+    assert all(torch.equal(a, b) for a, b in zip(got, batched))
+
+
+RANKS = """
+from repro_torch.core.quantum import federated as fed
+from repro_torch.core.quantum.data import QuantumDataset
+case = torch.load(OUT + "/in.pt", weights_only=False)
+ds = QuantumDataset(*case["dataset"])
+mesh = host_mesh((WORLD,), ("pod",))
+with mesh:
+    out = [fed.server_round(case["params"], ds,
+                            torch.Generator().manual_seed(case["seed"]),
+                            fed.QuantumFedConfig(**kw)) for kw in case["cfgs"]]
+torch.save(out, f"{OUT}/rank{RANK}.pt")
+mesh_lib.close()
+"""
+TWO_RANK_CASES = {"product": fanout_kw("product", "flat"),
+                  "average": fanout_kw("average", "flat"),
+                  "minibatch": dict(aggregation="product", minibatch=2)}
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """Each TWO_RANK_CASES round with fanout="shard_map" on two gloo
+    ranks, each rank running half the nodes; {case: (rank 0's params,
+    rank 1's)}."""
+    from torch_ranks import run_ranks
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        _, (tparams, tds, _) = setup()
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+    tmp = tmp_path_factory.mktemp("ranks")
+    cfgs = [config("xla", fanout="shard_map", **kw)[1]._asdict()
+            for kw in TWO_RANK_CASES.values()]
+    torch.save({"params": tparams, "dataset": tuple(tds), "seed": 4,
+                "cfgs": cfgs}, tmp / "in.pt")
+    run_ranks(RANKS, 2, tmp)
+    outs = [torch.load(tmp / f"rank{r}.pt") for r in range(2)]
+    return dict(zip(TWO_RANK_CASES, zip(*outs)))
+
+
+@pytest.mark.parametrize("aggregation", ["product", "average"])
+def test_shard_map_on_two_ranks_matches_the_reference(x64, two_ranks,
+                                                      aggregation):
+    jcfg, _ = config("xla", **fanout_kw(aggregation, "flat"))
+    (params, ds, _), _ = setup()
+    want = jfed.server_round(params, ds, ROUND_KEY, jcfg)
+    rank0, rank1 = two_ranks[aggregation]
+    assert all(torch.equal(a, b) for a, b in zip(rank0, rank1))
+    assert max_err(rank0, want) <= TOLS["xla"]
+
+
+def test_shard_map_on_two_ranks_draws_as_one_batch(x64, two_ranks):
+    """Every minibatch draw is made before the split, so the two ranks'
+    round is the one-process round (to rounding: each rank batches half
+    the nodes)."""
+    _, tcfg = config("xla", **TWO_RANK_CASES["minibatch"])
+    _, (tparams, tds, _) = setup()
+    want = fed.server_round(tparams, tds, gen(4), tcfg)
+    rank0, rank1 = two_ranks["minibatch"]
+    assert all(torch.equal(a, b) for a, b in zip(rank0, rank1))
+    assert max(float((a - b).abs().max()) for a, b in zip(rank0, want)) \
+        <= TOLS["xla"]
+
+
+class FakeMesh:
+    """The reference tests' stand-in mesh: axis names and sizes only."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+def _error(fn):
+    try:
+        fn()
+    except Exception as e:          # noqa: BLE001 - the error is the result
+        return type(e), str(e)
+    return None
+
+
+@pytest.mark.parametrize("mesh", [{"data": 1, "model": 1}, {"pod": 3}],
+                         ids=["no_pod_axis", "pod_axis_not_dividing"])
+def test_fanout_errors_match_the_reference(monkeypatch, mesh):
+    """fanout="shard_map" without a 'pod' axis, or with one that does not
+    divide nodes_per_round: the reference's ValueErrors, text for text,
+    from the round's fan-out check and from the fan-out itself."""
+    from repro.sharding import rules as jrules
+    from repro_torch.sharding import rules
+    jcfg, tcfg = config("xla", fanout="shard_map")
+    monkeypatch.setattr(jrules, "current_mesh", lambda: FakeMesh(mesh))
+    monkeypatch.setattr(rules, "current_mesh", lambda: mesh)
+    want = _error(lambda: jfed._resolve_fanout(jcfg))
+    assert want is not None and want[0] is ValueError
+    assert _error(lambda: fed._resolve_fanout(tcfg)) == want
+    want = _error(lambda: jfed._fan_out(None, None, None, None, None, 1.0,
+                                        0.1, jcfg, FakeMesh(mesh)))
+    assert want is not None and want[0] is ValueError
+    assert _error(lambda: fed._fan_out(None, None, None, None, [], 1.0, 0.1,
+                                       tcfg, mesh, False, False)) == want
 
 
 @pytest.mark.parametrize("aggregation", ["product", "average"])

@@ -25,7 +25,9 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
-print(json.dumps({"modules": names, "bad": bad}))
+import torch.distributed as dist
+print(json.dumps({"modules": names, "bad": bad,
+                  "process_group": dist.is_initialized()}))
 """
 
 
@@ -57,7 +59,14 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.checkpoint.checkpoint" in res["modules"]
     for name in ("serving", "serving.sampling", "serving.scheduler"):
         assert f"repro_torch.{name}" in res["modules"]
+    for name in ("sharding.rules", "sharding.collectives", "launch.mesh",
+                 "launch.dryrun", "launch.dryrun_fed", "roofline.analysis",
+                 "roofline.breakdown", "roofline.costs",
+                 "roofline.trace_parse", "roofline.report",
+                 "roofline.make_report"):
+        assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
+    assert res["process_group"] is False
 
 
 FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
