@@ -280,7 +280,25 @@ repository, it exits non-zero before printing any result. Phases:
    prefill from ``roofline.trace_parse`` and ``roofline.analysis``:
    device time by family, busy share, the ATen dot FLOPs and the
    kernels' FLOPs and bytes, the compute and memory terms and their
-   shares of the prefill's time, beside the card's name and power limit.
+   shares of the prefill's time, beside the card's name and power limit;
+   (d) the sharded model step: on the NCCL host mesh (world 1, ('data',
+   'model')) one train step of phase 11's RecurrentGemma-2B and of phase
+   11b's RWKV6-7B with DTensor params, moments and batch, through the
+   kernels, against the plain-tensor step from the same init and batch:
+   the loss and every param after AdamW the same bits, the launches
+   exact (16/8/52 and 32/16), ms/step and busy share of both; the bf16
+   attention with a query offset of S/2 on rows [S/2, S) at phase 5's
+   and 12a's shapes: forward, LSE and dq the full call's rows bit for
+   bit, dk and dv within the backward's budget of the plain version with
+   the same offset, a planted offset of 0 failing the forward gate, the
+   kernel's ms beside the full call's (a forward and a backward row in
+   the result); the
+   ``FakeTensorMode`` trace of RecurrentGemma-2B's world-1 step
+   (``roofline.step_trace``), its peak within 10% of
+   ``torch.cuda.max_memory_allocated`` of the real step; and, in a
+   process of its own started first, ``launch.dryrun`` of
+   RecurrentGemma-2B's train_4k on the 2x16x16 fake mesh through the
+   trace (temporaries, peak, collective bytes by axis, seconds).
 
 Phase 5's fp32-storage attention row also plants NaNs (``nan_rows_check``:
 torch's 0x7fc00000, the card's 0x7fffffff and 0xffffffff) in q, k and v
@@ -307,8 +325,12 @@ and the attention
 forward (bf16, and fp32 storage: not launched there) and backward at
 phase 12a's Qwen1.5-4B shape (launches a federated round, ``"cell"``
 set), and the attention forward at each shape of phase 13's prefills
-(launches of that shape a prefill, ``"cell"`` set); every row carries
-``device_us``, and fidelity's and mse's the launch floor.
+(launches of that shape a prefill, ``"cell"`` set), and the bf16
+attention's query-offset forward and backward rows of phase 15(d) (each
+launches one offset call of its own kernel in that check, ``"cell"``
+set; the world-1 path has no context parallelism); every row but the
+15(d) forward rows carries ``device_us``, and fidelity's and mse's
+the launch floor.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and never prints that line.
 
@@ -3615,7 +3637,8 @@ def attn_bwd_timing(q, k, v, o, do, kw):
     numbers of its row in the result."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
-    mask = dict(causal=kw["causal"], window=kw["window"])
+    mask = dict(causal=kw["causal"], window=kw["window"],
+                q_offset=kw.get("q_offset", 0))
     k_ms = cuda_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw),
                    reps=10, warmup=2)
     p_ms = cuda_ms(lambda: ref.attention_bwd_ref(q, k, v, o, do, **kw),
@@ -3625,7 +3648,8 @@ def attn_bwd_timing(q, k, v, o, do, kw):
                        [q, k, v, o, do], n=3)
     b_ms, b_by = attn_bwd_bound_ms(q, k, mask)
     flops = 10 * q.shape[2] * q.shape[0] * allowed_pairs(
-        q.shape[1], k.shape[1], kw["causal"], kw["window"])
+        q.shape[1], k.shape[1], kw["causal"], kw["window"],
+        kw.get("q_offset", 0))
     say(f"  {ATTN_BWD} timed at {[list(x.shape) for x in (q, k)]} bf16 "
         f"{mask}: kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch; "
         f"{flops / k_ms / 1e9:.1f} TFLOP/s on the five products), plain "
@@ -3746,7 +3770,7 @@ def sdpa_backward_ms(q, k, v, kw):
     bk, sk, dh = k.shape
     g = q.shape[0] // bk
     mask = ref.attention_mask(q.shape[1], sk, kw["causal"], kw["window"],
-                              q.device)
+                              q.device, kw.get("q_offset", 0))
     qs = q.reshape(1, bk * g, -1, dh).detach().requires_grad_()
     ks = k.reshape(1, bk, sk, dh).detach().requires_grad_()
     vs = v.reshape(1, bk, sk, dh).detach().requires_grad_()
@@ -5711,7 +5735,9 @@ def mesh_dryrun_fed(device="cuda"):
     local step), I_l = 1, 4 and 1 again (the first round is cold): pod
     0's node trains for real through the attention kernels (launches
     gated: I_l x one step's), cross-pod bytes a round equal for all,
-    a quarter a local step at I_l = 4."""
+    a quarter a local step at I_l = 4; a local step's in-pod bytes traced
+    once (``dryrun_fed.trace_local_step``, fake tensors on the card) and
+    counted I_l times a round."""
     import dataclasses
     import math
     import torch
@@ -5728,8 +5754,16 @@ def mesh_dryrun_fed(device="cuda"):
     for il in MESH_INTERVALS:
         torch.cuda.empty_cache()
         build.reset_launches()
+        t0 = time.time()
         rec = dryrun_fed.run(FED_ARCH, il, layers=FED_LAYERS, batch=2,
                              seq=SERVE_S, device=device)
+        if not recs:
+            in_pod = rec["in_pod_step"]
+            say(f"  a local step's in-pod collectives (traced once on pod "
+                f"0's (data, model) sub-mesh, with the first round in "
+                f"{time.time() - t0:.1f} s): "
+                f"{rec['in_pod_bytes_per_local_step']:.0f} B, by axis "
+                f"{in_pod['bytes_by_axis']}, {in_pod['count_by_op']}")
         launches = {k: n for k, n in build.LAUNCHES.items() if n}
         want = {k: per_step[k] * il for k in ("flash_attention", ATTN_BWD)}
         if launches != want:
@@ -5738,7 +5772,9 @@ def mesh_dryrun_fed(device="cuda"):
         if not math.isfinite(rec["loss"]):
             raise RuntimeError(f"I_l={il}: non-finite loss {rec['loss']}")
         say(f"  I_l={il}: cross-pod {rec['cross_pod_bytes']:.0f} B a round, "
-            f"{rec['cross_pod_bytes_per_local_step']:.0f} B a local step, by "
+            f"{rec['cross_pod_bytes_per_local_step']:.0f} B a local step, "
+            f"in-pod {rec['in_pod_bytes_per_local_step']:.0f} B a local "
+            f"step, total {rec['collective_bytes_total']:.0f} B, by "
             f"axis {rec['collective_bytes_by_axis']}, collectives "
             f"{rec['collective_count']}; round {rec['round_ms']:.1f} ms "
             f"(host clock to a synchronize), loss {rec['loss']:.6f}, "
@@ -5829,15 +5865,314 @@ def roofline_prefill(device="cuda"):
     torch.cuda.empty_cache()
 
 
+# 15(d): (arch, depth (0: published), lr) of the sharded-vs-plain steps
+SHARD_STEPS = (("recurrentgemma-2b", 0, TRAIN_LR),
+               (RWKV_ARCH, RWKV_LAYERS, RWKV_LR))
+# (label, q (B, S, H, dh), kv (B, S, K, dh), mask) of the query-offset
+# check: phase 5's prefill attention and 12a's MHA dh 128
+Q_OFFSET_CASES = (
+    ("phase 5's prefill", (4, 4096, 10, 256), (4, 4096, 1, 256),
+     dict(causal=True, window=2048)),
+    ("12a's MHA dh 128", (2, 4096, 20, 128), (2, 4096, 20, 128),
+     dict(causal=True, window=0)))
+PEAK_RTOL = 0.10
+PROD_PAIR = ("recurrentgemma-2b", "train_4k", "multi")
+
+
+def local(x):
+    """A DTensor's local shard (a plain tensor as it is)."""
+    from repro_torch.sharding.dtensor import is_dtensor
+    return x.to_local() if is_dtensor(x) else x
+
+
+def sharded_vs_plain(arch, layers, lr, mesh, device="cuda"):
+    """One train step (``launch.train.optimizer``'s AdamW, clip 1) of the
+    arch at published width (``layers`` cuts the depth) on phase 11's
+    batch, with plain tensors and then with DTensors on ``mesh`` (params,
+    moments and batch placed by the rules, ``launch.steps.shard_tree``),
+    each from a fresh init of the same seed: the loss and every param
+    after the step the same bits, the launches exact (zeroed before, read
+    after), a second step's ms (CUDA events) and a third's busy share
+    (profiler) of each. Returns the sharded step's arguments' bytes and
+    its peak above what was held before them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import BATCH_AXES
+    from repro_torch.data import token_batches
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step, shard_tree
+    from repro_torch.models import Model
+    from repro_torch.roofline import trace_parse
+    from repro_torch.roofline.step_trace import storage_bytes
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = Model(cfg)
+    opt = train.optimizer(cfg)
+    step = make_train_step(model, opt)
+    want = train_launches(cfg)
+    want.pop(SCAN_REV, None)
+    batch = next(token_batches(cfg, TRAIN_B, TRAIN_S, seed=0, device=device))
+    card = smi("name,power.limit")
+    out = {}
+    for side in ("plain", "sharded"):
+        torch.cuda.empty_cache()
+        params = model.init(seed=0, device=device)
+        if arch == RWKV_ARCH:
+            redraw_rwkv(params, seed=1)
+        b = batch
+        if side == "sharded":
+            params = shard_tree(params, model.param_axes(), mesh)
+            b = shard_tree(batch, BATCH_AXES, mesh)
+        state = opt.init(params)
+        args_bytes = storage_bytes((params, state, b))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        params, state, metrics = step(params, state, b, lr)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held + args_bytes
+        launches = {k: n for k, n in build.LAUNCHES.items() if n}
+        if launches != want:
+            raise RuntimeError(f"{arch} {side} step launched {launches}, "
+                               f"expected {want}")
+        loss = float(local(metrics["loss"]))
+        after = {k: local(v).cpu() for k, v in params.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, state, b, lr)
+        end.record()
+        torch.cuda.synchronize()
+        trace = trace_parse.profile(lambda: step(params, state, b, lr))
+        out[side] = dict(loss=loss, params=after, ms=start.elapsed_time(end),
+                         busy=trace.busy_share, peak=peak, args=args_bytes)
+        say(f"  {arch} ({cfg.n_layers} layers) {side} step: loss {loss:.6f},"
+            f" launches {launches}; step 2 {out[side]['ms']:.1f} ms (CUDA "
+            f"events), step 3 busy {100 * trace.busy_share:.1f}% "
+            f"(profiler); peak {peak / 2**30:.2f} GiB with its arguments "
+            f"({args_bytes / 2**30:.2f} GiB); card {card}")
+        del params, state, metrics, b
+    plain, shard = out["plain"], out["sharded"]
+    same = plain["loss"] == shard["loss"] and all(
+        torch.equal(plain["params"][k], shard["params"][k])
+        for k in plain["params"])
+    if not same:
+        raise RuntimeError(f"{arch}: the sharded step differs from the "
+                           "plain step")
+    say(f"  {arch}: the sharded step (DTensors on {mesh}) is the plain "
+        f"step bit for bit: loss and all {len(plain['params'])} params "
+        f"after AdamW; ms/step {shard['ms']:.1f} sharded vs "
+        f"{plain['ms']:.1f} plain ({shard['ms'] / plain['ms']:.2f}x: "
+        "DTensor's dispatch on the host), busy "
+        f"{100 * shard['busy']:.1f}% vs {100 * plain['busy']:.1f}%")
+    torch.cuda.empty_cache()
+    return cfg, shard
+
+
+def trace_peak_check(cfg, real, mesh, device="cuda"):
+    """The ``FakeTensorMode`` trace of the same world-1 sharded train
+    step (``roofline.step_trace``, fake tensors on the card): its peak
+    within PEAK_RTOL of the real step's (``max_memory_allocated`` above
+    what was held, plus the arguments)."""
+    from repro_torch.launch.steps import sharded_artifacts
+    from repro_torch.models.config import InputShape
+    from repro_torch.roofline.step_trace import trace_step
+    t0 = time.time()
+    shape = InputShape("train", TRAIN_S, TRAIN_B, "train")
+    tr = trace_step(lambda: sharded_artifacts(cfg, shape, mesh,
+                                              device=device), mesh)
+    secs = time.time() - t0
+    ratio = tr.peak_bytes / real["peak"]
+    say(f"  trace of the {cfg.name} world-1 step ({secs:.1f} s): peak "
+        f"{tr.peak_bytes / 2**30:.3f} GiB (arguments "
+        f"{tr.argument_bytes / 2**30:.3f}, temporaries "
+        f"{tr.temp_bytes / 2**30:.3f}), the real step's "
+        f"max_memory_allocated {real['peak'] / 2**30:.3f} GiB (arguments "
+        f"{real['args'] / 2**30:.3f}): {ratio:.4f}x; dot FLOPs "
+        f"{tr.dot_flops:.6e}; collectives {dict(tr.tally.count_by_op)}")
+    if abs(ratio - 1.0) > PEAK_RTOL:
+        raise RuntimeError(f"the traced peak is {ratio:.4f}x the card's")
+
+
+def q_offset_case(label, q_shape, kv_shape, mask, device="cuda"):
+    """The bf16 attention kernels on query rows [S/2, S) at q_offset S/2
+    against the full call (from 0) on seeded inputs: the forward, its LSE
+    and dq the full call's rows bit for bit; dk, dv (and dq) within the
+    backward's bf16 budget of the plain version with the same offset
+    (``attn_bwd_case``); a planted offset of 0 must fail the forward
+    gate. Returns the offset forward's and the offset backward's rows,
+    each with its own launch count (one call each)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as kfa
+    g = torch.Generator(device=device).manual_seed(15)
+    q, k, v = (torch.randn(s, generator=g, device=device).to(torch.bfloat16)
+               for s in (q_shape, kv_shape, kv_shape))
+
+    def heads_major(x):
+        bx, sx, hx, dx = x.shape
+        return ops._dense(x.transpose(1, 2).reshape(bx * hx, sx, dx))
+    qf, kf, vf = (heads_major(x) for x in (q, k, v))
+    s = q.shape[1]
+    off = s // 2
+    qo = qf[:, off:].contiguous()
+    kw = dict(mask)
+    full, lse = kfa.flash_attention(qf, kf, vf, return_lse=True, **kw)
+    build.reset_launches()
+    got, lse_o = kfa.flash_attention(qo, kf, vf, return_lse=True,
+                                     q_offset=off, **kw)
+    fwd_launches = build.LAUNCHES["flash_attention"]
+    dout = torch.randn(full.shape, generator=g, device=device).to(
+        torch.bfloat16)
+    dq, dk, dv = kfa.flash_attention_bwd(qf, kf, vf, full, dout, lse=lse, **kw)
+    do_o = dout[:, off:].contiguous()
+    build.reset_launches()
+    dq_o, _, _ = kfa.flash_attention_bwd(qo, kf, vf, got, do_o, lse=lse_o,
+                                         q_offset=off, **kw)
+    bwd_launches = build.LAUNCHES[ATTN_BWD]
+    torch.cuda.synchronize()
+    rows_ok = (torch.equal(got, full[:, off:]) and torch.equal(
+        lse_o, lse[:, off:]) and torch.equal(dq_o, dq[:, off:]))
+    planted = kfa.flash_attention(qo, kf, vf, **kw)
+    planted_fails = not torch.equal(planted, full[:, off:])
+    say(f"  q_offset {off}, {label} (q {tuple(qo.shape)} of "
+        f"{tuple(qf.shape)}, kv {tuple(kf.shape)}, {mask}): forward, LSE "
+        f"and dq the full call's rows bit for bit {rows_ok}; a planted "
+        f"offset of 0 fails that gate {planted_fails}")
+    if not (rows_ok and planted_fails):
+        raise RuntimeError(f"q_offset {label}: the offset rows differ from "
+                           "the full call's, or the planted offset passes")
+    bwd_kw = dict(kw, lse=lse_o, q_offset=off)
+    bwd_err = attn_bwd_case((qo, kf, vf, got, do_o), bwd_kw,
+                            f"q_offset {off} at {label}")
+    bwd = attn_bwd_timing(qo, kf, vf, got, do_o, bwd_kw)
+    plain = ref.attention_ref(qo, kf, vf, q_offset=off, **kw)
+    err = float((got.float() - plain.float()).abs().max())
+    k_ms = cuda_ms(lambda: kfa.flash_attention(qo, kf, vf, q_offset=off,
+                                               **kw), reps=10, warmup=2)
+    full_ms = cuda_ms(lambda: kfa.flash_attention(qf, kf, vf, **kw),
+                      reps=10, warmup=2)
+    p_ms = cuda_ms(lambda: ref.attention_ref(qo, kf, vf, q_offset=off, **kw),
+                   reps=3, warmup=1)
+    amask = ref.attention_mask(s - off, s, kw["causal"], kw["window"],
+                               q.device, off)
+    qs = q[:, off:]
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=amask, enable_gqa=True)
+    lib_ms = cuda_ms(lib, reps=10, warmup=2)
+    args = (qs, k, v)
+    b_ms, b_by = seq_bound_ms("flash_attention", args,
+                              dict(kw, q_offset=off))
+    say(f"  q_offset {off}, {label}: kernel {k_ms:.4f} ms (the full call "
+        f"{full_ms:.4f} ms), plain {p_ms:.4f} ms, SDPA on the same rows "
+        f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), kernel/bound "
+        f"{k_ms / b_ms:.2f}x; max_abs_err {err:.3e} off the plain version; "
+        f"card {smi('name,power.limit')}")
+    bwd_shape = [list(qo.shape), list(kf.shape)]
+    del q, k, v, qf, kf, vf, full, got, dq, dk, dv, dq_o, plain
+    torch.cuda.empty_cache()
+    cell = (f"q_offset {off}: query rows [{off}, {s}) of {label} "
+            f"(launches: this check's one offset call; the world-1 path has "
+            f"no context parallelism)")
+    return [dict(name="flash_attention", route="cuda",
+                 **SEQ_KERNELS["flash_attention"],
+                 shape=[list(qs.shape), list(kv_shape), list(kv_shape)],
+                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib_ms, launches=fwd_launches,
+                 cell=f"{cell}, full call {full_ms:.4f} ms"),
+            dict(name=ATTN_BWD, route="cuda", source=ATTN_BWD_SOURCE,
+                 replaces=SEQ_KERNELS["flash_attention"]["replaces"],
+                 shape=bwd_shape, max_abs_err=bwd_err,
+                 launches=bwd_launches, cell=cell, **bwd)]
+
+
+PROD_OUT = ROOT / "build" / "dryrun_15d"
+
+
+def start_production_trace():
+    """The production pair's traced dry run (``launch.dryrun``, host
+    work only: ~2 minutes) in a process of its own, started ahead of the
+    card's checks it runs beside."""
+    arch, shape, mesh_name = PROD_PAIR
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--inline",
+         "--force", "--arch", arch, "--shape", shape, "--mesh", mesh_name,
+         "--out", str(PROD_OUT)],
+        env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def sharded_step(device="cuda", prod=None):
+    """15(d): the sharded model step (see the module docstring), waiting
+    at its end for ``prod`` (``start_production_trace``'s process; None
+    starts it here). Returns the query-offset rows."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.time()
+    arch, shape, mesh_name = PROD_PAIR
+    prod = prod or start_production_trace()
+    rows = []
+    try:
+        mesh = mesh_lib.make_host_mesh((1, 1), ("data", "model"),
+                                       device=device)
+        say(f"== phase 15d: the sharded model step on {mesh} (backend "
+            f"{dist.get_backend()}, world {dist.get_world_size()})")
+        try:
+            for a, layers, lr in SHARD_STEPS:
+                cfg, real = sharded_vs_plain(a, layers, lr, mesh, device)
+                if a == "recurrentgemma-2b":
+                    trace_peak_check(cfg, real, mesh, device)
+        finally:
+            mesh_lib.close()
+        for case in Q_OFFSET_CASES:
+            rows.extend(q_offset_case(*case, device=device))
+        out, err = prod.communicate(timeout=900)
+        if prod.returncode != 0:
+            raise RuntimeError(f"the production pair's dry run failed:\n"
+                               f"{out[-2000:]}\n{err[-4000:]}")
+        rec = json.loads((PROD_OUT / f"{arch}__{shape}__{mesh_name}.json")
+                         .read_text())
+        mem, hlo = rec["memory_analysis"], rec["hlo"]
+        say(f"  dryrun.run_one({arch!r}, {shape!r}, multi_pod=True) through "
+            f"the trace (its own process, fake tensors on the card): temp "
+            f"{mem['temp_bytes']:,} B, peak {mem['peak_bytes_per_device']:,} "
+            f"B a device (arguments {mem['argument_bytes']:,}), collective "
+            f"bytes by axis {hlo['collective_bytes_by_axis']}, counts "
+            f"{hlo['collective_count']}, dot FLOPs {hlo['dot_flops']:.6e}; "
+            f"{rec['seconds']}")
+    finally:
+        if prod.poll() is None:
+            prod.kill()
+            prod.communicate()
+    torch.cuda.empty_cache()
+    say(f"  phase 15d: {time.time() - t0:.1f} s")
+    return rows
+
+
 def phase_mesh_roofline(device="cuda"):
     """Phase 15: the mesh fan-out of the quantum round on the NCCL host
-    mesh, the federated dry run on the fake production mesh, and the
-    roofline of a prefill from profiler traces."""
+    mesh, the federated dry run on the fake production mesh, the roofline
+    of a prefill from profiler traces, and the sharded model step.
+    Returns phase 15(d)'s rows."""
     t0 = time.time()
-    mesh_round(device)
-    mesh_dryrun_fed(device)
-    roofline_prefill(device)
+    prod = start_production_trace()
+    try:
+        mesh_round(device)
+        mesh_dryrun_fed(device)
+        roofline_prefill(device)
+    except BaseException:
+        prod.kill()
+        prod.communicate()
+        raise
+    rows = sharded_step(device, prod)
     say(f"  phase 15: {time.time() - t0:.1f} s")
+    return rows
 
 
 # ------------------------------------------------------ --train-probe
@@ -6183,7 +6518,7 @@ def main() -> int:
     rows += timed("12", phase_fed)
     rows += timed("13", phase_archs)
     timed("14", phase_batching)
-    timed("15", phase_mesh_roofline)
+    rows += timed("15", phase_mesh_roofline)
     say(f"seconds a phase {seconds}")
     say(f"total {time.time() - t0:.1f} s")
     say(smi("name,power.limit"))

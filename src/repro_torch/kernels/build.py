@@ -41,8 +41,8 @@ _SIGNATURES = {
     "qf_ect": ([_VP] * 4 + [_INT] * 8 + [_VP], _INT),
     "qf_fidelity": ([_VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "qf_mse": ([_VP, _VP, _VP, _INT, _INT, _VP], _INT),
-    "qf_flash_attention": ([_VP] * 6 + [_INT] * 8 + [_VP], _INT),
-    "qf_flash_attention_bwd": ([_VP] * 12 + [_INT] * 9 + [_VP], _INT),
+    "qf_flash_attention": ([_VP] * 6 + [_INT] * 9 + [_VP], _INT),
+    "qf_flash_attention_bwd": ([_VP] * 12 + [_INT] * 10 + [_VP], _INT),
     "qf_rglru_scan": ([_VP] * 3 + [_INT] * 4 + [_VP], _INT),
     "qf_gla_chunked": ([_VP] * 7 + [_INT] * 7 + [_VP], _INT),
     "qf_gla_chunked_bwd": ([_VP] * 15 + [_INT] * 6 + [_VP], _INT),

@@ -48,12 +48,13 @@ enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 // backward (flash_attention_bwd_wgmma.cu)
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* out, void* lse, int bh, int bk, int sq, int sk,
-                         int dh, int causal, int window, void* stream);
+                         int dh, int causal, int window, int q_off,
+                         void* stream);
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* dq, void* dk, void* dv, void* dd,
                              void* part, int bh, int bk, int sq, int sk,
-                             int dh, int causal, int window, int splits,
-                             void* stream);
+                             int dh, int causal, int window, int q_off,
+                             int splits, void* stream);
 
 }  // namespace qf

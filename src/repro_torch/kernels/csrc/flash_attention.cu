@@ -302,22 +302,26 @@ int launch_dh(const void* q, const void* k, const void* v, void* out,
 // allowed scores, in natural-log units for both dtypes (-inf for a row
 // with no allowed key): the backward (qf_flash_attention_bwd) reads it.
 // nan_flag, one int of device memory for fp32 (the bf16 kernels ignore
-// it), receives whether q, k or v holds a NaN.
+// it), receives whether q, k or v holds a NaN. Query row i sits at
+// position i + q_off (a context-parallel shard's rows); only the bf16
+// kernels take q_off > 0, fp32 refuses it (cudaErrorInvalidValue).
 extern "C" int qf_flash_attention(const void* q, const void* k,
                                   const void* v, void* out, void* lse,
                                   void* nan_flag, int bh, int bk, int sq,
                                   int sk, int dh, int causal, int window,
-                                  int dtype, void* stream) {
-  if (bh <= 0 || bk <= 0 || bh % bk || bh > 65535 || sq <= 0 || sk <= 0)
+                                  int q_off, int dtype, void* stream) {
+  if (bh <= 0 || bk <= 0 || bh % bk || bh > 65535 || sq <= 0 || sk <= 0 ||
+      q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = bh / bk;
   switch (dtype) {
-    case qf::kFloat32:
+    case qf::kFloat32:   // query rows from position 0 only
+      if (q_off != 0) return static_cast<int>(cudaErrorInvalidValue);
       return launch_dh(q, k, v, out, lse, nan_flag, bh, group, sq, sk, dh,
                        causal, window, stream);
     case qf::kBFloat16:
       return qf::flash_attention_bf16(q, k, v, out, lse, bh, bk, sq, sk, dh,
-                                      causal, window, stream);
+                                      causal, window, q_off, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -534,19 +534,22 @@ int launch_dh(const float* q, const float* k, const float* v, const float* o,
 // memory (fp32: whether an input holds a NaN; the bf16 kernels ignore
 // it); dh 64, 128 or 256; dtype a
 // qf::DType (the same for every tensor but lse and the workspaces); every
-// tensor but lse and dd 16-byte aligned.
+// tensor but lse and dd 16-byte aligned. Query row i sits at position
+// i + q_off; only the bf16 kernels take q_off > 0, fp32 refuses it.
 extern "C" int qf_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
                                       void* dq, void* dk, void* dv, void* dd,
                                       void* part, void* nan_flag, int bh,
                                       int bk, int sq, int sk, int dh,
-                                      int causal, int window, int splits,
-                                      int dtype, void* stream) {
-  if (bh <= 0 || bk <= 0 || bh % bk || bh > 65535 || sq <= 0 || sk <= 0)
+                                      int causal, int window, int q_off,
+                                      int splits, int dtype, void* stream) {
+  if (bh <= 0 || bk <= 0 || bh % bk || bh > 65535 || sq <= 0 || sk <= 0 ||
+      q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
-    case qf::kFloat32:
+    case qf::kFloat32:   // query rows from position 0 only
+      if (q_off != 0) return static_cast<int>(cudaErrorInvalidValue);
       return launch_dh(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), static_cast<const float*>(o),
@@ -558,7 +561,8 @@ extern "C" int qf_flash_attention_bwd(const void* q, const void* k,
     case qf::kBFloat16:
       return qf::flash_attention_bwd_bf16(q, k, v, o, dout, lse, dq, dk, dv,
                                           dd, part, bh, bk, sq, sk, dh,
-                                          causal, window, splits, stream);
+                                          causal, window, q_off, splits,
+                                          stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,9 +1,9 @@
 // Backward of the causal / sliding-window flash attention with
 // grouped-query heads, bf16 storage, on Hopper's tensor cores (wgmma):
 // dQ, dK and dV of the fp32 function that flash_attention_wgmma.cu
-// computes, stored in bf16. fp32 storage stays on the CUDA-core kernels
-// of flash_attention_bwd.cu, whose C entry point picks one of the two by
-// dtype.
+// computes, stored in bf16. fp32 storage stays on the 3xTF32 mma.sync
+// kernels of flash_attention_bwd.cu, whose C entry point picks one of the
+// two by dtype.
 //
 // Replaces: the gradient of src/repro/kernels/flash_attention.py::
 // flash_attention. The TPU kernel has no backward of its own: the
@@ -13,8 +13,12 @@
 // Semantics are those of repro_torch.kernels.ref.attention_bwd_ref, the
 // fp32 gradient of the fp32 attention of the upcast inputs: q, o, dO
 // (BH, Sq, D); k, v (BH / G, Sk, D); query row bh reads kv row bh / G;
-// query i and key j (positions from 0) pair when j < Sk, j <= i (causal)
-// and j > i - window (window > 0); s_ij = q_i . k_j / sqrt(D). With
+// query row i sits at position p = i + q_offset (a shard of the query
+// sequence under context parallelism; 0 otherwise), key j at j; they
+// pair when j < Sk, j <= p (causal) and j > p - window (window > 0);
+// s_ij = q_i . k_j / sqrt(D). The offset moves only the positions the
+// masks and the tile ranges compare, so pass A gives a row the full
+// call's dQ bits where the offset is a multiple of its 128-row tile. With
 // LSE_i the forward's log-sum-exp of row i (natural-log units, written by
 // qf_flash_attention; -inf for a row with no allowed key) and
 // P_ij = exp(s_ij - LSE_i) for the allowed pairs, 0 else:
@@ -153,7 +157,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ lse,
                          __nv_bfloat16* __restrict__ dq,
                          float* __restrict__ dd_ws, int group, int sq,
-                         int sk, int causal, int window) {
+                         int sk, int causal, int window, int q_off) {
   using Sh = DqShape<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t rows_bar, k_full, k_empty, v_full,
@@ -166,7 +170,8 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kAQ; // most key tiles first
   int t_lo, t_hi;
-  key_tiles(q0, min(q0 + kAQ, sq) - 1, sk, causal, window, t_lo, t_hi);
+  key_tiles(q0 + q_off, min(q0 + kAQ, sq) - 1 + q_off, sk, causal, window,
+            t_lo, t_hi);
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -215,9 +220,11 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r_lo = q0 + wg * 64;
   const int row0 = r_lo + warp * 16 + lane / 4;      // rows row0, row0 + 8
   const int col0 = 2 * (lane % 4);                   // of each 8-column chunk
+  const int p_lo = r_lo + q_off;                     // positions of the rows
   int w_lo = 1, w_hi = 0;                            // this warpgroup's tiles
   if (r_lo < sq)
-    key_tiles(r_lo, min(r_lo + 63, sq - 1), sk, causal, window, w_lo, w_hi);
+    key_tiles(p_lo, min(r_lo + 63, sq - 1) + q_off, sk, causal, window, w_lo,
+              w_hi);
 
   // D_i of the thread's two rows (a quarter of each row a lane, summed
   // over the four lanes of the row in order) and their LSE
@@ -280,8 +287,8 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // P from the LSE (masked pairs 0), then dS = P (dP - D_i) in dp
       const int k0 = t * kT;
       const bool whole = k0 + kT <= sk &&
-                         (!causal || k0 + kT - 1 <= r_lo) &&
-                         (window <= 0 || k0 > r_lo + 63 - window);
+                         (!causal || k0 + kT - 1 <= p_lo) &&
+                         (window <= 0 || k0 > p_lo + 63 - window);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -290,8 +297,8 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int e = 0; e < 2; ++e) {
             const int idx = 4 * j + 2 * h + e;
             const bool ok =
-                whole || allowed(row0 + 8 * h, k0 + 8 * j + col0 + e, sk,
-                                 causal, window);
+                whole || allowed(row0 + 8 * h + q_off, k0 + 8 * j + col0 + e,
+                                 sk, causal, window);
             const float p =
                 ok ? exp2f(fmaf(sc[idx], scale, -lse_r[h]) * kLog2e) : 0.f;
             dp[idx] = p * (dp[idx] - dd[h]);
@@ -325,7 +332,8 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                            const float* __restrict__ lse,
                            const float* __restrict__ dd_ws,
                            float* __restrict__ part, int group, int splits,
-                           int sq, int sk, int causal, int window) {
+                           int sq, int sk, int causal, int window,
+                           int q_off) {
   using Sh = DkvShape<D>;
   constexpr int kStages = Sh::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -342,10 +350,12 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int kvh = blockIdx.x / splits, sp = blockIdx.x % splits;
   const int k0 = blockIdx.y * kT;                    // most query tiles first
   const int g_lo = sp * group / splits, g_hi = (sp + 1) * group / splits;
-  // query tiles [tq_lo, tq_hi] holding a row some key of the block pairs with
+  // query tiles [tq_lo, tq_hi] holding a row some key of the block pairs
+  // with (rows, not positions: row i is at position i + q_off)
   const int key_hi = min(k0 + kT, sk) - 1;
-  const int i_lo = causal ? k0 : 0;
-  const int i_hi = window > 0 ? min(sq - 1, key_hi + window - 1) : sq - 1;
+  const int i_lo = causal ? max(0, k0 - q_off) : 0;
+  const int i_hi =
+      window > 0 ? min(sq - 1, key_hi + window - 1 - q_off) : sq - 1;
   const int tq_lo = i_lo / kT;
   const int nt = i_hi >= i_lo ? i_hi / kT - tq_lo + 1 : 0;
   const int n = (g_hi - g_lo) * nt;
@@ -429,9 +439,10 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     const size_t rbase = static_cast<size_t>(bh) * sq;
     float4* xo = x_s + (i & 1) * 8 * 128;
     if (wg == 0) {
+      const int p0 = i0 + q_off;                     // the tile's first position
       const bool whole = i0 + kT <= sq && k0 + kT <= sk &&
-                         (!causal || k0 + kT - 1 <= i0) &&
-                         (window <= 0 || k0 > i0 + kT - 1 - window);
+                         (!causal || k0 + kT - 1 <= p0) &&
+                         (window <= 0 || k0 > p0 + kT - 1 - window);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -441,8 +452,9 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int idx = 4 * j + 2 * h + e;
-            const bool ok = whole || (row < sq && allowed(row, k0 + rk + 8 * h,
-                                                          sk, causal, window));
+            const bool ok =
+                whole || (row < sq && allowed(row + q_off, k0 + rk + 8 * h, sk,
+                                              causal, window));
             st[idx] = ok ? exp2f(fmaf(st[idx], scale, -l) * kLog2e) : 0.f;
           }
         }
@@ -528,7 +540,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dq, void* dk, void* dv,
            void* dd, void* part, int bh, int bk, int sq, int sk, int causal,
-           int window, int splits, cudaStream_t st) {
+           int window, int q_off, int splits, cudaStream_t st) {
   CUtensorMap mq128, mdo128, mk, mv, mq, mdo;
   if (!make_map(&mq128, q, bh, sq, D, kAQ) ||
       !make_map(&mdo128, dout, bh, sq, D, kAQ) ||
@@ -549,14 +561,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       mq128, mdo128, mk, mv, static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<__nv_bfloat16*>(dq),
-      static_cast<float*>(dd), group, sq, sk, causal, window);
+      static_cast<float*>(dd), group, sq, sk, causal, window, q_off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   attn_bwd_dkdv_wgmma_kernel<D><<<dim3(splits * bk, (sk + kT - 1) / kT),
                                   kThreads, sb, st>>>(
       mk, mv, mq, mdo, static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<float*>(part), group,
-      splits, sq, sk, causal, window);
+      splits, sq, sk, causal, window, q_off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(bk) * sk * D;
@@ -576,14 +588,14 @@ namespace qf {
 // bf16 q, o, dout, dq (bh, sq, dh); k, v, dk, dv (bk, sk, dh), bh a
 // multiple of bk; lse fp32 (bh, sq), the forward's; dd an fp32 workspace
 // of (bh, sq); part an fp32 workspace of (splits, 2, bk, sk, dh), splits
-// in [1, bh / bk]. The C entry point qf_flash_attention_bwd
-// (flash_attention_bwd.cu) checks the counts.
+// in [1, bh / bk]; query row i at position i + q_off. The C entry point
+// qf_flash_attention_bwd (flash_attention_bwd.cu) checks the counts.
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* dq, void* dk, void* dv, void* dd,
                              void* part, int bh, int bk, int sq, int sk,
-                             int dh, int causal, int window, int splits,
-                             void* stream) {
+                             int dh, int causal, int window, int q_off,
+                             int splits, void* stream) {
   const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16)    // TMA's and uint4 alignment
@@ -595,13 +607,13 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   switch (dh) {
     case 64:
       return launch<64>(q, k, v, o, dout, lse, dq, dk, dv, dd, part, bh, bk,
-                        sq, sk, causal, window, splits, st);
+                        sq, sk, causal, window, q_off, splits, st);
     case 128:
       return launch<128>(q, k, v, o, dout, lse, dq, dk, dv, dd, part, bh, bk,
-                         sq, sk, causal, window, splits, st);
+                         sq, sk, causal, window, q_off, splits, st);
     case 256:
       return launch<256>(q, k, v, o, dout, lse, dq, dk, dv, dd, part, bh, bk,
-                         sq, sk, causal, window, splits, st);
+                         sq, sk, causal, window, q_off, splits, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

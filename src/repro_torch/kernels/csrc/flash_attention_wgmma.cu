@@ -6,13 +6,15 @@
 // and takes both dots with fp32 accumulation, streaming 128-key blocks
 // along its sequential grid axis with the running max, sum and output
 // rows in VMEM scratch. fp32 storage stays on the CUDA-core kernel in
-// flash_attention.cu, which also holds the C entry point that picks one
-// of the two by dtype.
+// flash_attention.cu (3xTF32 mma.sync), which also holds the C entry point
+// that picks one of the two by dtype.
 //
 // Semantics are those of repro.kernels.ref.attention_ref: q (BH, Sq, D),
-// k/v (BH / G, Sk, D) with query head bh reading kv head bh / G; query i
-// and key j (positions from 0) pair when j < Sk, j <= i (causal) and
-// j > i - window (window > 0); scores scaled by 1/sqrt(D) after the dot;
+// k/v (BH / G, Sk, D) with query head bh reading kv head bh / G; query
+// row i sits at position p = i + q_offset (q_offset >= 0: a shard of the
+// query sequence under context parallelism, whose rows start there), key
+// j at position j; they pair when j < Sk, j <= p (causal) and
+// j > p - window (window > 0); scores scaled by 1/sqrt(D) after the dot;
 // online softmax in fp32; a row with no allowed key writes 0; D is 64,
 // 128 or 256; out in bf16. On request each row's log-sum-exp of its
 // scaled allowed scores, LSE_i = log sum_j exp(s_ij / sqrt(D)), goes to
@@ -59,6 +61,11 @@
 // - Ragged ends (S not a multiple of the tile, Sq != Sk) are never
 //   padded in device memory: the 3-D tensor maps (D, S, head) fill rows
 //   past the end of each head with zeros, and the mask drops them.
+// - The query offset moves only the positions the mask and the tile
+//   skip compare: a row at position p meets the key tiles, in the order
+//   and split, that it meets in a call from position 0 whose query tile
+//   holds p at the same place, so an offset that is a multiple of 128
+//   gives the full call's rows bit for bit.
 // - Key tiles wholly above the diagonal or outside the window of every
 //   row of the block are never loaded; a warpgroup skips the tiles none
 //   of its rows needs, and only tiles that cut the diagonal, the
@@ -93,7 +100,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                   int group, int sq, int sk, int causal, int window) {
+                   int group, int sq, int sk, int causal, int window,
+                   int q_off) {
   using Sh = Shape<D>;
   constexpr int kStages = Sh::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -108,7 +116,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.x;                         // heads of a kv head adjacent
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ; // most key tiles first
   int t_lo, t_hi;
-  key_tiles(q0, min(q0 + kBQ, sq) - 1, sk, causal, window, t_lo, t_hi);
+  key_tiles(q0 + q_off, min(q0 + kBQ, sq) - 1 + q_off, sk, causal, window,
+            t_lo, t_hi);
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -152,11 +161,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int r_lo = q0 + wg * 64;
     const int row0 = r_lo + warp * 16 + lane / 4;    // rows row0, row0 + 8
+    const int p_lo = r_lo + q_off;                   // positions of the rows
     const int col0 = 2 * (lane % 4);                 // of each 8-column chunk
     const float sl2 = kLog2e / sqrtf(static_cast<float>(D));
     int w_lo = 1, w_hi = 0;                          // this warpgroup's tiles
     if (r_lo < sq)
-      key_tiles(r_lo, min(r_lo + 63, sq - 1), sk, causal, window, w_lo, w_hi);
+      key_tiles(p_lo, min(r_lo + 63, sq - 1) + q_off, sk, causal, window,
+                w_lo, w_hi);
 
     float o[D / 2];
 #pragma unroll
@@ -186,8 +197,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         // mask (only tiles that cut the diagonal, the window or Sk), then
         // the online softmax in the log2 domain
         const bool whole = k0 + kBK <= sk &&
-                           (!causal || k0 + kBK - 1 <= r_lo) &&
-                           (window <= 0 || k0 > r_lo + 63 - window);
+                           (!causal || k0 + kBK - 1 <= p_lo) &&
+                           (window <= 0 || k0 > p_lo + 63 - window);
         uint32_t ok = 0xffffffffu;
         float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -199,9 +210,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
               const int idx = 4 * j + 2 * h + e;
               float x = sc[idx] * sl2;
               if (!whole) {
-                const int col = k0 + 8 * j + col0 + e, row = row0 + 8 * h;
-                if (!(col < sk && (!causal || col <= row) &&
-                      (window <= 0 || col > row - window))) {
+                const int col = k0 + 8 * j + col0 + e;
+                const int pos = row0 + 8 * h + q_off;
+                if (!(col < sk && (!causal || col <= pos) &&
+                      (window <= 0 || col > pos - window))) {
                   ok &= ~(1u << idx);
                   x = kNegInf;
                 }
@@ -259,7 +271,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int bh, int bk, int sq, int sk, int causal, int window,
-           void* stream) {
+           int q_off, void* stream) {
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, bh, sq, D, kBQ) || !make_map(&mk, k, bk, sk, D, kBK) ||
       !make_map(&mv, v, bk, sk, D, kBK))
@@ -273,7 +285,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   flash_wgmma_kernel<D><<<grid, kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
-      bh / bk, sq, sk, causal, window);
+      bh / bk, sq, sk, causal, window, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,11 +294,12 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 namespace qf {
 
 // bf16 q (bh, sq, dh), k/v (bk, sk, dh), bh a multiple of bk; lse fp32
-// (bh, sq) or null; the C entry point qf_flash_attention
-// (flash_attention.cu) checks the counts.
+// (bh, sq) or null; query row i at position i + q_off; the C entry point
+// qf_flash_attention (flash_attention.cu) checks the counts.
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* out, void* lse, int bh, int bk, int sq, int sk,
-                         int dh, int causal, int window, void* stream) {
+                         int dh, int causal, int window, int q_off,
+                         void* stream) {
   const void* ptrs[4] = {q, k, v, out};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16)    // TMA's alignment
@@ -294,13 +307,13 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
   switch (dh) {
     case 64:
       return launch<64>(q, k, v, out, lse, bh, bk, sq, sk, causal, window,
-                       stream);
+                       q_off, stream);
     case 128:
       return launch<128>(q, k, v, out, lse, bh, bk, sq, sk, causal, window,
-                        stream);
+                        q_off, stream);
     case 256:
       return launch<256>(q, k, v, out, lse, bh, bk, sq, sk, causal, window,
-                        stream);
+                        q_off, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

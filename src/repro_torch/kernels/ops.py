@@ -16,6 +16,23 @@ sequence). The quantum kernels have no backward: they refuse an input
 that requires grad while autograd records (``ValueError``), rather than
 return an output that would silently drop the gradient (the quantum
 path never uses autograd).
+
+Sharded. A DTensor operand (the sharded model step) runs each sequence
+op on this rank's shards (``sharding.dtensor.local``), given at the
+model's (B, S, H, dh) level, where DTensor keeps batch and heads
+sharded (a flatten of two sharded dims would all-gather): attention is
+local over batch and heads (a kv head that the model axis does not
+divide stays whole, and each rank reads the kv heads of its query
+heads), and over a query-sequence shard (context parallelism) with the
+keys whole and the rows' ``q_offset`` from the rank; the RG-LRU scan is
+local over batch and width; the GLA over batch and heads. Any other
+placement is redistributed first. On the card each op still launches
+its kernel.
+
+Traced. A fake tensor (``FakeTensorMode``) holds no data and takes the
+kernels' route on any device: the kernels are registered ops whose
+fakes give their outputs' and workspaces' shapes, so a traced step is
+the card's step.
 """
 from __future__ import annotations
 
@@ -27,10 +44,21 @@ from repro_torch.kernels import gla_chunked as _gla
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import zgemm as _zgemm
+from repro_torch.sharding import dtensor as sdt
+from repro_torch.sharding.dtensor import is_dtensor as isdt
 
 
 def _on_cpu(x: torch.Tensor) -> bool:
-    return x.is_cpu
+    """Whether ``x`` takes the plain route: a real tensor on the CPU (a
+    fake one takes the kernels' route, see the module's docstring)."""
+    return x.is_cpu and not _is_fake(x)
+
+
+def _is_fake(x: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    if isdt(x):
+        x = x._local_tensor
+    return isinstance(x, FakeTensor)
 
 
 def _dense(x: torch.Tensor) -> torch.Tensor:
@@ -102,11 +130,11 @@ class _FlashAttentionFn(torch.autograd.Function):
     back in q's dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
         out, lse = _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                       return_lse=True)
+                                       return_lse=True, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
@@ -114,8 +142,8 @@ class _FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _fa.flash_attention_bwd(
             q, k, v, out, _dense(dout.to(q.dtype)), lse=lse,
-            causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+            causal=ctx.causal, window=ctx.window, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def lru_scan_adjoint(scan, a: torch.Tensor, h: torch.Tensor,
@@ -178,28 +206,87 @@ class _GlaChunkedFn(torch.autograd.Function):
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0, impl: str = "pallas"
-              ) -> torch.Tensor:
+              causal: bool = True, window: int = 0, impl: str = "pallas",
+              q_offset: int = 0) -> torch.Tensor:
     """Grouped-query attention, q (B, Sq, H, dh), k/v (B, Sk, K, dh) with
-    H = K * G; queries and keys at positions 0.. -> (B, Sq, H, dh). The
-    kernel reads kv head h // G itself; nothing is repeated."""
+    H = K * G; query row i at position i + ``q_offset``, keys at 0..
+    -> (B, Sq, H, dh). The kernel reads kv head h // G itself; nothing is
+    repeated. DTensor operands run sharded (the module's docstring)."""
+    if isdt(q):
+        return _sharded_attention(q, k, v, causal, window, impl)
     b, sq, h, dh = q.shape
     kh = k.shape[2]
     qf = q.transpose(1, 2).reshape(b * h, sq, dh)
     kf = k.transpose(1, 2).reshape(b * kh, -1, dh)
     vf = v.transpose(1, 2).reshape(b * kh, -1, dh)
     if plain_route(q, impl):
-        out = ref.attention_ref(qf, kf, vf, causal=causal, window=window)
+        out = ref.attention_ref(qf, kf, vf, causal=causal, window=window,
+                                q_offset=q_offset)
     else:
         out = _FlashAttentionFn.apply(_dense(qf), _dense(kf), _dense(vf),
-                                      causal, window)
+                                      causal, window, q_offset)
     return out.reshape(b, h, sq, dh).transpose(1, 2)
+
+
+def _sharded_attention(q, k, v, causal, window, impl):
+    """``attention`` on DTensors: per mesh dim, q keeps a batch, heads or
+    query-sequence shard (anything else is gathered); k and v follow a
+    batch shard, follow a heads shard where the dim divides the kv heads
+    and stay whole otherwise (their gradients then partial sums), and
+    stay whole under a sequence shard."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    g = q.shape[2] // k.shape[2]
+    q_pl, kv_pl, kv_grad = [], [], []
+    for i, pl in enumerate(q.placements):
+        dim = pl.dim if isinstance(pl, Shard) else None
+        if dim == 0 or (dim == 2 and k.shape[2] % mesh.size(i) == 0):
+            q_pl.append(pl), kv_pl.append(pl), kv_grad.append(pl)
+        elif dim in (1, 2):
+            q_pl.append(pl), kv_pl.append(Replicate())
+            kv_grad.append(Partial())
+        else:
+            q_pl.append(Replicate()), kv_pl.append(Replicate())
+            kv_grad.append(Replicate())
+    seq_dims = [i for i, p in enumerate(q_pl) if p == Shard(1)]
+    head_dims = [i for i, (p, kp) in enumerate(zip(q_pl, kv_pl))
+                 if p == Shard(2) and kp == Replicate()]
+
+    def fn(ql, kl, vl):
+        off = sdt.coord(mesh, seq_dims) * ql.shape[1]
+        if head_dims:       # this rank's query heads read these kv heads
+            hl = ql.shape[2]
+            first = sdt.coord(mesh, head_dims) * hl
+            idx = torch.arange(first, first + hl, device=kl.device) // g
+            if hl % g == 0 or g % hl == 0:
+                kl = kl[:, :, first // g:(first + hl - 1) // g + 1]
+                vl = vl[:, :, first // g:(first + hl - 1) // g + 1]
+            else:
+                kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return attention(ql, kl, vl, causal=causal, window=window,
+                         impl=impl, q_offset=off)
+
+    return sdt.local(fn, mesh, q_pl, (q_pl, kv_pl, kv_pl),
+                     (q_pl, kv_grad, kv_grad))(q, k, v)
+
+
+def _keep(x, dims, mesh):
+    """Per mesh dim, x's placement where it shards one of ``dims``, else
+    Replicate."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [pl if isinstance(pl, Shard) and pl.dim in dims else Replicate()
+            for pl in x.placements]
 
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor, *, impl: str = "pallas"
              ) -> torch.Tensor:
     """Diagonal linear recurrence h_t = a_t h_{t-1} + b_t, h_0 = 0, over
-    axis 1 of (B, S, D) (RG-LRU)."""
+    axis 1 of (B, S, D) (RG-LRU); DTensors run local over batch and
+    width."""
+    if isdt(a):
+        pl = _keep(a, (0, 2), a.device_mesh)
+        return sdt.local(lambda al, bl: lru_scan(al, bl, impl=impl),
+                         a.device_mesh, pl, (pl, pl))(a, b)
     if plain_route(a, impl):
         return ref.rglru_scan_ref(a, b)
     return _LruScanFn.apply(_dense(a), _dense(b), _rg.rglru_scan)
@@ -212,11 +299,28 @@ def gla_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, dh) with w in (0, 1) (keep it fp32), u (H, dh), ``chunk``
     dividing S -> (out (B, S, H, dh) in r's dtype, final state
     (B, H, dh, dh) fp32). The model layer's entry; on the card both
-    outputs differentiate through the backward kernel."""
+    outputs differentiate through the backward kernel. DTensors run
+    local over batch and heads (u's gradient a partial sum over a batch
+    shard)."""
+    if isdt(r):
+        return _sharded_gla(r, k, v, w, u, chunk, impl)
     if plain_route(r, impl):
         return ref.gla_chunked_ref(r, k, v, w, u, chunk)
     return _GlaChunkedFn.apply(_dense(r), _dense(k), _dense(v), _dense(w),
                                _dense(u.float()), chunk)
+
+
+def _sharded_gla(r, k, v, w, u, chunk, impl):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = r.device_mesh
+    x_pl = _keep(r, (0, 2), mesh)
+    u_pl = [Shard(0) if p == Shard(2) else Replicate() for p in x_pl]
+    u_grad = [Partial() if p == Shard(0) else q for p, q in zip(x_pl, u_pl)]
+    s_pl = [Shard(1) if p == Shard(2) else p for p in x_pl]
+    fn = sdt.local(lambda *xs: gla_chunked(*xs, chunk=chunk, impl=impl),
+                   mesh, (x_pl, s_pl), (x_pl,) * 4 + (u_pl,),
+                   (x_pl,) * 4 + (u_grad,))
+    return fn(r, k, v, w, u)
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -62,11 +62,13 @@ def ensemble_commutator_trace_ref(a: torch.Tensor, b: torch.Tensor
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  return_lse: bool = False):
+                  return_lse: bool = False, q_offset: int = 0):
     """q (BH, Sq, dh); k/v (BK, Sk, dh) with BH = BK * G: query row i
     reads kv row i // G (G = 1 is the reference's same-head layout).
-    Query position i and key position j (both from 0) pair when
-    j <= i (causal) and j > i - window (window > 0). fp32 softmax; out
+    Query row i sits at position p = i + ``q_offset`` (a context-parallel
+    shard's rows start there; 0 otherwise), key j at position j; they
+    pair when j <= p (causal) and j > p - window (window > 0). fp32
+    softmax; out
     in q's dtype. With ``return_lse``, (out, lse): each row's
     log-sum-exp of its scaled allowed scores, fp32 (BH, Sq), natural-log
     units, the unit of the CUDA kernels' LSE.
@@ -79,7 +81,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.float().repeat_interleave(g, dim=0)
     vf = v.float().repeat_interleave(g, dim=0)
     s = (q.float() @ kf.transpose(1, 2)) / math.sqrt(float(q.shape[-1]))
-    mask = attention_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    mask = attention_mask(q.shape[1], k.shape[1], causal, window, q.device,
+                          q_offset)
     if s.requires_grad:                    # autograd keeps every step
         s = s.masked_fill(~mask, float("-inf"))
         m = s.detach().amax(dim=-1, keepdim=True).clamp_min(-1e30)
@@ -96,11 +99,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out, lse.squeeze(-1)
 
 
-def attention_mask(sq: int, sk: int, causal: bool, window: int, device
-                   ) -> torch.Tensor:
-    """(Sq, Sk) bool: query i and key j pair when j <= i (causal) and
-    j > i - window (window > 0), positions from 0."""
-    qp = torch.arange(sq, device=device)[:, None]
+def attention_mask(sq: int, sk: int, causal: bool, window: int, device,
+                   q_offset: int = 0) -> torch.Tensor:
+    """(Sq, Sk) bool: query row i (at position p = i + q_offset) and key j
+    pair when j <= p (causal) and j > p - window (window > 0)."""
+    qp = torch.arange(q_offset, q_offset + sq, device=device)[:, None]
     kp = torch.arange(sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
@@ -113,7 +116,7 @@ def attention_mask(sq: int, sk: int, causal: bool, window: int, device
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
-                      lse: torch.Tensor | None = None):
+                      lse: torch.Tensor | None = None, q_offset: int = 0):
     """dq, dk, dv of ``attention_ref`` at (q, k, v) for the cotangent
     ``do`` of its output ``o`` (the plain version of the CUDA kernels
     ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_wgmma
@@ -124,14 +127,17 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     exp(s - lse) on the allowed pairs, dS = P (do v^T - D); dq = scale
     dS k, dk = scale dS^T q and dv = P^T do, dk and dv summed over the G
     query heads of each kv head. A row with no allowed key has no
-    gradient. Out in q's dtype (the reference's ``_grad_dtype_fence``)."""
+    gradient. Query rows start at position ``q_offset``, as in
+    ``attention_ref``. Out in q's dtype (the reference's
+    ``_grad_dtype_fence``)."""
     g = q.shape[0] // k.shape[0]
     bk, sk, dh = k.shape
     scale = 1.0 / math.sqrt(float(dh))
     qf, of, dof = q.float(), o.float(), do.float()
     kf = k.float().repeat_interleave(g, dim=0)
     vf = v.float().repeat_interleave(g, dim=0)
-    mask = attention_mask(q.shape[1], sk, causal, window, q.device)
+    mask = attention_mask(q.shape[1], sk, causal, window, q.device,
+                          q_offset)
     s = (qf @ kf.transpose(1, 2)).mul_(scale).masked_fill_(~mask,
                                                             float("-inf"))
     if lse is None:

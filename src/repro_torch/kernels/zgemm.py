@@ -39,6 +39,17 @@ def check_operand(x: torch.Tensor, name: str, ndim: int,
                      "conjugate or negative view")
 
 
+def refuse_lazy(*named) -> None:
+    """Raise on a (name, tensor) pair whose tensor is a lazy conjugate or
+    negative view. The registered ops' callers check first: the
+    dispatcher would materialise such a view before the op's kernel, and
+    the kernels' wrappers refuse it rather than copy it silently."""
+    for name, x in named:
+        if x is not None and (x.is_conj() or x.is_neg()):
+            raise ValueError(f"{name}: kernel needs a contiguous tensor with "
+                             "no lazy conjugate or negative view")
+
+
 def launch(kernel: str, entry: str, dev: int, *args) -> None:
     """Call the C entry point ``entry`` with ``args`` and PyTorch's current
     stream on card ``dev`` (made the current device only if it is not),

@@ -14,11 +14,24 @@ per device:
   * the model FLOPs: 6ND for training, 2ND for inference, N the active
     params (``roofline.analysis.model_flops``).
 
-The port has no XLA partitioner: a sharded step's temporaries and the
-collectives an SPMD pass would insert are not reported (``null``, with
-the reason under ``not_measured``). Specs come from the meshes' mapping
-form, so no process group is opened, no CUDA extension is imported and
-no card is needed.
+and, from one traced run of the sharded step (``roofline.step_trace``:
+the step's arguments as DTensors of fake tensors on the production mesh
+of torch's ``fake`` backend, the card's route through the kernels'
+registered ops):
+
+  * ``temp_bytes`` and ``peak_bytes_per_device``: the most live local
+    bytes during the step, less the arguments' (the trace's own count
+    of the arguments is ``traced_argument_bytes``);
+  * ``hlo``: ``parse_hlo``'s collective keys (bytes and counts by op,
+    bytes by mesh axis, all-reduces counted twice) of the collectives
+    DTensor issues, and the ATen product FLOPs.
+
+Those are the port's eager step, op by op, not XLA's fused program, and
+are not compared with the reference's. ``argument_bytes`` comes from the
+meshes' mapping form, with no process group. ``run_one(...,
+trace=False)`` skips the trace (``null``, the reason under
+``not_measured``). The trace needs no card: without one its fake tensors
+are CPU tensors, which take the kernels' route all the same.
 
 Results go to experiments/dryrun_torch/<arch>__<shape>__<mesh>.json, one
 file a pair (resumable; --force recomputes); without --inline each pair
@@ -50,9 +63,8 @@ from repro_torch.sharding.rules import local_shape, spec_for
 MESHES = {"single": {"data": 16, "model": 16},
           "multi": {"pod": 2, "data": 16, "model": 16}}
 
-NOT_MEASURED = ("the port has no XLA partitioner: a sharded step's "
-                "temporaries and the collectives an SPMD pass would insert "
-                "are not reported")
+NOT_TRACED = "not traced: run_one(..., trace=False) reads the footprint only"
+TRACED = ("temp_bytes", "peak_bytes_per_device", "hlo")
 
 
 def local_bytes(tensors, specs, mesh) -> int:
@@ -111,8 +123,24 @@ def _write(rec: dict, out_dir: str) -> None:
         json.dump(rec, f, indent=1)
 
 
+def trace(cfg, shape, multi_pod: bool):
+    """``step_trace.trace_step`` of the (cfg, shape) step on a production
+    mesh of the ``fake`` backend (closed after), its fake tensors on the
+    card when there is one."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import sharded_artifacts
+    from repro_torch.roofline.step_trace import trace_step
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod, device=dev)
+    try:
+        return trace_step(lambda: sharded_artifacts(cfg, shape, mesh,
+                                                    device=dev), mesh)
+    finally:
+        mesh_lib.close()
+
+
 def run_one(arch: str, shape_name: str, multi_pod: bool,
-            out_dir: str = OUT_DIR) -> dict:
+            out_dir: str = OUT_DIR, trace_step: bool = True) -> dict:
     shape = INPUT_SHAPES[shape_name]
     base = get_config(arch)
     mesh_name = "multi" if multi_pod else "single"
@@ -127,6 +155,12 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     mesh = MESHES[mesh_name]
     t0 = time.time()
     split, out = _footprint(cfg, shape, mesh)
+    seconds = {"build": round(time.time() - t0, 2)}
+    traced = None
+    if trace_step:
+        t0 = time.time()
+        traced = trace(cfg, shape, multi_pod)
+        seconds["trace"] = round(time.time() - t0, 2)
     n_dev = math.prod(mesh.values())
     rec = {
         "arch": arch,
@@ -135,23 +169,26 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         "status": "ok",
         "n_devices": n_dev,
         "mesh_shape": dict(mesh),
-        "seconds": {"build": round(time.time() - t0, 2)},
+        "seconds": seconds,
         "memory_analysis": {
             "argument_bytes": sum(split.values()),
             "argument_split": split,
             "output_bytes": out,
-            "temp_bytes": None,
-            "peak_bytes_per_device": None,
+            "temp_bytes": None if traced is None else traced.temp_bytes,
+            "peak_bytes_per_device": (None if traced is None
+                                      else traced.peak_bytes),
         },
         "model_flops_per_device": model_flops(
             {"active_params": active_params(cfg)},
             {"kind": shape.kind, "global_batch": shape.global_batch,
              "seq_len": shape.seq_len}, n_dev),
-        "hlo": None,
-        "not_measured": {"temp_bytes": NOT_MEASURED,
-                         "peak_bytes_per_device": NOT_MEASURED,
-                         "hlo": NOT_MEASURED},
+        "hlo": None if traced is None else traced.collective_record(),
     }
+    if traced is None:
+        rec["not_measured"] = {k: NOT_TRACED for k in TRACED}
+    else:
+        rec["memory_analysis"]["traced_argument_bytes"] = \
+            traced.argument_bytes
     _write(rec, out_dir)
     return rec
 
@@ -171,6 +208,8 @@ def main():
     ap.add_argument("--inline", action="store_true",
                     help="run pairs in-process (default: subprocesses)")
     ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--no-trace", action="store_true",
+                    help="read the footprint only (no traced step)")
     args = ap.parse_args()
 
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
@@ -191,7 +230,7 @@ def main():
         if single_combo or args.inline:
             try:
                 rec = run_one(arch, shape_name, mesh_name == "multi",
-                              args.out)
+                              args.out, trace_step=not args.no_trace)
                 print(f"[{rec['status']}] {tag}")
             except Exception:       # one pair's failure ends no sweep
                 traceback.print_exc()
@@ -202,6 +241,8 @@ def main():
                    "--mesh", mesh_name, "--out", args.out]
             if args.force:
                 cmd.append("--force")
+            if args.no_trace:
+                cmd.append("--no-trace")
             t0 = time.time()
             r = subprocess.run(cmd, capture_output=True, text=True)
             ok = r.returncode == 0

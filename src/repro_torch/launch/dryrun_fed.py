@@ -22,9 +22,14 @@ round's nodes, and the uploads are gathered in node order over 'pod'.
 On the fake backend no collective moves data: the all-reduce leaves pod
 0's own partial sum and a gather leaves the other pods' parts zero, so
 the round's values are not the federation's; the records report the
-byte counts (and the round's time on the card) only. The in-pod bytes
-an XLA SPMD pass would add for sharded params are not measured: the port
-keeps the params whole within a pod. Records go to
+byte counts (and the round's time on the card) only. The in-pod bytes a
+local step adds are read from a trace of that step sharded within a pod
+(``roofline.step_trace``: the node's params, moments and batch as
+DTensors of fake tensors on pod 0's ('data', 'model') sub-mesh, placed
+by the rules, whose 'embed' rule leaves 'pod' out there): the
+collectives DTensor issues, by axis, the port's eager step and not an
+SPMD pass's. A round then moves its cross-pod bytes once and a local
+step's in-pod bytes I_l times. Records go to
 experiments/dryrun_fed_torch/.
 """
 from __future__ import annotations
@@ -34,6 +39,7 @@ import dataclasses
 import json
 import os
 import time
+from typing import Dict, Optional
 
 import torch
 
@@ -45,20 +51,35 @@ LR = 3e-3  # the local AdamW rate of chip_smoke.py's phase 12a
 FAKE_NOTE = ("fake backend: no collective moved data (pod 0's own partial "
              "sum, the other pods' gathered parts zero); only the byte "
              "counts and the time are reported")
-IN_POD_NOTE = ("not measured: the port keeps the params whole within a "
-               "pod and has no SPMD pass to insert in-pod collectives")
+IN_POD_NOTE = ("a local step's collectives within a pod, traced on pod 0's "
+               "(data, model) sub-mesh (roofline.step_trace); a round "
+               "counts them I_l times")
 
 
-def _bytes_record(tally: collectives.Tally, interval: int) -> dict:
+def _bytes_record(tally: collectives.Tally, interval: int,
+                  in_pod: Optional[collectives.Tally] = None) -> dict:
+    """The round's collectives (``tally``) and, I_l times, one local
+    step's in-pod ones (``in_pod``; none where the round makes none
+    within a pod)."""
     by_axis = dict(tally.bytes_by_axis)
+    count = dict(tally.count_by_op)
     cross_pod = sum(v for k, v in by_axis.items() if "pod" in k)
-    return {"collective_bytes_total": tally.total,
+    in_step = (sum(v for k, v in by_axis.items() if "pod" not in k)
+               / interval)
+    if in_pod is not None:
+        for axis, n in in_pod.bytes_by_axis.items():
+            by_axis[axis] = by_axis.get(axis, 0.0) + interval * n
+        for op, n in in_pod.count_by_op.items():
+            count[op] = count.get(op, 0) + interval * n
+        in_step += in_pod.total
+    return {"collective_bytes_total": cross_pod + interval * in_step,
             "collective_bytes_by_axis": by_axis,
-            "collective_count": dict(tally.count_by_op),
+            "collective_count": count,
             "cross_pod_bytes": cross_pod,
             "cross_pod_bytes_per_local_step": cross_pod / interval,
-            "in_pod_bytes_per_local_step": None,
-            "not_measured": {"in_pod_bytes_per_local_step": IN_POD_NOTE},
+            "in_pod_bytes_per_local_step": in_step,
+            "in_pod_step": None if in_pod is None else in_pod.as_dict(),
+            "in_pod": IN_POD_NOTE,
             "values": FAKE_NOTE}
 
 
@@ -80,12 +101,36 @@ def _save(rec: dict, fname: str, out_dir: str) -> None:
         json.dump(rec, f, indent=1)
 
 
+_LOCAL_STEPS: Dict[tuple, collectives.Tally] = {}
+
+
+def trace_local_step(cfg, batch: int, seq: int, mesh
+                     ) -> collectives.Tally:
+    """The collectives of one local train step (loss, grads, AdamW) of
+    ``batch`` x ``seq`` tokens sharded on pod 0's ('data', 'model')
+    sub-mesh of ``mesh``, traced on fake tensors (on the card where
+    there is one). They do not depend on I_l: a step is traced once a
+    process for each config, size and mesh shape."""
+    key = (cfg, batch, seq, tuple(mesh.shape))
+    if key not in _LOCAL_STEPS:
+        from repro_torch.launch.steps import sharded_artifacts
+        from repro_torch.models.config import InputShape
+        from repro_torch.roofline.step_trace import trace_step
+        pod = mesh["data", "model"]
+        shape = InputShape("local_step", seq, batch, "train")
+        dev = "cuda" if torch.cuda.is_available() else "cpu"
+        _LOCAL_STEPS[key] = trace_step(
+            lambda: sharded_artifacts(cfg, shape, pod, device=dev), pod).tally
+    return _LOCAL_STEPS[key]
+
+
 def run(arch: str, interval: int, *, layers: int = 0, batch: int = 2,
         seq: int = 4096, delta_dtype: str = "float32", device="cuda",
         out_dir: str = OUT_DIR, cfg=None) -> dict:
     """One classical round on the 2-pod fake mesh; ``batch`` x ``seq``
     tokens a local step of pod 0's node, ``layers`` (0: published) cuts
-    the depth; ``cfg`` overrides the arch's config."""
+    the depth; ``cfg`` overrides the arch's config. A local step's
+    in-pod collectives come from ``trace_local_step``."""
     from repro_torch.configs import get_config
     from repro_torch.core.fed import api
     from repro_torch.core.fed.fed_step import fed_train_round, node_shard
@@ -122,6 +167,8 @@ def run(arch: str, interval: int, *, layers: int = 0, batch: int = 2,
             (_, _, metrics), ms = _timed(lambda: fed_train_round(
                 model.loss_fn, opt, params, opt_nodes, node_batches, LR,
                 fed_cfg, mesh=mesh), dev)
+        del params, opt_nodes, node_batches
+        in_pod = trace_local_step(cfg, batch, seq, mesh)
         n_dev = mesh.size()
     finally:
         mesh_lib.close()
@@ -131,7 +178,7 @@ def run(arch: str, interval: int, *, layers: int = 0, batch: int = 2,
            "backend": "fake", "device": (torch.cuda.get_device_name(0)
                                          if dev.type == "cuda" else "cpu"),
            "round_ms": ms, "loss": float(metrics["loss"]),
-           **_bytes_record(tally, interval)}
+           **_bytes_record(tally, interval, in_pod)}
     _save(rec, f"{arch}__fed_I{interval}_{delta_dtype}.json", out_dir)
     return rec
 

@@ -4,9 +4,18 @@ function. Each ``*_artifacts`` builder returns ``(step, args, specs)``:
 the step function, its arguments as meta tensors (shapes and dtypes, no
 memory) and each argument's partition spec on ``mesh`` by the logical
 axis rules (``sharding.rules.spec_for``), where the reference returns
-its jitted step with the shardings bound in."""
+its jitted step with the shardings bound in.
+
+Sharded steps: ``shard`` / ``shard_tree`` turn tensors into DTensors
+placed by ``sharding_for`` on a ``DeviceMesh`` (real, or torch's fake
+backend; fake or real tensors), and ``sharded_artifacts`` gives the
+same steps with their params, optimizer state, batch and cache so
+placed. A step given DTensor params runs under their mesh (``with
+mesh:``), so the layers' ``constrain`` pins the activations as the
+reference's do, and the grads come back on the params' placements."""
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -17,7 +26,8 @@ from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.models.model import mean_metrics
 from repro_torch.optim import AdamW
 from repro_torch.optim.adamw import AdamWState
-from repro_torch.sharding.rules import spec_for
+from repro_torch.sharding import dtensor as sdt
+from repro_torch.sharding.rules import current_mesh, sharding_for, spec_for
 
 META = torch.device("meta")
 
@@ -46,6 +56,48 @@ def opt_shardings(opt_state: AdamWState, params_shardings, mesh):
                       v={k: params_shardings[k] for k in opt_state.v})
 
 
+def on_mesh(tree: Dict[str, torch.Tensor]):
+    """The mesh context of a tree's DTensors (``with mesh:``), where one
+    is not open already; a null context for plain tensors."""
+    for v in tree.values():
+        if sdt.is_dtensor(v):
+            if current_mesh() is None:
+                return v.device_mesh
+            break
+    return contextlib.nullcontext()
+
+
+def _to_param_placements(grads, params):
+    """Each DTensor grad redistributed to its param's placements (the
+    reduce-scatter / all-reduce of a data-parallel step); plain grads as
+    they are."""
+    return {k: (g.redistribute(params[k].device_mesh, params[k].placements)
+                if sdt.is_dtensor(g) else g) for k, g in grads.items()}
+
+
+def shard(x: torch.Tensor, names, mesh) -> torch.Tensor:
+    """``x`` (the whole tensor, the same on every rank) as a DTensor
+    placed by ``sharding_for(x.shape, names, mesh)``: each rank keeps a
+    copy of its shard, cut as DTensor cuts it (the first mesh dim
+    outermost), with no communication (the copy: an update of the
+    DTensor in place leaves ``x`` as it was). Fake tensors too."""
+    from torch.distributed.tensor import DTensor, Shard
+    pls = sharding_for(x.shape, names, mesh)
+    loc = x
+    for d, pl in enumerate(pls):
+        if isinstance(pl, Shard):
+            loc = loc.chunk(mesh.size(d), dim=pl.dim)[mesh.get_local_rank(d)]
+    return DTensor.from_local(loc.clone(memory_format=torch.contiguous_format),
+                              mesh, pls, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def shard_tree(tree: Dict[str, torch.Tensor], axes: Dict[str, Tuple], mesh
+               ) -> Dict[str, torch.Tensor]:
+    """``shard`` over a flat dict, each tensor by its logical axes."""
+    return {k: shard(v, axes[k], mesh) for k, v in tree.items()}
+
+
 def value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
                    batch) -> Tuple[torch.Tensor, Dict, Dict]:
     """``(loss, metrics, grads)`` of ``loss_fn(params, batch) -> (loss,
@@ -54,12 +106,14 @@ def value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor],
     through detached aliases of the params, in their dtypes; a param the
     loss does not reach gets a zero gradient."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss, metrics = loss_fn(leaves, batch)
-    gs = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    with on_mesh(params):
+        loss, metrics = loss_fn(leaves, batch)
+        gs = torch.autograd.grad(loss, list(leaves.values()),
+                                 allow_unused=True)
     grads = {k: torch.zeros_like(v) if g is None else g
              for (k, v), g in zip(leaves.items(), gs)}
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            grads)
+            _to_param_placements(grads, params))
 
 
 def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch
@@ -78,16 +132,18 @@ def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch
         return value_and_grad(model.loss_fn, params, batch)
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
     dt = getattr(torch, model.cfg.accum_dtype)
-    grads = {k: torch.zeros(v.shape, dtype=dt, device=v.device)
-             for k, v in params.items()}
+    grads = {k: torch.zeros_like(v, dtype=dt) for k, v in params.items()}
     losses, per = [], []
-    for mb in mbs:
-        loss, metrics = model.loss_fn(leaves, mb)
-        gs = torch.autograd.grad(loss / len(mbs), list(leaves.values()))
-        for acc, g in zip(grads.values(), gs):
-            acc.add_(g.to(acc.dtype))
-        losses.append(loss.detach())
-        per.append({k: v.detach() for k, v in metrics.items()})
+    with on_mesh(params):
+        for mb in mbs:
+            loss, metrics = model.loss_fn(leaves, mb)
+            gs = torch.autograd.grad(loss / len(mbs), list(leaves.values()))
+            for (k, acc), g in zip(grads.items(), gs):
+                if sdt.is_dtensor(g):
+                    g = g.redistribute(acc.device_mesh, acc.placements)
+                acc.add_(g.to(acc.dtype))
+            losses.append(loss.detach())
+            per.append({k: v.detach() for k, v in metrics.items()})
     return sum(losses) / len(mbs), mean_metrics(per), grads
 
 
@@ -105,15 +161,21 @@ def make_train_step(model: Model, opt: AdamW):
 
 def make_prefill_step(model: Model):
     def prefill_step(params, batch):
-        return model.prefill(params, batch)
+        with on_mesh(params):
+            return model.prefill(params, batch)
     return prefill_step
 
 
 def make_serve_step(model: Model):
     def serve_step(params, cache, batch, cur_len: int):
-        logits, new_cache = model.decode_step(params, batch, cache, cur_len)
-        # greedy next token (sampling is the server loop's business)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        with on_mesh(params):
+            logits, new_cache = model.decode_step(params, batch, cache,
+                                                  cur_len)
+            # greedy next token (sampling is the server loop's business),
+            # over the whole vocabulary (DTensor's argmax cannot reduce
+            # a sharded one)
+            next_tok = torch.argmax(sdt.whole(logits, (1,)), dim=-1).to(
+                torch.int32)
         return next_tok, logits, new_cache
     return serve_step
 
@@ -148,6 +210,43 @@ def serve_step_artifacts(cfg: ModelConfig, shape: InputShape, mesh):
     return (make_serve_step(model), (p_specs, cache, batch, cur),
             (p_shard, cache_shardings(model, cache, mesh),
              batch_shardings(batch, mesh), ()))
+
+
+def sharded_artifacts(cfg: ModelConfig, shape: InputShape, mesh, *,
+                      device="cpu", seed=None):
+    """``(step, args)`` of ``artifacts_for``'s step with its arguments as
+    DTensors on the ``DeviceMesh`` ``mesh``: params, optimizer moments
+    (the params' placements), batch and cache placed by the rules, the
+    scalars plain. ``seed`` None builds empty tensors of the arguments'
+    shapes and dtypes on ``device`` (made under ``FakeTensorMode`` they
+    hold no memory: the traced dry run); a seed draws the model's init
+    and a batch from it, the same on every rank."""
+    from repro_torch.configs.shapes import concrete_batch
+    model = Model(cfg)
+    step, args, _ = artifacts_for(cfg, shape, mesh)
+    dev = torch.device(device)
+
+    def real(tree):
+        return {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                for k, v in tree.items()}
+    params = (model.init(seed=seed, device=dev) if seed is not None
+              else real(args[0]))
+    params = shard_tree(params, model.param_axes(), mesh)
+    if seed is None:
+        batch = real(batch_specs(cfg, shape))
+    else:
+        batch = concrete_batch(cfg, shape.global_batch, shape.seq_len,
+                               torch.Generator().manual_seed(seed),
+                               kind=shape.kind, device=dev)
+    batch = shard_tree(batch, BATCH_AXES, mesh)
+    if shape.kind == "train":
+        opt = AdamW(state_dtype=cfg.opt_state_dtype)
+        return step, (params, opt.init(params), batch, 1e-3)
+    if shape.kind == "prefill":
+        return step, (params, batch)
+    cache = model.init_cache(shape.global_batch, shape.seq_len, device=dev)
+    cache = shard_tree(cache, model.cache_axes(), mesh)
+    return step, (params, cache, batch, shape.seq_len // 2)
 
 
 def artifacts_for(cfg: ModelConfig, shape: InputShape, mesh):

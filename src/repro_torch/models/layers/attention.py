@@ -15,6 +15,13 @@ the score softcap (``cfg.logit_softcap``) run on the plain route, as in
 the reference; the kernel tiles the queries itself and has no softcap,
 so ``impl="pallas"`` refuses a softcap. Positions are RoPE, M-RoPE
 (``cfg.pos_kind == "mrope"``, (3, B, S) position ids) or none.
+
+On a mesh q, k and v are pinned as the reference pins them: heads over
+'model' where the model axis divides the head count (or at decode),
+else the query sequence (context parallelism: the kernel's rows then
+start at their shard's ``q_offset``, the keys whole); the output to the
+batch. A decode step writes its k/v into a cache whose sequence may be
+sharded over 'model' on the ranks that hold those positions.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers.embeddings import apply_mrope, apply_rope
+from repro_torch.sharding import dtensor as sdt
+from repro_torch.sharding.rules import axis_size, constrain, current_mesh
 
 NEG_INF = -2.0e38
 
@@ -71,9 +80,10 @@ def init_attention(ini, pfx: str, cfg, stack: int = 0,
 def _mask(q_pos, k_pos, window: int, causal: bool, valid_len=None):
     """Boolean (..., Sq, T) mask from query/key positions."""
     qp = q_pos[..., :, None]
-    kp = k_pos[..., None, :]
-    m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
-                   dtype=torch.bool, device=q_pos.device)
+    kp = sdt.replicate_like(qp, k_pos)[..., None, :]
+    m = sdt.replicate_like(qp, torch.ones(
+        torch.broadcast_shapes(qp.shape, kp.shape), dtype=torch.bool,
+        device=q_pos.device))
     if causal:
         m &= kp <= qp
     if window > 0:
@@ -123,13 +133,26 @@ def gqa_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
     return torch.cat(outs, dim=1)
 
 
+def _flat_w(w: torch.Tensor, dt, at: int) -> torch.Tensor:
+    """A (d, heads, dh) weight as (d, heads * dh) (``at`` 1), or a
+    (heads, dh, d) one as (heads * dh, d) (``at`` 0), in ``dt``. A DTensor
+    weight's head_dim is gathered first and its gradient pinned to the
+    flat layout (DTensor keeps a shard through the flatten only on the
+    heads, and only where they divide the mesh dim)."""
+    flat = sdt.whole(w, (at + 1,)).to(dt).flatten(at, at + 1)
+    return sdt.pinned(flat)
+
+
 def _project(p, x, cfg):
     b, s, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt).reshape(-1, h * dh)).view(b, s, h, dh)
-    k = (x @ p["wk"].to(dt).reshape(-1, kh * dh)).view(b, s, kh, dh)
-    v = (x @ p["wv"].to(dt).reshape(-1, kh * dh)).view(b, s, kh, dh)
+
+    def w(name):        # (d, heads, dh) -> (d, heads * dh)
+        return _flat_w(p[name], dt, 1)
+    q = sdt.split_last(x @ w("wq"), (h, dh))
+    k = sdt.split_last(x @ w("wk"), (kh, dh))
+    v = sdt.split_last(x @ w("wv"), (kh, dh))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -186,6 +209,23 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     q, k, v = _project(p, x, cfg)
     q = _position(q, cfg, positions, mrope_positions)
     k = _position(k, cfg, positions, mrope_positions)
+    # the operands' own mesh: the ambient one is thread-local, and a remat
+    # cycle's recompute runs on the autograd engine's device thread
+    mesh = q.device_mesh if sdt.is_dtensor(q) else current_mesh()
+    cp = not (mesh is None or cfg.n_heads % axis_size(mesh, "model") == 0
+              or s == 1)
+    if not cp:
+        # tensor parallelism over heads (kv replicated over 'model' where
+        # the kv heads do not divide it)
+        q = constrain(q, "act_batch", "act_seq", "act_heads", None)
+        k = constrain(k, "act_batch", "act_seq", "act_kv_heads", None)
+        v = constrain(v, "act_batch", "act_seq", "act_kv_heads", None)
+    else:
+        # context parallelism: the heads do not divide the model axis, so
+        # the query sequence is sharded over it (k/v pinned batch-only)
+        q = constrain(q, "act_batch", "act_seq_cp", "act_heads", None)
+        k = constrain(k, "act_batch", "act_seq_cp", "act_kv_heads", None)
+        v = constrain(v, "act_batch", "act_seq_cp", "act_kv_heads", None)
 
     if cache is None:
         new_cache = {"k": k, "v": v}
@@ -205,24 +245,68 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
         if isinstance(cur_len, torch.Tensor):
             # per-slot positions (continuous batching): each row's token
             # goes in at its own index
+            if sdt.is_dtensor(cache["k"]):
+                raise ValueError("per-row decode positions run on an "
+                                 "unsharded cache")
             rows = torch.arange(b, device=x.device)
             cache["k"][rows, cur_len] = k[:, 0].to(cache["k"].dtype)
             cache["v"][rows, cur_len] = v[:, 0].to(cache["v"].dtype)
             valid = (cur_len + s)[:, None, None]
         else:
-            cache["k"][:, cur_len:cur_len + s] = k.to(cache["k"].dtype)
-            cache["v"][:, cur_len:cur_len + s] = v.to(cache["v"].dtype)
+            sdt.write_at_(cache["k"], 1, cur_len, k.to(cache["k"].dtype))
+            sdt.write_at_(cache["v"], 1, cur_len, v.to(cache["v"].dtype))
             valid = cur_len + s
         new_cache = cache
         ck, cv = cache["k"].to(dt), cache["v"].to(dt)
         k_pos = torch.arange(ck.shape[1], dtype=torch.int32, device=x.device)
-        out = gqa_attention(q.reshape(b, s, k_heads, g, dh), ck, cv,
-                            positions, k_pos, window=window, causal=True,
-                            valid_len=valid, softcap=cap)
+        kw = dict(window=window, causal=True, valid_len=valid, softcap=cap)
+        if sdt.is_dtensor(q):
+            out = _sharded_decode(
+                q, ck, cv, lambda *a: gqa_attention(*a, **kw), positions,
+                k_pos, batch_extra=(0,))
+        else:
+            out = gqa_attention(q.reshape(b, s, k_heads, g, dh), ck, cv,
+                                positions, k_pos, **kw)
 
-    out = out.reshape(b, s, k_heads * g * dh)
-    y = out @ p["wo"].to(dt).reshape(k_heads * g * dh, -1)
-    return y, new_cache
+    out = sdt.pinned(out.reshape(b, s, k_heads * g * dh))
+    wo = _flat_w(p["wo"], dt, 0)
+    # under context parallelism each rank projects its query rows (a
+    # DTensor product of a batch- and sequence-sharded operand would cut
+    # it in strided pieces)
+    y = sdt.over_rows(torch.matmul, out, wo) if cp else out @ wo
+    return constrain(y, "act_batch", "act_seq", "act_embed"), new_cache
+
+
+def _sharded_decode(q, ck, cv, attend, *extra, batch_extra=()):
+    """A decode step's attention of DTensors on each rank's shards:
+    ``attend(q5, k, v, *extra)`` with q (B, 1, H, dh) as (B, 1, K, G, dh)
+    against k/v (B, T, K, dh) keeps a batch shard and a kv-heads shard
+    (q's heads follow it) and gathers the keys of any other shard (a
+    cache sequence over 'model': one query needs every key; DTensor's
+    own einsum rules would cut the cache in strided pieces). ``extra``
+    go whole, but those at ``batch_extra`` follow the batch shard."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    b, s, h, dh = q.shape
+    kh = ck.shape[2]
+    q_pl, c_pl, b_pl = [], [], []
+    for i, cp in enumerate(ck.placements):
+        if cp == Shard(0) or (cp == Shard(2) and kh % mesh.size(i) == 0):
+            q_pl.append(cp), c_pl.append(cp)
+            b_pl.append(Shard(0) if cp == Shard(0) else Replicate())
+        else:
+            q_pl.append(Replicate()), c_pl.append(Replicate())
+            b_pl.append(Replicate())
+    rep = [Replicate()] * mesh.ndim
+    ins = (q_pl, c_pl, c_pl) + tuple(b_pl if i in batch_extra else rep
+                                     for i in range(len(extra)))
+
+    def fn(ql, kl, vl, *xs):
+        bl, _, hl, _ = ql.shape
+        g = h // kh
+        return attend(ql.reshape(bl, s, hl // g, g, dh), kl, vl,
+                      *xs).reshape(bl, s, hl, dh)
+    return sdt.local(fn, mesh, q_pl, ins, ins)(q, ck, cv, *extra)
 
 
 def cross_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -236,17 +320,21 @@ def cross_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
     b, s, _ = x.shape
     h, k_heads, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt).reshape(-1, h * dh)).view(b, s, h, dh)
+    q = sdt.split_last(x @ _flat_w(p["wq"], dt, 1), (h, dh))
     ck, cv = cond_k.to(dt), cond_v.to(dt)
     if decode:
-        mask = torch.ones((s, ck.shape[1]), dtype=torch.bool, device=x.device)
-        out = dot_attention(q.view(b, s, k_heads, g, dh), ck, cv, mask)
+        mask = sdt.replicate_like(q, torch.ones(
+            (s, ck.shape[1]), dtype=torch.bool, device=x.device))
+        if sdt.is_dtensor(q):
+            out = _sharded_decode(q, ck, cv, dot_attention, mask)
+        else:
+            out = dot_attention(q.view(b, s, k_heads, g, dh), ck, cv, mask)
     else:
         if ops.plain_route(q, impl):
             q, ck, cv = (_grad_dtype_fence(t) for t in (q, ck, cv))
         out = ops.attention(q, ck, cv, causal=False, window=0, impl=impl)
     out = out.reshape(b, s, h * dh)
-    return out @ p["wo"].to(dt).reshape(h * dh, -1)
+    return out @ _flat_w(p["wo"], dt, 0)
 
 
 def cross_kv(p: Dict[str, torch.Tensor], cond: torch.Tensor, cfg):
@@ -255,8 +343,8 @@ def cross_kv(p: Dict[str, torch.Tensor], cond: torch.Tensor, cfg):
     b, t, _ = cond.shape
     kh, dh = cfg.n_kv_heads, cfg.head_dim
     dt = cond.dtype
-    k = (cond @ p["wk"].to(dt).reshape(-1, kh * dh)).view(b, t, kh, dh)
-    v = (cond @ p["wv"].to(dt).reshape(-1, kh * dh)).view(b, t, kh, dh)
+    k = sdt.split_last(cond @ _flat_w(p["wk"], dt, 1), (kh, dh))
+    v = sdt.split_last(cond @ _flat_w(p["wv"], dt, 1), (kh, dh))
     return k, v
 
 

@@ -1,10 +1,18 @@
-"""Token embeddings and rotary position encodings (RoPE + M-RoPE)."""
+"""Token embeddings and rotary position encodings (RoPE + M-RoPE).
+
+On a mesh the embedded tokens and the logits are pinned to the
+reference's layouts (``constrain``), and the frequency tables go onto
+the mesh replicated."""
 from __future__ import annotations
 
 import math
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels import ops
+from repro_torch.sharding import dtensor as sdt
+from repro_torch.sharding.rules import constrain
 
 
 def init_embeddings(ini, cfg) -> None:
@@ -19,12 +27,46 @@ def init_embeddings(ini, cfg) -> None:
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    x = params["embed/tokens"][tokens.long()].to(cfg.torch_dtype)
+    table = sdt.unshard_data(params["embed/tokens"])
+    if sdt.is_dtensor(table):
+        x = _sharded_lookup(table, tokens.long()).to(cfg.torch_dtype)
+    else:
+        x = table[tokens.long()].to(cfg.torch_dtype)
     if cfg.embed_scale:
         # the factor is rounded to the activation dtype before the multiply
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)),
                              dtype=torch.float32).to(x.dtype)
-    return x
+    return constrain(x, "act_batch", "act_seq", "act_embed")
+
+
+def _sharded_lookup(table, tokens):
+    """``table[tokens]`` of DTensors on each rank's shards: the tokens
+    keep their batch shards; where the table's vocabulary is sharded,
+    each rank takes the rows it holds (0 elsewhere) and the rows are a
+    partial sum over those ranks (an index op on the table would gather
+    it whole, and DTensor has no rule for tokens sharded over two mesh
+    dims)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    t_pl, t_grad, i_pl, o_pl, vdims = [], [], [], [], []
+    for d, (tp, ip) in enumerate(zip(table.placements, tokens.placements)):
+        if tp == Shard(0):
+            t_pl.append(tp), t_grad.append(tp), i_pl.append(Replicate())
+            o_pl.append(Partial()), vdims.append(d)
+        else:       # the table's gradient: a partial sum over a token shard
+            keep = ip if isinstance(ip, Shard) else Replicate()
+            t_pl.append(Replicate()), i_pl.append(keep), o_pl.append(keep)
+            t_grad.append(Partial() if isinstance(ip, Shard) else keep)
+
+    def fn(tl, il):
+        if not vdims:
+            return tl[il]
+        lo = sdt.coord(mesh, vdims) * tl.shape[0]
+        inside = (il >= lo) & (il < lo + tl.shape[0])
+        rows = tl[torch.where(inside, il - lo, 0)]
+        return torch.where(inside[..., None], rows, 0)
+    return sdt.local(fn, mesh, o_pl, (t_pl, i_pl), (t_grad, i_pl))(table,
+                                                                   tokens)
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -62,23 +104,48 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     operands' dtype summed in fp32 (``preferred_element_type=float32``)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
-    if x.is_cuda:
+    if sdt.is_dtensor(x):
+        return _sharded_matmul_f32(x, w)
+    if not ops._on_cpu(x):          # the card (or a trace of it)
         out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(x.shape[:-1] + (w.shape[-1],))
     return x.float() @ w.float()
 
 
+def _sharded_matmul_f32(x, w):
+    """``matmul_f32`` of DTensors on each rank's shards (``torch.mm``'s
+    ``out_dtype`` has no DTensor rule): per mesh dim the rows of x keep a
+    shard of a leading dim, else w's columns theirs, else both whole; the
+    other operand's gradient is then a partial sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x_pl, w_pl, out_pl, gx, gw = [], [], [], [], []
+    lead = range(x.dim() - 1)
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(xp, Shard) and xp.dim in lead:
+            x_pl.append(xp), w_pl.append(Replicate()), out_pl.append(xp)
+            gx.append(xp), gw.append(Partial())
+        elif wp == Shard(1):
+            x_pl.append(Replicate()), w_pl.append(wp)
+            out_pl.append(Shard(x.dim() - 1)), gx.append(Partial())
+            gw.append(wp)
+        else:
+            for pls in (x_pl, w_pl, out_pl, gx, gw):
+                pls.append(Replicate())
+    return sdt.local(matmul_f32, x.device_mesh, out_pl, (x_pl, w_pl),
+                     (gx, gw))(x, w)
+
+
 def unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
     """Logits in fp32."""
     if cfg.tie_embeddings:
-        w = params["embed/tokens"].to(x.dtype).T
+        w = sdt.unshard_data(params["embed/tokens"]).to(x.dtype).T
     else:
-        w = params["embed/head"].to(x.dtype)
+        w = sdt.unshard_data(params["embed/head"]).to(x.dtype)
     logits = matmul_f32(x, w)
     if cfg.logit_softcap > 0.0:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
-    return logits
+    return constrain(logits, "act_batch", "act_seq", "act_vocab")
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -93,7 +160,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     NeoX-style half rotation: pairs are (x[..., :d/2], x[..., d/2:]).
     """
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                 # (dh/2,)
+    freqs = sdt.replicate_like(x, rope_freqs(dh, theta, x.device))
     angles = positions[..., None].float() * freqs           # (B,S,dh/2)
     return _rotate(x, angles)
 
@@ -122,10 +189,10 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     if sum(sections) != dh // 2:
         raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
                          f"head_dim / 2 = {dh // 2}")
-    freqs = rope_freqs(dh, theta, x.device)                 # (dh/2,)
+    freqs = sdt.replicate_like(x, rope_freqs(dh, theta, x.device))
     ang = positions[..., None].float() * freqs              # (3,B,S,dh/2)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))            # (dh/2,)
-    angles = ang.gather(0, sec_id.expand(ang.shape[1:])[None])[0]
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # (dh/2,)
+    sec = sdt.replicate_like(x, sec_id.expand(ang.shape[1:])[None])
+    angles = ang.gather(0, sec)[0]
     return _rotate(x, angles)

@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import constrain
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
@@ -36,4 +38,6 @@ def mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
         h = _act(cfg.act)(g) * h
     else:
         h = _act(cfg.act)(h)
-    return h @ p["w_out"].to(dt)
+    h = constrain(h, "act_batch", "act_seq", "act_mlp")
+    return constrain(h @ p["w_out"].to(dt), "act_batch", "act_seq",
+                     "act_embed")

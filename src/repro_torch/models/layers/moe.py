@@ -8,11 +8,18 @@ gates renormalised, the Switch load-balance loss, the router z-loss, and
 the optional parallel dense FFN (Arctic's dense-MoE hybrid) and shared
 expert (Llama-4), as in the reference.
 
-Determinism: an assignment that overflows its expert's capacity is
-dropped (the reference adds it to a waste row that is thrown away). The
-kept assignments have unique slots, so dispatch writes only those rows
-(``index_copy_``), never an atomic sum: the same inputs give the same
-bits on the card.
+Determinism: an assignment that overflows its expert's capacity goes
+to a waste row that is thrown away, as in the reference. The kept
+assignments have unique slots, so dispatch copies rows
+(``index_copy``) and never sums: the same inputs give the same bits on
+the card. Every shape is fixed by the config and the token count (no
+``nonzero``), so the layer traces under ``FakeTensorMode`` and syncs
+with the host nowhere.
+
+On a mesh the routing, dispatch and combine run on every rank over all
+tokens (the tokens gathered, the slots replicated), the expert buffers
+are pinned to (experts over 'model', capacity over 'data') as the
+reference pins them, and the output to the batch.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models.layers.mlp import _act, init_mlp, mlp
+from repro_torch.sharding import dtensor as sdt
+from repro_torch.sharding.rules import constrain
 
 
 def init_moe(ini, pfx: str, cfg, stack: int = 0) -> None:
@@ -85,23 +94,53 @@ def slots(idx: torch.Tensor, cap: int, e: int):
     return keep, slot
 
 
+def dispatch(xf: torch.Tensor, router: torch.Tensor, cfg):
+    """Tokens xf (t, d) into the expert buffers (E, C, d): each kept
+    assignment's token copied to its slot, the dropped ones to a waste
+    row (E*C) that is cut off. Returns (buffers, gate, keep, slot, aux)
+    for ``combine``."""
+    t, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, t)
+    gate, idx, aux = route({"router": router}, xf, cfg)
+    keep, slot = slots(idx, cap, e)
+    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    buf = buf.index_copy(0, slot, xf.repeat_interleave(k, dim=0))
+    return buf[:-1].view(e, cap, d), gate, keep, slot, aux
+
+
+def combine(out: torch.Tensor, gate: torch.Tensor, keep: torch.Tensor,
+            slot: torch.Tensor, k: int) -> torch.Tensor:
+    """The experts' outputs (E, C, d) back to the tokens (t, d): each
+    assignment's slot gathered, weighted by gate * keep in the activation
+    dtype, summed over its k in that dtype."""
+    ec, d = out.shape[0] * out.shape[1], out.shape[2]
+    out = out.reshape(ec, d)
+    gathered = torch.where(keep[:, None], out[slot.clamp_max(ec - 1)],
+                           torch.zeros((), dtype=out.dtype,
+                                       device=out.device))
+    w = (gate.reshape(-1) * keep).to(out.dtype)[:, None]
+    return (gathered * w).reshape(-1, k, d).sum(1)
+
+
 def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (y, aux_losses)."""
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    t = b * s
-    cap = capacity(cfg, t)
+    k = cfg.top_k
     dt = x.dtype
-    xf = x.reshape(t, d)
-    gate, idx, aux = route(p, xf, cfg)
-    keep, slot = slots(idx, cap, e)
-
-    # dispatch: the kept assignments into (E*C, d), the rest dropped
-    kept = keep.nonzero()[:, 0]
-    buf = torch.zeros((e * cap, d), dtype=dt, device=x.device)
-    buf = buf.index_copy(0, slot[kept], xf[kept // k])
-    buf = buf.view(e, cap, d)
+    xf = x.reshape(b * s, d)
+    router = p["router"]
+    if sdt.is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        rep = [Replicate()] * x.device_mesh.ndim
+        buf, gate, keep, slot, aux_v = sdt.local(
+            lambda xl, rl: _dispatch_flat(xl, rl, cfg), x.device_mesh,
+            (rep,) * 5, (rep, rep))(xf, router)
+        aux = {"load_balance": aux_v[0], "router_z": aux_v[1]}
+    else:
+        buf, gate, keep, slot, aux = dispatch(xf, router, cfg)
+    buf = constrain(buf, "act_experts", "act_capacity", None)
 
     # expert FFN (grouped product over the experts)
     h = torch.bmm(buf, p["w_in"].to(dt))
@@ -109,14 +148,18 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg
         h = _act(cfg.act)(torch.bmm(buf, p["w_gate"].to(dt))) * h
     else:
         h = _act(cfg.act)(h)
-    out = torch.bmm(h, p["w_out"].to(dt)).reshape(e * cap, d)
+    h = constrain(h, "act_experts", "act_capacity", None)
+    out = constrain(torch.bmm(h, p["w_out"].to(dt)), "act_experts",
+                    "act_capacity", None)
 
-    # combine: gather the slots back, weight by gate * keep in the
-    # activation dtype, sum over k in that dtype
-    gathered = torch.where(keep[:, None], out[slot.clamp_max(e * cap - 1)],
-                           torch.zeros((), dtype=dt, device=x.device))
-    w = (gate.reshape(-1) * keep).to(dt)[:, None]
-    y = (gathered * w).reshape(t, k, d).sum(1).reshape(b, s, d)
+    if sdt.is_dtensor(out):
+        from torch.distributed.tensor import Replicate
+        rep = [Replicate()] * out.device_mesh.ndim
+        y = sdt.local(lambda *a: combine(*a, k), out.device_mesh, rep,
+                      (rep,) * 4)(out, gate, keep, slot)
+    else:
+        y = combine(out, gate, keep, slot, k)
+    y = y.reshape(b, s, d)
 
     if cfg.moe_dense_residual:
         y = y + mlp({kk[len("dense/"):]: v for kk, v in p.items()
@@ -124,4 +167,12 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg
     if cfg.shared_expert:
         y = y + mlp({kk[len("shared/"):]: v for kk, v in p.items()
                      if kk.startswith("shared/")}, x, cfg)
-    return y, aux
+    return constrain(y, "act_batch", "act_seq", "act_embed"), aux
+
+
+def _dispatch_flat(xf, router, cfg):
+    """``dispatch`` with its aux losses as one (2,) tensor (a local
+    function's outputs are tensors)."""
+    buf, gate, keep, slot, aux = dispatch(xf, router, cfg)
+    return buf, gate, keep, slot, torch.stack(
+        [aux["load_balance"], aux["router_z"]])

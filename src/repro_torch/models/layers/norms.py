@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding import dtensor as sdt
+
 
 def init_rmsnorm(ini, path: str, d: int, stack: int = 0) -> None:
     shape, names = (d,), ("embed",)
@@ -26,8 +28,8 @@ def groupnorm_heads(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     torch's default ``var`` is the unbiased estimate, hence
     ``correction=0``."""
     shp = x.shape
-    xh = x.reshape(shp[:-1] + (n_heads, shp[-1] // n_heads)).float()
+    xh = sdt.split_last(x, (n_heads, shp[-1] // n_heads)).float()
     mu = xh.mean(dim=-1, keepdim=True)
     var = xh.var(dim=-1, keepdim=True, correction=0)
-    y = ((xh - mu) / torch.sqrt(var + eps)).reshape(shp)
+    y = sdt.pinned(((xh - mu) / torch.sqrt(var + eps)).reshape(shp))
     return (y * scale.float() + bias.float()).to(x.dtype)

@@ -22,6 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers.mlp import gelu
+from repro_torch.sharding import dtensor as sdt
+from repro_torch.sharding.rules import constrain
 
 
 def init_recurrent_block(ini, pfx: str, cfg, stack: int = 0) -> None:
@@ -50,8 +52,9 @@ def _causal_conv1d(x, w, b, conv_state=None):
     carries the last cw-1 inputs for decode."""
     cw = w.shape[0]
     if conv_state is None:
-        pad = torch.zeros((x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype,
-                          device=x.device)
+        pad = sdt.replicate_like(x, torch.zeros(
+            (x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype,
+            device=x.device))
     else:
         pad = conv_state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
@@ -66,8 +69,10 @@ def _rg_lru(p, x, cfg, h0: Optional[torch.Tensor] = None,
             impl: str = "pallas"):
     """x (B,S,dr) -> (y, h_last), all gate math in fp32."""
     x32 = x.float()
-    r = torch.sigmoid(x32 @ p["w_a"].float() + p["b_a"].float())
-    i = torch.sigmoid(x32 @ p["w_i"].float() + p["b_i"].float())
+    r = torch.sigmoid(sdt.settled(x32 @ p["w_a"].float(), -1)
+                      + p["b_a"].float())
+    i = torch.sigmoid(sdt.settled(x32 @ p["w_i"].float(), -1)
+                      + p["b_i"].float())
     # Lambda parametrized so softplus gives a stable positive rate
     log_a = -cfg.rg_lru_c * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
@@ -92,11 +97,12 @@ def recurrent_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     """Griffin recurrent mixer. state = (conv_state, h_state) for decode."""
     dt = x.dtype
     gate = gelu(x @ p["w_gate_branch"].to(dt))
-    xr = x @ p["w_x"].to(dt)
+    xr = constrain(x @ p["w_x"].to(dt), "act_batch", "act_seq", "act_rnn")
     conv_state = state[0] if state is not None else None
     h_state = state[1] if state is not None else None
     xr, new_conv = _causal_conv1d(xr, p["conv_w"], p["conv_b"], conv_state)
     y, new_h = _rg_lru(p, xr, cfg, h_state, impl=impl)
     y = y * gate
-    out = y @ p["w_out"].to(dt)
+    out = constrain(y @ p["w_out"].to(dt), "act_batch", "act_seq",
+                    "act_embed")
     return out, (new_conv, new_h.float())

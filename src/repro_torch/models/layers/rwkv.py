@@ -27,6 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers.norms import groupnorm_heads
+from repro_torch.sharding import dtensor as sdt
+from repro_torch.sharding.rules import constrain
 
 N_STREAMS = 5  # w, k, v, r, g
 LORA_TOKENSHIFT = 32
@@ -93,14 +95,36 @@ def gla_decode_step(r, k, v, w, u, state):
     return out.to(r.dtype), new_state
 
 
+def _decode_step(r, k, v, w, u, state):
+    """``gla_decode_step``; DTensors on each rank's (batch, heads) shards
+    (DTensor's own einsum rules would cut the state in strided pieces)."""
+    if not sdt.is_dtensor(r):
+        return gla_decode_step(r, k, v, w, u, state)
+    from torch.distributed.tensor import Replicate, Shard
+    x_pl = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+            for p in r.placements]
+    u_pl = [Shard(0) if p == Shard(1) else Replicate() for p in x_pl]
+    ins = (x_pl,) * 4 + (u_pl, x_pl)
+    return sdt.local(gla_decode_step, r.device_mesh, (x_pl, x_pl), ins,
+                     ins)(r, k, v, w, u, state)
+
+
+def _stream_lora(lo, w):
+    """(B, S, 5 * 32) LoRA codes times the five streams' (5, 32, d)
+    outputs -> (B, S, 5, d)."""
+    lo = lo.reshape(lo.shape[:-1] + (N_STREAMS, LORA_TOKENSHIFT))
+    return torch.einsum("bsnr,nrd->bsnd", lo, w)
+
+
 def _ddlerp(p, x, xx):
     """Data-dependent lerp producing the five projection streams."""
     dt = x.dtype
     delta = xx - x
     base = x + delta * p["mu_base"].to(dt)
     lo = torch.tanh(base @ p["ts_lora_a"].to(dt))
-    lo = lo.reshape(lo.shape[:-1] + (N_STREAMS, LORA_TOKENSHIFT))
-    adj = torch.einsum("bsnr,nrd->bsnd", lo, p["ts_lora_b"].to(dt))
+    # each rank's rows through the five streams' LoRA (DTensor would
+    # shard the five streams unevenly)
+    adj = sdt.over_rows(_stream_lora, lo, p["ts_lora_b"].to(dt))
     mix = p["mu"].to(dt) + adj                        # (B,S,5,d)
     return x[:, :, None, :] + delta[:, :, None, :] * mix
 
@@ -116,10 +140,12 @@ def rwkv_time_mix(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     h, dh = cfg.n_heads, cfg.head_dim
     dt = x.dtype
 
-    prev = shift_state if shift_state is not None else torch.zeros(
-        (b, d), dtype=dt, device=x.device)
+    prev = shift_state if shift_state is not None else sdt.replicate_like(
+        x, torch.zeros((b, d), dtype=dt, device=x.device))
     xx = _token_shift(x, prev)
-    x_w, x_k, x_v, x_r, x_g = _ddlerp(p, x, xx).unbind(2)
+    # the five streams whole on every rank (DTensor cannot unbind a
+    # sharded dim)
+    x_w, x_k, x_v, x_r, x_g = sdt.whole(_ddlerp(p, x, xx), (2,)).unbind(2)
 
     # data-dependent decay (fp32 logits)
     w_logit = (p["w0"].float()
@@ -127,25 +153,25 @@ def rwkv_time_mix(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                @ p["w_lora_b"].float())
     w = torch.exp(-torch.exp(torch.clamp(w_logit, -12.0, 4.0)))  # in (0,1)
 
-    r = (x_r @ p["wr"].to(dt)).reshape(b, s, h, dh)
-    k = (x_k @ p["wk"].to(dt)).reshape(b, s, h, dh)
-    v = (x_v @ p["wv"].to(dt)).reshape(b, s, h, dh)
+    r = sdt.split_last(x_r @ p["wr"].to(dt), (h, dh))
+    k = sdt.split_last(x_k @ p["wk"].to(dt), (h, dh))
+    v = sdt.split_last(x_v @ p["wv"].to(dt), (h, dh))
     g = F.silu(x_g @ p["wg"].to(dt))
-    w = w.reshape(b, s, h, dh)
+    w = sdt.split_last(w, (h, dh))
     u = p["u"]
 
     if s == 1 and wkv_state is not None:
-        out, new_state = gla_decode_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0],
-                                         u, wkv_state)
+        out, new_state = _decode_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0],
+                                      u, wkv_state)
         out = out[:, None]
     else:
         chunk = cfg.gla_chunk if s % cfg.gla_chunk == 0 else 1
         out, new_state = ops.gla_chunked(r, k, v, w, u, chunk=chunk,
                                          impl=impl)
-    out = out.reshape(b, s, h * dh)
+    out = sdt.pinned(out.reshape(b, s, h * dh))
     out = groupnorm_heads(p["ln_x_scale"], p["ln_x_bias"], out, h)
     out = out * g
-    y = out @ p["wo"].to(dt)
+    y = constrain(out @ p["wo"].to(dt), "act_batch", "act_seq", "act_embed")
     # a copy, so the state does not hold the whole input alive
     new_shift = x[:, -1].clone()
     return y, (new_shift, new_state.float())
@@ -155,13 +181,15 @@ def rwkv_channel_mix(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                      shift_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     dt = x.dtype
-    prev = shift_state if shift_state is not None else torch.zeros(
-        (b, d), dtype=dt, device=x.device)
+    prev = shift_state if shift_state is not None else sdt.replicate_like(
+        x, torch.zeros((b, d), dtype=dt, device=x.device))
     xx = _token_shift(x, prev)
     delta = xx - x
     x_k = x + delta * p["mu_k"].to(dt)
     x_r = x + delta * p["mu_r"].to(dt)
     kk = torch.square(F.relu(x_k @ p["wk"].to(dt)))
+    kk = constrain(kk, "act_batch", "act_seq", "act_mlp")
     kv = kk @ p["wv"].to(dt)
     rr = torch.sigmoid(x_r @ p["wr"].to(dt))
-    return rr * kv, x[:, -1].clone()
+    return (constrain(rr * kv, "act_batch", "act_seq", "act_embed"),
+            x[:, -1].clone())

@@ -8,6 +8,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.sharding import dtensor as sdt
+
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -17,9 +19,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     lbl = labels.clamp_min(0).long()
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    ll = label_logits(logits, lbl)
     nll = (lse - ll) * mask
     return nll.sum(), mask.sum().float()
+
+
+def label_logits(logits: torch.Tensor, lbl: torch.Tensor) -> torch.Tensor:
+    """logits[..., lbl]: each position's logit of its label. DTensor
+    logits sharded over the vocabulary gather on each rank from its own
+    shard (0 where the label lies elsewhere) into a partial sum."""
+    if not sdt.is_dtensor(logits):
+        return torch.gather(logits, -1, lbl[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    x_pl = [p if isinstance(p, Shard) else Replicate()
+            for p in logits.placements]
+    l_pl = [Replicate() if p == Shard(last) else p for p in x_pl]
+    o_pl = [Partial() if p == Shard(last) else p for p in x_pl]
+    vdims = [i for i, p in enumerate(x_pl) if p == Shard(last)]
+
+    def fn(xl, ll):
+        lo = sdt.coord(mesh, vdims) * xl.shape[-1]
+        inside = (ll >= lo) & (ll < lo + xl.shape[-1])
+        idx = torch.where(inside, ll - lo, 0)
+        got = torch.gather(xl, -1, idx[..., None])[..., 0]
+        return torch.where(inside, got, 0.0)
+    return sdt.local(fn, mesh, o_pl, (x_pl, l_pl), (x_pl, l_pl))(logits,
+                                                                lbl)
 
 
 def total_loss(logits: torch.Tensor, labels: torch.Tensor,

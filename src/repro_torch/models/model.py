@@ -18,6 +18,7 @@ from repro_torch.models import params as pp
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.losses import total_loss
+from repro_torch.sharding import dtensor as sdt
 
 
 def mean_metrics(per):
@@ -83,7 +84,13 @@ class Model:
     def microbatches(self, batch):
         """The batch as ``cfg.microbatch``-row pieces (the whole batch
         when it is not larger); ``mrope_positions`` (3, B, S) is split on
-        its batch axis, 1."""
+        its batch axis, 1. Piece i holds global rows [i*mb, (i+1)*mb), as
+        the reference's ``_loss_accum`` groups them (the per-microbatch
+        token means and MoE aux losses depend on the grouping). A DTensor
+        batch is gathered along its batch axis once and each piece
+        sharded again as the batch is (a local cut, no communication),
+        so every microbatch stays sharded over 'data'; a piece whose rows
+        the data ranks do not divide stays whole on every rank."""
         b = batch["labels"].shape[0]
         mb = self.cfg.microbatch
         if not mb or b <= mb:
@@ -91,9 +98,23 @@ class Model:
         if b % mb:
             raise ValueError(f"batch {b} is not a multiple of the "
                              f"microbatch {mb}")
-        return [{k: (v[:, i:i + mb] if k == "mrope_positions"
-                     else v[i:i + mb]) for k, v in batch.items()}
-                for i in range(0, b, mb)]
+        n = b // mb
+
+        def pieces(k, v):
+            axis = 1 if k == "mrope_positions" else 0
+            if not sdt.is_dtensor(v):
+                return [v.narrow(axis, i * mb, mb) for i in range(n)]
+            from torch.distributed.tensor import Shard
+            mesh = v.device_mesh
+            ways = math.prod(mesh.size(d) for d, p in enumerate(v.placements)
+                             if p == Shard(axis))
+            g = sdt.whole(v, (axis,))
+            out = [g.narrow(axis, i * mb, mb) for i in range(n)]
+            if mb % ways:
+                return out
+            return [p.redistribute(mesh, v.placements) for p in out]
+        cols = {k: pieces(k, v) for k, v in batch.items()}
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
     def _loss_accum(self, params, batch):
         """The reference's microbatch loss: the mean of the microbatches'

@@ -16,6 +16,13 @@ Modes:
   prefill — full sequence, emits decode caches
   decode  — single token against caches (serve_step); the caches are
             updated in place
+
+Sharded: with DTensor params and inputs under ``with mesh:`` every block
+ends pinned to the batch layout (or, training with
+``cfg.seq_parallel``, the sequence over 'model'), as in the reference,
+and the positions go onto the mesh replicated. Each layer's weights are
+gathered over the data axes before it runs (``sharding.dtensor
+.unshard_data``: FSDP, the layout XLA picks for the reference's rules).
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ from repro_torch.models.layers.embeddings import (embed_tokens,
                                                    init_embeddings, unembed)
 from repro_torch.models.layers.mlp import init_mlp, mlp
 from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
+from repro_torch.sharding import dtensor as sdt
+from repro_torch.sharding.rules import constrain
 
 ATTN_KINDS = ("attn", "local", "moe")
 
@@ -188,6 +197,13 @@ def extend_cache(cfg, cache: Dict[str, torch.Tensor], max_len: int
 # block forward
 # --------------------------------------------------------------------------
 
+def _norm(scale, x, cfg):
+    """A sublayer's normed input, its sequence whole on every rank (the
+    all-gather a sequence-parallel block makes on entering the sublayer;
+    a no-op for an unsharded sequence)."""
+    return sdt.whole(rmsnorm(scale, x, cfg.norm_eps), (1,))
+
+
 def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
                   cfg, *, mode: str, positions, cur_len=None, cache=None,
                   cond=None, mrope_positions=None, impl: str = "pallas"):
@@ -198,7 +214,7 @@ def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
     aux = {}
 
     if kind in ATTN_KINDS:
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        h = _norm(p["ln1"], x, cfg)
         a, kv = attn.self_attention(
             pp.subtree(p, "attn"), h, cfg, positions=positions,
             window=window, cur_len=cur_len, impl=impl,
@@ -210,7 +226,7 @@ def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
         x = x + a
 
         if cfg.cross_attn:
-            hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+            hx = _norm(p["ln_x"], x, cfg)
             px = pp.subtree(p, "xattn")
             if mode == "decode" and cond is None:
                 # serving: the conditioning k/v were cached at prefill
@@ -227,7 +243,7 @@ def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
             x = x + attn.cross_attention(px, hx, xk, xv, cfg,
                                          decode=mode == "decode", impl=impl)
 
-        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        h = _norm(p["ln2"], x, cfg)
         if kind == "moe":
             y, aux = moe_lib.moe_ffn(pp.subtree(p, "moe"), h, cfg)
         else:
@@ -235,12 +251,12 @@ def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
         x = x + y
 
     elif kind == "rec":
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        h = _norm(p["ln1"], x, cfg)
         state = ((cache["conv"], cache["h"]) if mode == "decode" else None)
         y, (new_conv, new_h) = rglru.recurrent_block(
             pp.subtree(p, "rec"), h, cfg, state=state, impl=impl)
         x = x + y
-        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        h = _norm(p["ln2"], x, cfg)
         x = x + mlp(pp.subtree(p, "mlp"), h, cfg)
         if mode == "decode":
             cache["conv"].copy_(new_conv)
@@ -250,14 +266,14 @@ def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
             new_cache.update({"conv": new_conv, "h": new_h})
 
     elif kind == "rwkv":
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        h = _norm(p["ln1"], x, cfg)
         dec = mode == "decode"
         y, (new_shift_tm, new_wkv) = rwkv.rwkv_time_mix(
             pp.subtree(p, "tm"), h, cfg,
             shift_state=cache["shift_tm"] if dec else None,
             wkv_state=cache["wkv"] if dec else None, impl=impl)
         x = x + y
-        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        h = _norm(p["ln2"], x, cfg)
         y, new_shift_cm = rwkv.rwkv_channel_mix(
             pp.subtree(p, "cm"), h, cfg,
             shift_state=cache["shift_cm"] if dec else None)
@@ -274,6 +290,11 @@ def block_forward(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         raise ValueError(f"block kind {kind!r}")
 
+    if cfg.seq_parallel and mode == "train":
+        # Megatron-style sequence parallelism at the block boundaries
+        x = constrain(x, "act_batch", "act_seq_sp", None)
+    else:
+        x = constrain(x, "act_batch", "act_seq", "act_embed")
     return x, (new_cache if new_cache else None), aux
 
 
@@ -327,6 +348,7 @@ def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
     else:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
+    positions = sdt.replicate_like(x, positions)
     if cfg.pos_kind == "mrope" and mrope_positions is None:
         mrope_positions = positions[None].expand(3, b, positions.shape[1])
 
@@ -342,7 +364,8 @@ def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
         cyc_aux: Dict[str, torch.Tensor] = {}
         for pos, kind in enumerate(cfg.block_pattern):
             pfx = f"stack/{pos}/{kind}/"
-            p = {k[len(pfx):]: v[c] for k, v in params.items()
+            p = {k[len(pfx):]: sdt.unshard_data(v[c])
+                 for k, v in params.items()
                  if k.startswith(pfx)}
             cc = None
             if cache is not None:
@@ -369,7 +392,8 @@ def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
     # ---- remainder layers ----
     for i in range(cfg.n_rem):
         kind = cfg.block_pattern[i]
-        p = pp.subtree(params, f"rem/{i}/{kind}")
+        p = {k: sdt.unshard_data(v) for k, v in
+             pp.subtree(params, f"rem/{i}/{kind}").items()}
         c = pp.subtree(cache, f"rem/{i}") if cache is not None else None
         x, nc, a = block_forward(kind, p, x, cfg, cache=c, **kw)
         _add_aux(aux, a)
@@ -377,7 +401,7 @@ def forward(params: Dict[str, torch.Tensor], cfg, *, mode: str,
             for kk, vv in nc.items():
                 new_cache[f"rem/{i}/{kk}"] = vv
 
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = _norm(params["final_norm"], x, cfg)
     return x, (new_cache if new_cache else None), aux
 
 

@@ -9,6 +9,10 @@ tensors of two or more dims, the moments stored in ``state_dtype``.
 donates the old ones; here params, the moments and the grads (scaled by
 the clip) are updated IN PLACE under ``torch.no_grad()`` and returned,
 so a full-width step holds no second copy of any of them.
+
+Sharded: DTensor params, grads (on the params' placements) and moments
+update in place on each rank's shards; the global norm's sums are the
+only values that cross ranks (an all-reduce of the partial sums).
 """
 from __future__ import annotations
 
@@ -40,8 +44,8 @@ class AdamW:
     def init(self, params) -> AdamWState:
         dt = getattr(torch, self.state_dtype)
 
-        def z(p):
-            return torch.zeros(p.shape, dtype=dt, device=p.device)
+        def z(p):           # a DTensor's moments take its placements
+            return torch.zeros_like(p, dtype=dt)
         return AdamWState(step=torch.zeros((), dtype=torch.int32),
                           m=tree_map(z, params), v=tree_map(z, params))
 

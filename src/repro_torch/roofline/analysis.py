@@ -7,9 +7,13 @@ port of ``repro.roofline.analysis``).
 
 A dry-run record's FLOPs are the model FLOPs (6ND training, 2ND
 inference), its bytes the step's arguments read once and outputs
-written once; the port has no XLA partitioner, so a record carries no
-temporaries and no in-pod collectives, and a term whose input the
-record does not hold is None, never zero. A profiled call's terms
+written once, its collective bytes those of the traced sharded step
+(``roofline.step_trace``: the collectives DTensor issues in the port's
+eager step, under ``hlo``) or, for a ``dryrun_fed`` record, the round's.
+The collective term takes them at ``LINK_BW``, the H100 SXM data
+sheet's NVLink rate: no run here measures a link. A term whose input
+the record does not hold (an untraced record) is None, never zero. A
+profiled call's terms
 (``trace_terms``) come from ``trace_parse``'s counts and are set beside
 its measured device time.
 """
@@ -24,7 +28,8 @@ from repro_torch.roofline.costs import BF16_FLOPS, HBM_BYTES_PER_S
 
 # H100 SXM (NVIDIA H100 Tensor Core GPU data sheet, dense, 700 W): the
 # bf16 tensor-core FLOP/s and HBM3 bytes/s of roofline.costs, and NVLink
-# 4 at 900 GB/s, 450 GB/s each way.
+# 4 at 900 GB/s, 450 GB/s each way (the data sheet's rate: no multi-card
+# run measures it here).
 PEAK_FLOPS = BF16_FLOPS
 HBM_BW = HBM_BYTES_PER_S
 LINK_BW = 450e9
@@ -63,7 +68,9 @@ def analyze_record(rec: Dict) -> Dict:
     nbytes = (None if mem.get("argument_bytes") is None
               or mem.get("output_bytes") is None
               else mem["argument_bytes"] + mem["output_bytes"])
-    coll = rec.get("collective_bytes_total")
+    hlo = rec.get("hlo") or {}
+    coll = hlo.get("collective_bytes_total",
+                   rec.get("collective_bytes_total"))
     terms = {"compute": _div(flops, PEAK_FLOPS),
              "memory": _div(nbytes, HBM_BW),
              "collective": _div(coll, LINK_BW)}
@@ -74,6 +81,10 @@ def analyze_record(rec: Dict) -> Dict:
         "flops_per_dev": flops,
         "hbm_bytes_per_dev": nbytes,
         "collective_bytes_per_dev": coll,
+        "collective_bytes_by_axis": hlo.get(
+            "collective_bytes_by_axis", rec.get("collective_bytes_by_axis")),
+        "link_bw": "H100 SXM data sheet NVLink 4, 450 GB/s each way (not "
+                   "measured)",
         "t_compute_s": terms["compute"],
         "t_memory_s": terms["memory"],
         "t_collective_s": terms["collective"],
@@ -82,6 +93,8 @@ def analyze_record(rec: Dict) -> Dict:
                        else mem["argument_bytes"] / 1e9),
         "peak_mem_gb": (None if mem.get("peak_bytes_per_device") is None
                         else mem["peak_bytes_per_device"] / 1e9),
+        "temp_mem_gb": (None if mem.get("temp_bytes") is None
+                        else mem["temp_bytes"] / 1e9),
     }
 
 

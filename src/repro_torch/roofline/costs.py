@@ -60,11 +60,12 @@ def bound_ms(name, args):
 
 
 # ------------------------------------------------------ sequence kernels
-def allowed_pairs(sq, sk, causal, window):
-    """(query, key) pairs the mask allows for one head: positions from 0,
-    j < sk, j <= i when causal, j > i - window when window > 0."""
+def allowed_pairs(sq, sk, causal, window, q_offset=0):
+    """(query, key) pairs the mask allows for one head: query rows at
+    positions q_offset.., keys from 0, j < sk, j <= i when causal,
+    j > i - window when window > 0."""
     n = 0
-    for i in range(sq):
+    for i in range(q_offset, q_offset + sq):
         hi = min(i, sk - 1) if causal else sk - 1
         lo = max(0, i - window + 1) if window > 0 else 0
         n += max(0, hi - lo + 1)
@@ -151,7 +152,7 @@ def attention_work(q, k, v, kw) -> Tuple[int, int, float]:
     b, sq, h, dh = q.shape
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     pairs = allowed_pairs(sq, k.shape[1], kw.get("causal", True),
-                          kw.get("window", 0))
+                          kw.get("window", 0), kw.get("q_offset", 0))
     peak = BF16_FLOPS if q.element_size() == 2 else TF32_FLOPS / 3
     return nbytes, 4 * dh * pairs * b * h, peak
 
@@ -200,7 +201,7 @@ def attn_bwd_flops(q, k, kw) -> int:
     """The backward's five products, 10 dh FLOP an allowed pair."""
     bh, sq, dh = q.shape
     return 10 * dh * bh * allowed_pairs(sq, k.shape[1], kw["causal"],
-                                        kw["window"])
+                                        kw["window"], kw.get("q_offset", 0))
 
 
 def attn_bwd_bound_ms(q, k, kw):

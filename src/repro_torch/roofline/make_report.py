@@ -25,8 +25,11 @@ MOVERS = {
 
 def report(rows, recs) -> str:
     out = ["# Dry run of the PyTorch port (per device)", "",
-           "Temporaries and in-pod collectives are not measured (n/m): the "
-           "port has no XLA partitioner to report them.", ""]
+           "Temporaries and collectives come from one traced run of the "
+           "port's sharded eager step (roofline.step_trace), not from an "
+           "XLA partitioner; n/m: a record made without the trace. The "
+           "collective term is at the H100 SXM data sheet's NVLink rate "
+           "(not measured).", ""]
     for mesh, title in (("single", "Single-pod (16x16)"),
                         ("multi", "Multi-pod (2x16x16)")):
         out += [f"## {title} dry run", "", dryrun_table(recs, mesh),

@@ -39,6 +39,11 @@ class Tally:
     def total(self) -> float:
         return float(sum(self.bytes_by_op.values()))
 
+    def as_dict(self) -> Dict[str, Dict]:
+        return {"bytes_by_axis": dict(self.bytes_by_axis),
+                "bytes_by_op": dict(self.bytes_by_op),
+                "count_by_op": dict(self.count_by_op)}
+
 
 _OPEN: List[Tally] = []
 

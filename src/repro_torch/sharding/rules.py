@@ -213,15 +213,18 @@ def _mesh_size(mesh) -> int:
 def constrain(x: torch.Tensor, *names: Optional[str], mesh=None,
               rules: Optional[Dict[str, Optional[str]]] = None
               ) -> torch.Tensor:
-    """The reference's sharding constraint by logical names: a no-op
-    outside a mesh; a DTensor is redistributed to the placements the
-    names give; a plain tensor on a one-rank mesh is returned as it is.
-    A plain tensor on a mesh of several ranks holds one rank's data,
-    which no placement describes, so it is refused."""
-    mesh = mesh if mesh is not None else current_mesh()
+    """The reference's sharding constraint by logical names: a DTensor is
+    redistributed to the placements the names give on its own mesh
+    (the ambient ``with mesh:`` is thread-local: the autograd engine's
+    device threads, which recompute remat cycles, do not see it); a
+    plain tensor is returned as it is outside a mesh or on a one-rank
+    mesh. A plain tensor on a mesh of several ranks holds one rank's
+    data, which no placement describes, so it is refused."""
+    from torch.distributed.tensor import DTensor
+    if mesh is None:
+        mesh = x.device_mesh if isinstance(x, DTensor) else current_mesh()
     if mesh is None:
         return x
-    from torch.distributed.tensor import DTensor
     if isinstance(x, DTensor):
         return x.redistribute(mesh, sharding_for(x.shape, names, mesh,
                                                  rules))

@@ -1813,3 +1813,165 @@ def test_trace_parse_finds_the_kernel_by_name(cuda_device):
     work = trace_parse.count(lambda: ops.complex_matmul(a, b))
     assert work.kernels["zgemm"][:3] == [1, 8 * 3 * 16 ** 3,
                                          16 * 3 * 3 * 16 * 16]
+
+
+# ------------------------------------------- the sharded step, q_offset
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,heads,kv,window", [(256, 10, 1, 64),
+                                                (128, 4, 4, 0),
+                                                (64, 6, 2, 0)])
+def test_q_offset_rows_are_the_full_calls_rows(cuda_device, dh, heads, kv,
+                                               window):
+    """bf16: queries [S/2, S) at q_offset S/2 (a multiple of the 128-row
+    tile) give the full call's forward, LSE and dq rows bit for bit; dk,
+    dv match the plain version with the same offset."""
+    from repro_torch.kernels import flash_attention as kfa
+    g = torch.Generator(device="cpu").manual_seed(dh + heads)
+    s, off = 512, 256
+    q = torch.randn((heads, s, dh), generator=g).to(cuda_device,
+                                                    torch.bfloat16)
+    k, v = (torch.randn((kv, s, dh), generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+            for _ in range(2))
+    kw = dict(causal=True, window=window)
+    full, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
+    qo = q[:, off:].contiguous()
+    got, lse_o = kfa.flash_attention(qo, k, v, return_lse=True, q_offset=off,
+                                     **kw)
+    assert torch.equal(got, full[:, off:]) and torch.equal(lse_o,
+                                                           lse[:, off:])
+    assert not torch.equal(kfa.flash_attention(qo, k, v, **kw), got)
+    do = torch.randn(full.shape, generator=g).to(cuda_device, torch.bfloat16)
+    dq = kfa.flash_attention_bwd(q, k, v, full, do, lse=lse, **kw)[0]
+    do_o = do[:, off:].contiguous()
+    dq_o, dk_o, dv_o = kfa.flash_attention_bwd(qo, k, v, got, do_o,
+                                               lse=lse_o, q_offset=off, **kw)
+    assert torch.equal(dq_o, dq[:, off:])
+    want = ref.attention_bwd_ref(qo.float(), k.float(), v.float(),
+                                 got.float(), do_o.float(), lse=lse_o,
+                                 q_offset=off, **kw)
+    for x, w in zip((dq_o, dk_o, dv_o), want):
+        assert float((x.float() - w).abs().max()) <= 2 ** -7 * float(
+            w.abs().max())
+
+
+@pytest.mark.cuda
+def test_q_offset_refused_by_the_fp32_kernels(cuda_device):
+    from repro_torch.kernels import flash_attention as kfa
+    x = torch.randn((2, 256, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="q_offset"):
+        kfa.flash_attention(x, x, x, q_offset=128)
+    with pytest.raises(ValueError, match="q_offset"):
+        kfa.flash_attention_bwd(x, x, x, x, x, lse=x[:, :, 0].contiguous(),
+                                q_offset=128)
+
+
+@pytest.mark.cuda
+def test_q_offset_ops_route_matches_the_plain_route(cuda_device):
+    """``ops.attention`` with an offset (the context-parallel shard's
+    call) through the kernel against the plain route, bf16."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn((2, 256, 4, 128), generator=g).to(cuda_device,
+                                                      torch.bfloat16)
+    k = torch.randn((2, 512, 2, 128), generator=g).to(cuda_device,
+                                                      torch.bfloat16)
+    got = ops.attention(q, k, k, q_offset=256)
+    want = ops.attention(q, k, k, q_offset=256, impl="xla")
+    assert float((got.float() - want.float()).abs().max()) <= 2 ** -7 * \
+        float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_gla_backward_workspace_formula_is_the_c_entrys(cuda_device):
+    from repro_torch.kernels import gla_chunked as kgla
+    lib = build.load()
+    for b, s, h in ((1, 4096, 64), (2, 17, 3), (4, 4097, 1)):
+        for part in range(3):
+            assert kgla.bwd_workspace_floats(b, s, h, part) == \
+                lib.qf_gla_chunked_bwd_workspace(b, s, h, part)
+
+
+@pytest.mark.cuda
+def test_registered_ops_fakes_are_the_wrappers_allocations(cuda_device):
+    """Each sequence op's fake (``FakeTensorMode``) gives the shapes and
+    dtypes of what the real op returns on the card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    g = torch.Generator(device="cpu").manual_seed(4)
+
+    def draw(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g).to(cuda_device, dtype)
+    q, k = draw(6, 256, 128), draw(2, 256, 128)
+    r = draw(1, 64, 2, 64)
+    w = torch.rand((1, 64, 2, 64), generator=g).to(cuda_device)
+    u = draw(2, 64, dtype=torch.float32)
+    a = draw(2, 64, 32, dtype=torch.float32)
+    calls = [
+        lambda *x: torch.ops.repro_torch.flash_attention(*x, True, 0, 0,
+                                                         True),
+        lambda *x: torch.ops.repro_torch.rglru_scan(*x),
+        lambda *x: torch.ops.repro_torch.gla_chunked(*x, 16)]
+    args = [(q, k, k), (a, a), (r, r, r, w, u)]
+    out, lse = calls[0](*args[0])
+    args.append((q, k, k, out, out, lse))
+    calls.append(lambda *x: torch.ops.repro_torch.flash_attention_bwd(
+        *x, True, 0, 0))
+    args.append((r, r, r, w, u, r, None))
+    calls.append(lambda *x: torch.ops.repro_torch.gla_chunked_bwd(*x, 16))
+    for call, xs in zip(calls, args):
+        real = call(*xs)
+        real = real if isinstance(real, (tuple, list)) else (real,)
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            fake = call(*(None if x is None else mode.from_tensor(x)
+                          for x in xs))
+        fake = fake if isinstance(fake, (tuple, list)) else (fake,)
+        assert [(tuple(x.shape), x.dtype) for x in real] == \
+            [(tuple(x.shape), x.dtype) for x in fake]
+
+
+@pytest.fixture
+def nccl_world1_mesh(cuda_device):
+    """The NCCL host mesh (world 1) with ('data', 'model'), closed at
+    teardown."""
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_host_mesh((1, 1), ("data", "model"), device="cuda")
+    yield mesh
+    mesh_lib.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
+                                  "llama4-scout-17b-a16e"])
+def test_sharded_step_on_a_world1_mesh_is_the_plain_step(nccl_world1_mesh,
+                                                         arch):
+    """A reduced bf16 train step with DTensor params, moments and batch
+    on the NCCL world-1 mesh, through the kernels: the same bits as the
+    plain step, and the same launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import BATCH_AXES, concrete_batch
+    from repro_torch.launch.steps import make_train_step, shard_tree
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    cfg = get_config(arch).reduced(dtype="bfloat16", param_dtype="bfloat16")
+    model = Model(cfg)
+    opt = AdamW()
+    step = make_train_step(model, opt)
+    batch = concrete_batch(cfg, 2, 64, torch.Generator().manual_seed(0),
+                           device="cuda")
+    out = {}
+    for side in ("plain", "sharded"):
+        params = model.init(seed=0, device="cuda")
+        b = batch
+        if side == "sharded":
+            params = shard_tree(params, model.param_axes(), nccl_world1_mesh)
+            b = shard_tree(batch, BATCH_AXES, nccl_world1_mesh)
+        build.reset_launches()
+        params, _, metrics = step(params, opt.init(params), b, 1e-3)
+        torch.cuda.synchronize()
+        out[side] = ({k: getattr(v, "to_local", lambda: v)()
+                      for k, v in params.items()}, dict(build.LAUNCHES),
+                     getattr(metrics["loss"], "to_local",
+                             lambda: metrics["loss"])())
+    (pp, pl, ploss), (sp, sl, sloss) = out["plain"], out["sharded"]
+    assert pl == sl and any(pl.values())
+    assert torch.equal(ploss, sloss)
+    assert all(torch.equal(pp[k], sp[k]) for k in pp)

@@ -6,12 +6,21 @@ and the classical round's mesh path, on the CPU.
   own ``spec_for`` gives on a FakeMesh over the reference's abstract
   params, AdamW states, batch, cache and scalars; the train step's
   outputs are its params and optimizer state.
+* Those per-arch records are made without the traced step (the trace
+  of a 126-layer step is minutes); on two small pairs the traced
+  record's temporaries, peak and collectives are present and agree with
+  each other and with the footprint (peak >= arguments; the trace's
+  argument bytes are the footprint's less the scalars the step takes
+  as Python numbers).
 * The skipped pairs keep the reference's record; the CLI writes one
   file a pair and resumes; the report goes to the file it is given.
 * The classical round on two gloo ranks (``fed_train_round`` on a 'pod'
   mesh, each rank one node) equals the one-process round within 1e-6;
   the fake-mesh dry run's cross-pod bytes a round are fixed, so per
-  local step they halve from I_l = 1 to 2.
+  local step they halve from I_l = 1 to 2; a local step's in-pod bytes
+  (traced on pod 0's ('data', 'model') sub-mesh) are the same at both,
+  and a round's total is its cross-pod bytes plus I_l local steps'
+  in-pod bytes.
 """
 import json
 import math
@@ -31,7 +40,7 @@ from repro.optim import AdamW as JAdamW  # noqa: E402
 from repro.sharding import rules as jrules  # noqa: E402
 from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.roofline import make_report  # noqa: E402
+from repro_torch.roofline import analysis, make_report  # noqa: E402
 
 
 class FakeMesh:
@@ -83,22 +92,47 @@ def test_argument_bytes_equal_the_reference(arch, tmp_path):
             continue
         for mesh_name, mesh in dryrun.MESHES.items():
             rec = dryrun.run_one(arch, shape_name, mesh_name == "multi",
-                                 str(tmp_path))
+                                 str(tmp_path), trace_step=False)
             mem = rec["memory_analysis"]
             assert mem["argument_bytes"] == ref_argument_bytes(
                 arch, shape_name, mesh), (shape_name, mesh_name)
             assert mem["argument_bytes"] == sum(
                 mem["argument_split"].values())
+            # untraced: the traced fields are absent, each with its reason
+            assert rec["not_measured"] == {k: dryrun.NOT_TRACED
+                                           for k in dryrun.TRACED}
             assert mem["temp_bytes"] is None and rec["hlo"] is None
-            assert set(rec["not_measured"]) == {"temp_bytes",
-                                                "peak_bytes_per_device",
-                                                "hlo"}
             if INPUT_SHAPES[shape_name].kind == "train":
                 split = mem["argument_split"]
                 assert mem["output_bytes"] == (split["params"]
                                                + split["opt_state"])
             assert rec["n_devices"] == math.prod(mesh.values())
             assert rec["model_flops_per_device"] > 0
+
+
+@pytest.mark.parametrize("arch,shape_name,multi", [
+    ("recurrentgemma-2b", "decode_32k", False),
+    ("recurrentgemma-2b", "decode_32k", True)])
+def test_traced_record_holds_temporaries_and_collectives(arch, shape_name,
+                                                         multi, tmp_path):
+    rec = dryrun.run_one(arch, shape_name, multi, str(tmp_path))
+    mem, hlo = rec["memory_analysis"], rec["hlo"]
+    assert "not_measured" not in rec
+    assert mem["temp_bytes"] is not None and mem["temp_bytes"] > 0
+    assert mem["peak_bytes_per_device"] >= mem["argument_bytes"]
+    assert mem["peak_bytes_per_device"] == (mem["traced_argument_bytes"]
+                                            + mem["temp_bytes"])
+    # cur_len is a Python int to the traced step, 4 bytes in the footprint
+    assert mem["traced_argument_bytes"] + 4 == mem["argument_bytes"]
+    assert hlo["collective_bytes_total"] > 0
+    assert hlo["collective_bytes_total"] == sum(
+        hlo["collective_bytes"].values()) == sum(
+        hlo["collective_bytes_by_axis"].values())
+    assert set(hlo["collective_bytes_by_axis"]) <= set(
+        dryrun.MESHES["multi" if multi else "single"])
+    assert set(hlo["collective_count"]) == set(hlo["collective_bytes"])
+    assert hlo["dot_flops"] > 0
+    assert rec["seconds"]["trace"] > 0
 
 
 def test_skipped_pairs_keep_the_reference_record(tmp_path):
@@ -114,7 +148,7 @@ def test_skipped_pairs_keep_the_reference_record(tmp_path):
 def test_cli_writes_a_file_a_pair_and_resumes(tmp_path, monkeypatch,
                                               capsys):
     argv = ["dryrun", "--arch", "qwen1.5-4b", "--mesh", "single",
-            "--inline", "--out", str(tmp_path)]
+            "--inline", "--no-trace", "--out", str(tmp_path)]
     monkeypatch.setattr(sys, "argv", argv)
     dryrun.main()
     names = sorted(p.name for p in tmp_path.glob("*.json"))
@@ -122,6 +156,11 @@ def test_cli_writes_a_file_a_pair_and_resumes(tmp_path, monkeypatch,
                            for s in INPUT_SHAPES)
     dryrun.main()
     assert capsys.readouterr().out.count("(done)") == len(INPUT_SHAPES)
+    # one pair traced (the CLI's default)
+    monkeypatch.setattr(sys, "argv", [
+        "dryrun", "--arch", "recurrentgemma-2b", "--shape", "decode_32k",
+        "--mesh", "single", "--inline", "--out", str(tmp_path)])
+    dryrun.main()
     out = tmp_path / "report" / "dryrun.md"
     monkeypatch.setattr(sys, "argv", ["make_report", "--dir", str(tmp_path),
                                       "--out", str(out)])
@@ -130,8 +169,13 @@ def test_cli_writes_a_file_a_pair_and_resumes(tmp_path, monkeypatch,
     assert "| qwen1.5-4b | train_4k | ok | 256 |" in text
     assert "SKIP" in text and "n/m" in text
     rows = json.loads((tmp_path / "report" / "dryrun.json").read_text())
-    decode = [r for r in rows if r.get("shape") == "decode_32k"][0]
-    assert decode["t_collective_s"] is None and decode["dominant"]
+    decode = {r["arch"]: r for r in rows if r.get("shape") == "decode_32k"}
+    traced = decode["recurrentgemma-2b"]
+    assert traced["t_collective_s"] > 0 and traced["dominant"]
+    assert traced["t_collective_s"] == (traced["collective_bytes_per_dev"]
+                                        / analysis.LINK_BW)
+    assert traced["peak_mem_gb"] > traced["arg_mem_gb"]
+    assert decode["qwen1.5-4b"]["t_collective_s"] is None
 
 
 # ------------------------------------------------ the classical mesh path
@@ -193,8 +237,8 @@ DRYRUN_FED = """
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun_fed
 cfg = get_config("qwen1.5-4b").reduced(n_layers=1)
-recs = [dryrun_fed.run("qwen1.5-4b", i, batch=2, seq=16, device="cpu",
-                       cfg=cfg, out_dir=OUT) for i in (1, 2)]
+recs = [dryrun_fed.run("qwen1.5-4b", il, batch=2, seq=16, device="cpu",
+                       cfg=cfg, out_dir=OUT) for il in (1, 2)]
 recs += [dryrun_fed.run_quantum(i, device="cpu", out_dir=OUT)
          for i in (1, 2)]
 import json
@@ -210,11 +254,24 @@ def test_dryrun_fed_cross_pod_bytes_per_local_step_halve(tmp_path):
     assert one["cross_pod_bytes"] == two["cross_pod_bytes"] > 0
     assert two["cross_pod_bytes_per_local_step"] == \
         one["cross_pod_bytes_per_local_step"] / 2
-    assert set(one["collective_bytes_by_axis"]) == {"pod"}
-    assert one["in_pod_bytes_per_local_step"] is None
+    # a local step's in-pod collectives, traced once: the same at both
+    # intervals, on the pod's own axes, I_l of them in a round
+    assert set(one["collective_bytes_by_axis"]) == {"pod", "data", "model"}
+    assert one["in_pod_bytes_per_local_step"] > 0
+    assert one["in_pod_bytes_per_local_step"] == \
+        two["in_pod_bytes_per_local_step"]
+    for rec, il in ((one, 1), (two, 2)):
+        assert rec["cross_pod_bytes"] + il * rec[
+            "in_pod_bytes_per_local_step"] == rec["collective_bytes_total"]
+        in_pod = rec["in_pod_step"]
+        assert sum(in_pod["bytes_by_op"].values()) == \
+            rec["in_pod_bytes_per_local_step"]
+        assert set(in_pod["bytes_by_axis"]) <= {"data", "model"}
     assert one["round_ms"] is None and "fake" in one["values"]
-    # the uploads of both pods' nodes, gathered over 'pod' in node order
+    # the uploads of both pods' nodes, gathered over 'pod' in node order;
+    # the quantum node pass makes no collective within a pod
     assert set(q1["collective_bytes_by_axis"]) == {"pod"}
+    assert q1["in_pod_bytes_per_local_step"] == 0.0
     assert q2["cross_pod_bytes"] == 2 * q1["cross_pod_bytes"]
     assert q1["collective_count"] == {"all-gather": 1}
     files = sorted(p.name for p in tmp_path.glob("*.json"))

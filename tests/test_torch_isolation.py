@@ -63,7 +63,8 @@ def test_importing_the_port_loads_no_jax():
                  "launch.dryrun", "launch.dryrun_fed", "roofline.analysis",
                  "roofline.breakdown", "roofline.costs",
                  "roofline.trace_parse", "roofline.report",
-                 "roofline.make_report"):
+                 "roofline.make_report", "sharding.dtensor",
+                 "roofline.step_trace"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
     assert res["process_group"] is False
