@@ -295,10 +295,21 @@ repository, it exits non-zero before printing any result. Phases:
    the result); the
    ``FakeTensorMode`` trace of RecurrentGemma-2B's world-1 step
    (``roofline.step_trace``), its peak within 10% of
-   ``torch.cuda.max_memory_allocated`` of the real step; and, in a
-   process of its own started first, ``launch.dryrun`` of
-   RecurrentGemma-2B's train_4k on the 2x16x16 fake mesh through the
-   trace (temporaries, peak, collective bytes by axis, seconds).
+   ``torch.cuda.max_memory_allocated`` of the real step; the decode on
+   the mesh (weight-stationary under the rule overrides, the softmax
+   over the cache's sequence shards): phase 5's prefill (launches 8 and
+   18 on each side) and 32 greedy tokens of RecurrentGemma-2B with the
+   params and the cache as DTensors against the same with plain tensors,
+   every token, every step's logits and every cache entry the same bits,
+   ms/token and a step's busy share of both; phase 14's
+   RecurrentGemma-2B batcher (4 slots, its first three requests) with
+   DTensor params, each request's tokens phase 14's, ms/tick and
+   tokens/s beside the plain batcher's; and, in processes of their own
+   started first, ``launch.dryrun`` of RecurrentGemma-2B's train_4k and
+   decode_32k on the 2x16x16 fake mesh through the trace (temporaries,
+   peak, collective bytes by axis and op, the largest collective, dot
+   FLOPs by ATen op and shape, seconds), beside the same traces' counts
+   on a CPU host (torch 2.13.0+cpu).
 
 Phase 5's fp32-storage attention row also plants NaNs (``nan_rows_check``:
 torch's 0x7fc00000, the card's 0x7fffffff and 0xffffffff) in q, k and v
@@ -5265,6 +5276,9 @@ BATCH_CONTROL_N = 3
 BATCH_BF16_FACTOR = 2
 # phase 5's decode ms/token by config name (printed beside phase 14's)
 DECODE_MS = {}
+# phase 14 by config name: the first BATCH_CONTROL_N requests' solo
+# tokens, ms/tick and tokens/s (15(d)'s sharded batcher is held to them)
+BATCH_RECORD = {}
 # the kernels the system loop's training must launch
 LOOP_KERNELS = ("flash_attention", "flash_attention_bwd", "rglru_scan")
 
@@ -5549,6 +5563,10 @@ def batch_arch(arch, device="cuda"):
         f" phase 5's decode (B = 4, after a 4096-token prefill): "
         + (f"{DECODE_MS[cfg.name]:.3f} ms/token" if cfg.name in DECODE_MS
            else "not run"))
+    BATCH_RECORD[cfg.name] = dict(
+        tokens={u: solos[u][0].generated for u in range(BATCH_CONTROL_N)},
+        ms_tick=rec["wall_s"] * 1e3 / ticks,
+        tokens_s=n_gen / rec["wall_s"])
     busy_tick(model, params, cfg.vocab_size, device)
     peak = torch.cuda.max_memory_allocated() / 2**30
     say(f"  peak {peak:.2f} GiB; {cfg.name}: {time.time() - t0:.1f} s")
@@ -6092,13 +6110,182 @@ def q_offset_case(label, q_shape, kv_shape, mask, device="cuda"):
 
 
 PROD_OUT = ROOT / "build" / "dryrun_15d"
+DECODE_PAIR = ("recurrentgemma-2b", "decode_32k", "multi")
+# DECODE_PAIR's trace on a CPU host (torch 2.13.0+cpu): collective bytes
+# a device by axis (PERF.md's hand count) and the dot FLOPs
+CPU_DECODE = {"model": 9_247_744, "pod": 73_614_336, "data": 53_256_704,
+              "dot_flops": 2_118_123_520.0}
+SHARD_DECODE_GEN = 32
 
 
-def start_production_trace():
-    """The production pair's traced dry run (``launch.dryrun``, host
-    work only: ~2 minutes) in a process of its own, started ahead of the
-    card's checks it runs beside."""
-    arch, shape, mesh_name = PROD_PAIR
+def sharded_decode(mesh, device="cuda"):
+    """Phase 5's prefill (B = SERVE_B, S = SERVE_S, through the kernels)
+    and SHARD_DECODE_GEN greedy tokens of RecurrentGemma-2B at published
+    width and depth, seed 0, with plain tensors and then with the params,
+    the batch and the cache as DTensors on ``mesh`` (placed by the rules;
+    the decode weight-stationary under ``Model.decode_step``'s rule
+    overrides): each prefill's launches exact (zeroed before, read
+    after); every token, every step's logits and every cache entry after
+    the last step the same bits; ms/token over the decode (CUDA events,
+    after a warm-up step on a copy of the cache) and one step's busy
+    share (profiler) of each."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import BATCH_AXES, concrete_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import (make_prefill_step,
+                                          make_serve_step, shard_tree)
+    from repro_torch.models import Model
+    from repro_torch.roofline import trace_parse
+    cfg = get_config("recurrentgemma-2b")
+    model = Model(cfg)
+    b, s, n = SERVE_B, SERVE_S, SHARD_DECODE_GEN
+    want = {"flash_attention": 8, "rglru_scan": 18}
+    params = model.init(seed=0, device=device)
+    batch = concrete_batch(cfg, b, s, torch.Generator().manual_seed(1),
+                           kind="prefill", device=device)
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    card = smi("name,power.limit")
+    out = {}
+    for side in ("plain", "sharded"):
+        p, bt = params, batch
+        if side == "sharded":
+            p = shard_tree(params, model.param_axes(), mesh)
+            bt = shard_tree(batch, BATCH_AXES, mesh)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        logits, cache = prefill(p, bt)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        if launches != want:
+            raise RuntimeError(f"the {side} prefill launched {launches}, "
+                               f"expected {want}")
+        cache = model.extend_cache({k: local(v) for k, v in cache.items()},
+                                   s + n)
+        tok = torch.argmax(local(logits), dim=-1).to(torch.int32)
+
+        def placed(c):
+            return (shard_tree(c, model.cache_axes(), mesh)
+                    if side == "sharded" else c)
+        warm = placed({k: v.clone() for k, v in cache.items()})
+        serve(p, warm, step_input(cfg, tok), s)
+        cache = placed(cache)
+        toks, steps = [], []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n):
+            tok, step_logits, cache = serve(p, cache, step_input(cfg, tok),
+                                            s + i)
+            toks.append(local(tok))
+            steps.append(local(step_logits))
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / n
+        trace = trace_parse.profile(lambda: serve(p, warm, step_input(
+            cfg, local(toks[0])), s + 1))
+        out[side] = dict(tokens=torch.stack(toks, 1).cpu(),
+                         logits=torch.stack(steps).cpu(),
+                         cache={k: local(v).cpu() for k, v in cache.items()},
+                         ms=ms, busy=trace.busy_share)
+        say(f"  {cfg.name} decode, {side}: prefill launches {launches}; "
+            f"{n} tokens at {ms:.3f} ms/token (CUDA events), a step "
+            f"{100 * trace.busy_share:.1f}% busy (profiler); sample "
+            f"{out[side]['tokens'][0, :8].tolist()}; card {card}")
+        del p, bt, cache, warm, logits, step_logits
+        torch.cuda.empty_cache()
+    plain, shard = out["plain"], out["sharded"]
+    same = (torch.equal(plain["tokens"], shard["tokens"])
+            and torch.equal(plain["logits"], shard["logits"])
+            and sorted(plain["cache"]) == sorted(shard["cache"])
+            and all(torch.equal(plain["cache"][k], shard["cache"][k])
+                    for k in plain["cache"]))
+    say(f"  {cfg.name}: the sharded decode (DTensors on {mesh}) is the "
+        f"plain decode bit for bit {same}: {n} tokens, their logits and "
+        f"all {len(plain['cache'])} cache entries; ms/token "
+        f"{shard['ms']:.3f} sharded vs {plain['ms']:.3f} plain "
+        f"({shard['ms'] / plain['ms']:.2f}x: DTensor's dispatch on the "
+        f"host), busy {100 * shard['busy']:.1f}% vs "
+        f"{100 * plain['busy']:.1f}%")
+    if not same:
+        raise RuntimeError("the sharded decode differs from the plain one")
+    del params, batch
+    torch.cuda.empty_cache()
+
+
+def sharded_batcher(mesh, device="cuda"):
+    """Phase 14's RecurrentGemma-2B batcher (BATCH_SLOTS slots, max_len
+    BATCH_MAX_LEN, seed-0 weights at ``condition_``'s scale) on its first
+    BATCH_CONTROL_N requests, with plain params and then with the params
+    as DTensors on ``mesh`` (its cache sharded by the rules, the greedy
+    token a sharded argmax): each request's tokens those of its phase-14
+    solo run (of the plain run here when phase 14 has not run), ms/tick
+    and tokens/s of both beside phase 14's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import shard_tree
+    from repro_torch.models import Model
+    cfg = get_config("recurrentgemma-2b")
+    model = Model(cfg)
+    params = model.init(seed=0, device=device)
+    condition_(params)
+    reqs = batch_requests(cfg.vocab_size)[:BATCH_CONTROL_N]
+    got = {}
+    for side in ("plain", "sharded"):
+        p = (shard_tree(params, model.param_axes(), mesh)
+             if side == "sharded" else params)
+        b, rec = run_batcher(model, p, reqs, device=device)
+        ticks = len(rec["ticks"])
+        n_gen = sum(len(r.generated) for r in b.completed.values())
+        got[side] = {u: r.generated for u, r in b.completed.items()}
+        say(f"  {cfg.name} batcher, {side} params: {ticks} ticks, "
+            f"{b.steps_run} slot steps, {rec['wall_s'] * 1e3 / ticks:.3f} "
+            f"ms/tick, {n_gen / rec['wall_s']:.2f} tokens/s")
+        del p, b, rec
+    del params
+    torch.cuda.empty_cache()
+    phase14 = BATCH_RECORD.get(cfg.name)
+    want = phase14["tokens"] if phase14 else got["plain"]
+    same = got["sharded"] == want and got["plain"] == want
+    say(f"  the sharded batcher's tokens are "
+        f"{'phase 14' if phase14 else 'the plain run'}'s {same}: "
+        f"{[got['sharded'][u] for u in sorted(got['sharded'])]}"
+        + (f"; phase 14: {phase14['ms_tick']:.3f} ms/tick, "
+           f"{phase14['tokens_s']:.2f} tokens/s (6 requests)"
+           if phase14 else ""))
+    if not same:
+        raise RuntimeError("the sharded batcher's tokens differ")
+
+
+def flops_by_op(hlo, top=8):
+    """A record's dot FLOPs: by ATen op, and its ``top`` largest
+    (op, operand shapes) entries."""
+    by = hlo.get("dot_flops_by_op", {})
+    ops = {}
+    for key, v in by.items():
+        ops[key.split(" ")[0]] = ops.get(key.split(" ")[0], 0.0) + v
+    big = sorted(by.items(), key=lambda kv: -kv[1])[:top]
+    return ({k: f"{v:.6e}" for k, v in sorted(ops.items())},
+            [f"{k}: {v:.6e}" for k, v in big])
+
+
+def read_trace(proc, pair):
+    """Wait for ``start_production_trace``'s process of ``pair``; its
+    record."""
+    arch, shape, mesh_name = pair
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the {shape} dry run failed:\n{out[-2000:]}\n"
+                           f"{err[-4000:]}")
+    return json.loads((PROD_OUT / f"{arch}__{shape}__{mesh_name}.json")
+                      .read_text())
+
+
+def start_production_trace(pair=PROD_PAIR):
+    """A pair's traced dry run (``launch.dryrun``, host work only: ~2
+    minutes for the production pair) in a process of its own, started
+    ahead of the card's checks it runs beside."""
+    arch, shape, mesh_name = pair
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--inline",
          "--force", "--arch", arch, "--shape", shape, "--mesh", mesh_name,
@@ -6107,16 +6294,17 @@ def start_production_trace():
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def sharded_step(device="cuda", prod=None):
-    """15(d): the sharded model step (see the module docstring), waiting
-    at its end for ``prod`` (``start_production_trace``'s process; None
-    starts it here). Returns the query-offset rows."""
+def sharded_step(device="cuda", prod=None, dec=None):
+    """15(d): the sharded model step and decode (see the module
+    docstring), waiting at its end for ``prod`` and ``dec``
+    (``start_production_trace``'s processes of PROD_PAIR and DECODE_PAIR;
+    None starts them here). Returns the query-offset rows."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
     t0 = time.time()
-    arch, shape, mesh_name = PROD_PAIR
     prod = prod or start_production_trace()
+    dec = dec or start_production_trace(DECODE_PAIR)
     rows = []
     try:
         mesh = mesh_lib.make_host_mesh((1, 1), ("data", "model"),
@@ -6128,28 +6316,40 @@ def sharded_step(device="cuda", prod=None):
                 cfg, real = sharded_vs_plain(a, layers, lr, mesh, device)
                 if a == "recurrentgemma-2b":
                     trace_peak_check(cfg, real, mesh, device)
+            t1 = time.time()
+            sharded_decode(mesh, device)
+            sharded_batcher(mesh, device)
+            say(f"  the decode and the batcher on the mesh: "
+                f"{time.time() - t1:.1f} s")
         finally:
             mesh_lib.close()
         for case in Q_OFFSET_CASES:
             rows.extend(q_offset_case(*case, device=device))
-        out, err = prod.communicate(timeout=900)
-        if prod.returncode != 0:
-            raise RuntimeError(f"the production pair's dry run failed:\n"
-                               f"{out[-2000:]}\n{err[-4000:]}")
-        rec = json.loads((PROD_OUT / f"{arch}__{shape}__{mesh_name}.json")
-                         .read_text())
-        mem, hlo = rec["memory_analysis"], rec["hlo"]
-        say(f"  dryrun.run_one({arch!r}, {shape!r}, multi_pod=True) through "
-            f"the trace (its own process, fake tensors on the card): temp "
-            f"{mem['temp_bytes']:,} B, peak {mem['peak_bytes_per_device']:,} "
-            f"B a device (arguments {mem['argument_bytes']:,}), collective "
-            f"bytes by axis {hlo['collective_bytes_by_axis']}, counts "
-            f"{hlo['collective_count']}, dot FLOPs {hlo['dot_flops']:.6e}; "
-            f"{rec['seconds']}")
+        for proc, pair in ((prod, PROD_PAIR), (dec, DECODE_PAIR)):
+            arch, shape, _ = pair
+            rec = read_trace(proc, pair)
+            mem, hlo = rec["memory_analysis"], rec["hlo"]
+            by_op, big = flops_by_op(hlo)
+            say(f"  dryrun.run_one({arch!r}, {shape!r}, multi_pod=True) "
+                f"through the trace (its own process, fake tensors on the "
+                f"card, torch {torch.__version__}): temp "
+                f"{mem['temp_bytes']:,} B, peak "
+                f"{mem['peak_bytes_per_device']:,} B a device (arguments "
+                f"{mem['argument_bytes']:,}), collective bytes by axis "
+                f"{hlo['collective_bytes_by_axis']}, by op "
+                f"{hlo['collective_bytes']}, counts "
+                f"{hlo['collective_count']}, largest "
+                f"{hlo['collective_largest']}, dot FLOPs "
+                f"{hlo['dot_flops']:.6e} (by op {by_op}; largest {big}); "
+                f"{rec['seconds']}")
+            if pair == DECODE_PAIR:
+                say(f"  the same trace on a CPU host (torch 2.13.0+cpu): "
+                    f"collective bytes by axis {CPU_DECODE}")
     finally:
-        if prod.poll() is None:
-            prod.kill()
-            prod.communicate()
+        for proc in (prod, dec):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     torch.cuda.empty_cache()
     say(f"  phase 15d: {time.time() - t0:.1f} s")
     return rows
@@ -6162,15 +6362,17 @@ def phase_mesh_roofline(device="cuda"):
     Returns phase 15(d)'s rows."""
     t0 = time.time()
     prod = start_production_trace()
+    dec = start_production_trace(DECODE_PAIR)
     try:
         mesh_round(device)
         mesh_dryrun_fed(device)
         roofline_prefill(device)
     except BaseException:
-        prod.kill()
-        prod.communicate()
+        for proc in (prod, dec):
+            proc.kill()
+            proc.communicate()
         raise
-    rows = sharded_step(device, prod)
+    rows = sharded_step(device, prod, dec)
     say(f"  phase 15: {time.time() - t0:.1f} s")
     return rows
 

@@ -23,8 +23,9 @@ registered ops):
     bytes during the step, less the arguments' (the trace's own count
     of the arguments is ``traced_argument_bytes``);
   * ``hlo``: ``parse_hlo``'s collective keys (bytes and counts by op,
-    bytes by mesh axis, all-reduces counted twice) of the collectives
-    DTensor issues, and the ATen product FLOPs.
+    bytes by mesh axis, all-reduces counted twice, and each op's largest
+    single call) of the collectives DTensor issues, and the ATen product
+    FLOPs, in all and by op and operand shapes (``dot_flops_by_op``).
 
 Those are the port's eager step, op by op, not XLA's fused program, and
 are not compared with the reference's. ``argument_bytes`` comes from the
@@ -189,6 +190,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     else:
         rec["memory_analysis"]["traced_argument_bytes"] = \
             traced.argument_bytes
+        rec["hlo"]["dot_flops_by_op"] = traced.dot_flops_by_op
     _write(rec, out_dir)
     return rec
 

@@ -171,11 +171,10 @@ def make_serve_step(model: Model):
         with on_mesh(params):
             logits, new_cache = model.decode_step(params, batch, cache,
                                                   cur_len)
-            # greedy next token (sampling is the server loop's business),
-            # over the whole vocabulary (DTensor's argmax cannot reduce
-            # a sharded one)
-            next_tok = torch.argmax(sdt.whole(logits, (1,)), dim=-1).to(
-                torch.int32)
+            # greedy next token (sampling is the server loop's business):
+            # each vocab shard's (max, first index), not the rows, are
+            # gathered; the logits returned stay sharded
+            next_tok = sdt.argmax(logits).to(torch.int32)
         return next_tok, logits, new_cache
     return serve_step
 

@@ -20,8 +20,15 @@ On a mesh q, k and v are pinned as the reference pins them: heads over
 'model' where the model axis divides the head count (or at decode),
 else the query sequence (context parallelism: the kernel's rows then
 start at their shard's ``q_offset``, the keys whole); the output to the
-batch. A decode step writes its k/v into a cache whose sequence may be
-sharded over 'model' on the ranks that hold those positions.
+batch. A decode step (weight-stationary, under ``Model.decode_step``'s
+rule override) contracts the projections' shards in place
+(``sdt.stationary``), writes its k/v (at one position, or at each row's
+own) into a cache whose sequence may be sharded over 'model' on the
+ranks that hold those positions, and attends there without gathering
+the cache: each rank attends its own keys, and the softmax's partial
+row max, sum and output are combined across the sequence shards by
+log-sum-exp (``decode_partials``; ``merge_partials`` is the same
+combine on one process).
 """
 from __future__ import annotations
 
@@ -143,16 +150,38 @@ def _flat_w(w: torch.Tensor, dt, at: int) -> torch.Tensor:
     return sdt.pinned(flat)
 
 
-def _project(p, x, cfg):
+def _heads_in(x, w, dt):
+    """x (B, S, d) times a DTensor (d, heads, dh) weight -> (B, S, heads,
+    dh) with the weight's shards kept in place (decode): no dim of it is
+    gathered, the embed shards' partial sums are reduced."""
+    return sdt.stationary(
+        lambda xl, wl: (xl @ wl.flatten(1, 2)).unflatten(-1, wl.shape[1:]),
+        "bsd,dhe->bshe", x, w.to(dt))
+
+
+def _heads_out(o, w, dt):
+    """o (B, S, heads, dh) times a DTensor (heads, dh, d) weight -> (B, S,
+    d), the weight's shards kept in place (decode)."""
+    return sdt.stationary(lambda ol, wl: ol.flatten(2, 3) @ wl.flatten(0, 1),
+                          "bshe,hed->bsd", o, w.to(dt))
+
+
+def _project(p, x, cfg, decode: bool = False):
     b, s, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
 
-    def w(name):        # (d, heads, dh) -> (d, heads * dh)
-        return _flat_w(p[name], dt, 1)
-    q = sdt.split_last(x @ w("wq"), (h, dh))
-    k = sdt.split_last(x @ w("wk"), (kh, dh))
-    v = sdt.split_last(x @ w("wv"), (kh, dh))
+    if decode and sdt.is_dtensor(p["wq"]):
+        # head_dim whole once (the rotation slices it; a sharded one
+        # would be gathered for each slice)
+        q, k, v = (sdt.whole(_heads_in(x, p[n], dt), (3,))
+                   for n in ("wq", "wk", "wv"))
+    else:
+        def w(name):        # (d, heads, dh) -> (d, heads * dh)
+            return _flat_w(p[name], dt, 1)
+        q = sdt.split_last(x @ w("wq"), (h, dh))
+        k = sdt.split_last(x @ w("wk"), (kh, dh))
+        v = sdt.split_last(x @ w("wv"), (kh, dh))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -206,7 +235,7 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     dt = x.dtype
     cap = cfg.logit_softcap
 
-    q, k, v = _project(p, x, cfg)
+    q, k, v = _project(p, x, cfg, decode=cache is not None)
     q = _position(q, cfg, positions, mrope_positions)
     k = _position(k, cfg, positions, mrope_positions)
     # the operands' own mesh: the ambient one is thread-local, and a remat
@@ -245,12 +274,8 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
         if isinstance(cur_len, torch.Tensor):
             # per-slot positions (continuous batching): each row's token
             # goes in at its own index
-            if sdt.is_dtensor(cache["k"]):
-                raise ValueError("per-row decode positions run on an "
-                                 "unsharded cache")
-            rows = torch.arange(b, device=x.device)
-            cache["k"][rows, cur_len] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][rows, cur_len] = v[:, 0].to(cache["v"].dtype)
+            sdt.write_rows_at_(cache["k"], cur_len, k.to(cache["k"].dtype))
+            sdt.write_rows_at_(cache["v"], cur_len, v.to(cache["v"].dtype))
             valid = (cur_len + s)[:, None, None]
         else:
             sdt.write_at_(cache["k"], 1, cur_len, k.to(cache["k"].dtype))
@@ -258,15 +283,18 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
             valid = cur_len + s
         new_cache = cache
         ck, cv = cache["k"].to(dt), cache["v"].to(dt)
-        k_pos = torch.arange(ck.shape[1], dtype=torch.int32, device=x.device)
-        kw = dict(window=window, causal=True, valid_len=valid, softcap=cap)
         if sdt.is_dtensor(q):
-            out = _sharded_decode(
-                q, ck, cv, lambda *a: gqa_attention(*a, **kw), positions,
-                k_pos, batch_extra=(0,))
-        else:
-            out = gqa_attention(q.reshape(b, s, k_heads, g, dh), ck, cv,
-                                positions, k_pos, **kw)
+            out = _sharded_self_decode(q, ck, cv, positions, valid,
+                                       window=window, softcap=cap)
+            # the heads' output replicated over the data axes (act_batch
+            # None), then through wo's shards in place
+            out = constrain(out, "act_batch", "act_seq", "act_heads", None)
+            y = _heads_out(out, p["wo"], dt)
+            return constrain(y, "act_batch", "act_seq", "act_embed"), cache
+        k_pos = torch.arange(ck.shape[1], dtype=torch.int32, device=x.device)
+        out = gqa_attention(q.reshape(b, s, k_heads, g, dh), ck, cv,
+                            positions, k_pos, window=window, causal=True,
+                            valid_len=valid, softcap=cap)
 
     out = sdt.pinned(out.reshape(b, s, k_heads * g * dh))
     wo = _flat_w(p["wo"], dt, 0)
@@ -277,36 +305,165 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     return constrain(y, "act_batch", "act_seq", "act_embed"), new_cache
 
 
-def _sharded_decode(q, ck, cv, attend, *extra, batch_extra=()):
-    """A decode step's attention of DTensors on each rank's shards:
-    ``attend(q5, k, v, *extra)`` with q (B, 1, H, dh) as (B, 1, K, G, dh)
-    against k/v (B, T, K, dh) keeps a batch shard and a kv-heads shard
-    (q's heads follow it) and gathers the keys of any other shard (a
-    cache sequence over 'model': one query needs every key; DTensor's
-    own einsum rules would cut the cache in strided pieces). ``extra``
-    go whole, but those at ``batch_extra`` follow the batch shard."""
+def _decode_layout(ck, mesh):
+    """Per mesh dim, the placements of a decode's q, of its cache k/v and
+    of its per-row operands, and the mesh dims that shard the cache's
+    sequence: the cache's batch shard and its kv-heads shard (where the
+    dim divides the kv heads) are kept, q's heads and the rows following
+    them; a sequence shard stays on the cache (q whole); anything else
+    is gathered."""
     from torch.distributed.tensor import Replicate, Shard
-    mesh = q.device_mesh
-    b, s, h, dh = q.shape
-    kh = ck.shape[2]
-    q_pl, c_pl, b_pl = [], [], []
+    q_pl, c_pl, r_pl, seq = [], [], [], []
     for i, cp in enumerate(ck.placements):
-        if cp == Shard(0) or (cp == Shard(2) and kh % mesh.size(i) == 0):
+        if cp == Shard(0) or (cp == Shard(2) and ck.shape[2] % mesh.size(i)
+                              == 0):
             q_pl.append(cp), c_pl.append(cp)
-            b_pl.append(Shard(0) if cp == Shard(0) else Replicate())
+            r_pl.append(cp if cp == Shard(0) else Replicate())
+        elif cp == Shard(1):
+            q_pl.append(Replicate()), c_pl.append(cp)
+            r_pl.append(Replicate()), seq.append(i)
         else:
             q_pl.append(Replicate()), c_pl.append(Replicate())
-            b_pl.append(Replicate())
-    rep = [Replicate()] * mesh.ndim
-    ins = (q_pl, c_pl, c_pl) + tuple(b_pl if i in batch_extra else rep
-                                     for i in range(len(extra)))
+            r_pl.append(Replicate())
+    return q_pl, c_pl, r_pl, seq
 
-    def fn(ql, kl, vl, *xs):
+
+def _sharded_cross_decode(q, ck, cv):
+    """A decode step's cross-attention of DTensors: q (B, 1, H, dh)
+    against the conditioning k/v (B, T, K, dh), whose sequence is never
+    sharded (the ``xk`` / ``xv`` cache axes), on each rank's batch and
+    kv-heads shards (``_decode_layout``) through ``dot_attention`` with
+    every key allowed."""
+    mesh = q.device_mesh
+    q_pl, c_pl, _, _ = _decode_layout(ck, mesh)
+    g = q.shape[2] // ck.shape[2]
+
+    def fn(ql, kl, vl):
+        bl, s, hl, dh = ql.shape
+        mask = torch.ones((s, kl.shape[1]), dtype=torch.bool,
+                          device=kl.device)
+        return dot_attention(ql.reshape(bl, s, hl // g, g, dh), kl, vl,
+                             mask).reshape(ql.shape)
+    return sdt.local(fn, mesh, q_pl, (q_pl, c_pl, c_pl))(q, ck, cv)
+
+
+def decode_partials(q, k, v, q_pos, k_pos, *, window: int = 0,
+                    valid_len=None, softcap: float = 0.0):
+    """The softmax's partials of q (B, Sq, K, G, dh) against a window of
+    keys k/v (B, T, K, dh) at global positions ``k_pos`` (T,), under the
+    causal mask with ``window`` and ``valid_len`` (``_mask``), the scores
+    capped before anything else: m (B, Sq, K, G), the largest allowed
+    score (-inf where the window holds none); l, the sum of exp(score -
+    m) (0 where none); o (B, Sq, K, G, dh), the sum of exp(score - m) v.
+    In fp32 (fp64 for fp64 inputs). Windows combine by
+    ``merge_partials``, or across ranks in ``_sharded_self_decode``."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("bqkgd,btkd->bqkgt", q.to(acc), k.to(acc))
+    scores = scores * (1.0 / math.sqrt(float(q.shape[-1])))
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    mask = _mask(q_pos, k_pos, window, True, valid_len)
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = scores.masked_fill(~mask[:, :, None, None], -math.inf)
+    m = scores.amax(-1)
+    e = torch.exp(scores - _finite(m)[..., None])
+    return m, e.sum(-1), torch.einsum("bqkgt,btkd->bqkgd", e, v.to(acc))
+
+
+def _finite(m):
+    """A row max with -inf (no allowed key) as 0, so exp(x - m) is 0,
+    never NaN, for x = -inf."""
+    return torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+
+
+def _weighted(m, top, l, o):
+    """A window's (o, l) packed as (..., dh + 1), scaled by its weight in
+    the softmax over every window, exp(m - top): 0 for a window with no
+    allowed key for the row (m = -inf), and for a row with none at all."""
+    w = torch.exp(m - _finite(top))
+    return torch.cat([o, l[..., None]], -1) * w[..., None]
+
+
+def _normalised(packed, dtype):
+    """(o, l) packed by ``_weighted`` (summed over the windows) -> o / l
+    in ``dtype``; 0 for a row with no allowed key (l = 0), the port's
+    convention for such a row."""
+    o, l = packed[..., :-1], packed[..., -1:]
+    ok = l > 0
+    return torch.where(ok, o / torch.where(ok, l, torch.ones_like(l)),
+                       torch.zeros_like(o)).to(dtype)
+
+
+def merge_partials(parts, dtype):
+    """Attention over the union of windows from each window's
+    ``decode_partials`` (m, l, o): every window rescaled to the row max
+    over all of them, summed, normalised; (B, Sq, K, G, dh) in
+    ``dtype``."""
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    return _normalised(sum(_weighted(m, top, l, o) for m, l, o in parts),
+                       dtype)
+
+
+def _sharded_self_decode(q, ck, cv, q_pos, valid, *, window: int,
+                         softcap: float):
+    """A decode step's self-attention of DTensors: q (B, 1, H, dh), the
+    cache k/v (B, T, K, dh), ``q_pos`` (B, 1) and ``valid`` (an int, or
+    (B, 1, 1) per row), on the cache's batch and kv-heads shards
+    (``_decode_layout``: q and the per-row operands follow them). Where
+    its sequence is sharded
+    over mesh dims, nothing is gathered: each rank attends its own keys
+    at their global positions (``decode_partials``), the row max is
+    all-reduced (max) over those dims, each rank rescales its sum and
+    output to it, and the two are all-reduced (sum) and normalised; the
+    collectives are DTensor's (``Partial`` placements), so a trace counts
+    them. Without a sequence shard each rank runs ``gqa_attention`` on
+    its shards, as on one process. Returns (B, 1, H, dh) on q's batch and
+    heads shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    _, s, h, dh = q.shape
+    g = h // ck.shape[2]
+    q_pl, c_pl, r_pl, seq = _decode_layout(ck, mesh)
+    tensor_valid = isinstance(valid, torch.Tensor)
+    ins = (q_pl, c_pl, c_pl, r_pl, r_pl if tensor_valid else None)
+    args = (q, ck, cv, sdt.replicate_like(q, q_pos),
+            sdt.replicate_like(q, valid) if tensor_valid else valid)
+    width = ck.to_local().shape[1]
+    lo = sdt.coord(mesh, seq) * width
+
+    def operands(ql, kl, pl):
         bl, _, hl, _ = ql.shape
-        g = h // kh
-        return attend(ql.reshape(bl, s, hl // g, g, dh), kl, vl,
-                      *xs).reshape(bl, s, hl, dh)
-    return sdt.local(fn, mesh, q_pl, ins, ins)(q, ck, cv, *extra)
+        k_pos = torch.arange(lo, lo + width, dtype=torch.int32,
+                             device=kl.device)
+        return ql.reshape(bl, s, hl // g, g, dh), k_pos, pl
+
+    if not seq:
+        def attend(ql, kl, vl, pl, vall):
+            q5, k_pos, pl = operands(ql, kl, pl)
+            return gqa_attention(q5, kl, vl, pl, k_pos, window=window,
+                                 causal=True, valid_len=vall,
+                                 softcap=softcap).reshape(ql.shape)
+        return sdt.local(attend, mesh, q_pl, ins)(*args)
+
+    def partials(ql, kl, vl, pl, vall):
+        q5, k_pos, pl = operands(ql, kl, pl)
+        return decode_partials(q5, kl, vl, pl, k_pos, window=window,
+                               valid_len=vall, softcap=softcap)
+
+    # (B, 1, K, G[, dh]) partials: batch shards on dim 0, kv heads on 2
+    part = [p if isinstance(p, Shard) else Replicate() for p in q_pl]
+    m_pl = [Partial("max") if i in seq else p for i, p in enumerate(part)]
+    s_pl = [Partial() if i in seq else p for i, p in enumerate(part)]
+    m, l, o = sdt.local(partials, mesh, (m_pl, s_pl, s_pl), ins)(*args)
+    top = m.redistribute(mesh, part)
+    packed = sdt.local(_weighted, mesh, s_pl, (m_pl, part, s_pl, s_pl))(
+        m, top, l, o).redistribute(mesh, part)
+
+    def finish(xl):
+        out = _normalised(xl, cv.dtype)
+        return out.reshape(out.shape[:2] + (-1, dh))
+    return sdt.local(finish, mesh, q_pl, (part,))(packed)
 
 
 def cross_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -316,19 +473,21 @@ def cross_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """Cross-attention to a precomputed conditioning sequence (musicgen):
     every query sees every conditioning key. cond_k/cond_v (B, S_cond, K,
     dh). Train/prefill through ``ops.attention`` (``causal=False``);
-    decode (``decode=True``) plain, as self-attention's decode."""
+    decode (``decode=True``) plain, as self-attention's decode, its
+    projections on a mesh weight-stationary as self-attention's."""
     b, s, _ = x.shape
     h, k_heads, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
     dt = x.dtype
-    q = sdt.split_last(x @ _flat_w(p["wq"], dt, 1), (h, dh))
     ck, cv = cond_k.to(dt), cond_v.to(dt)
+    if decode and sdt.is_dtensor(p["wq"]):
+        out = _sharded_cross_decode(_heads_in(x, p["wq"], dt), ck, cv)
+        out = constrain(out, "act_batch", "act_seq", "act_heads", None)
+        return _heads_out(out, p["wo"], dt)
+    q = sdt.split_last(x @ _flat_w(p["wq"], dt, 1), (h, dh))
     if decode:
-        mask = sdt.replicate_like(q, torch.ones(
-            (s, ck.shape[1]), dtype=torch.bool, device=x.device))
-        if sdt.is_dtensor(q):
-            out = _sharded_decode(q, ck, cv, dot_attention, mask)
-        else:
-            out = dot_attention(q.view(b, s, k_heads, g, dh), ck, cv, mask)
+        mask = torch.ones((s, ck.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = dot_attention(q.view(b, s, k_heads, g, dh), ck, cv, mask)
     else:
         if ops.plain_route(q, impl):
             q, ck, cv = (_grad_dtype_fence(t) for t in (q, ck, cv))

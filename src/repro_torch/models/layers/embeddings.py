@@ -29,6 +29,7 @@ def init_embeddings(ini, cfg) -> None:
 def embed_tokens(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
     table = sdt.unshard_data(params["embed/tokens"])
     if sdt.is_dtensor(table):
+        tokens = sdt.replicate_like(table, tokens)
         x = _sharded_lookup(table, tokens.long()).to(cfg.torch_dtype)
     else:
         x = table[tokens.long()].to(cfg.torch_dtype)
@@ -45,7 +46,8 @@ def _sharded_lookup(table, tokens):
     each rank takes the rows it holds (0 elsewhere) and the rows are a
     partial sum over those ranks (an index op on the table would gather
     it whole, and DTensor has no rule for tokens sharded over two mesh
-    dims)."""
+    dims); where its embed dim is sharded (the decode's table, not
+    gathered), each rank takes its columns of every row."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = table.device_mesh
     t_pl, t_grad, i_pl, o_pl, vdims = [], [], [], [], []
@@ -53,6 +55,9 @@ def _sharded_lookup(table, tokens):
         if tp == Shard(0):
             t_pl.append(tp), t_grad.append(tp), i_pl.append(Replicate())
             o_pl.append(Partial()), vdims.append(d)
+        elif tp == Shard(1):
+            t_pl.append(tp), t_grad.append(tp), i_pl.append(Replicate())
+            o_pl.append(Shard(tokens.dim()))
         else:       # the table's gradient: a partial sum over a token shard
             keep = ip if isinstance(ip, Shard) else Replicate()
             t_pl.append(Replicate()), i_pl.append(keep), o_pl.append(keep)
@@ -115,8 +120,10 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _sharded_matmul_f32(x, w):
     """``matmul_f32`` of DTensors on each rank's shards (``torch.mm``'s
     ``out_dtype`` has no DTensor rule): per mesh dim the rows of x keep a
-    shard of a leading dim, else w's columns theirs, else both whole; the
-    other operand's gradient is then a partial sum."""
+    shard of a leading dim, else w's columns theirs, else w's rows theirs
+    (the decode's tied head, its table not gathered: x's columns cut to
+    match, the logits partial sums), else both whole; the other
+    operand's gradient is then a partial sum."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     x_pl, w_pl, out_pl, gx, gw = [], [], [], [], []
     lead = range(x.dim() - 1)
@@ -127,6 +134,10 @@ def _sharded_matmul_f32(x, w):
         elif wp == Shard(1):
             x_pl.append(Replicate()), w_pl.append(wp)
             out_pl.append(Shard(x.dim() - 1)), gx.append(Partial())
+            gw.append(wp)
+        elif wp == Shard(0):
+            x_pl.append(Shard(x.dim() - 1)), w_pl.append(wp)
+            out_pl.append(Partial()), gx.append(Shard(x.dim() - 1))
             gw.append(wp)
         else:
             for pls in (x_pl, w_pl, out_pl, gx, gw):

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import dtensor as sdt
 from repro_torch.sharding.rules import constrain
 
 
@@ -32,12 +33,12 @@ def init_mlp(ini, pfx: str, cfg, stack: int = 0, d_ff: int = 0) -> None:
 
 def mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
     dt = x.dtype
-    h = x @ p["w_in"].to(dt)
+    h = sdt.dense(x, p["w_in"].to(dt))
     if cfg.mlp_gated:
-        g = x @ p["w_gate"].to(dt)
+        g = sdt.dense(x, p["w_gate"].to(dt))
         h = _act(cfg.act)(g) * h
     else:
         h = _act(cfg.act)(h)
     h = constrain(h, "act_batch", "act_seq", "act_mlp")
-    return constrain(h @ p["w_out"].to(dt), "act_batch", "act_seq",
-                     "act_embed")
+    return constrain(sdt.dense(h, p["w_out"].to(dt)), "act_batch",
+                     "act_seq", "act_embed")

@@ -96,13 +96,14 @@ def recurrent_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                     ) -> Tuple[torch.Tensor, Tuple]:
     """Griffin recurrent mixer. state = (conv_state, h_state) for decode."""
     dt = x.dtype
-    gate = gelu(x @ p["w_gate_branch"].to(dt))
-    xr = constrain(x @ p["w_x"].to(dt), "act_batch", "act_seq", "act_rnn")
+    gate = gelu(sdt.dense(x, p["w_gate_branch"].to(dt)))
+    xr = constrain(sdt.dense(x, p["w_x"].to(dt)), "act_batch", "act_seq",
+                   "act_rnn")
     conv_state = state[0] if state is not None else None
     h_state = state[1] if state is not None else None
     xr, new_conv = _causal_conv1d(xr, p["conv_w"], p["conv_b"], conv_state)
     y, new_h = _rg_lru(p, xr, cfg, h_state, impl=impl)
     y = y * gate
-    out = constrain(y @ p["w_out"].to(dt), "act_batch", "act_seq",
+    out = constrain(sdt.dense(y, p["w_out"].to(dt)), "act_batch", "act_seq",
                     "act_embed")
     return out, (new_conv, new_h.float())

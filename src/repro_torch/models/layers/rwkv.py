@@ -153,10 +153,10 @@ def rwkv_time_mix(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                @ p["w_lora_b"].float())
     w = torch.exp(-torch.exp(torch.clamp(w_logit, -12.0, 4.0)))  # in (0,1)
 
-    r = sdt.split_last(x_r @ p["wr"].to(dt), (h, dh))
-    k = sdt.split_last(x_k @ p["wk"].to(dt), (h, dh))
-    v = sdt.split_last(x_v @ p["wv"].to(dt), (h, dh))
-    g = F.silu(x_g @ p["wg"].to(dt))
+    r = sdt.split_last(sdt.dense(x_r, p["wr"].to(dt)), (h, dh))
+    k = sdt.split_last(sdt.dense(x_k, p["wk"].to(dt)), (h, dh))
+    v = sdt.split_last(sdt.dense(x_v, p["wv"].to(dt)), (h, dh))
+    g = F.silu(sdt.dense(x_g, p["wg"].to(dt)))
     w = sdt.split_last(w, (h, dh))
     u = p["u"]
 
@@ -171,7 +171,8 @@ def rwkv_time_mix(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     out = sdt.pinned(out.reshape(b, s, h * dh))
     out = groupnorm_heads(p["ln_x_scale"], p["ln_x_bias"], out, h)
     out = out * g
-    y = constrain(out @ p["wo"].to(dt), "act_batch", "act_seq", "act_embed")
+    y = constrain(sdt.dense(out, p["wo"].to(dt)), "act_batch", "act_seq",
+                  "act_embed")
     # a copy, so the state does not hold the whole input alive
     new_shift = x[:, -1].clone()
     return y, (new_shift, new_state.float())
@@ -187,9 +188,9 @@ def rwkv_channel_mix(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     delta = xx - x
     x_k = x + delta * p["mu_k"].to(dt)
     x_r = x + delta * p["mu_r"].to(dt)
-    kk = torch.square(F.relu(x_k @ p["wk"].to(dt)))
+    kk = torch.square(F.relu(sdt.dense(x_k, p["wk"].to(dt))))
     kk = constrain(kk, "act_batch", "act_seq", "act_mlp")
-    kv = kk @ p["wv"].to(dt)
-    rr = torch.sigmoid(x_r @ p["wr"].to(dt))
+    kv = sdt.dense(kk, p["wv"].to(dt))
+    rr = torch.sigmoid(sdt.dense(x_r, p["wr"].to(dt)))
     return (constrain(rr * kv, "act_batch", "act_seq", "act_embed"),
             x[:, -1].clone())

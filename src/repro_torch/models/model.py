@@ -19,6 +19,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.losses import total_loss
 from repro_torch.sharding import dtensor as sdt
+from repro_torch.sharding.rules import rule_overrides
 
 
 def mean_metrics(per):
@@ -141,11 +142,23 @@ class Model:
         at that position, or a (B,) int tensor on the cache's device, each
         row at its own position (its k/v written at its own index, its
         mask its own; the continuous batcher's slots). Returns (logits
-        (B, V), cache); the cache's tensors are updated in place."""
-        x, new_cache, _ = tfm.forward(params, self.cfg, mode="decode",
-                                      cur_len=cur_len, cache=cache,
-                                      impl=self.impl, **self._inputs(batch))
-        logits = tfm.logits_from_hidden(params, x, self.cfg)
+        (B, V), cache); the cache's tensors are updated in place.
+
+        Weight-stationary on a mesh, as the reference's: the forward and
+        the logits run under ``rule_overrides(act_batch=None,
+        act_seq_cp=None)``, so the one-token activations are replicated
+        over the data axes, no layer gathers its weights
+        (``sdt.unshard_data``), and the products contract the weights'
+        shards in place as partial sums. The cache keeps its own layout
+        (batch over ('pod', 'data'), sequence over 'model' where the kv
+        heads do not divide it): each rank attends its own keys and the
+        softmax's partials are combined across the sequence shards."""
+        with rule_overrides(act_batch=None, act_seq_cp=None):
+            x, new_cache, _ = tfm.forward(params, self.cfg, mode="decode",
+                                          cur_len=cur_len, cache=cache,
+                                          impl=self.impl,
+                                          **self._inputs(batch))
+            logits = tfm.logits_from_hidden(params, x, self.cfg)
         return logits[:, 0], new_cache
 
     # ---- caches ----

@@ -37,7 +37,9 @@ What it counts, per device (rank 0's shards):
 * ``dot_flops``: the FLOPs of the ATen products the step runs
   (``torch.utils.flop_counter``'s formulas on the local shapes: mm, bmm,
   addmm, baddbmm, convolutions), not those inside the hand-written
-  kernels.
+  kernels; ``dot_flops_by_op`` splits them by op and operand shapes
+  (e.g. "mm (128, 80) (80, 480)"), and ``collective_largest`` gives
+  each collective op's largest single call, in the same bytes.
 
 These are the numbers of the port's eager step, op by op, not of XLA's
 fused and rescheduled program: they are not the reference's and are not
@@ -135,6 +137,7 @@ def _fake_mode_class():
             self.live = 0
             self.peak = 0
             self.dot_flops = 0.0
+            self.dot_by_op: Dict[str, float] = {}
             self._seen = weakref.WeakSet()
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -172,7 +175,12 @@ def _fake_mode_class():
             self.peak = max(self.peak, self.live)
             count = flop_registry.get(func._overloadpacket)
             if count is not None:
-                self.dot_flops += count(*args, **kwargs, out_val=out)
+                n = count(*args, **kwargs, out_val=out)
+                self.dot_flops += n
+                key = " ".join([func._overloadpacket.__name__] + [
+                    str(tuple(a.shape)) for a in args
+                    if isinstance(a, torch.Tensor)])
+                self.dot_by_op[key] = self.dot_by_op.get(key, 0.0) + n
 
         def _free(self, n):
             self.live -= n
@@ -215,6 +223,8 @@ class StepTrace:
     peak_bytes: int
     dot_flops: float
     tally: collectives.Tally
+    dot_flops_by_op: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def temp_bytes(self) -> int:
@@ -230,7 +240,8 @@ def collective_record(tally: collectives.Tally,
     rec = {"collective_bytes": dict(tally.bytes_by_op),
            "collective_count": dict(tally.count_by_op),
            "collective_bytes_total": tally.total,
-           "collective_bytes_by_axis": dict(tally.bytes_by_axis)}
+           "collective_bytes_by_axis": dict(tally.bytes_by_axis),
+           "collective_largest": dict(tally.largest_by_op)}
     if dot_flops is not None:
         rec["dot_flops"] = dot_flops
     return rec
@@ -251,7 +262,7 @@ def trace_step(build: Callable, mesh) -> StepTrace:
         mode.counting = False
         del out
     return StepTrace(argument_bytes, mode.peak, mode.dot_flops,
-                     _merged(comms.tally, own))
+                     _merged(comms.tally, own), mode.dot_by_op)
 
 
 def _merged(tally: collectives.Tally, own: collectives.Tally
@@ -260,6 +271,8 @@ def _merged(tally: collectives.Tally, own: collectives.Tally
     for op, n in own.bytes_by_op.items():
         tally.bytes_by_op[op] += n
         tally.count_by_op[op] += own.count_by_op[op]
+        tally.largest_by_op[op] = max(tally.largest_by_op[op],
+                                      own.largest_by_op[op])
     for axis, n in own.bytes_by_axis.items():
         tally.bytes_by_axis[axis] += n
     return tally

@@ -28,6 +28,18 @@ idles at max_len - 1, so that its row's k/v write and its snapshot stay
 inside the cache; the reference's idles at max_len, where its scatter
 drops the write. Only an MoE arch, whose idle rows compete for expert
 capacity, could see the difference.
+
+On a mesh: given DTensor params, the batcher shards its cache on their
+mesh by ``model.cache_axes()`` (``launch.steps.shard_tree``: slots over
+('pod', 'data'), the k/v sequence over 'model' where the kv heads do
+not divide it), keeps ``cur`` and the tokens whole on every rank, and
+runs each slot step under the params' mesh. ``Model.decode_step`` is
+then the reference's weight-stationary decode (its logits under
+``act_batch`` None, as the reference's ``_logits``), each slot's k/v
+written at its own position into the rank that holds it, and the greedy
+token a sharded argmax (``sdt.argmax``: the vocab shards' maxima are
+gathered, not the logits). The snapshot, the restore and a slot's reset
+act on each rank's own shard of every entry.
 """
 from __future__ import annotations
 
@@ -39,7 +51,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.steps import on_mesh, shard_tree
 from repro_torch.models.model import Model
+from repro_torch.sharding import dtensor as sdt
 
 # entries of a slot's recurrent state (the rec and rwkv block kinds)
 RECURRENT_KEYS = ("conv", "h", "shift_tm", "shift_cm", "wkv")
@@ -66,22 +80,49 @@ def _is_kv(key: str) -> bool:
     return key.rsplit("/", 1)[-1] in ("k", "v")
 
 
-def snapshot_idle(cache: Dict[str, torch.Tensor], idle: torch.Tensor,
-                  cur: torch.Tensor):
-    """Copies of what a decode step writes in the ``idle`` slots' entries:
-    each k/v row at the slot's own ``cur`` (the step's only write to a
-    k/v entry), every other entry's rows whole."""
-    if idle.numel() == 0:
+def _shard(key: str, t: torch.Tensor):
+    """A cache entry as (this rank's slot-major view, the global index of
+    its first slot, of its first position): a DTensor's local shard, a
+    plain tensor whole from 0."""
+    if not sdt.is_dtensor(t):
+        return _slot_major(key, t), 0, 0
+    from torch.distributed.tensor import Shard
+    slot = 1 if key.startswith("stack/") else 0
+    loc = t.to_local()
+
+    def first(dim):
+        return sdt.coord(t.device_mesh, [
+            i for i, p in enumerate(t.placements) if p == Shard(dim)]
+        ) * loc.shape[dim]
+    return _slot_major(key, loc), first(slot), first(slot + 1)
+
+
+def snapshot_idle(cache: Dict[str, torch.Tensor], idle, cur: torch.Tensor):
+    """Copies of what a decode step writes in the ``idle`` slots' entries
+    (an int array of slot indices): each k/v row at the slot's own
+    ``cur`` (the step's only write to a k/v entry), every other entry's
+    rows whole. A DTensor entry is copied on each rank from its own
+    shard: its slots among ``idle``, each at its ``cur`` clamped into the
+    shard's positions (where ``cur`` lies outside, the step wrote nothing
+    there and the copy is put back unchanged)."""
+    idle = np.asarray(idle, dtype=np.int64)
+    if idle.size == 0:
         return []
-    at = cur[idle].long()
     saved = []
     for key, t in cache.items():
-        view = _slot_major(key, t)
+        view, b0, s0 = _shard(key, t)
+        mine = idle[(idle >= b0) & (idle < b0 + view.shape[0])]
+        if mine.size == 0:
+            continue
+        rows = torch.as_tensor(mine - b0, device=view.device)
         if _is_kv(key):
-            saved.append((view, (idle, slice(None), at)
-                          if key.startswith("stack/") else (idle, at)))
+            width = view.shape[2 if key.startswith("stack/") else 1]
+            at = (cur[torch.as_tensor(mine, device=cur.device)].long()
+                  - s0).clamp(0, width - 1).to(view.device)
+            saved.append((view, (rows, slice(None), at)
+                          if key.startswith("stack/") else (rows, at)))
         else:
-            saved.append((view, (idle,)))
+            saved.append((view, (rows,)))
     return [(view, index, view[index].clone()) for view, index in saved]
 
 
@@ -102,11 +143,13 @@ def make_slot_step(model: Model):
     @torch.no_grad()
     def step(params, cache, tokens, cur, active):
         active = np.asarray(active, dtype=bool)
-        idle = torch.as_tensor(np.flatnonzero(~active), device=cur.device)
-        saved = snapshot_idle(cache, idle, cur)
-        logits, cache = model.decode_step(params, {"tokens": tokens}, cache,
-                                          cur)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        saved = snapshot_idle(cache, np.flatnonzero(~active), cur)
+        with on_mesh(params):
+            logits, cache = model.decode_step(params, {"tokens": tokens},
+                                              cache, cur)
+            next_tok = sdt.argmax(logits).to(torch.int32)
+        if sdt.is_dtensor(next_tok):
+            next_tok = next_tok.full_tensor()
         restore_(saved)
         step_on = torch.as_tensor(active, device=cur.device)
         cur = torch.where(step_on, cur + 1, cur)
@@ -118,7 +161,8 @@ def make_slot_step(model: Model):
 class ContinuousBatcher:
     """Slot-based continuous batching around a Model (token inputs), on
     ``device`` (the card unless the CPU is asked for), where the params
-    must already be."""
+    must already be: plain tensors, or DTensors on a mesh of that
+    device, whose mesh then carries the cache (module docstring)."""
 
     def __init__(self, model: Model, params, n_slots: int = 4,
                  max_len: int = 128, device="cuda"):
@@ -142,6 +186,10 @@ class ContinuousBatcher:
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.remaining = np.zeros(n_slots, np.int32)
         self.cache = model.init_cache(n_slots, max_len, device=self.device)
+        mesh = next((v.device_mesh for v in params.values()
+                     if sdt.is_dtensor(v)), None)
+        if mesh is not None:
+            self.cache = shard_tree(self.cache, model.cache_axes(), mesh)
         self.cur = torch.zeros((n_slots,), dtype=torch.int32,
                                device=self.device)
         self.tokens = np.zeros((n_slots, 1), np.int32)
@@ -159,10 +207,13 @@ class ContinuousBatcher:
         self.queue.append(req)
 
     def _reset_slot(self, i: int) -> None:
-        """Zero slot i's recurrent entries and its position."""
+        """Zero slot i's recurrent entries (on the rank that holds the
+        slot, for a sharded cache) and its position."""
         for key, t in self.cache.items():
             if key.rsplit("/", 1)[-1] in RECURRENT_KEYS:
-                _slot_major(key, t)[i].zero_()
+                view, b0, _ = _shard(key, t)
+                if b0 <= i < b0 + view.shape[0]:
+                    view[i - b0].zero_()
         self.cur[i] = 0
 
     def _run_step(self, active: np.ndarray) -> np.ndarray:

@@ -29,11 +29,13 @@ class Tally:
         self.bytes_by_axis: Dict[str, float] = defaultdict(float)
         self.bytes_by_op: Dict[str, float] = defaultdict(float)
         self.count_by_op: Dict[str, int] = defaultdict(int)
+        self.largest_by_op: Dict[str, float] = defaultdict(float)
 
     def add(self, axis: str, op: str, nbytes: int) -> None:
         self.bytes_by_axis[axis] += nbytes
         self.bytes_by_op[op] += nbytes
         self.count_by_op[op] += 1
+        self.largest_by_op[op] = max(self.largest_by_op[op], nbytes)
 
     @property
     def total(self) -> float:
@@ -42,7 +44,8 @@ class Tally:
     def as_dict(self) -> Dict[str, Dict]:
         return {"bytes_by_axis": dict(self.bytes_by_axis),
                 "bytes_by_op": dict(self.bytes_by_op),
-                "count_by_op": dict(self.count_by_op)}
+                "count_by_op": dict(self.count_by_op),
+                "largest_by_op": dict(self.largest_by_op)}
 
 
 _OPEN: List[Tally] = []

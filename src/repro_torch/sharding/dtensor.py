@@ -25,12 +25,22 @@ run on a mesh the reference's way.
   placements, so a reshape before it sees a gradient it can reshape
   (DTensor may shard a product's gradient where the reshape cannot keep
   the shard, e.g. 10 heads over a model axis of 16).
-* ``unshard_data`` all-gathers a weight's shards over the data axes
-  ('pod', 'data': the batch's) before a layer uses it, as FSDP does, so
-  the products keep the batch sharded (DTensor would otherwise gather
-  the activations where they are the smaller operand); the weight's
-  gradient comes back as a partial sum and is reduce-scattered onto the
-  param (``launch.steps``).
+* ``unshard_data`` all-gathers a weight's shards over the mesh axes of
+  the active ``act_batch`` rule ('pod', 'data') before a layer uses it,
+  as FSDP does, so the products keep the batch sharded (DTensor would
+  otherwise gather the activations where they are the smaller operand);
+  the weight's gradient comes back as a partial sum and is
+  reduce-scattered onto the param (``launch.steps``). Under the decode's
+  rule override (``act_batch`` None) it gathers nothing: the weights
+  stay where they lie.
+* ``stationary`` is a product of an activation and a weight that keeps
+  the weight's shards in place (the decode's layout): the activation is
+  cut to match and the partial sums are reduced, activation-sized.
+* ``argmax`` is ``torch.argmax`` over a last dim that may be sharded:
+  each rank's (max, first index) pairs are gathered, not the rows.
+* ``write_rows_at_`` writes row r of a window at its own position
+  ``pos[r]`` in place, into a DTensor's shards (a decode step's k/v at
+  each slot's position into a sequence-sharded cache).
 * ``settled`` reduces a DTensor's partial sums onto a shard of one dim
   (a reduce-scatter; a replica where the dim does not divide), before a
   sharded operand meets it: a product contracted over a sharded dim
@@ -47,6 +57,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+
+from repro_torch.sharding.rules import rule_axes
 
 
 def is_dtensor(x) -> bool:
@@ -125,17 +137,16 @@ def pinned(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, x.placements)
 
 
-DATA_AXES = ("pod", "data")
-
-
 def unshard_data(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with its shards over the mesh's data axes gathered (a plain
-    tensor, or one not sharded over them, as it is)."""
+    """``x`` with its shards over the mesh axes of the active
+    ``act_batch`` rule gathered (a plain tensor, or one not sharded over
+    them, as it is; under ``act_batch`` None, nothing is gathered)."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate
+    axes = rule_axes("act_batch")
     names = x.device_mesh.mesh_dim_names or ()
-    pls = [Replicate() if n in DATA_AXES else p
+    pls = [Replicate() if n in axes else p
            for n, p in zip(names, x.placements)]
     return x if pls == list(x.placements) else x.redistribute(
         x.device_mesh, pls)
@@ -207,3 +218,117 @@ def write_at_(dst: torch.Tensor, dim: int, start: int, src: torch.Tensor
     if a < b:
         dst_l.narrow(dim, a - lo, b - a).copy_(src_l.narrow(dim, a - start,
                                                            b - a))
+
+
+def write_rows_at_(dst: torch.Tensor, pos: torch.Tensor, src: torch.Tensor
+                   ) -> None:
+    """``dst[r, pos[r]] = src[r, 0]`` for every row r, in place: dim 0 of
+    ``dst`` the rows, dim 1 the positions, ``src`` (B, 1, ...) and ``pos``
+    (B,) int. A DTensor ``dst`` takes on each rank the rows of its shard
+    of dim 0 whose position falls in its shard of dim 1, ``src``
+    redistributed to ``dst``'s placements but whole along dim 1 (a
+    gathered copy would lose the write, as in ``write_at_``); every other
+    row of the shard writes back the value it holds, so the step needs
+    no host sync."""
+    if not is_dtensor(dst):
+        rows = torch.arange(dst.shape[0], device=dst.device)
+        dst[rows, pos] = src[:, 0]
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dst.device_mesh
+    pls = [Replicate() if p == Shard(1) else p for p in dst.placements]
+    src_l = replicate_like(dst, src).redistribute(mesh, pls).to_local()
+    pos = pos.full_tensor() if is_dtensor(pos) else pos
+    dst_l = dst.to_local()
+    rows, width = dst_l.shape[:2]
+
+    def first(dim):
+        return coord(mesh, [i for i, p in enumerate(dst.placements)
+                            if p == Shard(dim)])
+    at = pos.narrow(0, first(0) * rows, rows).long() - first(1) * width
+    inside = ((at >= 0) & (at < width)).view((rows,) + (1,) * (
+        dst_l.dim() - 2))
+    at = at.clamp(0, width - 1)
+    idx = torch.arange(rows, device=dst_l.device)
+    dst_l[idx, at] = torch.where(inside, src_l[:, 0], dst_l[idx, at])
+
+
+def stationary(fn: Callable, eq: str, x: torch.Tensor, w: torch.Tensor
+               ) -> torch.Tensor:
+    """``fn(x, w)``, a product whose operands' and result's dims are named
+    by the einsum-like ``eq`` (e.g. "bsd,dhe->bshe"), with a DTensor
+    weight ``w`` kept where it lies (the decode's weight-stationary
+    layout). Per mesh dim: where w shards a dim, x is cut along the same
+    dim (a local cut of a replica) and the result is sharded along it,
+    or, for a dim the product contracts, is a partial sum; where w is
+    whole, x keeps a shard of a dim that reaches the result and is
+    gathered otherwise. The partial sums are then reduced
+    onto replicas: the collectives move activations, never the weight.
+    Plain operands go through ``fn`` as they are."""
+    if not is_dtensor(w):
+        return fn(x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ins, out = eq.split("->")
+    xs, ws = ins.split(",")
+    x = replicate_like(w, x)
+    x_pl, w_pl, o_pl = [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(wp, Shard):
+            c = ws[wp.dim]
+            x_pl.append(Shard(xs.index(c)) if c in xs else Replicate())
+            w_pl.append(wp)
+            o_pl.append(Shard(out.index(c)) if c in out else Partial())
+        elif isinstance(xp, Shard) and xs[xp.dim] in out:
+            x_pl.append(xp), w_pl.append(wp)
+            o_pl.append(Shard(out.index(xs[xp.dim])))
+        else:
+            x_pl.append(Replicate()), w_pl.append(wp)
+            o_pl.append(Replicate())
+    mesh = w.device_mesh
+    y = local(fn, mesh, o_pl, (x_pl, w_pl))(x, w)
+    pls = [Replicate() if isinstance(p, Partial) else p
+           for p in y.placements]
+    return y if pls == list(y.placements) else y.redistribute(mesh, pls)
+
+
+def argmax(x: torch.Tensor) -> torch.Tensor:
+    """``torch.argmax(x, dim=-1)``. A DTensor whose last dim is sharded is
+    not gathered: each rank takes its shard's largest value and the
+    global index of its first occurrence, those (rows, shards) pairs are
+    all-gathered, and the first shard holding the largest value gives the
+    index. Ties go to the smallest index and a NaN counts as the
+    largest, as on the whole row, so the index is the same."""
+    if not is_dtensor(x):
+        return torch.argmax(x, dim=-1)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    last = x.dim() - 1
+    pls = [Replicate() if isinstance(p, Partial) else p
+           for p in x.placements]
+    vdims = [d for d, p in enumerate(pls) if p == Shard(last)]
+
+    def pairs(xl):          # (..., 1, 2): the value and its global index
+        i = torch.argmax(xl, dim=-1, keepdim=True)
+        lo = coord(mesh, vdims) * xl.shape[-1]
+        return torch.stack([xl.gather(-1, i).double(), (i + lo).double()],
+                           dim=-1)
+
+    def pick(gl):           # (..., shards, 2) -> (...)
+        j = torch.argmax(gl[..., 0], dim=-1, keepdim=True)
+        return gl[..., 1].gather(-1, j)[..., 0].long()
+    got = whole(local(pairs, mesh, pls, (pls,))(x), (last,))
+    pls = list(got.placements)
+    return local(pick, mesh, pls, (pls,))(got)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a (d_in, d_out) weight. Under the decode's rule
+    override (``act_batch`` None: the activations replicated over the data
+    axes, the weights not gathered) a DTensor product goes through
+    ``stationary``: the weight's shards stay in place and the partial
+    sums over its d_in shards are reduced, activation-sized. Elsewhere,
+    and for plain tensors, ``x @ w`` as it is."""
+    if not is_dtensor(w) or rule_axes("act_batch"):
+        return x @ w
+    lead = "abcdefgh"[:x.dim() - 1]
+    return stationary(torch.matmul, f"{lead}i,io->{lead}o", x, w)

@@ -111,6 +111,13 @@ def active_rules(rules: Optional[Dict[str, Optional[str]]] = None
     return merged
 
 
+def rule_axes(name: str) -> Tuple[str, ...]:
+    """The mesh axes the active rules give the logical axis ``name``
+    (none for a rule of None, e.g. ``act_batch`` under the decode's
+    override)."""
+    return _as_axes(active_rules().get(name))
+
+
 def mesh_shape(mesh) -> Dict[str, int]:
     """``{axis: size}`` in mesh-dim order, of a DeviceMesh or a mapping."""
     if isinstance(mesh, Mapping):

@@ -11,7 +11,8 @@ and the classical round's mesh path, on the CPU.
   record's temporaries, peak and collectives are present and agree with
   each other and with the footprint (peak >= arguments; the trace's
   argument bytes are the footprint's less the scalars the step takes
-  as Python numbers).
+  as Python numbers). On the multi-pod mesh the decode moves no weight
+  and no cache, and each axis's bytes are within 10% of a hand count.
 * The skipped pairs keep the reference's record; the CLI writes one
   file a pair and resumes; the report goes to the file it is given.
 * The classical round on two gloo ranks (``fed_train_round`` on a 'pod'
@@ -110,6 +111,12 @@ def test_argument_bytes_equal_the_reference(arch, tmp_path):
             assert rec["model_flops_per_device"] > 0
 
 
+# RecurrentGemma-2B decode_32k's collective bytes a device by mesh axis
+# on the 2x16x16 mesh, counted by hand from the decode's layout (PERF.md)
+DECODE_HAND_COUNT = {"model": 9_247_744, "pod": 73_614_336,
+                     "data": 53_256_704}
+
+
 @pytest.mark.parametrize("arch,shape_name,multi", [
     ("recurrentgemma-2b", "decode_32k", False),
     ("recurrentgemma-2b", "decode_32k", True)])
@@ -132,7 +139,20 @@ def test_traced_record_holds_temporaries_and_collectives(arch, shape_name,
         dryrun.MESHES["multi" if multi else "single"])
     assert set(hlo["collective_count"]) == set(hlo["collective_bytes"])
     assert hlo["dot_flops"] > 0
+    assert hlo["dot_flops"] == pytest.approx(sum(
+        hlo["dot_flops_by_op"].values()))
     assert rec["seconds"]["trace"] > 0
+    if multi:
+        # the reference's decode layout: weight-stationary, the cache's
+        # sequence shards attended in place; no collective moves a
+        # weight (13.1 MB wq / wo, 81.9 MB the table) or the cache
+        # (67.1 MB a layer), each axis within 10% of the hand count
+        by_axis = hlo["collective_bytes_by_axis"]
+        assert max(hlo["collective_largest"].values()) < 17e6
+        assert by_axis["model"] <= 0.25e9
+        assert by_axis["pod"] + by_axis["data"] <= 0.15e9
+        for axis, want in DECODE_HAND_COUNT.items():
+            assert abs(by_axis[axis] - want) <= 0.10 * want, axis
 
 
 def test_skipped_pairs_keep_the_reference_record(tmp_path):

@@ -453,13 +453,18 @@ def tc_mma(acc, x, y):
     mma.sync of the tensor cores sums it, as ``tensor_core_scores`` models
     their sums: the 8 exact products and the accumulator aligned to the
     largest exponent among them, each truncated below 2^(e - 26), added
-    exactly, and the sum truncated to fp32 (toward 0)."""
-    terms = x.double()[..., :, None, :] * y.double().transpose(-1, -2)[
-        ..., None, :, :]
-    terms = torch.cat([acc.double()[..., None], terms], -1)
-    e = torch.frexp(terms.abs().amax(-1, keepdim=True)).exponent
-    quantum = torch.ldexp(torch.ones_like(terms[..., :1]), e - 26)
-    total = (torch.trunc(terms / quantum) * quantum).sum(-1)
+    exactly, and the sum truncated to fp32 (toward 0). The 8 products lie
+    k-major, (8, ..., m, n), so each reduction over them is elementwise
+    across 8 slabs; scaled by 2^(26 - e), every truncated term is an
+    integer below 2^27 and their sum is exact in any order."""
+    terms = x.double().movedim(-1, 0)[..., :, None] * \
+        y.double().movedim(-2, 0)[..., None, :]
+    a = acc.double()
+    top = torch.maximum(torch.maximum(terms.amax(0), terms.amin(0).neg_()),
+                        a.abs())
+    inv = torch.ldexp(torch.ones_like(top), 26 - torch.frexp(top).exponent)
+    total = (terms.mul_(inv).trunc_().sum(0)
+             + a.mul(inv).trunc_()).div_(inv)
     rn = total.float()
     return torch.where(rn.double().abs() > total.abs(),
                        torch.nextafter(rn, torch.zeros_like(rn)), rn)

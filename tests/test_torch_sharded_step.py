@@ -58,7 +58,24 @@ logits within the whole-model gate, 1e-3 (ROADMAP Standing notes).
 There the sharded attention's context-parallel branch, the sharded
 cache write, the MoE's fixed-shape dispatch and the vocab-sharded label
 gather meet a reference that is not the port.
+
+The decode runs the reference's way on the mesh: weight-stationary
+under the rule overrides, the cache's sequence sharded over 'model' for
+``qwen-cp`` and ``recurrentgemma`` (their kv heads do not divide it),
+each rank attending its own keys and the softmax's partials combined by
+log-sum-exp. For those two the batcher's step (``make_slot_step``) also
+decodes with a (B,) ``cur_len``, each row at its own position (``CUR``,
+in both 'model' halves of the cache, so each rank writes some rows and
+attends keys for only some): its logits and every cache entry within
+1e-5 of one process, and within 1e-3 of the JAX reference's batcher
+decode (``serving.scheduler._forward_decode`` and ``_logits`` with
+positions ``CUR[:, None]``) on the same numpy params and cache. And the
+``ContinuousBatcher`` with the ``recurrentgemma`` params as DTensors
+(its cache sharded, the argmax over vocab shards) serves three requests
+through four slots with the one-process batcher's tokens.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -79,12 +96,19 @@ from repro_torch.optim import AdamW  # noqa: E402
 TOL = 1e-5
 LOSS_TOL, GRAD_TOL, MODEL_TOL = 1e-5, 1e-4, 1e-3   # against the reference
 B, S, MAX_LEN, LR = 4, 16, 24, 1e-3
+# each row's decode position: distinct, in both 'model' halves of the
+# cache ([0, 12) and [12, 24)); row 1's keys all lie in the first half
+CUR = (16, 5, 21, 12)
+ROW_CASES = ("qwen-cp", "recurrentgemma")
+# (prompt length, budget) of the requests through the sharded batcher
+REQUESTS = ((4, 3), (3, 4), (5, 2))
 
 RANKS = """
 from repro_torch.configs.shapes import BATCH_AXES
 from repro_torch.launch import steps
 from repro_torch.models import Model
 from repro_torch.optim import AdamW
+from repro_torch.serving import ContinuousBatcher, Request, scheduler
 
 def full(tree):
     return {k: v.full_tensor() for k, v in tree.items()}
@@ -114,6 +138,22 @@ for name, c in cases.items():
            "params": full(new), "logits": logits.full_tensor(),
            "cache": full(cache), "dlogits": dlogits.full_tensor(),
            "dcache": full(dcache)}
+    if "rows" in c:
+        rcache = steps.shard_tree(c["cache"], model.cache_axes(), mesh)
+        rtok, rlogits, _, rcache = scheduler.make_slot_step(model)(
+            steps.shard_tree(c["params"], axes, mesh), rcache,
+            c["token"]["tokens"], c["rows"], [True] * len(c["rows"]))
+        res.update(rtok=rtok, rlogits=rlogits.full_tensor(),
+                   rcache=full(rcache))
+    if "requests" in c:
+        bt = ContinuousBatcher(model, steps.shard_tree(c["params"], axes,
+                                                       mesh),
+                               n_slots=4, max_len=MAX_LEN, device="cpu")
+        for uid, (prompt, budget) in enumerate(c["requests"]):
+            bt.submit(Request(uid=uid, prompt=prompt,
+                              max_new_tokens=budget))
+        bt.run_until_drained()
+        res["served"] = {u: r.generated for u, r in bt.completed.items()}
     out[name] = res
 if RANK == 0:
     torch.save(out, f"{OUT}/sharded.pt")
@@ -178,7 +218,10 @@ def jax_params(name, seed):
 
 
 def make_cases():
-    cases, ref = {}, {}
+    """The cases the ranks run, each with its one-process results, and
+    the JAX reference's runs as (name, function) pairs still to call
+    (the fixture calls them while the ranks run)."""
+    cases, pending = {}, []
     for i, (name, cfg) in enumerate(configs().items()):
         model = Model(cfg)
         if name in AGAINST_JAX:
@@ -210,20 +253,85 @@ def make_cases():
             cases[name]["want"]["loss_shard_cut"] = model.loss_fn(
                 params, cut)[0].detach()
         if name in AGAINST_JAX:
-            ref[name] = reference(jcfg, jp, cfg, tokens, labels)
-    return cases, ref
+            pending.append((name, functools.partial(
+                reference, jcfg, jp, cfg, tokens, labels)))
+        if name in ROW_CASES:
+            c = cases[name]
+            c["rows"] = torch.tensor(CUR, dtype=torch.int32)
+            c["want"].update(rows_one_process(c), cache_in=c["cache"])
+            if name not in AGAINST_JAX:
+                jcfg = jget_config(CASES[name][0]).reduced(**CASES[name][1])
+                jp = convert.model_params_to_numpy(params)
+            pending.append((name, functools.partial(
+                reference_rows, jcfg, jp, c["cache"], tokens[:, S:])))
+        if name == "recurrentgemma":
+            c = cases[name]
+            c["requests"] = [
+                (rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+                for n, m in REQUESTS]
+            c["want"]["served"] = serve(model, params, c["requests"])
+    return cases, pending
+
+
+def rows_one_process(c):
+    """The batcher's step over every slot at the rows' own positions
+    ``CUR``, in this process."""
+    from repro_torch.serving import scheduler
+    cache = {k: v.clone() for k, v in c["cache"].items()}
+    tok, logits, _, cache = scheduler.make_slot_step(Model(c["cfg"]))(
+        c["params"], cache, c["token"]["tokens"], c["rows"],
+        [True] * len(CUR))
+    return {"rtok": tok, "rlogits": logits, "rcache": cache}
+
+
+def reference_rows(jcfg, jp, cache, token):
+    """The JAX reference's batcher decode (``_forward_decode`` with
+    positions ``CUR[:, None]``, then ``_logits``) of ``token`` (B, 1)
+    against ``cache`` (the port's, as numpy): its logits and cache
+    (jitted, as ``reference``)."""
+    from repro.serving import scheduler as jsched
+    jm = JModel(jcfg)
+    cur = jnp.asarray(np.array(CUR, np.int32))
+    jc = {k: jnp.asarray(v) for k, v in
+          convert.model_params_to_numpy(cache).items()}
+    jpj = {k: jnp.asarray(v) for k, v in jp.items()}
+
+    @jax.jit
+    def decode(p, tok, cache):
+        x, cache, _ = jsched._forward_decode(jm, p, tok, cache, cur[:, None],
+                                             cur)
+        return jsched._logits(jm, p, x), cache
+    jlogits, jcache = decode(jpj, jnp.asarray(token), jc)
+    return {"rlogits": torch.as_tensor(np.asarray(jlogits)),
+            "rcache": {k: torch.as_tensor(np.asarray(v))
+                       for k, v in jcache.items()}}
+
+
+def serve(model, params, requests):
+    """The one-process batcher's tokens for ``requests`` through four
+    slots."""
+    from repro_torch.serving import ContinuousBatcher, Request
+    bt = ContinuousBatcher(model, params, n_slots=4, max_len=MAX_LEN,
+                           device="cpu")
+    for uid, (prompt, budget) in enumerate(requests):
+        bt.submit(Request(uid=uid, prompt=prompt, max_new_tokens=budget))
+    bt.run_until_drained()
+    return {u: r.generated for u, r in bt.completed.items()}
 
 
 def reference(jcfg, jp, cfg, tokens, labels):
     """The JAX reference's loss and grads, prefill (last logits, cache)
     and one decode step at position S, on numpy inputs; its prefill
     cache's k/v padded to MAX_LEN for the decode, as ``extend_cache``
-    pads the port's."""
+    pads the port's. Each function is jitted: op by op, JAX compiles
+    every primitive on its own, several times the whole program's
+    compile."""
     jm = JModel(jcfg)
     jpj = {k: jnp.asarray(v) for k, v in jp.items()}
-    (jloss, _), jgrads = jax.value_and_grad(jm.loss_fn, has_aux=True)(
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jm.loss_fn,
+                                                    has_aux=True))(
         jpj, {"tokens": tokens[:, :S], "labels": labels})
-    jlogits, jcache = jm.prefill(jpj, {"tokens": tokens[:, :S]})
+    jlogits, jcache = jax.jit(jm.prefill)(jpj, {"tokens": tokens[:, :S]})
     jc = {}
     for key, v in jcache.items():
         v = np.asarray(v)
@@ -232,8 +340,8 @@ def reference(jcfg, jp, cfg, tokens, labels):
             pad[v.ndim - 3] = (0, MAX_LEN - S)
             v = np.pad(v, pad)
         jc[key] = jnp.asarray(v)
-    jdlogits, _ = jm.decode_step(jpj, {"tokens": tokens[:, S:]}, jc,
-                                 jnp.int32(S))
+    jdlogits, _ = jax.jit(jm.decode_step)(jpj, {"tokens": tokens[:, S:]},
+                                          jc, jnp.int32(S))
     grads = convert.model_params_to_torch(
         {k: np.asarray(v, np.float32) for k, v in jgrads.items()}, cfg,
         device="cpu")
@@ -264,13 +372,20 @@ def one_process(c):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    from torch_ranks import run_ranks
+    from torch_ranks import start_ranks, wait_ranks
     torch.manual_seed(0)
     tmp = tmp_path_factory.mktemp("sharded")
-    cases, ref = make_cases()
+    cases, pending = make_cases()
     torch.save({k: {kk: vv for kk, vv in c.items() if kk != "want"}
                 for k, c in cases.items()}, tmp / "cases.pt")
-    run_ranks(f"LR, S = {LR!r}, {S}\n" + RANKS, 4, tmp, timeout=420)
+    ranks = start_ranks(f"LR, S, MAX_LEN = {LR!r}, {S}, {MAX_LEN}\n" + RANKS,
+                        4, tmp)
+    try:
+        ref = {}
+        for name, run in pending:
+            ref.setdefault(name, {}).update(run())
+    finally:
+        wait_ranks(ranks, timeout=420)
     got = torch.load(tmp / "sharded.pt", weights_only=False)
     return ref, got, {k: c["want"] for k, c in cases.items()}
 
@@ -322,6 +437,45 @@ def test_sharded_step_equals_the_reference(runs, name):
     assert sorted(g["cache"]) == sorted(want["cache"])
     for k in want["cache"]:
         assert rel(g["cache"][k], want["cache"][k]) <= MODEL_TOL, k
+
+
+@pytest.mark.parametrize("name", ROW_CASES)
+def test_sharded_per_row_decode_equals_one_process(runs, name):
+    """The batcher's step on the mesh, each row at its own position in
+    the sequence-sharded cache: the greedy tokens, the logits and every
+    cache entry (the k/v rows written on the ranks that hold them)."""
+    _, got, want = runs
+    want, g = want[name], got[name]
+    assert torch.equal(g["rtok"], want["rtok"])
+    assert rel(g["rlogits"], want["rlogits"]) <= TOL
+    assert sorted(g["rcache"]) == sorted(want["rcache"])
+    for k in want["rcache"]:
+        assert rel(g["rcache"][k], want["rcache"][k]) <= TOL, k
+    # each row's k/v written at its own position, and nowhere else
+    key = next(k for k in want["rcache"] if k.endswith("/k"))
+    moved = (want["rcache"][key] != want["cache_in"][key]).any(-1)
+    moved = moved.any(-1).any(0) if key.startswith("stack/") else \
+        moved.any(-1)
+    assert [sorted(torch.nonzero(r).flatten().tolist()) for r in moved] == \
+        [[p] for p in CUR]
+
+
+@pytest.mark.parametrize("name", ROW_CASES)
+def test_sharded_per_row_decode_equals_the_reference_batchers(runs, name):
+    ref, got, _ = runs
+    want, g = ref[name], got[name]
+    assert rel(g["rlogits"], want["rlogits"]) <= MODEL_TOL
+    assert sorted(g["rcache"]) == sorted(want["rcache"])
+    for k in want["rcache"]:
+        assert rel(g["rcache"][k], want["rcache"][k]) <= MODEL_TOL, k
+
+
+def test_sharded_batcher_serves_the_one_process_tokens(runs):
+    _, got, want = runs
+    served = got["recurrentgemma"]["served"]
+    assert served == want["recurrentgemma"]["served"]
+    assert sorted(served) == [0, 1, 2]
+    assert [len(served[u]) for u in sorted(served)] == [m for _, m in REQUESTS]
 
 
 def test_microbatches_hold_the_reference_rows(runs):
