@@ -287,12 +287,13 @@ repository, it exits non-zero before printing any result. Phases:
    kernels, against the plain-tensor step from the same init and batch:
    the loss and every param after AdamW the same bits, the launches
    exact (16/8/52 and 32/16), ms/step and busy share of both; the bf16
-   attention with a query offset of S/2 on rows [S/2, S) at phase 5's
-   and 12a's shapes: forward, LSE and dq the full call's rows bit for
-   bit, dk and dv within the backward's budget of the plain version with
-   the same offset, a planted offset of 0 failing the forward gate, the
-   kernel's ms beside the full call's (a forward and a backward row in
-   the result); the
+   and the fp32 attention kernels with a query offset of S/2 on rows
+   [S/2, S) at phase 5's and 12a's shapes: forward, LSE and dq the full
+   call's rows bit for bit, dk and dv within the backward's budget of
+   the plain version with the same offset, a planted offset of 0 failing
+   the forward gate, the kernel's ms beside the full call's and SDPA's
+   in the same dtype (a forward and a backward row in the result for
+   each dtype and shape); the
    ``FakeTensorMode`` trace of RecurrentGemma-2B's world-1 step
    (``roofline.step_trace``), its peak within 10% of
    ``torch.cuda.max_memory_allocated`` of the real step; the decode on
@@ -309,7 +310,9 @@ repository, it exits non-zero before printing any result. Phases:
    decode_32k on the 2x16x16 fake mesh through the trace (temporaries,
    peak, collective bytes by axis and op, the largest collective, dot
    FLOPs by ATen op and shape, seconds), beside the same traces' counts
-   on a CPU host (torch 2.13.0+cpu).
+   on a CPU host (torch 2.13.0+cpu): train_4k's dot FLOPs within 1% of
+   the CPU host's and 2% of the hand count, its 'model' bytes within 10%
+   of the hand count (``TRAIN_HAND``).
 
 Phase 5's fp32-storage attention row also plants NaNs (``nan_rows_check``:
 torch's 0x7fc00000, the card's 0x7fffffff and 0xffffffff) in q, k and v
@@ -337,11 +340,11 @@ forward (bf16, and fp32 storage: not launched there) and backward at
 phase 12a's Qwen1.5-4B shape (launches a federated round, ``"cell"``
 set), and the attention forward at each shape of phase 13's prefills
 (launches of that shape a prefill, ``"cell"`` set), and the bf16
-attention's query-offset forward and backward rows of phase 15(d) (each
-launches one offset call of its own kernel in that check, ``"cell"``
-set; the world-1 path has no context parallelism); every row but the
-15(d) forward rows carries ``device_us``, and fidelity's and mse's
-the launch floor.
+and fp32 attention's query-offset forward and backward rows of phase
+15(d) (each launches one offset call of its own kernel in that check,
+``"cell"`` set; the world-1 path has no context parallelism); every row
+but the 15(d) forward rows carries ``device_us``, and fidelity's and
+mse's the launch floor.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and never prints that line.
 
@@ -3642,10 +3645,10 @@ def train_launches(cfg):
 
 
 def attn_bwd_timing(q, k, v, o, do, kw):
-    """The bf16 attention backward kernel at (q, k, v, o, dO) (heads-major)
-    timed by CUDA events beside its plain version and SDPA's backward,
-    with its device time a launch and its bound; printed. Returns the
-    numbers of its row in the result."""
+    """The attention backward kernel at (q, k, v, o, dO) (heads-major; bf16
+    or fp32) timed by CUDA events beside its plain version and SDPA's
+    backward in the same dtype, with its device time a launch and its
+    bound; printed. Returns the numbers of its row in the result."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
     mask = dict(causal=kw["causal"], window=kw["window"],
@@ -3661,8 +3664,9 @@ def attn_bwd_timing(q, k, v, o, do, kw):
     flops = 10 * q.shape[2] * q.shape[0] * allowed_pairs(
         q.shape[1], k.shape[1], kw["causal"], kw["window"],
         kw.get("q_offset", 0))
-    say(f"  {ATTN_BWD} timed at {[list(x.shape) for x in (q, k)]} bf16 "
-        f"{mask}: kernel {k_ms:.4f} ms (device {dev_us:.2f} us a launch; "
+    say(f"  {ATTN_BWD} timed at {[list(x.shape) for x in (q, k)]} "
+        f"{str(q.dtype)[6:]} {mask}: kernel {k_ms:.4f} ms (device "
+        f"{dev_us:.2f} us a launch; "
         f"{flops / k_ms / 1e9:.1f} TFLOP/s on the five products), plain "
         f"{p_ms:.4f} ms, SDPA backward ({backend}) "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
@@ -6015,20 +6019,24 @@ def trace_peak_check(cfg, real, mesh, device="cuda"):
         raise RuntimeError(f"the traced peak is {ratio:.4f}x the card's")
 
 
-def q_offset_case(label, q_shape, kv_shape, mask, device="cuda"):
-    """The bf16 attention kernels on query rows [S/2, S) at q_offset S/2
-    against the full call (from 0) on seeded inputs: the forward, its LSE
-    and dq the full call's rows bit for bit; dk, dv (and dq) within the
-    backward's bf16 budget of the plain version with the same offset
-    (``attn_bwd_case``); a planted offset of 0 must fail the forward
-    gate. Returns the offset forward's and the offset backward's rows,
-    each with its own launch count (one call each)."""
+def q_offset_case(label, q_shape, kv_shape, mask, dtype="bfloat16",
+                  device="cuda"):
+    """The attention kernels of ``dtype`` (bf16: wgmma; fp32: 3xTF32
+    ``mma.sync``) on query rows [S/2, S) at q_offset S/2 against the full
+    call (from 0) on seeded inputs: the forward, its LSE and dq the full
+    call's rows bit for bit; dk, dv (and dq) within the backward's budget
+    of the plain version with the same offset (``attn_bwd_case``: bf16's
+    budget, or BWD_RTOL in fp32); a planted offset of 0 must fail the
+    forward gate. Returns the offset forward's and the offset backward's
+    rows, each with its own launch count (one call each)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as kfa
+    dt = getattr(torch, dtype)
+    fp32 = dt == torch.float32
     g = torch.Generator(device=device).manual_seed(15)
-    q, k, v = (torch.randn(s, generator=g, device=device).to(torch.bfloat16)
+    q, k, v = (torch.randn(s, generator=g, device=device).to(dt)
                for s in (q_shape, kv_shape, kv_shape))
 
     def heads_major(x):
@@ -6044,8 +6052,7 @@ def q_offset_case(label, q_shape, kv_shape, mask, device="cuda"):
     got, lse_o = kfa.flash_attention(qo, kf, vf, return_lse=True,
                                      q_offset=off, **kw)
     fwd_launches = build.LAUNCHES["flash_attention"]
-    dout = torch.randn(full.shape, generator=g, device=device).to(
-        torch.bfloat16)
+    dout = torch.randn(full.shape, generator=g, device=device).to(dt)
     dq, dk, dv = kfa.flash_attention_bwd(qf, kf, vf, full, dout, lse=lse, **kw)
     do_o = dout[:, off:].contiguous()
     build.reset_launches()
@@ -6057,19 +6064,23 @@ def q_offset_case(label, q_shape, kv_shape, mask, device="cuda"):
         lse_o, lse[:, off:]) and torch.equal(dq_o, dq[:, off:]))
     planted = kfa.flash_attention(qo, kf, vf, **kw)
     planted_fails = not torch.equal(planted, full[:, off:])
-    say(f"  q_offset {off}, {label} (q {tuple(qo.shape)} of "
+    say(f"  q_offset {off}, {label}, {dtype} (q {tuple(qo.shape)} of "
         f"{tuple(qf.shape)}, kv {tuple(kf.shape)}, {mask}): forward, LSE "
         f"and dq the full call's rows bit for bit {rows_ok}; a planted "
         f"offset of 0 fails that gate {planted_fails}")
     if not (rows_ok and planted_fails):
-        raise RuntimeError(f"q_offset {label}: the offset rows differ from "
-                           "the full call's, or the planted offset passes")
+        raise RuntimeError(f"q_offset {label} {dtype}: the offset rows "
+                           "differ from the full call's, or the planted "
+                           "offset passes")
     bwd_kw = dict(kw, lse=lse_o, q_offset=off)
     bwd_err = attn_bwd_case((qo, kf, vf, got, do_o), bwd_kw,
-                            f"q_offset {off} at {label}")
+                            f"q_offset {off} at {label}, {dtype}")
     bwd = attn_bwd_timing(qo, kf, vf, got, do_o, bwd_kw)
     plain = ref.attention_ref(qo, kf, vf, q_offset=off, **kw)
     err = float((got.float() - plain.float()).abs().max())
+    if fp32 and err > KERNEL_RTOL * max(1.0, float(plain.abs().max())):
+        raise RuntimeError(f"q_offset {label} fp32: the kernel is {err:.3e} "
+                           "off the plain version")
     k_ms = cuda_ms(lambda: kfa.flash_attention(qo, kf, vf, q_offset=off,
                                                **kw), reps=10, warmup=2)
     full_ms = cuda_ms(lambda: kfa.flash_attention(qf, kf, vf, **kw),
@@ -6086,27 +6097,36 @@ def q_offset_case(label, q_shape, kv_shape, mask, device="cuda"):
     args = (qs, k, v)
     b_ms, b_by = seq_bound_ms("flash_attention", args,
                               dict(kw, q_offset=off))
-    say(f"  q_offset {off}, {label}: kernel {k_ms:.4f} ms (the full call "
-        f"{full_ms:.4f} ms), plain {p_ms:.4f} ms, SDPA on the same rows "
-        f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), kernel/bound "
-        f"{k_ms / b_ms:.2f}x; max_abs_err {err:.3e} off the plain version; "
-        f"card {smi('name,power.limit')}")
+    full_b_ms = seq_bound_ms("flash_attention", (q, k, v), kw)[0]
+    say(f"  q_offset {off}, {label}, {dtype}: kernel {k_ms:.4f} ms (the "
+        f"full call {full_ms:.4f} ms), plain {p_ms:.4f} ms, "
+        f"{'fp32 ' if fp32 else ''}SDPA on the same rows {lib_ms:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by}{', 3xTF32' if fp32 else ''}), "
+        f"kernel/bound {k_ms / b_ms:.2f}x (the full call "
+        f"{full_ms / full_b_ms:.2f}x of its own); "
+        f"max_abs_err {err:.3e} off the plain version; card "
+        f"{smi('name,power.limit')}")
     bwd_shape = [list(qo.shape), list(kf.shape)]
     del q, k, v, qf, kf, vf, full, got, dq, dk, dv, dq_o, plain
     torch.cuda.empty_cache()
-    cell = (f"q_offset {off}: query rows [{off}, {s}) of {label} "
+    cell = (f"q_offset {off}: query rows [{off}, {s}) of {label}, {dtype} "
             f"(launches: this check's one offset call; the world-1 path has "
             f"no context parallelism)")
-    return [dict(name="flash_attention", route="cuda",
-                 **SEQ_KERNELS["flash_attention"],
+    fwd_src = ("src/repro_torch/kernels/csrc/flash_attention.cu" if fp32
+               else SEQ_KERNELS["flash_attention"]["source"])
+    bwd_src = ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu" if fp32
+               else ATTN_BWD_SOURCE)
+    replaces = SEQ_KERNELS["flash_attention"]["replaces"]
+    return [dict(name=FA32 if fp32 else "flash_attention", route="cuda",
+                 source=fwd_src, replaces=replaces,
                  shape=[list(qs.shape), list(kv_shape), list(kv_shape)],
                  max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=lib_ms, launches=fwd_launches,
                  cell=f"{cell}, full call {full_ms:.4f} ms"),
-            dict(name=ATTN_BWD, route="cuda", source=ATTN_BWD_SOURCE,
-                 replaces=SEQ_KERNELS["flash_attention"]["replaces"],
-                 shape=bwd_shape, max_abs_err=bwd_err,
-                 launches=bwd_launches, cell=cell, **bwd)]
+            dict(name=ATTN_BWD32 if fp32 else ATTN_BWD, route="cuda",
+                 source=bwd_src, replaces=replaces, shape=bwd_shape,
+                 max_abs_err=bwd_err, launches=bwd_launches, cell=cell,
+                 **bwd)]
 
 
 PROD_OUT = ROOT / "build" / "dryrun_15d"
@@ -6116,6 +6136,13 @@ DECODE_PAIR = ("recurrentgemma-2b", "decode_32k", "multi")
 CPU_DECODE = {"model": 9_247_744, "pod": 73_614_336, "data": 53_256_704,
               "dot_flops": 2_118_123_520.0}
 SHARD_DECODE_GEN = 32
+# PROD_PAIR's trace: the dot FLOPs and 'model' collective bytes a device
+# counted by hand from the layout (PERF.md: the products of the
+# weights the rules shard by rows contracted on each rank's rows, the
+# query rows projected on each rank under context parallelism), and the
+# same trace on a CPU host (torch 2.13.0+cpu)
+TRAIN_HAND = {"dot_flops": 5.128e13, "model": 92_691_628_688}
+CPU_TRAIN = {"dot_flops": 51_281_909_514_240.0, "model": 98_350_252_688}
 
 
 def sharded_decode(mesh, device="cuda"):
@@ -6269,6 +6296,28 @@ def flops_by_op(hlo, top=8):
             [f"{k}: {v:.6e}" for k, v in big])
 
 
+def train_trace_gate(hlo):
+    """PROD_PAIR's traced dot FLOPs within 1% of the CPU host's trace and
+    within 2% of the hand count, its 'model' bytes within 10% of the
+    hand count; printed beside them."""
+    flops, model = hlo["dot_flops"], hlo["collective_bytes_by_axis"]["model"]
+    ok = (abs(flops / CPU_TRAIN["dot_flops"] - 1) <= 0.01
+          and abs(flops / TRAIN_HAND["dot_flops"] - 1) <= 0.02
+          and abs(model / TRAIN_HAND["model"] - 1) <= 0.10)
+    say(f"  train_4k's trace here against the CPU host's (torch "
+        f"2.13.0+cpu) and the hand count: dot FLOPs {flops:.6e} vs "
+        f"{CPU_TRAIN['dot_flops']:.6e} ({flops / CPU_TRAIN['dot_flops']:.4f}"
+        f"x) and {TRAIN_HAND['dot_flops']:.4e} "
+        f"({flops / TRAIN_HAND['dot_flops']:.4f}x); 'model' bytes "
+        f"{model:,.0f} vs {CPU_TRAIN['model']:,} "
+        f"({model / CPU_TRAIN['model']:.4f}x) and the hand count "
+        f"{TRAIN_HAND['model']:,} ({model / TRAIN_HAND['model']:.4f}x) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("train_4k's traced FLOPs or 'model' bytes are off "
+                           "the CPU host's trace or the hand count")
+
+
 def read_trace(proc, pair):
     """Wait for ``start_production_trace``'s process of ``pair``; its
     record."""
@@ -6323,8 +6372,9 @@ def sharded_step(device="cuda", prod=None, dec=None):
                 f"{time.time() - t1:.1f} s")
         finally:
             mesh_lib.close()
-        for case in Q_OFFSET_CASES:
-            rows.extend(q_offset_case(*case, device=device))
+        for dtype in ("bfloat16", "float32"):
+            for case in Q_OFFSET_CASES:
+                rows.extend(q_offset_case(*case, dtype=dtype, device=device))
         for proc, pair in ((prod, PROD_PAIR), (dec, DECODE_PAIR)):
             arch, shape, _ = pair
             rec = read_trace(proc, pair)
@@ -6345,6 +6395,8 @@ def sharded_step(device="cuda", prod=None, dec=None):
             if pair == DECODE_PAIR:
                 say(f"  the same trace on a CPU host (torch 2.13.0+cpu): "
                     f"collective bytes by axis {CPU_DECODE}")
+            else:
+                train_trace_gate(hlo)
     finally:
         for proc in (prod, dec):
             if proc.poll() is None:

@@ -12,10 +12,12 @@
 // head bh / G directly, so the copies are never made.
 //
 // Semantics are those of repro.kernels.ref.attention_ref: q (BH, Sq, D),
-// k/v (BH / G, Sk, D); query i and key j (positions from 0) pair when
-// j < Sk, j <= i (causal) and j > i - window (window > 0); scores scaled
-// by 1/sqrt(D). A row with no allowed key writes 0 (the TPU kernel's
-// max(l, 1e-30) guard); such rows only arise when Sq > Sk + window - 1.
+// k/v (BH / G, Sk, D); query row i sits at position p = i + q_offset
+// (q_offset >= 0: a shard of the query sequence under context
+// parallelism, whose rows start there), key j at position j; they pair
+// when j < Sk, j <= p (causal) and j > p - window (window > 0); scores
+// scaled by 1/sqrt(D). A row with no allowed key writes 0 (the TPU
+// kernel's max(l, 1e-30) guard).
 // On request each row's log-sum-exp m + log l of its scaled allowed
 // scores goes to an fp32 (BH, Sq) output for the backward, in natural-log
 // units (-inf for a row with no allowed key), as the bf16 kernel writes it.
@@ -104,7 +106,7 @@ __device__ __forceinline__ void flash_body(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
     float* __restrict__ lse, int group, int sq, int sk, int causal,
-    int window) {
+    int window, int q_off) {
   constexpr int kP = pitch<D>();
   constexpr int kN = D / 8;        // n-tiles of O
   extern __shared__ __align__(16) float smem[];
@@ -121,9 +123,10 @@ __device__ __forceinline__ void flash_body(
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
 
   // key tiles that hold an allowed key for some real row of this block
-  const int q_hi = min(q0 + kBQ, sq) - 1;
-  const int k_hi = causal ? min(sk - 1, q_hi) : sk - 1;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  // (positions: row i at i + q_off)
+  const int p_hi = min(q0 + kBQ, sq) - 1 + q_off;
+  const int k_hi = causal ? min(sk - 1, p_hi) : sk - 1;
+  const int k_lo = window > 0 ? max(0, q0 + q_off - window + 1) : 0;
   const int t_lo = k_lo / kBK;
   const int t_hi = k_hi >= k_lo ? k_hi / kBK : t_lo - 1;
 
@@ -168,7 +171,8 @@ __device__ __forceinline__ void flash_body(
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          ok[j][e] = allowed(row, k0 + 8 * j + 2 * t + e, sk, causal, window);
+          ok[j][e] = allowed(row + q_off, k0 + 8 * j + 2 * t + e, sk, causal,
+                             window);
           float& x = s[j][2 * h + e];
           x = ok[j][e] ? __fmul_rn(x, scale) : kNegInf;
           mx = fmaxf(mx, x);
@@ -228,15 +232,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out,
              float* __restrict__ lse, const int* __restrict__ nan_flag,
-             int group, int sq, int sk, int causal, int window) {
+             int group, int sq, int sk, int causal, int window, int q_off) {
   if ((*nan_flag != 0) != kNaN) return;
-  flash_body<D, kNaN>(q, k, v, out, lse, group, sq, sk, causal, window);
+  flash_body<D, kNaN>(q, k, v, out, lse, group, sq, sk, causal, window,
+                      q_off);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            void* nan_flag, int bh, int group, int sq, int sk, int causal,
-           int window, void* stream) {
+           int window, int q_off, void* stream) {
   const size_t smem = smem_bytes<D>();
   const void* kernels[2] = {
       reinterpret_cast<const void*>(flash_kernel<D, false>),
@@ -262,18 +267,18 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), static_cast<const int*>(nan_flag), group,
-      sq, sk, causal, window);
+      sq, sk, causal, window, q_off);
   flash_kernel<D, true><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), static_cast<const int*>(nan_flag), group,
-      sq, sk, causal, window);
+      sq, sk, causal, window, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_dh(const void* q, const void* k, const void* v, void* out,
               void* lse, void* nan_flag, int bh, int group, int sq, int sk,
-              int dh, int causal, int window, void* stream) {
+              int dh, int causal, int window, int q_off, void* stream) {
   const void* ptrs[4] = {q, k, v, out};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16)    // cp.async's alignment
@@ -282,13 +287,13 @@ int launch_dh(const void* q, const void* k, const void* v, void* out,
   switch (dh) {
     case 64:
       return launch<64>(q, k, v, out, lse, nan_flag, bh, group, sq, sk,
-                        causal, window, stream);
+                        causal, window, q_off, stream);
     case 128:
       return launch<128>(q, k, v, out, lse, nan_flag, bh, group, sq, sk,
-                         causal, window, stream);
+                         causal, window, q_off, stream);
     case 256:
       return launch<256>(q, k, v, out, lse, nan_flag, bh, group, sq, sk,
-                         causal, window, stream);
+                         causal, window, q_off, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -303,8 +308,8 @@ int launch_dh(const void* q, const void* k, const void* v, void* out,
 // with no allowed key): the backward (qf_flash_attention_bwd) reads it.
 // nan_flag, one int of device memory for fp32 (the bf16 kernels ignore
 // it), receives whether q, k or v holds a NaN. Query row i sits at
-// position i + q_off (a context-parallel shard's rows); only the bf16
-// kernels take q_off > 0, fp32 refuses it (cudaErrorInvalidValue).
+// position i + q_off (q_off >= 0: a context-parallel shard's rows), in
+// both dtypes.
 extern "C" int qf_flash_attention(const void* q, const void* k,
                                   const void* v, void* out, void* lse,
                                   void* nan_flag, int bh, int bk, int sq,
@@ -315,10 +320,9 @@ extern "C" int qf_flash_attention(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = bh / bk;
   switch (dtype) {
-    case qf::kFloat32:   // query rows from position 0 only
-      if (q_off != 0) return static_cast<int>(cudaErrorInvalidValue);
+    case qf::kFloat32:
       return launch_dh(q, k, v, out, lse, nan_flag, bh, group, sq, sk, dh,
-                       causal, window, stream);
+                       causal, window, q_off, stream);
     case qf::kBFloat16:
       return qf::flash_attention_bf16(q, k, v, out, lse, bh, bk, sq, sk, dh,
                                       causal, window, q_off, stream);

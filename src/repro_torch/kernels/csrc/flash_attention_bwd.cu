@@ -14,10 +14,12 @@
 //
 // Semantics are those of repro_torch.kernels.ref.attention_bwd_ref:
 // q, o, dO (BH, Sq, D); k, v (BH / G, Sk, D); query row bh reads kv row
-// bh / G; query i and key j (positions from 0) pair when j < Sk,
-// j <= i (causal) and j > i - window (window > 0); scores scaled by
-// 1/sqrt(D). With LSE_i the forward's log-sum-exp of row i (natural-log
-// units) and P_ij = exp(s_ij - LSE_i) for the allowed pairs (0 else),
+// bh / G; query row i sits at position p = i + q_offset (q_offset >= 0:
+// a shard of the query sequence under context parallelism), key j at
+// position j; they pair when j < Sk, j <= p (causal) and j > p - window
+// (window > 0); scores scaled by 1/sqrt(D). With LSE_i the forward's
+// log-sum-exp of row i (natural-log units) and P_ij = exp(s_ij - LSE_i)
+// for the allowed pairs (0 else),
 //   D_i  = sum_c dO_ic O_ic
 //   dS_ij = P_ij (dO_i . v_j - D_i)
 //   dQ_i = scale sum_j dS_ij k_j,  dK_j = scale sum_i dS_ij q_i,
@@ -128,7 +130,7 @@ __device__ __forceinline__ void attn_bwd_dq_body(
     const float* __restrict__ v, const float* __restrict__ o,
     const float* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ dq, float* __restrict__ dd_ws, int group, int sq,
-    int sk, int causal, int window) {
+    int sk, int causal, int window, int q_off) {
   constexpr int kP = pitch<D>();
   constexpr int kN = D / 8;
   extern __shared__ __align__(16) float smem[];
@@ -150,9 +152,11 @@ __device__ __forceinline__ void attn_bwd_dq_body(
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   const float one[2] = {1.f, 1.f};          // acc_pairs: acc += A B
 
-  const int q_hi = min(q0 + kAQ, sq) - 1;
-  const int k_hi = causal ? min(sk - 1, q_hi) : sk - 1;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  // key tiles that hold an allowed key for some real row of this block
+  // (positions: row i at i + q_off)
+  const int p_hi = min(q0 + kAQ, sq) - 1 + q_off;
+  const int k_hi = causal ? min(sk - 1, p_hi) : sk - 1;
+  const int k_lo = window > 0 ? max(0, q0 + q_off - window + 1) : 0;
   const int t_lo = k_lo / kAK;
   const int t_hi = k_hi >= k_lo ? k_hi / kAK : t_lo - 1;
 
@@ -218,7 +222,8 @@ __device__ __forceinline__ void attn_bwd_dq_body(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int row = row0 + 8 * h;
-          const bool ok = row < sq && allowed(row, k0 + kw + 8 * j + 2 * t + e,
+          const bool ok = row < sq && allowed(row + q_off,
+                                              k0 + kw + 8 * j + 2 * t + e,
                                               sk, causal, window);
           const float p = ok ? expf(fmaf(s[j][2 * h + e], scale, -lse_r[h]))
                              : 0.f;
@@ -275,10 +280,10 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ lse, float* __restrict__ dq,
                    float* __restrict__ dd_ws,
                    const int* __restrict__ nan_flag, int group, int sq,
-                   int sk, int causal, int window) {
+                   int sk, int causal, int window, int q_off) {
   if ((*nan_flag != 0) != kNaN) return;
   attn_bwd_dq_body<D, kNaN>(q, k, v, o, dout, lse, dq, dd_ws, group, sq, sk,
-                            causal, window);
+                            causal, window, q_off);
 }
 
 // ---------------------------------------------------------------- pass B
@@ -288,7 +293,7 @@ __device__ __forceinline__ void attn_bwd_dkdv_body(
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dd_ws,
     float* __restrict__ part, int group, int splits, int sq, int sk,
-    int causal, int window) {
+    int causal, int window, int q_off) {
   constexpr int kP = pitch<D>();
   constexpr int kN = D / 8;
   extern __shared__ __align__(16) float smem[];
@@ -315,10 +320,12 @@ __device__ __forceinline__ void attn_bwd_dkdv_body(
   stage_rows<D, kThreads>(vs, kP, v + kvoff, k0, kBK, sk);
   cp_async_commit();
 
-  // query rows that some key of this block may pair with
+  // query rows that some key of this block may pair with (rows, not
+  // positions: row i is at position i + q_off)
   const int key_hi = min(k0 + kBK, sk) - 1;
-  const int i_lo = causal ? k0 : 0;
-  const int i_hi = window > 0 ? min(sq - 1, key_hi + window - 1) : sq - 1;
+  const int i_lo = causal ? max(0, k0 - q_off) : 0;
+  const int i_hi =
+      window > 0 ? min(sq - 1, key_hi + window - 1 - q_off) : sq - 1;
   const int t_lo = i_lo / kBQ;
   const int t_hi = i_hi >= i_lo ? i_hi / kBQ : t_lo - 1;
 
@@ -362,7 +369,8 @@ __device__ __forceinline__ void attn_bwd_dkdv_body(
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int qi = 8 * j + 2 * t + (c & 1), row = i0 + qi;
-            const bool ok = row < sq && allowed(row, key0 + 8 * (c >> 1), sk,
+            const bool ok = row < sq && allowed(row + q_off,
+                                                key0 + 8 * (c >> 1), sk,
                                                 causal, window);
             x[j][c] = ok ? expf(fmaf(x[j][c], scale, -lse_s[qi])) : 0.f;
             xw[(4 * j + c) * 32 + lane] = x[j][c];
@@ -411,10 +419,10 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ dd_ws,
                      float* __restrict__ part,
                      const int* __restrict__ nan_flag, int group, int splits,
-                     int sq, int sk, int causal, int window) {
+                     int sq, int sk, int causal, int window, int q_off) {
   if ((*nan_flag != 0) != kNaN) return;
   attn_bwd_dkdv_body<D, kNaN>(q, k, v, dout, lse, dd_ws, part, group,
-                              splits, sq, sk, causal, window);
+                              splits, sq, sk, causal, window, q_off);
 }
 
 // ---------------------------------------------------------------- pass C
@@ -447,7 +455,7 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* dq, float* dk,
            float* dv, float* dd, float* part, int* nan_flag, int bh, int bk,
-           int sq, int sk, int causal, int window, int splits,
+           int sq, int sk, int causal, int window, int q_off, int splits,
            cudaStream_t st) {
   const int group = bh / bk;
   const size_t sa = smem_a<D>(), sb = smem_b<D>();
@@ -471,19 +479,19 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   const dim3 grid_a((sq + kAQ - 1) / kAQ, bh);
   attn_bwd_dq_kernel<D, false><<<grid_a, kThreads, sa, st>>>(
       q, k, v, o, dout, lse, dq, dd, nan_flag, group, sq, sk, causal,
-      window);
+      window, q_off);
   attn_bwd_dq_kernel<D, true><<<grid_a, kThreads, sa, st>>>(
       q, k, v, o, dout, lse, dq, dd, nan_flag, group, sq, sk, causal,
-      window);
+      window, q_off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_b(splits * bk, (sk + kBK - 1) / kBK);
   attn_bwd_dkdv_kernel<D, false><<<grid_b, kThreads, sb, st>>>(
       q, k, v, dout, lse, dd, part, nan_flag, group, splits, sq, sk, causal,
-      window);
+      window, q_off);
   attn_bwd_dkdv_kernel<D, true><<<grid_b, kThreads, sb, st>>>(
       q, k, v, dout, lse, dd, part, nan_flag, group, splits, sq, sk, causal,
-      window);
+      window, q_off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(bk) * sk * D;
@@ -498,7 +506,7 @@ int launch_dh(const float* q, const float* k, const float* v, const float* o,
               const float* dout, const float* lse, float* dq, float* dk,
               float* dv, float* dd, float* part, int* nan_flag, int bh,
               int bk, int sq, int sk, int dh, int causal, int window,
-              int splits, cudaStream_t st) {
+              int q_off, int splits, cudaStream_t st) {
   const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16)    // cp.async's and float4's
@@ -509,16 +517,16 @@ int launch_dh(const float* q, const float* k, const float* v, const float* o,
   switch (dh) {
     case 64:
       return launch<64>(q, k, v, o, dout, lse, dq, dk, dv, dd, part,
-                        nan_flag, bh, bk, sq, sk, causal, window, splits,
+                        nan_flag, bh, bk, sq, sk, causal, window, q_off, splits,
                         st);
     case 128:
       return launch<128>(q, k, v, o, dout, lse, dq, dk, dv, dd, part,
-                         nan_flag, bh, bk, sq, sk, causal, window, splits,
-                         st);
+                         nan_flag, bh, bk, sq, sk, causal, window, q_off,
+                         splits, st);
     case 256:
       return launch<256>(q, k, v, o, dout, lse, dq, dk, dv, dd, part,
-                         nan_flag, bh, bk, sq, sk, causal, window, splits,
-                         st);
+                         nan_flag, bh, bk, sq, sk, causal, window, q_off,
+                         splits, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -535,7 +543,7 @@ int launch_dh(const float* q, const float* k, const float* v, const float* o,
 // it); dh 64, 128 or 256; dtype a
 // qf::DType (the same for every tensor but lse and the workspaces); every
 // tensor but lse and dd 16-byte aligned. Query row i sits at position
-// i + q_off; only the bf16 kernels take q_off > 0, fp32 refuses it.
+// i + q_off (q_off >= 0), in both dtypes.
 extern "C" int qf_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
@@ -548,8 +556,7 @@ extern "C" int qf_flash_attention_bwd(const void* q, const void* k,
       q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
-    case qf::kFloat32:   // query rows from position 0 only
-      if (q_off != 0) return static_cast<int>(cudaErrorInvalidValue);
+    case qf::kFloat32:
       return launch_dh(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), static_cast<const float*>(o),
@@ -557,7 +564,8 @@ extern "C" int qf_flash_attention_bwd(const void* q, const void* k,
           static_cast<float*>(dq), static_cast<float*>(dk),
           static_cast<float*>(dv), static_cast<float*>(dd),
           static_cast<float*>(part), static_cast<int*>(nan_flag), bh, bk, sq,
-          sk, dh, causal, window, splits, static_cast<cudaStream_t>(stream));
+          sk, dh, causal, window, q_off, splits,
+          static_cast<cudaStream_t>(stream));
     case qf::kBFloat16:
       return qf::flash_attention_bwd_bf16(q, k, v, o, dout, lse, dq, dk, dv,
                                           dd, part, bh, bk, sq, sk, dh,

@@ -5,9 +5,9 @@
 // (_flash_kernel), the Pallas TPU kernel that upcasts q, k and v to fp32
 // and takes both dots with fp32 accumulation, streaming 128-key blocks
 // along its sequential grid axis with the running max, sum and output
-// rows in VMEM scratch. fp32 storage stays on the CUDA-core kernel in
-// flash_attention.cu (3xTF32 mma.sync), which also holds the C entry point
-// that picks one of the two by dtype.
+// rows in VMEM scratch. fp32 storage runs on the tensor cores in 3xTF32
+// mma.sync instead (flash_attention.cu), which also holds the C entry
+// point that picks one of the two by dtype.
 //
 // Semantics are those of repro.kernels.ref.attention_ref: q (BH, Sq, D),
 // k/v (BH / G, Sk, D) with query head bh reading kv head bh / G; query

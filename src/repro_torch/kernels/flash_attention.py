@@ -23,7 +23,8 @@ CUDA refuses. ``ops.attention`` is the dispatch that sends CPU tensors to
 
 Query row i sits at position i + ``q_offset`` (a shard of the query
 sequence under context parallelism: its rows start there); keys at 0..
-Only the bf16 kernels take an offset; for fp32 a nonzero one is refused.
+Both dtypes take any offset >= 0; the masks and the tiles each block
+skips move with it, nothing else does.
 
 Each kernel is a registered op (``torch.ops.repro_torch.flash_attention``,
 ``...flash_attention_bwd``) with a fake: under ``FakeTensorMode`` (and so
@@ -80,10 +81,9 @@ def _shapes(q, k, v, q_offset, name="flash_attention"):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {dh} not in {HEAD_DIMS}")
-    if q_offset < 0 or (q_offset and q.dtype != torch.bfloat16):
-        raise ValueError(f"{name}: q_offset {q_offset}: the bf16 kernels "
-                         "take queries from any position >= 0, the fp32 "
-                         "kernels from 0 only")
+    if q_offset < 0:
+        raise ValueError(f"{name}: q_offset {q_offset}: the kernels take "
+                         "queries from any position >= 0")
     return bh, sq, dh, bk, sk
 
 

@@ -166,7 +166,12 @@ def _heads_out(o, w, dt):
                           "bshe,hed->bsd", o, w.to(dt))
 
 
-def _project(p, x, cfg, decode: bool = False):
+def _project(p, x, cfg, decode: bool = False, cp: bool = False):
+    """q, k, v (B, S, heads, dh) of x. Under context parallelism (``cp``)
+    each rank projects its own query rows, x cut by ``act_seq_cp`` and
+    wq gathered whole, as the reference's sequence-sharded q (its
+    gradient partial sums over those ranks); k and v, which every rank
+    attends whole, are projected whole."""
     b, s, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -179,7 +184,14 @@ def _project(p, x, cfg, decode: bool = False):
     else:
         def w(name):        # (d, heads, dh) -> (d, heads * dh)
             return _flat_w(p[name], dt, 1)
-        q = sdt.split_last(x @ w("wq"), (h, dh))
+        if cp:
+            q = sdt.over_rows(
+                lambda xl, wl: (xl @ wl.flatten(1, 2)).unflatten(
+                    -1, wl.shape[1:]),
+                constrain(x, "act_batch", "act_seq_cp", None),
+                p["wq"].to(dt))
+        else:
+            q = sdt.split_last(x @ w("wq"), (h, dh))
         k = sdt.split_last(x @ w("wk"), (kh, dh))
         v = sdt.split_last(x @ w("wv"), (kh, dh))
     if cfg.qkv_bias:
@@ -235,14 +247,14 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     dt = x.dtype
     cap = cfg.logit_softcap
 
-    q, k, v = _project(p, x, cfg, decode=cache is not None)
-    q = _position(q, cfg, positions, mrope_positions)
-    k = _position(k, cfg, positions, mrope_positions)
     # the operands' own mesh: the ambient one is thread-local, and a remat
     # cycle's recompute runs on the autograd engine's device thread
-    mesh = q.device_mesh if sdt.is_dtensor(q) else current_mesh()
+    mesh = x.device_mesh if sdt.is_dtensor(x) else current_mesh()
     cp = not (mesh is None or cfg.n_heads % axis_size(mesh, "model") == 0
               or s == 1)
+    q, k, v = _project(p, x, cfg, decode=cache is not None, cp=cp)
+    q = _position(q, cfg, positions, mrope_positions)
+    k = _position(k, cfg, positions, mrope_positions)
     if not cp:
         # tensor parallelism over heads (kv replicated over 'model' where
         # the kv heads do not divide it)
@@ -301,7 +313,7 @@ def self_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     # under context parallelism each rank projects its query rows (a
     # DTensor product of a batch- and sequence-sharded operand would cut
     # it in strided pieces)
-    y = sdt.over_rows(torch.matmul, out, wo) if cp else out @ wo
+    y = sdt.over_rows(torch.matmul, out, wo) if cp else sdt.dense(out, wo)
     return constrain(y, "act_batch", "act_seq", "act_embed"), new_cache
 
 

@@ -110,40 +110,13 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
     if sdt.is_dtensor(x):
-        return _sharded_matmul_f32(x, w)
+        # on each rank's shards (``torch.mm``'s ``out_dtype`` has no
+        # DTensor rule); the decode's tied head keeps its table's rows
+        return sdt.contract(matmul_f32, x, w)
     if not ops._on_cpu(x):          # the card (or a trace of it)
         out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(x.shape[:-1] + (w.shape[-1],))
     return x.float() @ w.float()
-
-
-def _sharded_matmul_f32(x, w):
-    """``matmul_f32`` of DTensors on each rank's shards (``torch.mm``'s
-    ``out_dtype`` has no DTensor rule): per mesh dim the rows of x keep a
-    shard of a leading dim, else w's columns theirs, else w's rows theirs
-    (the decode's tied head, its table not gathered: x's columns cut to
-    match, the logits partial sums), else both whole; the other
-    operand's gradient is then a partial sum."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    x_pl, w_pl, out_pl, gx, gw = [], [], [], [], []
-    lead = range(x.dim() - 1)
-    for xp, wp in zip(x.placements, w.placements):
-        if isinstance(xp, Shard) and xp.dim in lead:
-            x_pl.append(xp), w_pl.append(Replicate()), out_pl.append(xp)
-            gx.append(xp), gw.append(Partial())
-        elif wp == Shard(1):
-            x_pl.append(Replicate()), w_pl.append(wp)
-            out_pl.append(Shard(x.dim() - 1)), gx.append(Partial())
-            gw.append(wp)
-        elif wp == Shard(0):
-            x_pl.append(Shard(x.dim() - 1)), w_pl.append(wp)
-            out_pl.append(Partial()), gx.append(Shard(x.dim() - 1))
-            gw.append(wp)
-        else:
-            for pls in (x_pl, w_pl, out_pl, gx, gw):
-                pls.append(Replicate())
-    return sdt.local(matmul_f32, x.device_mesh, out_pl, (x_pl, w_pl),
-                     (gx, gw))(x, w)
 
 
 def unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers.mlp import gelu
 from repro_torch.sharding import dtensor as sdt
-from repro_torch.sharding.rules import constrain
+from repro_torch.sharding.rules import constrain, rule_axes
 
 
 def init_recurrent_block(ini, pfx: str, cfg, stack: int = 0) -> None:
@@ -65,14 +65,27 @@ def _causal_conv1d(x, w, b, conv_state=None):
     return out + b.to(x.dtype), new_state
 
 
+def _gate_product(x32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x32 @ w, fp32. DTensors outside the decode's rule override take the
+    reference's layout, pinned rather than left to DTensor's strategy
+    (which gathers some row-sharded weights whole for the backward):
+    x32 on (act_batch, act_seq, act_rnn), each model rank contracting its
+    rows of w (the rules give w_a / w_i (model, None)), the partial sums
+    reduce-scattered onto the rnn dim; x's gradient keeps its shard and
+    w's its rows. The decode's products are DTensor's, as its traced hand
+    count has them."""
+    if sdt.is_dtensor(x32) and rule_axes("act_batch"):
+        x32 = constrain(x32, "act_batch", "act_seq", "act_rnn")
+        return sdt.settled(sdt.contract(torch.matmul, x32, w), -1)
+    return sdt.settled(x32 @ w, -1)
+
+
 def _rg_lru(p, x, cfg, h0: Optional[torch.Tensor] = None,
             impl: str = "pallas"):
     """x (B,S,dr) -> (y, h_last), all gate math in fp32."""
     x32 = x.float()
-    r = torch.sigmoid(sdt.settled(x32 @ p["w_a"].float(), -1)
-                      + p["b_a"].float())
-    i = torch.sigmoid(sdt.settled(x32 @ p["w_i"].float(), -1)
-                      + p["b_i"].float())
+    r = torch.sigmoid(_gate_product(x32, p["w_a"].float()) + p["b_a"].float())
+    i = torch.sigmoid(_gate_product(x32, p["w_i"].float()) + p["b_i"].float())
     # Lambda parametrized so softplus gives a stable positive rate
     log_a = -cfg.rg_lru_c * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)

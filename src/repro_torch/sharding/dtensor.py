@@ -41,6 +41,10 @@ run on a mesh the reference's way.
 * ``write_rows_at_`` writes row r of a window at its own position
   ``pos[r]`` in place, into a DTensor's shards (a decode step's k/v at
   each slot's position into a sequence-sharded cache).
+* ``contract`` is a product of an activation and a (K, N) weight on
+  each rank's shards, the layout picked per mesh dim from the operands'
+  placements and the gradients' placements given (DTensor's own strategy
+  may gather a whole weight where the rules shard its rows).
 * ``settled`` reduces a DTensor's partial sums onto a shard of one dim
   (a reduce-scatter; a replica where the dim does not divide), before a
   sharded operand meets it: a product contracted over a sharded dim
@@ -167,6 +171,38 @@ def settled(x: torch.Tensor, dim: int) -> torch.Tensor:
             pls[i] = (Shard(dim) if not taken
                       and x.shape[dim] % mesh.size(i) == 0 else Replicate())
     return x if pls == list(x.placements) else x.redistribute(mesh, pls)
+
+
+def contract(fn: Callable, x: torch.Tensor, w: torch.Tensor
+             ) -> torch.Tensor:
+    """``fn(x, w)`` of an activation x (..., K) and a weight w (K, N),
+    DTensors on one mesh, run on each rank's shards. Per mesh dim: where
+    x shards a leading dim, x keeps it (w whole there, the result sharded
+    the same, w's gradient a partial sum); else where w shards its
+    columns, it keeps them (x whole, the result's last dim sharded, x's
+    gradient a partial sum); else where w shards its rows, it keeps them
+    and x's last dim is cut to match (the result a partial sum, to be
+    reduced by the caller, e.g. ``settled``; x's gradient keeps x's
+    shard, w's gradient w's); else both whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    last = x.dim() - 1
+    x_pl, w_pl, out_pl, gx, gw = [], [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(xp, Shard) and xp.dim < last:
+            x_pl.append(xp), w_pl.append(Replicate()), out_pl.append(xp)
+            gx.append(xp), gw.append(Partial())
+        elif wp == Shard(1):
+            x_pl.append(Replicate()), w_pl.append(wp)
+            out_pl.append(Shard(last)), gx.append(Partial())
+            gw.append(wp)
+        elif wp == Shard(0):
+            x_pl.append(Shard(last)), w_pl.append(wp)
+            out_pl.append(Partial()), gx.append(Shard(last))
+            gw.append(wp)
+        else:
+            for pls in (x_pl, w_pl, out_pl, gx, gw):
+                pls.append(Replicate())
+    return local(fn, x.device_mesh, out_pl, (x_pl, w_pl), (gx, gw))(x, w)
 
 
 def coord(mesh, dims: Sequence[int]) -> int:
@@ -326,9 +362,17 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     override (``act_batch`` None: the activations replicated over the data
     axes, the weights not gathered) a DTensor product goes through
     ``stationary``: the weight's shards stay in place and the partial
-    sums over its d_in shards are reduced, activation-sized. Elsewhere,
-    and for plain tensors, ``x @ w`` as it is."""
-    if not is_dtensor(w) or rule_axes("act_batch"):
+    sums over its d_in shards are reduced, activation-sized. Elsewhere a
+    weight whose rows (d_in) are sharded goes through ``contract``, each
+    rank contracting its rows (DTensor's own strategy may gather the
+    whole weight for the backward); other products, and plain tensors,
+    ``x @ w`` as it is."""
+    if not is_dtensor(w):
         return x @ w
-    lead = "abcdefgh"[:x.dim() - 1]
-    return stationary(torch.matmul, f"{lead}i,io->{lead}o", x, w)
+    if not rule_axes("act_batch"):
+        lead = "abcdefgh"[:x.dim() - 1]
+        return stationary(torch.matmul, f"{lead}i,io->{lead}o", x, w)
+    from torch.distributed.tensor import Shard
+    if Shard(0) in w.placements:
+        return contract(torch.matmul, replicate_like(w, x), w)
+    return x @ w

@@ -1817,21 +1817,22 @@ def test_trace_parse_finds_the_kernel_by_name(cuda_device):
 
 # ------------------------------------------- the sharded step, q_offset
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("dh,heads,kv,window", [(256, 10, 1, 64),
                                                 (128, 4, 4, 0),
                                                 (64, 6, 2, 0)])
 def test_q_offset_rows_are_the_full_calls_rows(cuda_device, dh, heads, kv,
-                                               window):
-    """bf16: queries [S/2, S) at q_offset S/2 (a multiple of the 128-row
-    tile) give the full call's forward, LSE and dq rows bit for bit; dk,
-    dv match the plain version with the same offset."""
+                                               window, dtype):
+    """Queries [S/2, S) at q_offset S/2 (a multiple of the 128-row tile)
+    give the full call's forward, LSE and dq rows bit for bit; dk, dv
+    match the plain version with the same offset (bf16 within 2^-7 of
+    their scale, fp32 within 1e-5)."""
     from repro_torch.kernels import flash_attention as kfa
     g = torch.Generator(device="cpu").manual_seed(dh + heads)
     s, off = 512, 256
-    q = torch.randn((heads, s, dh), generator=g).to(cuda_device,
-                                                    torch.bfloat16)
-    k, v = (torch.randn((kv, s, dh), generator=g).to(cuda_device,
-                                                     torch.bfloat16)
+    q = torch.randn((heads, s, dh), generator=g).to(cuda_device, dtype)
+    k, v = (torch.randn((kv, s, dh), generator=g).to(cuda_device, dtype)
             for _ in range(2))
     kw = dict(causal=True, window=window)
     full, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
@@ -1841,7 +1842,7 @@ def test_q_offset_rows_are_the_full_calls_rows(cuda_device, dh, heads, kv,
     assert torch.equal(got, full[:, off:]) and torch.equal(lse_o,
                                                            lse[:, off:])
     assert not torch.equal(kfa.flash_attention(qo, k, v, **kw), got)
-    do = torch.randn(full.shape, generator=g).to(cuda_device, torch.bfloat16)
+    do = torch.randn(full.shape, generator=g).to(cuda_device, dtype)
     dq = kfa.flash_attention_bwd(q, k, v, full, do, lse=lse, **kw)[0]
     do_o = do[:, off:].contiguous()
     dq_o, dk_o, dv_o = kfa.flash_attention_bwd(qo, k, v, got, do_o,
@@ -1850,35 +1851,50 @@ def test_q_offset_rows_are_the_full_calls_rows(cuda_device, dh, heads, kv,
     want = ref.attention_bwd_ref(qo.float(), k.float(), v.float(),
                                  got.float(), do_o.float(), lse=lse_o,
                                  q_offset=off, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
     for x, w in zip((dq_o, dk_o, dv_o), want):
-        assert float((x.float() - w).abs().max()) <= 2 ** -7 * float(
+        assert float((x.float() - w).abs().max()) <= tol * float(
             w.abs().max())
 
 
 @pytest.mark.cuda
-def test_q_offset_refused_by_the_fp32_kernels(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_q_offset_negative_refused(cuda_device, dtype):
+    """Both dtypes take any offset >= 0 and refuse a negative one."""
     from repro_torch.kernels import flash_attention as kfa
-    x = torch.randn((2, 256, 64), device=cuda_device)
+    x = torch.randn((2, 256, 64), device=cuda_device).to(dtype)
+    lse = torch.zeros((2, 256), device=cuda_device)
     with pytest.raises(ValueError, match="q_offset"):
-        kfa.flash_attention(x, x, x, q_offset=128)
+        kfa.flash_attention(x, x, x, q_offset=-1)
     with pytest.raises(ValueError, match="q_offset"):
-        kfa.flash_attention_bwd(x, x, x, x, x, lse=x[:, :, 0].contiguous(),
-                                q_offset=128)
+        kfa.flash_attention_bwd(x, x, x, x, x, lse=lse, q_offset=-128)
 
 
 @pytest.mark.cuda
-def test_q_offset_ops_route_matches_the_plain_route(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_q_offset_ops_route_matches_the_plain_route(cuda_device, dtype):
     """``ops.attention`` with an offset (the context-parallel shard's
-    call) through the kernel against the plain route, bf16."""
+    call) through the kernels against the plain route: the output within
+    RTOL (fp32) or 2^-7 (bf16) of its scale, the gradients of q
+    and of k (also v) within the backprop test's BWD_RTOL or 2^-6."""
     g = torch.Generator(device="cpu").manual_seed(3)
-    q = torch.randn((2, 256, 4, 128), generator=g).to(cuda_device,
-                                                      torch.bfloat16)
-    k = torch.randn((2, 512, 2, 128), generator=g).to(cuda_device,
-                                                      torch.bfloat16)
-    got = ops.attention(q, k, k, q_offset=256)
-    want = ops.attention(q, k, k, q_offset=256, impl="xla")
-    assert float((got.float() - want.float()).abs().max()) <= 2 ** -7 * \
-        float(want.float().abs().max())
+    q = torch.randn((2, 256, 4, 128), generator=g).to(cuda_device, dtype)
+    k = torch.randn((2, 512, 2, 128), generator=g).to(cuda_device, dtype)
+    do = torch.randn(q.shape, generator=g).to(cuda_device, dtype)
+    fp32 = dtype == torch.float32
+    tols = (RTOL if fp32 else 2 ** -7,) + (
+        BWD_RTOL if fp32 else 2 ** -6,) * 2
+    outs = []
+    for impl in ("pallas", "xla"):
+        qi, ki = (x.detach().clone().requires_grad_() for x in (q, k))
+        out = ops.attention(qi, ki, ki, q_offset=256, impl=impl)
+        out.backward(do)
+        outs.append((out.detach(), qi.grad, ki.grad))
+    for got, want, tol in zip(*outs, tols):
+        assert float((got.float() - want.float()).abs().max()) <= tol * \
+            float(want.float().abs().max())
 
 
 @pytest.mark.cuda

@@ -12,7 +12,8 @@ CPU, and the query offset of the plain attention.
 * The kernel route traced through the registered ops on fake ``cuda``
   tensors: each fake's outputs have the shapes and dtypes of the
   wrapper's allocations (the outputs, attention's fp32 LSE, the
-  backward's D_i and dK/dV partials, the GLA backward's workspaces).
+  backward's D_i and dK/dV partials, the GLA backward's workspaces),
+  the attention's in both dtypes at a query offset.
 * ``ref.attention_ref`` / ``attention_bwd_ref`` with ``q_offset``: a
   query shard's rows equal the full call's.
 """
@@ -189,9 +190,17 @@ def test_kernel_route_traces_through_the_registered_ops():
             kgla.bwd_workspace_floats(1, 48, 2, part) for part in range(3)]
         assert kgla.bwd_workspace_floats(1, 48, 2, 0) == 2 * 3 * 64 * 64
         assert kgla.bwd_workspace_floats(1, 48, 2, 2) == 2 * 3 * 64
-        with pytest.raises(ValueError, match="q_offset"):
-            kfa.flash_attention(qf.float(), kf.float(), kf.float(),
-                                q_offset=128)
+        # fp32 takes a query offset too (context parallelism's shards)
+        q32, k32 = qf.float(), kf.float()
+        o32, lse32 = kfa.flash_attention(q32, k32, k32, return_lse=True,
+                                         q_offset=128)
+        assert [(tuple(x.shape), x.dtype) for x in (o32, lse32)] == [
+            ((8, 256, 128), f32), ((8, 256), f32)]
+        outs = torch.ops.repro_torch.flash_attention_bwd(
+            q32, k32, k32, o32, o32, lse32, True, 0, 128)
+        assert [(tuple(x.shape), x.dtype) for x in outs] == [
+            ((8, 256, 128), f32), ((4, 256, 128), f32), ((4, 256, 128), f32),
+            ((8, 256), f32), ((splits, 2, 4, 256, 128), f32)]
 
 
 # ---------------------------------------------------- the query offset
