@@ -7,6 +7,7 @@
     python3 chip_smoke.py --time-serve
     python3 chip_smoke.py --train-probe
     python3 chip_smoke.py --nan-check [--src DIR]
+    python3 chip_smoke.py --moe-ranks       (four cards)
 
 Runs on cuda:0 only; without a CUDA device, or outside a checkout of the
 repository, it exits non-zero before printing any result. Phases:
@@ -282,11 +283,16 @@ repository, it exits non-zero before printing any result. Phases:
    kernels' FLOPs and bytes, the compute and memory terms and their
    shares of the prefill's time, beside the card's name and power limit;
    (d) the sharded model step: on the NCCL host mesh (world 1, ('data',
-   'model')) one train step of phase 11's RecurrentGemma-2B and of phase
-   11b's RWKV6-7B with DTensor params, moments and batch, through the
-   kernels, against the plain-tensor step from the same init and batch:
+   'model')) one train step of phase 11's RecurrentGemma-2B, of phase
+   11b's RWKV6-7B and of one Llama-4-Scout layer at published width (16
+   experts top-1 and the shared expert, phase 11's B = 1 x S = 4096)
+   with DTensor params, moments and batch, through the kernels, against
+   the plain-tensor step from the same init and batch, the two in turn:
    the loss and every param after AdamW the same bits, the launches
-   exact (16/8/52 and 32/16), ms/step and busy share of both; the bf16
+   exact (16/8/52, 32/16 and 2/1), ms/step, busy share and peak of both
+   (at world 1 the MoE tokens are whole on the one rank and take the
+   every-token routing; the per-rank dispatch needs several data
+   ranks); the bf16
    and the fp32 attention kernels with a query offset of S/2 on rows
    [S/2, S) at phase 5's and 12a's shapes: forward, LSE and dq the full
    call's rows bit for bit, dk and dv within the backward's budget of
@@ -366,6 +372,10 @@ gates (see
 bf16 attention backward alone at phase 11's shape under several splits
 of the query heads, with its host and per-pass device time (see
 ``time_attn_bwd``).
+``--moe-ranks`` needs four cards: it runs the MoE layer's per-rank
+dispatch on a (2, 2) ('data', 'model') NCCL mesh of four processes
+against the layer in one process, for two reduced skewed layers and one
+Llama-4-Scout layer at published width (see ``moe_ranks``).
 """
 import contextlib
 import dataclasses
@@ -1741,8 +1751,10 @@ class PinnedRouting:
     (a layer a call, in order), and each run under ``replay()`` takes them
     (its gates from its own probabilities at those experts), counting the
     choices its own top-k would have made otherwise. Patches
-    ``moe.top_k``, which ``moe.route`` calls once a layer; a dense arch
-    records nothing."""
+    ``moe.top_k``, which ``moe.route`` calls once a layer (and a
+    sharded layer whose ranks route their own tokens once a rank, on its
+    tokens: the probes run on the plain path); a dense arch records
+    nothing."""
 
     def __init__(self):
         from repro_torch.models.layers import moe
@@ -1788,15 +1800,17 @@ class PinnedRouting:
 
 class DropCount:
     """While open, counts the expert assignments each MoE layer drops over
-    its capacity (patches ``moe.slots``; a dense arch counts nothing)."""
+    its capacity (patches ``moe.slots``, which a sharded layer whose
+    ranks route their own tokens calls on each rank's; a dense arch
+    counts nothing)."""
 
     def __init__(self):
         from repro_torch.models.layers import moe
         self.moe, self.orig, self.seen = moe, moe.slots, []
 
     def __enter__(self):
-        def counted(idx, cap, e):
-            keep, slot = self.orig(idx, cap, e)
+        def counted(idx, cap, e, *earlier):
+            keep, slot = self.orig(idx, cap, e, *earlier)
             self.seen.append((int((~keep).sum()), keep.numel(), cap))
             return keep, slot
         self.moe.slots = counted
@@ -3626,11 +3640,11 @@ def train_launches(cfg):
     each RWKV layer's GLA forward (and recompute) and its backward
     (remainder layers are not recomputed, as in the reference)."""
     per_cycle = {kind: cfg.block_pattern.count(kind)
-                 for kind in ("local", "attn", "rec", "rwkv")}
+                 for kind in ("local", "attn", "moe", "rec", "rwkv")}
     rem = [cfg.block_pattern[i] for i in range(cfg.n_rem)]
     recompute = 1 if cfg.remat else 0
-    attn_c = per_cycle["local"] + per_cycle["attn"]
-    attn_r = sum(k in ("local", "attn") for k in rem)
+    attn_c = per_cycle["local"] + per_cycle["attn"] + per_cycle["moe"]
+    attn_r = sum(k in ("local", "attn", "moe") for k in rem)
     rec_c, rec_r = per_cycle["rec"], rem.count("rec")
     gla_c, gla_r = per_cycle["rwkv"], rem.count("rwkv")
     counts = {"flash_attention": cfg.n_cycles * attn_c * (1 + recompute)
@@ -5889,7 +5903,8 @@ def roofline_prefill(device="cuda"):
 
 # 15(d): (arch, depth (0: published), lr) of the sharded-vs-plain steps
 SHARD_STEPS = (("recurrentgemma-2b", 0, TRAIN_LR),
-               (RWKV_ARCH, RWKV_LAYERS, RWKV_LR))
+               (RWKV_ARCH, RWKV_LAYERS, RWKV_LR),
+               ("llama4-scout-17b-a16e", 1, TRAIN_LR))
 # (label, q (B, S, H, dh), kv (B, S, K, dh), mask) of the query-offset
 # check: phase 5's prefill attention and 12a's MHA dh 128
 Q_OFFSET_CASES = (
@@ -6282,6 +6297,229 @@ def sharded_batcher(mesh, device="cuda"):
            if phase14 else ""))
     if not same:
         raise RuntimeError("the sharded batcher's tokens differ")
+
+
+# ------------------------------------------------------- --moe-ranks
+# (label, arch, reduced, B, S, the expert its router favours or None,
+# dtype) of the per-rank MoE dispatch on four ranks: the skewed fp32
+# layers of tests/test_torch_sharded_step.py (reduced Llama-4-Scout top-1
+# with a shared expert, reduced Arctic top-2 with a dense residual) and
+# one Llama-4-Scout layer at published width, a row of 4,096 tokens a
+# data rank (the CPU rehearsal skips it). That one runs in fp64: at d
+# 5120, top-1, the router's gradient is the aux losses' beside the
+# renormalised gate's, whose exact value is 0, so in fp32 the rounding
+# of that zero moves the router's gradient by 5e-3 between two summation
+# orders (the mesh against one process, on four cards).
+MOE_RANK_CASES = (
+    ("llama4-top1", "llama4-scout-17b-a16e", True, 4, 16, 0, "float32"),
+    ("arctic-top2", "arctic-480b", True, 4, 16, 2, "float32"),
+    ("llama4-scout", "llama4-scout-17b-a16e", False, 2, 4096, None,
+     "float64"))
+MOE_RANK_MESH = (2, 2)
+MOE_RANK_TOL = 1e-5
+
+
+def moe_layer_case(arch, reduced, b, s, hot, dtype, device):
+    """One ``MOE_RANK_CASES`` layer on ``device`` from seed 0: the config,
+    params (std 1/sqrt(fan in), drawn in fp32, held in ``dtype``) and
+    their logical axes, tokens (b, s, d) and a cotangent. With ``hot``
+    the tokens share a direction that expert ``hot``'s router column
+    favours, so it overflows."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as pp
+    from repro_torch.models.layers import moe
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    ini = pp.Initializer(torch.float32, seed=0, device="meta")
+    moe.init_moe(ini, "moe", cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=device)
+    params = {k[len("moe/"):]: (draw(v.shape) / v.shape[-2] ** 0.5
+                                if v.dim() > 1 else torch.ones(
+                                    v.shape, device=device))
+              for k, v in ini.params.items()}
+    axes = {k[len("moe/"):]: v for k, v in ini.axes.items()}
+    x = draw((b, s, cfg.d_model))
+    if hot is not None:
+        u = draw((cfg.d_model,))
+        u = u / u.norm()
+        params["router"][:, hot] += u
+        x = x + u
+    dt = getattr(torch, dtype)
+    return (cfg, {k: v.to(dt) for k, v in params.items()}, axes, x.to(dt),
+            draw((b, s, cfg.d_model)).to(dt))
+
+
+def moe_rank(rank, store, out, device):
+    """One rank of ``moe_ranks``: each case's layer in one process on this
+    rank's device, then on the mesh; this rank's keep, slot and expert
+    tile against the one-process values at its coordinates, the output,
+    aux losses and gradients against them, and both layers' forward and
+    backward ms (host clock, the device synchronised), to
+    ``out/moe_rank{rank}.json``."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import shard
+    from repro_torch.models.layers import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = MOE_RANK_MESH[0] * MOE_RANK_MESH[1]
+    mesh = mesh_lib.make_host_mesh(MOE_RANK_MESH, ("data", "model"),
+                                   device=device,
+                                   store=dist.FileStore(store, world),
+                                   rank=rank)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device == "cuda" else torch.device("cpu"))
+    embed = ("act_batch", "act_seq", "act_embed")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+
+    def rel(got, want):
+        got, want = got.detach().double(), want.detach().double()
+        return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+    res = {}
+    try:
+        for label, arch, reduced, b, s, hot, dtype in MOE_RANK_CASES:
+            if dev.type == "cpu" and not reduced:
+                continue
+            cfg, p, axes, x, ct = moe_layer_case(arch, reduced, b, s, hot,
+                                                 dtype, dev)
+            k = cfg.top_k
+
+            def plain():
+                leaves = {n: v.clone().requires_grad_() for n, v in p.items()}
+                xl = x.clone().requires_grad_()
+                y, aux = moe.moe_ffn(leaves, xl, cfg)
+                ((y * ct).sum() + aux["load_balance"]
+                 + aux["router_z"]).backward()
+                return y, aux, {"x": xl.grad, **{n: v.grad for n, v in
+                                                  leaves.items()}}
+
+            def sharded():
+                ps = {n: shard(v, axes[n], mesh).detach().requires_grad_()
+                      for n, v in p.items()}
+                xs = shard(x, embed, mesh).detach().requires_grad_()
+                y, aux = moe.moe_ffn(ps, xs, cfg)
+                ((y * shard(ct, embed, mesh)).sum() + aux["load_balance"]
+                 + aux["router_z"]).backward()
+                return y, aux, {"x": xs.grad, **{n: v.grad for n, v in
+                                                  ps.items()}}
+
+            def ms(fn):
+                times = []
+                for _ in range(3):
+                    sync()
+                    t0 = time.perf_counter()
+                    fn()
+                    sync()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                return statistics.median(times)
+
+            xf = x.reshape(b * s, -1)
+            buf, _, keep, slot, _ = moe.dispatch(xf, p["router"], cfg)
+            y, aux, grads = plain()
+            tile, routed, _ = moe.sharded_dispatch(
+                shard(x, embed, mesh).reshape(b * s, -1),
+                shard(p["router"], axes["router"], mesh), cfg)
+            ys, auxs, gs = sharded()
+            data, model = mesh.get_local_rank(0), mesh.get_local_rank(1)
+            n = b * s // MOE_RANK_MESH[0] * k
+            e, cap = buf.shape[0], buf.shape[1]
+            el, cl = e // MOE_RANK_MESH[1], cap // MOE_RANK_MESH[0]
+            want = buf[model * el:(model + 1) * el, data * cl:(data + 1) * cl]
+            errs = {"y": rel(ys.full_tensor(), y),
+                    **{a: rel(auxs[a].full_tensor(), aux[a]) for a in aux},
+                    **{f"d{g}": rel(gs[g].full_tensor(), grads[g])
+                       for g in grads}}
+            res[label] = dict(
+                dtype=dtype,
+                keep=torch.equal(routed["keep"],
+                                 keep[data * n:(data + 1) * n]),
+                slot=torch.equal(routed["slot"],
+                                 slot[data * n:(data + 1) * n]),
+                tile=torch.equal(tile.to_local(), want),
+                tile_shape=list(tile.to_local().shape),
+                dropped=[int((~keep[i * n:(i + 1) * n]).sum())
+                         for i in range(MOE_RANK_MESH[0])], errs=errs)
+            del buf, y, aux, grads, tile, routed, ys, auxs, gs, want
+            res[label].update(ms=ms(sharded), plain_ms=ms(plain))
+            del p, x, ct
+    finally:
+        mesh_lib.close()
+    Path(out, f"moe_rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def moe_ranks(device="cuda"):
+    """``--moe-ranks``: the MoE layer's per-rank dispatch on a (2, 2)
+    ('data', 'model') mesh of four ranks, one process each (NCCL on four
+    cards of one host; gloo when ``device`` is "cpu", the reduced cases
+    only), against the layer in one process (``moe_rank``):
+    keep, slot and the expert tiles bit for bit, the output, both aux
+    losses and every gradient within MOE_RANK_TOL. Prints each rank's
+    rows and one JSON line; 0 when every check holds."""
+    import tempfile
+    import torch
+    world = MOE_RANK_MESH[0] * MOE_RANK_MESH[1]
+    if device == "cuda" and torch.cuda.device_count() < world:
+        print(f"chip_smoke: --moe-ranks needs {world} cards, found "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    tmp = tempfile.mkdtemp(prefix="moe_ranks_")
+    store = str(Path(tmp) / "store")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--moe-rank",
+         str(r), store, tmp, device], env=dict(os.environ,
+                                                PYTHONPATH=str(SRC)),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    failed = []
+    try:
+        for r, proc in enumerate(procs):
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                failed.append(f"rank {r} exited {proc.returncode}:\n"
+                              f"{err[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for msg in failed:
+        say(msg)
+    if failed:
+        return 1
+    ranks = [json.loads(Path(tmp, f"moe_rank{r}.json").read_text())
+             for r in range(world)]
+    ok, worst = True, {}
+    for label in ranks[0]:
+        for r, got in enumerate(ranks):
+            row = got[label]
+            err = max(row["errs"], key=row["errs"].get)
+            good = (row["keep"] and row["slot"] and row["tile"]
+                    and row["errs"][err] <= MOE_RANK_TOL)
+            ok &= good
+            worst[label] = max(worst.get(label, 0.0), row["errs"][err])
+            say(f"  {label} ({row['dtype']}) rank {r}: keep "
+                f"{row['keep']}, slot {row['slot']}, tile {row['tile_shape']} {row['tile']} "
+                f"(bit for bit); dropped a data shard {row['dropped']}; "
+                f"worst rel err {row['errs'][err]:.3e} ({err}); forward+"
+                f"backward {row['ms']:.2f} ms on the mesh vs "
+                f"{row['plain_ms']:.2f} ms in one process "
+                f"{'ok' if good else 'FAIL'}")
+    card = smi("name,power.limit") if device == "cuda" else "none"
+    say(f"  torch {torch.__version__}, {device}, card {card}")
+    print(json.dumps({"moe_ranks_ok": ok, "worst_rel_err": worst}),
+          flush=True)
+    return 0 if ok else 1
 
 
 def flops_by_op(hlo, top=8):
@@ -6723,6 +6961,9 @@ def nan_check():
 
 def main() -> int:
     import torch
+    if "--moe-rank" in sys.argv:
+        at = sys.argv.index("--moe-rank")
+        return moe_rank(int(sys.argv[at + 1]), *sys.argv[at + 2:at + 5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
               "the port on the card only", file=sys.stderr)
@@ -6747,6 +6988,8 @@ def main() -> int:
     if "--time-attn-bwd" in sys.argv:
         phase_build()
         return time_attn_bwd()
+    if "--moe-ranks" in sys.argv:
+        return moe_ranks()
     t0 = time.time()
     seconds = {}
 

@@ -15,13 +15,11 @@ the step's tokens, repeated by the ranks it is not split over:
   under context parallelism, whose q is projected on each rank's query
   rows);
 * RWKV6's LoRA weights (token shift and decay), which the rules leave
-  whole over 'model';
-* the MoE router, which routes every token on every rank (the port's
-  fixed-shape dispatch over all tokens; the rules shard the router's
-  experts, so this is logged in ROADMAP Queue 3).
+  whole over 'model'.
 
-Anything else is split over all four devices, so a product that runs
-whole where the rules shard its weight (the parent's recurrent
+Anything else (the MoE router too: each rank routes its own tokens on
+its own expert columns) is split over all four devices, so a product
+that runs whole where the rules shard its weight (the parent's recurrent
 ``w_out`` and attention ``wo`` in the backward, and the query projection
 under context parallelism) moves the ratio off its factor.
 """
@@ -49,7 +47,7 @@ CASES = {
 # per config, (param name suffix, how many of the 4 devices repeat its
 # products, why) of the products not split over 'model': "kv" kv heads
 # the model axis does not divide, "rules" a weight the rules leave
-# whole over 'model', "tokens" every token on every rank
+# whole over 'model'
 MODEL, ALL = MESH[1], MESH[0] * MESH[1]
 WHOLE = {
     "qwen-heads": (),
@@ -57,8 +55,8 @@ WHOLE = {
     "recurrentgemma": (("attn/wk", MODEL, "kv"), ("attn/wv", MODEL, "kv")),
     "rwkv": tuple((f"tm/{w}", MODEL, "rules") for w in (
         "ts_lora_a", "ts_lora_b", "w_lora_a", "w_lora_b")),
-    "moe": (("moe/router", ALL, "tokens"),),
-    "moe-mb": (("moe/router", ALL, "tokens"),),
+    "moe": (),
+    "moe-mb": (),
 }
 
 

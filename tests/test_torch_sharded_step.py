@@ -29,10 +29,22 @@ The configs are ``reduced()`` ones:
 * ``rwkv``: RWKV6-7B, its zero-initialised mixing, decay and bonus
   tensors redrawn so the whole block is exercised.
 * ``moe``: Llama-4-Scout's MoE block (4 experts, top-1, a shared
-  expert): routing and dispatch over all tokens, expert buffers over
-  ('model', 'data').
+  expert): each rank routes, dispatches and combines its own tokens
+  into the expert buffers' tiles (experts over 'model', capacity over
+  'data').
 * ``moe-mb``: the same with microbatches of 2 rows, each with its own
-  load-balance and z-loss.
+  capacity, load-balance and z-loss.
+
+The MoE layer alone (``DISPATCH``: reduced Llama-4-Scout, top-1 with a
+shared expert, and reduced Arctic, top-2 with a dense residual) runs in
+the same ranks with its routing skewed (the tokens share a direction
+that one expert's router column favours, so that expert overflows): each
+rank's ``keep``, ``slot`` and expert-buffer tile are
+the one-process values sliced at its coordinates, bit for bit, and the
+capacity cutoff of an expert falls inside the second data shard's
+tokens while the first shard's assignments to it are kept; the output,
+both aux losses and every gradient (x's and the params') within 1e-5
+of one process.
 
 Row r of every batch has its first 3r labels masked, so the rows hold
 16, 13, 10 and 7 valid labels: the mean over microbatches of their
@@ -157,6 +169,30 @@ for name, c in cases.items():
     out[name] = res
 if RANK == 0:
     torch.save(out, f"{OUT}/sharded.pt")
+
+from repro_torch.models.layers import moe
+EMBED = ("act_batch", "act_seq", "act_embed")
+layers = {}
+for name, c in torch.load(f"{OUT}/dispatch.pt", weights_only=False).items():
+    cfg = c["cfg"]
+    p = {k: steps.shard(v, c["axes"][k], mesh).detach().requires_grad_()
+         for k, v in c["params"].items()}
+    x = steps.shard(c["x"], EMBED, mesh).detach().requires_grad_()
+    b, s, d = x.shape
+    buf, routed, _ = moe.sharded_dispatch(x.reshape(b * s, d), p["router"],
+                                          cfg)
+    y, aux = moe.moe_ffn(p, x, cfg)
+    loss = ((y * steps.shard(c["ct"], EMBED, mesh)).sum()
+            + aux["load_balance"] + aux["router_z"])
+    loss.backward()
+    layers[name] = {
+        "coord": (mesh.get_local_rank(0), mesh.get_local_rank(1)),
+        "keep": routed["keep"], "slot": routed["slot"],
+        "tile": buf.to_local().detach(), "y": y.full_tensor().detach(),
+        "aux": {k: v.full_tensor().detach() for k, v in aux.items()},
+        "grads": {"x": x.grad.full_tensor(),
+                  **{k: v.grad.full_tensor() for k, v in p.items()}}}
+torch.save(layers, f"{OUT}/dispatch{RANK}.pt")
 mesh_lib.close()
 """
 
@@ -200,6 +236,10 @@ CASES = {
     "moe-mb": ("llama4-scout-17b-a16e", {"microbatch": 2}),
 }
 AGAINST_JAX = ("qwen-heads", "qwen-cp", "moe", "moe-mb")
+# the MoE layer alone: (arch, the expert its router favours)
+DISPATCH = {"llama4-top1": ("llama4-scout-17b-a16e", 0),
+            "arctic-top2": ("arctic-480b", 2)}
+SKEW = 1.0
 
 
 def configs():
@@ -271,6 +311,47 @@ def make_cases():
                 for n, m in REQUESTS]
             c["want"]["served"] = serve(model, params, c["requests"])
     return cases, pending
+
+
+def dispatch_cases():
+    """The MoE layer cases (``DISPATCH``) at well-conditioned weights
+    (std 1/sqrt(d_in)), the routing skewed towards one expert, each with
+    its one-process routing, buffers, output, aux losses and gradients
+    (of the output against a seeded cotangent plus both aux losses)."""
+    from repro_torch.models import params as pp
+    from repro_torch.models.layers import moe
+    cases = {}
+    for i, (name, (arch, hot)) in enumerate(DISPATCH.items()):
+        cfg = get_config(arch).reduced()
+        ini = pp.Initializer(torch.float32, seed=i, device="cpu")
+        moe.init_moe(ini, "moe", cfg)
+        axes = {k[len("moe/"):]: v for k, v in ini.axes.items()}
+        gen = torch.Generator().manual_seed(100 + i)
+        params = {k: (torch.randn(v.shape, generator=gen) / v.shape[-2] ** 0.5
+                      if v.dim() > 1 else v)
+                  for k, v in pp.subtree(ini.params, "moe").items()}
+        # the tokens share a direction u that the hot expert's column
+        # favours, so it is in most tokens' top-k
+        u = torch.randn(cfg.d_model, generator=gen)
+        u = u / u.norm()
+        params["router"][:, hot] += SKEW * u
+        x = torch.randn(B, S, cfg.d_model, generator=gen) + SKEW * u
+        ct = torch.randn(B, S, cfg.d_model, generator=gen)
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xl = x.clone().requires_grad_()
+        xf = x.reshape(B * S, -1)
+        buf, _, keep, slot, _ = moe.dispatch(xf, params["router"], cfg)
+        idx = moe.route({"router": params["router"]}, xf, cfg)[1]
+        y, aux = moe.moe_ffn(leaves, xl, cfg)
+        ((y * ct).sum() + aux["load_balance"] + aux["router_z"]).backward()
+        cases[name] = {
+            "cfg": cfg, "axes": axes, "params": params, "x": x, "ct": ct,
+            "want": {"keep": keep, "slot": slot, "buf": buf, "idx": idx,
+                     "y": y.detach(),
+                     "aux": {k: v.detach() for k, v in aux.items()},
+                     "grads": {"x": xl.grad, **{k: v.grad for k, v in
+                                                leaves.items()}}}}
+    return cases
 
 
 def rows_one_process(c):
@@ -378,6 +459,9 @@ def runs(tmp_path_factory):
     cases, pending = make_cases()
     torch.save({k: {kk: vv for kk, vv in c.items() if kk != "want"}
                 for k, c in cases.items()}, tmp / "cases.pt")
+    disp = dispatch_cases()
+    torch.save({k: {kk: vv for kk, vv in c.items() if kk != "want"}
+                for k, c in disp.items()}, tmp / "dispatch.pt")
     ranks = start_ranks(f"LR, S, MAX_LEN = {LR!r}, {S}, {MAX_LEN}\n" + RANKS,
                         4, tmp)
     try:
@@ -387,7 +471,12 @@ def runs(tmp_path_factory):
     finally:
         wait_ranks(ranks, timeout=420)
     got = torch.load(tmp / "sharded.pt", weights_only=False)
-    return ref, got, {k: c["want"] for k, c in cases.items()}
+    got["dispatch"] = [torch.load(tmp / f"dispatch{r}.pt", weights_only=False)
+                       for r in range(4)]
+    want = {k: c["want"] for k, c in cases.items()}
+    want["dispatch"] = {k: dict(c["want"], cfg=c["cfg"])
+                        for k, c in disp.items()}
+    return ref, got, want
 
 
 NAMES = tuple(configs())
@@ -497,3 +586,55 @@ def test_the_cp_width_shards_queries_and_the_heads_width_heads():
     assert cfgs["qwen-heads"].n_heads % 2 == 0
     assert cfgs["qwen-cp"].n_heads % 2 == 1
     assert cfgs["qwen-cp"].n_kv_heads % 2 == 1
+
+
+@pytest.mark.parametrize("name", tuple(DISPATCH))
+def test_sharded_dispatch_equals_one_process_bit_for_bit(runs, name):
+    """Every rank's keep and slot are the one-process values of its
+    token block's assignments, and its expert-buffer tile the
+    one-process buffers at its (experts, capacity) coordinates."""
+    _, got, want = runs
+    want = want["dispatch"][name]
+    e, cap, _ = want["buf"].shape
+    k = want["cfg"].top_k
+    for ranks in got["dispatch"]:
+        g = ranks[name]
+        data, model = g["coord"]
+        n = B * S // 2 * k                 # a data shard's assignments
+        assert torch.equal(g["keep"], want["keep"][data * n:(data + 1) * n])
+        assert torch.equal(g["slot"], want["slot"][data * n:(data + 1) * n])
+        el, cl = e // 2, cap // 2
+        assert g["tile"].shape == (el, cl, want["buf"].shape[2])
+        assert torch.equal(g["tile"], want["buf"][model * el:(model + 1) * el,
+                                                  data * cl:(data + 1) * cl])
+
+
+@pytest.mark.parametrize("name", tuple(DISPATCH))
+def test_dispatch_cases_cut_an_expert_inside_the_second_shard(runs, name):
+    """The skewed router overflows an expert whose capacity cutoff falls
+    inside the second data shard's assignments (some kept, some
+    dropped) while the first shard's assignments to it are kept."""
+    _, _, want = runs
+    want = want["dispatch"][name]
+    idx, keep = want["idx"].reshape(-1), want["keep"]
+    half = keep.numel() // 2
+    cut = [x for x in range(want["buf"].shape[0])
+           if keep[:half][idx[:half] == x].any()
+           and keep[half:][idx[half:] == x].any()
+           and not keep[half:][idx[half:] == x].all()]
+    assert cut
+
+
+@pytest.mark.parametrize("name", tuple(DISPATCH))
+def test_sharded_moe_layer_equals_one_process(runs, name):
+    """The combine, both aux losses and every gradient within 1e-5."""
+    _, got, want = runs
+    want = want["dispatch"][name]
+    for ranks in got["dispatch"]:
+        g = ranks[name]
+        assert rel(g["y"], want["y"]) <= TOL
+        for key in ("load_balance", "router_z"):
+            assert rel(g["aux"][key], want["aux"][key]) <= TOL, key
+        assert sorted(g["grads"]) == sorted(want["grads"])
+        for key in want["grads"]:
+            assert rel(g["grads"][key], want["grads"][key]) <= TOL, key
